@@ -1,0 +1,424 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``gigapath_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+It takes no arguments and always runs every phase, one JSON line each on
+stdout:
+
+1. device: ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``.
+2. build: compile the CUDA kernels of ``gigapath_tpu_torch/csrc`` (one nvcc
+   per source, in parallel); ptxas' register report goes to stderr.
+3. kernels: for each branch of the flagship schedule at L = 10241 (10240
+   tiles + cls), E = 768, H = 16, in fp32 and bf16 with a ragged real
+   length, pack -> branch attention -> unpack against their plain PyTorch
+   versions on the card; CUDA-event times beside each kernel's bound and a
+   library call's time. Then the branch kernel once more at a batch of
+   more than 65535 (batch, segment, head) cells, bf16, with per-row valid
+   lengths, against its plain version.
+4. slide_forward: the flagship ``gigapath_slide_enc12l768d`` with seeded
+   random weights through ``create_model`` and
+   ``run_inference_with_slide_encoder`` on 10240 tiles, in fp32 and bf16,
+   each layer's embedding against the port's plain path on the card, and
+   the kernels' launch counts of one forward (the bf16 forward is the main
+   path the final ``kernels`` line reports).
+5. ragged_batch: B = 2 with a pad mask; each row against its slide alone.
+
+Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
+the last line ``{"ok": true, "device": {...}}``. Any failure raises and
+exits non-zero before those lines. Exits non-zero, printing no result, when
+no CUDA device is present.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+N_TILES = 10240
+E, H = 768, 16
+SCHEDULE = ([1024, 5792, 32768, 185363, 1048576], [1, 2, 4, 8, 16])
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # fp32 FMA pipes; bf16 tensor cores
+# Kernel vs plain version on the card. Both compute in fp32 from the same
+# inputs and differ only in the order of sums (fp32 out error read 7.7e-7),
+# so a bf16 output differs by at most about one bf16 ulp of its value (read
+# 9.8e-4 = one ulp in [0.125, 0.25)): the bf16 limit allows a few ulps.
+KERNEL_TOL = {"float32": dict(atol=1e-5, rtol=1e-4), "bfloat16": dict(atol=4e-3, rtol=1e-2)}
+LSE_TOL = {"float32": dict(atol=1e-4, rtol=1e-5), "bfloat16": dict(atol=1e-3, rtol=1e-5)}
+# Slide embeddings, kernel path vs plain path on the card (read: fp32 max
+# relative error 1.9e-6; bf16 1 - cosine 5e-5 at worst).
+F32_REL_TOL = 1e-4
+BF16_MAX_ONE_MINUS_COS = 5e-4
+
+KERNELS = {
+    "pack_phases": dict(
+        route="cuda", source="gigapath_tpu_torch/csrc/pack_phases.cu",
+        replaces="gigapath_tpu/ops/pallas_dilated.py:1190 (_pack_kernel, via _pack_phases:1254)",
+    ),
+    "dilated_branch_fwd": dict(
+        route="cuda", source="gigapath_tpu_torch/csrc/dilated_branch_fwd.cu",
+        replaces="gigapath_tpu/ops/pallas_dilated.py:70 (_fwd_kernel, via _fwd_impl:350)",
+    ),
+    "unpack_phases": dict(
+        route="cuda", source="gigapath_tpu_torch/csrc/unpack_phases.cu",
+        replaces="gigapath_tpu/ops/pallas_dilated.py:1196 (_unpack_kernel, via _unpack_phases:1305)",
+    ),
+}
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise AssertionError(msg)
+
+
+def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Median CUDA-event time of one ``fn()`` call, in ms."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Run the branch op with the kernels' plain PyTorch versions on CUDA
+    tensors (the port's plain path on the card)."""
+    from gigapath_tpu_torch.ops import dilated_kernels as dk
+
+    saved = dk.pack_phases, dk.dilated_branch_fwd, dk.unpack_phases
+    dk.pack_phases = dk.pack_phases_reference
+    dk.dilated_branch_fwd = dk.dilated_branch_fwd_reference
+    dk.unpack_phases = dk.unpack_phases_reference
+    try:
+        yield
+    finally:
+        dk.pack_phases, dk.dilated_branch_fwd, dk.unpack_phases = saved
+
+
+def max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+
+def phase_device():
+    import torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
+    emit("device", nvidia_smi=smi, torch_name=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count(), torch=torch.__version__, cuda=torch.version.cuda)
+    return smi[0]
+
+
+def phase_build():
+    from gigapath_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    _build.build_all()
+    seconds = time.perf_counter() - t0
+    for name, log in _build.build_log.items():
+        print(f"--- ptxas {name} ---\n{log}", file=sys.stderr)
+    emit("build", seconds=seconds, built=sorted(_build.build_log),
+         libraries=[_build._label(name, defines) for name, defines in _build.FLAGSHIP])
+
+
+def _branch_bounds(dk, B, L, sl, r, real_len, kvlen, itemsize, dtype_name):
+    """Least card time (ms) of each kernel's work at this branch, and what
+    bounds it: bytes each kernel must move over the HBM rate, operations over
+    the peak rate of the dtype."""
+    g, S, m, Mp = dk._branch_geometry(L, sl, r)
+    Dh = E // H
+    hb = H // r
+    band = B * L * E // r  # band elements the sequence's tokens hold
+    packed = B * S * Mp * E  # elements of one packed tensor
+    q_rows = dk._phase_kvlen(S, g, r, m, L).astype("int64")  # [S, r] real query rows
+    kv = kvlen.cpu().numpy().astype("int64")  # [B, S, r] valid keys
+    flops = 4 * Dh * hb * float((q_rows[None] * kv).sum())
+    rows = float(q_rows.sum()) * B
+    fwd_bytes = (rows * 2 + float(kv.sum()) * 2) * hb * Dh * itemsize + rows * hb * 4
+    return {
+        "pack_phases": ((band + packed) * itemsize / HBM_BYTES_PER_S * 1e3, "bytes"),
+        "unpack_phases": ((band + B * L * E) * itemsize / HBM_BYTES_PER_S * 1e3, "bytes"),
+        "dilated_branch_fwd": max(
+            (flops / PEAK_FLOPS[dtype_name] * 1e3, "operations"),
+            (fwd_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+        ),
+    }
+
+
+def phase_kernels():
+    """Each kernel vs its plain version at the flagship's branch shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from gigapath_tpu_torch.ops import dilated_kernels as dk
+
+    L, B = N_TILES + 1, 1
+    real_len = L - 37  # a ragged tail: keys past it are masked
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    summary = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        q, k, v = (torch.randn(B, L, E, device="cuda", generator=gen).to(dtype) for _ in range(3))
+        totals = {name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None, err=0.0,
+                             by={}) for name in KERNELS}
+        for sl, r in zip(*SCHEDULE):
+            g, S, m, Mp = dk._branch_geometry(L, sl, r)
+            kvlen = dk._branch_kvlen(B, S, g, r, m, real_len, None, q.device)
+            # pack: exact copy of the plain version (pad slots exact 0)
+            q6, k6, v6 = (dk.pack_phases(x, g, S, r, Mp, H) for x in (q, k, v))
+            q6_ref = dk.pack_phases_reference(q, g, S, r, Mp, H)
+            err_pack = max_err(q6, q6_ref)
+            check(err_pack == 0.0, f"pack_phases {dname} sl={sl} r={r}: max err {err_pack}")
+            # branch attention against the plain version on the same packed inputs
+            out6, lse5 = dk.dilated_branch_fwd(q6, k6, v6, kvlen)
+            out_ref, lse_ref = dk.dilated_branch_fwd_reference(q6, k6, v6, kvlen)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(out6).all()), f"dilated_branch_fwd {dname} r={r}: non-finite out")
+            err_out = max_err(out6[..., :m, :], out_ref[..., :m, :])
+            covered = lse_ref > -1e19
+            err_lse = max_err(lse5[covered], lse_ref[covered])
+            torch.testing.assert_close(out6[..., :m, :], out_ref[..., :m, :], **KERNEL_TOL[dname])
+            torch.testing.assert_close(lse5[covered], lse_ref[covered], **LSE_TOL[dname])
+            check(bool((lse5[~covered] <= -1e19).all()), f"dilated_branch_fwd r={r}: uncovered lse above -1e19")
+            # unpack: exact copy, off-band lanes exact 0
+            dense = dk.unpack_phases(out6, L, E, g, S, r)
+            err_unpack = max_err(dense, dk.unpack_phases_reference(out6, L, E, g, S, r))
+            check(err_unpack == 0.0, f"unpack_phases {dname} r={r}: max err {err_unpack}")
+            phase = (torch.arange(L, device="cuda") % g) % r
+            band = torch.arange(E, device="cuda") // (E // H) // (H // r)
+            off_band = phase[:, None] != band[None, :]
+            check(not bool(dense[0][off_band].any()), f"unpack_phases r={r}: off-band lanes not 0")
+            lse_dense = dk._scatter_lse(lse5, L, H, g, r, m)
+            head_band = torch.arange(H, device="cuda") // (H // r)
+            uncovered = head_band[:, None] != phase[None, :]
+            check(bool((lse_dense[0][uncovered] <= -1e19).all()), f"r={r}: uncovered lse above -1e19")
+
+            # times: kernels, plain versions, and one library call for the attention
+            t = {
+                "pack_phases": time_ms(lambda: dk.pack_phases(q, g, S, r, Mp, H)),
+                "dilated_branch_fwd": time_ms(lambda: dk.dilated_branch_fwd(q6, k6, v6, kvlen)),
+                "unpack_phases": time_ms(lambda: dk.unpack_phases(out6, L, E, g, S, r)),
+            }
+            plain = {
+                "pack_phases": time_ms(lambda: dk.pack_phases_reference(q, g, S, r, Mp, H), reps=5),
+                "dilated_branch_fwd": time_ms(
+                    lambda: dk.dilated_branch_fwd_reference(q6, k6, v6, kvlen), reps=3, warmup=1),
+                "unpack_phases": time_ms(lambda: dk.unpack_phases_reference(out6, L, E, g, S, r), reps=5),
+            }
+            hb = H // r
+            qs, ks, vs = (x.reshape(B * S * r, hb, Mp, E // H) for x in (q6, k6, v6))
+            key_ok = (torch.arange(Mp, device="cuda")[None] < kvlen.reshape(-1, 1))[:, None, None, :]
+            lib = time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=key_ok), reps=5)
+            bounds = _branch_bounds(dk, B, L, sl, r, real_len, kvlen, q.element_size(), dname)
+            errs = {"pack_phases": err_pack, "dilated_branch_fwd": err_out, "unpack_phases": err_unpack}
+            per_layer = {"pack_phases": 3, "dilated_branch_fwd": 1, "unpack_phases": 1}  # q, k, v packs
+            for name in KERNELS:
+                n = per_layer[name]
+                tot = totals[name]
+                tot["ms"] += n * t[name]
+                tot["plain_ms"] += n * plain[name]
+                tot["bound_ms"] += n * bounds[name][0]
+                tot["err"] = max(tot["err"], errs[name])
+                tot["by"][bounds[name][1]] = tot["by"].get(bounds[name][1], 0.0) + n * bounds[name][0]
+            totals["dilated_branch_fwd"]["library_ms"] = (totals["dilated_branch_fwd"]["library_ms"] or 0.0) + lib
+            emit("kernels", dtype=dname, sl=sl, r=r, g=g, S=S, m=m, Mp=Mp, real_len=real_len,
+                 max_abs_err={"pack": err_pack, "out": err_out, "lse_covered": err_lse, "unpack": err_unpack},
+                 ms=t, plain_ms=plain, library_ms_sdpa=lib,
+                 bound_ms={n: b[0] for n, b in bounds.items()}, bound_by={n: b[1] for n, b in bounds.items()})
+            del q6, k6, v6, out6, lse5, out_ref, lse_ref, dense, qs, ks, vs
+        for tot in totals.values():
+            tot["bound_by"] = max(tot.pop("by").items(), key=lambda kv: kv[1])[0]
+        summary[dname] = totals
+        emit("kernels_per_layer", dtype=dname,
+             note="sum over the 5 branches of one layer; pack counts its 3 launches (q, k, v)",
+             kernels=totals)
+    _many_cells(dk)
+    return summary
+
+
+def _many_cells(dk):
+    """The branch kernel past the 65535 cells one grid dimension could hold:
+    64 slides of 8192 tokens in 64-token segments, r = 1, each row with its
+    own valid length, bf16."""
+    import torch
+
+    B, L, sl, r = 64, 8192, 64, 1
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    g, S, m, Mp = dk._branch_geometry(L, sl, r)
+    cells = B * S * r * (H // r)
+    check(cells > 65535, f"many-cells check has only {cells} cells")
+    q6, k6, v6 = (torch.randn(B, S, r, H // r, Mp, E // H, device="cuda", generator=gen)
+                  .to(torch.bfloat16) for _ in range(3))
+    valid = torch.randint(1, L + 1, (B,), device="cuda", generator=gen)
+    kvlen = dk._branch_kvlen(B, S, g, r, m, L, valid, q6.device)
+    out6, lse5 = dk.dilated_branch_fwd(q6, k6, v6, kvlen)
+    out_ref, lse_ref = dk.dilated_branch_fwd_reference(q6, k6, v6, kvlen)
+    torch.testing.assert_close(out6, out_ref, **KERNEL_TOL["bfloat16"])
+    covered = lse_ref > -1e19
+    torch.testing.assert_close(lse5[covered], lse_ref[covered], **LSE_TOL["bfloat16"])
+    check(bool((lse5[~covered] <= -1e19).all()), "many cells: uncovered lse above -1e19")
+    check(not bool(out6[~covered].any()), "many cells: fully masked rows not 0")
+    emit("kernels_many_cells", dtype="bfloat16", B=B, L=L, sl=sl, r=r, cells=cells,
+         masked_rows=int((~covered).sum()), max_abs_err={
+             "out": max_err(out6, out_ref), "lse_covered": max_err(lse5[covered], lse_ref[covered])})
+
+
+def _flagship_inputs(B: int, gen):
+    import torch
+
+    x = torch.randn(B, N_TILES, 1536, device="cuda", generator=gen)
+    idx = torch.arange(N_TILES, device="cuda")
+    grid = torch.stack([idx // 128, idx % 128], dim=-1).float() * 256.0  # 80 x 128 tile grid
+    return x, grid[None].expand(B, N_TILES, 2).contiguous()
+
+
+def _embeds(out: dict):
+    return [out[f"layer_{i}_embed"] for i in range(13)]
+
+
+def phase_slide_forward():
+    """The flagship forward through the entry points, fp32 and bf16."""
+    import numpy as np
+    import torch
+
+    from gigapath_tpu_torch.models.slide_encoder import create_model
+    from gigapath_tpu_torch.ops import dilated_kernels as dk
+    from gigapath_tpu_torch.pipeline import run_inference_with_slide_encoder
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x, coords = _flagship_inputs(1, gen)
+    launches, models = None, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        model = create_model("", "gigapath_slide_enc12l768d", dtype=dtype, seed=0)
+        models[dname] = model
+        run_inference_with_slide_encoder(x, coords, model)  # warm-up
+        torch.cuda.synchronize()
+        dk.reset_launch_counts()
+        out = run_inference_with_slide_encoder(x, coords, model)
+        counts = dict(dk.LAUNCHES)
+        expected = {"pack_phases": 180, "dilated_branch_fwd": 60, "unpack_phases": 60}
+        check(counts == expected, f"{dname} forward launches {counts} != {expected}")
+        if dname == "bfloat16":
+            launches = counts  # the main path: the serving dtype
+        secs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_inference_with_slide_encoder(x, coords, model)  # ends in a device->host copy
+            secs.append(time.perf_counter() - t0)
+        with plain_kernels():
+            ref = run_inference_with_slide_encoder(x, coords, model)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_inference_with_slide_encoder(x, coords, model)
+            plain_s = time.perf_counter() - t0
+        per_layer = []
+        for a, b in zip(_embeds(out), _embeds(ref)):
+            check(a.shape == (1, E) and np.isfinite(a).all(), f"{dname}: bad embedding {a.shape}")
+            rel = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-12))
+            cos = float((a * b).sum() / (np.linalg.norm(a) * np.linalg.norm(b)))
+            per_layer.append({"rel": rel, "cos": cos})
+            if dname == "float32":
+                check(rel <= F32_REL_TOL, f"fp32 layer embedding rel err {rel} > {F32_REL_TOL}")
+            else:
+                check(1.0 - cos <= BF16_MAX_ONE_MINUS_COS,
+                      f"bf16 layer embedding 1 - cosine {1.0 - cos} > {BF16_MAX_ONE_MINUS_COS}")
+        ms = statistics.median(secs) * 1e3
+        emit("slide_forward", dtype=dname, tiles=N_TILES, launches=counts,
+             ms_per_slide=ms, runs_ms=[s * 1e3 for s in secs], tokens_per_s=N_TILES / (ms / 1e3),
+             plain_path_ms=plain_s * 1e3, peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+             vs_plain=per_layer,
+             tolerance={"float32": f"rel <= {F32_REL_TOL}",
+                        "bfloat16": f"1 - cosine <= {BF16_MAX_ONE_MINUS_COS}"}[dname])
+        del model, models[dname]
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_ragged_batch():
+    """B = 2 with a pad mask (per-row valid counts): each row equals that
+    slide run alone."""
+    import numpy as np
+    import torch
+
+    from gigapath_tpu_torch.models.slide_encoder import create_model
+    from gigapath_tpu_torch.pipeline import run_inference_with_slide_encoder
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x, coords = _flagship_inputs(2, gen)
+    n_valid = [N_TILES, 7001]
+    pad_mask = torch.arange(N_TILES, device="cuda")[None] < torch.tensor(n_valid, device="cuda")[:, None]
+    model = create_model("", "gigapath_slide_enc12l768d", seed=0)
+    batch = run_inference_with_slide_encoder(x, coords, model, pad_mask=pad_mask)
+    worst = 0.0
+    for row, n in enumerate(n_valid):
+        alone = run_inference_with_slide_encoder(x[row, :n], coords[row, :n], model)
+        for a, b in zip(_embeds(batch), _embeds(alone)):
+            rel = float(np.abs(a[row] - b[0]).max() / max(np.abs(b[0]).max(), 1e-12))
+            worst = max(worst, rel)
+    check(worst <= F32_REL_TOL, f"ragged batch row vs alone rel err {worst} > {F32_REL_TOL}")
+    emit("ragged_batch", dtype="float32", n_valid=n_valid, max_rel_err=worst, tolerance=F32_REL_TOL)
+
+
+def main() -> int:
+    if len(sys.argv) > 1:
+        print("chip_smoke: takes no arguments", file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    import gigapath_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = phase_device()
+    phase_build()
+    summary = phase_kernels()["bfloat16"]
+    launches = phase_slide_forward()
+    phase_ragged_batch()
+    print(json.dumps({"kernels": [
+        {"name": name, **meta, "launches": launches[name],
+         "max_abs_err": summary[name]["err"], "ms": summary[name]["ms"],
+         "plain_ms": summary[name]["plain_ms"], "bound_ms": summary[name]["bound_ms"],
+         "bound_by": summary[name]["bound_by"], "library_ms": summary[name]["library_ms"]}
+        for name, meta in KERNELS.items()
+    ]}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

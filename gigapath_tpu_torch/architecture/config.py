@@ -1,0 +1,66 @@
+"""Encoder config (counterpart of ``gigapath_tpu/architecture/config.py``).
+
+The fields the slide encoder reads, with the same ``postprocessing()``
+invariants (deepnorm and sub-LN exclusive, sub-LN forces pre-LN) and the
+same safe parsing of stringified schedules (``ast.literal_eval``, never
+``eval``). Unknown keys from a registry dict land in ``extras``.
+"""
+
+from __future__ import annotations
+
+import ast
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Union
+
+IntList = Union[None, str, List[int]]
+
+
+def _parse_int_list(value: IntList) -> Optional[List[int]]:
+    if value is None or value == "":
+        return None
+    parsed = ast.literal_eval(value) if isinstance(value, str) else value
+    return [int(x) for x in parsed]
+
+
+@dataclass
+class EncoderConfig:
+    encoder_embed_dim: int = 768
+    encoder_attention_heads: int = 12
+    encoder_ffn_embed_dim: int = 3072
+    encoder_layers: int = 12
+    encoder_normalize_before: bool = True
+    normalize_output: bool = True
+    activation_fn: str = "gelu"
+    dropout: float = 0.0
+    drop_path_rate: float = 0.0
+    attention_dropout: float = 0.0
+    activation_dropout: float = 0.0
+    no_scale_embedding: bool = True
+    layernorm_embedding: bool = False
+    deepnorm: bool = False
+    subln: bool = True
+    layernorm_eps: float = 1e-5
+    segment_length: IntList = None
+    dilated_ratio: IntList = None
+    extras: Dict[str, Any] = field(default_factory=dict)
+
+    def __post_init__(self):
+        self.postprocessing()
+
+    def postprocessing(self) -> None:
+        self.segment_length = _parse_int_list(self.segment_length)
+        self.dilated_ratio = _parse_int_list(self.dilated_ratio)
+        if self.deepnorm:
+            self.subln = False
+            self.encoder_normalize_before = False
+        if self.subln:
+            self.deepnorm = False
+            self.encoder_normalize_before = True
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "EncoderConfig":
+        names = {f.name for f in dataclasses.fields(cls)}
+        cfg = cls(**{k: v for k, v in d.items() if k in names})
+        cfg.extras.update({k: v for k, v in d.items() if k not in names})
+        return cfg

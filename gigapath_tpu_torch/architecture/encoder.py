@@ -1,0 +1,131 @@
+"""Transformer encoder stack (counterpart of
+``gigapath_tpu/architecture/encoder.py``), restricted to what LongNet uses:
+pre-LN (or post-LN) blocks of self-attention and FFN with sub-LN, padding
+rows zeroed at the input, ``return_all_hiddens``, and the final
+``layer_norm``. MoE, relative-position bias, multiway and the token
+embedding are not ported.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from gigapath_tpu_torch.architecture.config import EncoderConfig
+from gigapath_tpu_torch.ops.attention import MultiheadAttention
+from gigapath_tpu_torch.ops.droppath import DropPath
+from gigapath_tpu_torch.ops.feedforward import FeedForwardNetwork
+
+
+class EncoderLayer(nn.Module):
+    """One encoder block; ``build_self_attention`` is the hook the LongNet
+    layer overrides to put in dilated attention."""
+
+    def __init__(self, args: EncoderConfig, depth: int):
+        super().__init__()
+        self.args = args
+        self.self_attn = self.build_self_attention()
+        self.self_attn_layer_norm = nn.LayerNorm(args.encoder_embed_dim, eps=args.layernorm_eps)
+        self.dropout_module = nn.Dropout(args.dropout)
+        prob = 0.0
+        if args.drop_path_rate > 0:
+            prob = float(np.linspace(0, args.drop_path_rate, args.encoder_layers)[depth])
+        self.drop_path = DropPath(prob) if prob > 0 else None
+        self.normalize_before = args.encoder_normalize_before
+        self.ffn = FeedForwardNetwork(
+            args.encoder_embed_dim,
+            args.encoder_ffn_embed_dim,
+            args.activation_fn,
+            args.dropout,
+            args.activation_dropout,
+            args.layernorm_eps,
+            args.subln,
+        )
+        self.final_layer_norm = nn.LayerNorm(args.encoder_embed_dim, eps=args.layernorm_eps)
+        self.alpha = math.pow(2.0 * args.encoder_layers, 0.25) if args.deepnorm else 1.0
+
+    def build_self_attention(self) -> nn.Module:
+        return MultiheadAttention(
+            self.args.encoder_embed_dim,
+            self.args.encoder_attention_heads,
+            subln=self.args.subln,
+            layernorm_eps=self.args.layernorm_eps,
+        )
+
+    def _residual(self, residual: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        if self.drop_path is not None:
+            x = self.drop_path(x)
+        return residual * self.alpha + x
+
+    def forward(self, x: torch.Tensor, encoder_padding_mask: Optional[torch.Tensor] = None):
+        residual = x
+        if self.normalize_before:
+            x = self.self_attn_layer_norm(x)
+        x = self.self_attn(x, x, x, key_padding_mask=encoder_padding_mask)
+        x = self._residual(residual, self.dropout_module(x))
+        if not self.normalize_before:
+            x = self.self_attn_layer_norm(x)
+
+        residual = x
+        if self.normalize_before:
+            x = self.final_layer_norm(x)
+        x = self._residual(residual, self.ffn(x))
+        if not self.normalize_before:
+            x = self.final_layer_norm(x)
+        return x
+
+
+class Encoder(nn.Module):
+    """Encoder stack returning the reference's output dict
+    (``encoder_out``, ``encoder_embedding``, ``encoder_padding_mask``,
+    ``encoder_states``)."""
+
+    layer_cls = EncoderLayer  # subclass hook (LongNetEncoder overrides)
+
+    def __init__(self, args: EncoderConfig):
+        super().__init__()
+        self.args = args
+        self.embed_scale = 1.0 if args.no_scale_embedding else math.sqrt(args.encoder_embed_dim)
+        self.layernorm_embedding = (
+            nn.LayerNorm(args.encoder_embed_dim, eps=args.layernorm_eps)
+            if args.layernorm_embedding else None
+        )
+        self.dropout_module = nn.Dropout(args.dropout)
+        self.layers = nn.ModuleList(
+            type(self).layer_cls(args, depth=i) for i in range(args.encoder_layers)
+        )
+        self.layer_norm = (
+            nn.LayerNorm(args.encoder_embed_dim, eps=args.layernorm_eps)
+            if args.encoder_normalize_before and args.normalize_output else None
+        )
+
+    def forward(
+        self,
+        token_embeddings: torch.Tensor,
+        encoder_padding_mask: Optional[torch.Tensor] = None,
+        return_all_hiddens: bool = False,
+    ) -> Dict[str, Any]:
+        x = embed = self.embed_scale * token_embeddings
+        if self.layernorm_embedding is not None:
+            x = self.layernorm_embedding(x)
+        x = self.dropout_module(x)
+        if encoder_padding_mask is not None:
+            x = x.masked_fill(encoder_padding_mask[..., None].to(torch.bool), 0)
+
+        encoder_states = [x] if return_all_hiddens else []
+        for layer in self.layers:
+            x = layer(x, encoder_padding_mask)
+            if return_all_hiddens:
+                encoder_states.append(x)
+        if self.layer_norm is not None:
+            x = self.layer_norm(x)
+        return {
+            "encoder_out": x,
+            "encoder_embedding": embed,
+            "encoder_padding_mask": encoder_padding_mask,
+            "encoder_states": encoder_states,
+        }

@@ -1,0 +1,55 @@
+"""LongNet encoder with dilated self-attention + the named factory
+(counterpart of ``gigapath_tpu/models/longnet.py``; the decoder is not
+ported)."""
+
+from __future__ import annotations
+
+from typing import Tuple, Union
+
+from torch import nn
+
+from gigapath_tpu_torch.architecture.config import EncoderConfig
+from gigapath_tpu_torch.architecture.encoder import Encoder, EncoderLayer
+from gigapath_tpu_torch.models import longnet_config
+from gigapath_tpu_torch.ops.dilated_attention import DilatedAttention
+
+
+class LongNetEncoderLayer(EncoderLayer):
+    def build_self_attention(self) -> nn.Module:
+        args = self.args
+        if not (args.segment_length and args.dilated_ratio):
+            raise ValueError("LongNet requires a segment_length/dilated_ratio schedule")
+        return DilatedAttention(
+            args.encoder_embed_dim,
+            args.encoder_attention_heads,
+            segment_length=args.segment_length,
+            dilated_ratio=args.dilated_ratio,
+            subln=args.subln,
+            layernorm_eps=args.layernorm_eps,
+        )
+
+
+class LongNetEncoder(Encoder):
+    layer_cls = LongNetEncoderLayer
+
+
+def make_longnet_from_name(
+    config_name: str,
+    dilated_ratio: Union[str, list] = "[1, 2, 4, 8, 16]",
+    segment_length: Union[str, list] = "[1024, 2048, 4096, 8192, 16384]",
+    drop_path_rate: float = 0.1,
+    dropout: float = 0.1,
+    **overrides,
+) -> Tuple[LongNetEncoder, EncoderConfig]:
+    """Build a LongNet encoder from a registry name; ``**overrides``
+    update any EncoderConfig field. Returns ``(module, config)``."""
+    cfg_dict = longnet_config.get_config(config_name)
+    cfg_dict.update(
+        dropout=dropout,
+        drop_path_rate=drop_path_rate,
+        dilated_ratio=dilated_ratio,
+        segment_length=segment_length,
+        **overrides,
+    )
+    cfg = EncoderConfig.from_dict(cfg_dict)
+    return LongNetEncoder(cfg), cfg

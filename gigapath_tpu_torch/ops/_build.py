@@ -1,0 +1,141 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
+with a plain C interface, loaded through ``ctypes``; a source that takes
+compile-time constants (the branch kernel's head width) builds one library
+per set of ``-D`` defines. The libraries go to ``build/kernels/`` at the
+root of the checkout (``.gitignore`` lists ``build/``), or to
+``$XDG_CACHE_HOME/gigapath_tpu_torch/kernels`` (``~/.cache/...``) for an
+installed package, named by a hash of
+the source, defines and flags, so an edited source rebuilds and an
+unchanged one loads as built. :func:`build_all` starts one ``nvcc`` per
+library, all at once, and waits for them together.
+
+Nothing here runs at import: the CPU tests import every module, on
+machines that may have no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, List
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+
+
+def _build_dir() -> Path:
+    """``build/kernels`` at the root of the checkout the package sits in;
+    for an installed package, a per-user cache directory instead."""
+    root = Path(__file__).resolve().parents[2]
+    if (root / "pyproject.toml").is_file() and (root / "gigapath_tpu_torch").is_dir():
+        return root / "build" / "kernels"
+    cache = os.environ.get("XDG_CACHE_HOME") or str(Path.home() / ".cache")
+    return Path(cache) / "gigapath_tpu_torch" / "kernels"
+
+
+BUILD_DIR = _build_dir()
+# the libraries the flagship slide encoder (head width 48) runs
+FLAGSHIP = (
+    ("pack_phases", ()),
+    ("dilated_branch_fwd", (("GP_HEAD_DIM", 48),)),
+    ("unpack_phases", ()),
+)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signature of each library's one entry point: (symbol, argtypes)
+_SIGNATURES = {
+    "pack_phases": ("gp_pack_phases", [_P, _P] + [_I] * 10 + [_P]),
+    "unpack_phases": ("gp_unpack_phases", [_P, _P] + [_I] * 10 + [_P]),
+    "dilated_branch_fwd": (
+        "gp_dilated_branch_fwd", [_P] * 6 + [_I] * 6 + [_F, _P],
+    ),
+}
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+# ptxas register / shared-memory report of the builds this process ran
+build_log: Dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_nvcc = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(cuda_nvcc):
+        return cuda_nvcc
+    raise RuntimeError("nvcc not found: the CUDA kernels build only on a machine with the CUDA toolkit")
+
+
+def _flags(defines) -> List[str]:
+    return list(NVCC_FLAGS) + [f"-D{key}={value}" for key, value in defines]
+
+
+def _label(name: str, defines) -> str:
+    return name + "".join(f"-{key}={value}" for key, value in defines)
+
+
+def _target(name: str, defines=()) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(_flags(defines)).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_all(specs=FLAGSHIP) -> List[Path]:
+    """Compile every missing library of ``specs`` (``(source name,
+    ((define, value), ...))`` pairs) in parallel; returns the library
+    paths. Raises with the compiler's output if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    jobs = []
+    for name, defines in specs:
+        target = _target(name, defines)
+        if target.exists():
+            continue
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *_flags(defines), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        jobs.append((_label(name, defines), target, tmp, proc))
+    failures = []
+    for label, target, tmp, proc in jobs:
+        log, _ = proc.communicate()
+        build_log[label] = log
+        if proc.returncode != 0:
+            failures.append(f"--- {label} (nvcc exit {proc.returncode}) ---\n{log}")
+            continue
+        os.replace(tmp, target)  # atomic: a concurrent loader never sees half a file
+    if failures:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
+    return [_target(name, defines) for name, defines in specs]
+
+
+def library(name: str, **defines) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` built with ``defines``
+    (e.g. ``GP_HEAD_DIM=48``), built on first use, with its entry point's
+    argument types declared."""
+    spec = tuple(sorted(defines.items()))
+    with _lock:
+        lib = _loaded.get(_label(name, spec))
+        if lib is None:
+            target = _target(name, spec)
+            if not target.exists():
+                build_all(((name, spec),))
+            lib = ctypes.CDLL(str(target))
+            symbol, argtypes = _SIGNATURES[name]
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _loaded[_label(name, spec)] = lib
+        return lib

@@ -1,0 +1,318 @@
+"""Phase-major dilated-branch kernels (counterpart of
+``gigapath_tpu/ops/pallas_dilated.py``).
+
+One dilated branch ``(segment length sl, ratio r)`` on dense ``[B, L, E]``
+activations runs three CUDA kernels (``csrc/``):
+
+1. :func:`pack_phases` packs q, k and v into the diagonal-only phase-major
+   layout ``[B, S, r, hb, Mp, Dh]``: head band ``p`` (heads ``p*hb ..
+   (p+1)*hb - 1``, ``hb = H/r``) of segment ``s`` holds the phase-``p``
+   tokens ``s*g + p + r*j``, 1/r of the dense volume.
+2. :func:`dilated_branch_fwd` attends each (segment, phase, head) cell
+   with a fp32 online softmax, masking keys at or past the ``[B, S, r]``
+   valid-count table, and returns ``(out6, lse [B, S, r, hb, Mp])``.
+3. :func:`unpack_phases` writes ``out6`` back to dense ``[B, L, E]`` with
+   exact zeros on the lanes the branch does not cover.
+
+Each wrapper runs its ``*_reference`` plain PyTorch version when its tensor
+lies on the CPU, launches its kernel on a CUDA tensor (or raises), and
+counts its launches in :data:`LAUNCHES`. :func:`dilated_branch_attention`
+strings the three together with the lse scatter and keeps the JAX op's
+contract: off-band lanes are exact 0, and uncovered (token, head) pairs
+have lse = -1e30.
+
+The port's packed row count ``Mp`` is ``m`` rounded up to the kernel's
+64-row tile; the TPU's VMEM caps and 128-lane quantum do not apply.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from gigapath_tpu_torch.ops.common import round_up
+
+NEG_INF = -1e30  # lse of a (token, head) pair the branch does not cover
+M_FLOOR = -1e20  # running-max floor: masked keys underflow to exactly 0
+LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
+ROW_TILE = 64  # query/key rows per tile of the branch kernel
+MAX_HEAD_DIM = 128  # the branch kernel takes head widths that are multiples of 4 up to this
+
+# Launches of each CUDA kernel in this process. A wrapper adds one where it
+# launches its kernel and nowhere else; callers reset and read it.
+LAUNCHES = {"pack_phases": 0, "dilated_branch_fwd": 0, "unpack_phases": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# geometry and valid-key counts
+# ---------------------------------------------------------------------------
+
+
+def _branch_geometry(L: int, sl: int, r: int) -> Tuple[int, int, int, int]:
+    """(g, S, m, Mp): segment length and count, sparse (per-phase) length
+    of a segment, and ``m`` padded to the kernel's row tile."""
+    g = min(sl, L)
+    S = round_up(L, g) // g
+    m = round_up(g, r) // r
+    return g, S, m, round_up(m, ROW_TILE)
+
+
+def _phase_kvlen(S: int, g: int, r: int, m: int, real_len: int) -> np.ndarray:
+    """[S, r] valid sparse keys per (segment, phase): position
+    ``s*g + p + r*j`` must be a real token and inside its segment."""
+    seg = np.arange(S)[:, None]
+    phase = np.arange(r)[None, :]
+    in_seg = np.clip(real_len - seg * g, 0, g)
+    counts = np.ceil((in_seg - phase) / r)
+    return np.clip(counts, 0, m).astype(np.int32)
+
+
+def dyn_sparse_counts(
+    valid_dyn: torch.Tensor, g: int, r: int, m: int, phases: torch.Tensor, n_seg: int
+) -> torch.Tensor:
+    """[B, len(phases), n_seg] valid sparse-key counts from per-batch valid
+    lengths ``valid_dyn`` [B]: slot j of phase p is valid iff dense position
+    ``seg*g + p + r*j`` lies inside both the segment and the valid prefix."""
+    seg = torch.arange(n_seg, device=valid_dyn.device)
+    in_seg = (valid_dyn.reshape(-1, 1).to(torch.int64) - seg[None] * g).clamp(0, g)
+    num = in_seg[:, None, :] - phases.to(torch.int64)[None, :, None]
+    counts = -torch.div(-num, r, rounding_mode="floor")  # exact integer ceil
+    return counts.clamp(0, m).to(torch.int32)
+
+
+def _branch_kvlen(
+    B: int, S: int, g: int, r: int, m: int, real_len: int,
+    vl_dyn: Optional[torch.Tensor], device: torch.device,
+) -> torch.Tensor:
+    """[B, S, r] int32 valid sparse-key counts: the static table from
+    ``real_len`` combined by minimum with the optional per-batch valid
+    lengths ``vl_dyn``."""
+    static = torch.from_numpy(_phase_kvlen(S, g, r, m, real_len)).to(device)
+    static = static[None].expand(B, S, r)
+    if vl_dyn is None:
+        return static.contiguous()
+    counts = dyn_sparse_counts(vl_dyn, g, r, m, torch.arange(r, device=device), S)
+    return torch.minimum(static, counts.transpose(1, 2)).contiguous()
+
+
+def _scatter_lse(lse5: torch.Tensor, L: int, H: int, g: int, r: int, m: int) -> torch.Tensor:
+    """Kernel lse [B, S, r, hb, Mp] -> dense [B, H, L], NEG_INF at the
+    (token, head) pairs the branch does not cover."""
+    B, S, _, hb, _ = lse5.shape
+    lse = lse5[..., :m]  # [B, S, r(phase), hb, m]
+    dense = lse.new_full((B, S, r, hb, m, r), NEG_INF)  # [.., band, t, j, phase]
+    # token s*g + j*r + p is covered by head p*hb + t: the band == phase diagonal
+    dense.diagonal(dim1=2, dim2=5).copy_(lse.permute(0, 1, 3, 4, 2))
+    dense = dense.reshape(B, S, H, m * r)[..., :g]  # head h = band*hb + t
+    return dense.permute(0, 2, 1, 3).reshape(B, H, S * g)[..., :L]
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+
+def pack_phases_reference(
+    x: torch.Tensor, g: int, S: int, r: int, Mp: int, num_heads: int
+) -> torch.Tensor:
+    """[B, L, E] -> packed [B, S, r, hb, Mp, Dh]; slots past the segment or
+    the sequence are exact zeros."""
+    B, L, E = x.shape
+    hb, Dh = num_heads // r, E // num_heads
+    xp = torch.nn.functional.pad(x, (0, 0, 0, S * g - L)).reshape(B, S, g, E)
+    xp = torch.nn.functional.pad(xp, (0, 0, 0, Mp * r - g))
+    x7 = xp.reshape(B, S, Mp, r, r, hb, Dh)  # [.., j, phase, band, t, d]
+    diag = x7.diagonal(dim1=3, dim2=4)  # [B, S, Mp, hb, Dh, r]
+    return diag.permute(0, 1, 5, 3, 2, 4).contiguous()
+
+
+def unpack_phases_reference(
+    p6: torch.Tensor, L: int, E: int, g: int, S: int, r: int
+) -> torch.Tensor:
+    """Packed [B, S, r, hb, Mp, Dh] -> dense [B, L, E], off-band lanes 0."""
+    B, _, _, hb, Mp, Dh = p6.shape
+    x7 = p6.new_zeros((B, S, Mp, r, r, hb, Dh))  # [.., j, phase, band, t, d]
+    x7.diagonal(dim1=3, dim2=4).copy_(p6.permute(0, 1, 4, 3, 5, 2))
+    x = x7.reshape(B, S, Mp * r, E)[:, :, :g]
+    return x.reshape(B, S * g, E)[:, :L]
+
+
+def dilated_branch_fwd_reference(
+    q6: torch.Tensor, k6: torch.Tensor, v6: torch.Tensor, kvlen: torch.Tensor,
+    is_causal: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Packed q/k/v [B, S, r, hb, Mp, Dh] + kvlen [B, S, r] ->
+    ``(out6, lse [B, S, r, hb, Mp] fp32)``, the kernel's math in plain
+    PyTorch: fp32 base-2 softmax, masked keys by select, a row with no
+    valid key gives out = 0 and lse ~ -6.9e19. Chunked over (s, p, t), so
+    the largest temporary is one [B, Mp, Mp] score matrix."""
+    B, S, r, hb, Mp, Dh = q6.shape
+    qscale = Dh**-0.5 * LOG2E
+    out = torch.empty_like(q6)
+    lse = torch.empty((B, S, r, hb, Mp), dtype=torch.float32, device=q6.device)
+    cols = torch.arange(Mp, device=q6.device)
+    causal_mask = cols[None, :] > cols[:, None] if is_causal else None
+    for s in range(S):
+        for p in range(r):
+            key_mask = cols[None, None, :] >= kvlen[:, s, p].to(torch.int64)[:, None, None]
+            if causal_mask is not None:
+                key_mask = key_mask | causal_mask[None]
+            for t in range(hb):
+                qf = q6[:, s, p, t].float() * qscale
+                sc = qf @ k6[:, s, p, t].float().transpose(1, 2)  # [B, Mp, Mp]
+                sc = sc.masked_fill(key_mask, NEG_INF)
+                m_row = sc.amax(dim=-1, keepdim=True).clamp_min(M_FLOOR)
+                pr = torch.exp2(sc - m_row)
+                l_row = pr.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+                out[:, s, p, t] = ((pr @ v6[:, s, p, t].float()) / l_row).to(q6.dtype)
+                lse[:, s, p, t] = ((m_row + torch.log2(l_row)) * LN2)[..., 0]
+    return out, lse
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_cuda(name: str, t: torch.Tensor, dtypes=(torch.float32, torch.bfloat16)) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got one on {t.device}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name}: dtype {t.dtype} not in {dtypes}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: tensor must be contiguous")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _raise_on(rc: int, kernel: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{kernel}: CUDA launch failed with cudaError {rc}")
+
+
+def pack_phases(
+    x: torch.Tensor, g: int, S: int, r: int, Mp: int, num_heads: int
+) -> torch.Tensor:
+    """Dense [B, L, E] -> packed [B, S, r, hb, Mp, Dh] (``csrc/pack_phases.cu``)."""
+    if x.device.type == "cpu":
+        return pack_phases_reference(x, g, S, r, Mp, num_heads)
+    from gigapath_tpu_torch.ops import _build
+
+    _check_cuda("pack_phases", x)
+    B, L, E = x.shape
+    hb, Dh = num_heads // r, E // num_heads
+    out = torch.empty((B, S, r, hb, Mp, Dh), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _build.library("pack_phases").gp_pack_phases(
+            x.data_ptr(), out.data_ptr(), x.element_size(),
+            B, L, E, g, S, r, hb, Dh, Mp, _stream(x),
+        )
+    _raise_on(rc, "pack_phases")
+    LAUNCHES["pack_phases"] += 1
+    return out
+
+
+def unpack_phases(p6: torch.Tensor, L: int, E: int, g: int, S: int, r: int) -> torch.Tensor:
+    """Packed [B, S, r, hb, Mp, Dh] -> dense [B, L, E], off-band lanes exact
+    0 (``csrc/unpack_phases.cu``)."""
+    if p6.device.type == "cpu":
+        return unpack_phases_reference(p6, L, E, g, S, r)
+    from gigapath_tpu_torch.ops import _build
+
+    _check_cuda("unpack_phases", p6)
+    B, S_, r_, hb, Mp, Dh = p6.shape
+    if (S_, r_, r_ * hb * Dh) != (S, r, E):
+        raise ValueError(f"unpack_phases: packed shape {tuple(p6.shape)} does not fit S={S}, r={r}, E={E}")
+    out = torch.empty((B, L, E), dtype=p6.dtype, device=p6.device)
+    with torch.cuda.device(p6.device):
+        rc = _build.library("unpack_phases").gp_unpack_phases(
+            p6.data_ptr(), out.data_ptr(), p6.element_size(),
+            B, L, E, g, S, r, hb, Dh, Mp, _stream(p6),
+        )
+    _raise_on(rc, "unpack_phases")
+    LAUNCHES["unpack_phases"] += 1
+    return out
+
+
+def dilated_branch_fwd(
+    q6: torch.Tensor, k6: torch.Tensor, v6: torch.Tensor, kvlen: torch.Tensor,
+    is_causal: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Packed branch attention -> ``(out6, lse [B, S, r, hb, Mp] fp32)``
+    (``csrc/dilated_branch_fwd.cu``)."""
+    if q6.device.type == "cpu":
+        return dilated_branch_fwd_reference(q6, k6, v6, kvlen, is_causal)
+    from gigapath_tpu_torch.ops import _build
+
+    for name, t in (("q6", q6), ("k6", k6), ("v6", v6)):
+        _check_cuda(f"dilated_branch_fwd {name}", t)
+        if t.shape != q6.shape or t.dtype != q6.dtype or t.device != q6.device:
+            raise ValueError("dilated_branch_fwd: q6, k6, v6 must share shape, dtype and device")
+    _check_cuda("dilated_branch_fwd kvlen", kvlen, (torch.int32,))
+    B, S, r, hb, Mp, Dh = q6.shape
+    if tuple(kvlen.shape) != (B, S, r) or kvlen.device != q6.device:
+        raise ValueError(f"dilated_branch_fwd: kvlen must be [B, S, r] = {(B, S, r)} on {q6.device}")
+    blocks = B * S * r * hb * (Mp // ROW_TILE)
+    if Dh % 4 or Dh > MAX_HEAD_DIM or Mp <= 0 or Mp % ROW_TILE or blocks >= 2**31:
+        raise ValueError(
+            f"dilated_branch_fwd: needs Dh % 4 == 0, Dh <= {MAX_HEAD_DIM}, Mp a positive multiple "
+            f"of {ROW_TILE} and fewer than 2^31 query tiles; got Dh={Dh}, Mp={Mp}, tiles={blocks}"
+        )
+    out = torch.empty_like(q6)
+    lse = torch.empty((B, S, r, hb, Mp), dtype=torch.float32, device=q6.device)
+    with torch.cuda.device(q6.device):
+        rc = _build.library("dilated_branch_fwd", GP_HEAD_DIM=Dh).gp_dilated_branch_fwd(
+            q6.data_ptr(), k6.data_ptr(), v6.data_ptr(), kvlen.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), int(q6.dtype == torch.bfloat16),
+            B * S * r * hb, hb, Mp, Dh, int(is_causal), Dh**-0.5 * LOG2E,
+            _stream(q6),
+        )
+    _raise_on(rc, "dilated_branch_fwd")
+    LAUNCHES["dilated_branch_fwd"] += 1
+    return out, lse
+
+
+# ---------------------------------------------------------------------------
+# the branch op
+# ---------------------------------------------------------------------------
+
+
+def dilated_branch_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    sl: int,
+    r: int,
+    num_heads: int,
+    *,
+    real_len: Optional[int] = None,
+    valid_len_dyn: Optional[torch.Tensor] = None,
+    is_causal: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One dilated-attention branch on dense [B, L, E] activations.
+
+    Returns ``(out [B, L, E], lse [B, H, L])``: lanes and (token, head)
+    pairs the branch does not cover hold 0 / NEG_INF, ready for the
+    cross-branch LSE-softmax fusion. Keys at positions ``>= real_len``
+    (static) or ``>= valid_len_dyn[b]`` (per batch row) are masked.
+    Requires ``num_heads % r == 0``.
+    """
+    B, L, E = q.shape
+    if E % num_heads or num_heads % r:
+        raise ValueError(f"dilated_branch_attention: needs E % H == 0 and H % r == 0; got E={E}, H={num_heads}, r={r}")
+    rl = L if real_len is None else min(int(real_len), L)
+    g, S, m, Mp = _branch_geometry(L, int(sl), int(r))
+    q6, k6, v6 = (pack_phases(x.contiguous(), g, S, r, Mp, num_heads) for x in (q, k, v))
+    kvlen = _branch_kvlen(B, S, g, r, m, rl, valid_len_dyn, q.device)
+    out6, lse5 = dilated_branch_fwd(q6, k6, v6, kvlen, is_causal)
+    return unpack_phases(out6, L, E, g, S, r), _scatter_lse(lse5, L, num_heads, g, r, m)
