@@ -20,9 +20,25 @@ stdout:
    random weights through ``create_model`` and
    ``run_inference_with_slide_encoder`` on 10240 tiles, in fp32 and bf16,
    each layer's embedding against the port's plain path on the card, and
-   the kernels' launch counts of one forward (the bf16 forward is the main
-   path the final ``kernels`` line reports).
+   the kernels' launch counts of one forward.
 5. ragged_batch: B = 2 with a pad mask; each row against its slide alone.
+6. bwd_kernels: the backward's dq and dkv kernels against their plain
+   version at each flagship branch shape (L = 10241, ragged real length),
+   fp32 and bf16, with CUDA-event times beside each kernel's bound, the
+   plain version's time and the backward of one library attention call;
+   then bf16 past 65535 cells with per-row valid lengths, one row with none
+   (its gradients exactly 0), and the causal forward and backward at one
+   branch shape.
+7. head_widths: the forward, dq and dkv kernels at the registry's other
+   head widths (16, 24, 32, 64, 96) against their plain versions, with
+   ptxas' spill stores of each (the build phase builds every width).
+8. finetune_step: the flagship ``ClassificationHead`` (``feat_layer`` 11, 6
+   classes as PANDA) built by ``get_model`` and trained by
+   ``finetune/training.py``'s ``train_step`` on a synthetic 10240-tile
+   slide: one fp32 step's gradients against the plain path (and bf16 by
+   cosine), the kernels' launch counts of one bf16 step (the main path the
+   final ``kernels`` line reports), ms per step and peak memory in bf16
+   and fp32, and six optimizer steps on one batch, whose loss must fall.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
 the last line ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -34,6 +50,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -68,7 +85,39 @@ KERNELS = {
         route="cuda", source="gigapath_tpu_torch/csrc/unpack_phases.cu",
         replaces="gigapath_tpu/ops/pallas_dilated.py:1196 (_unpack_kernel, via _unpack_phases:1305)",
     ),
+    "dilated_branch_bwd_dq": dict(
+        route="cuda", source="gigapath_tpu_torch/csrc/dilated_branch_bwd_dq.cu",
+        replaces="gigapath_tpu/ops/pallas_dilated.py:406 (_dq_kernel, via _bwd_impl:994, pallas_call :1016)",
+    ),
+    "dilated_branch_bwd_dkv": dict(
+        route="cuda", source="gigapath_tpu_torch/csrc/dilated_branch_bwd_dkv.cu",
+        replaces="gigapath_tpu/ops/pallas_dilated.py:462 (_dkv_kernel, via _bwd_impl:994, pallas_call :1044)",
+    ),
 }
+FWD_KERNELS = ("pack_phases", "dilated_branch_fwd", "unpack_phases")
+BWD_KERNELS = ("dilated_branch_bwd_dq", "dilated_branch_bwd_dkv")
+# launches of one flagship training step with feat_layer 11: the forward
+# runs 12 layers x 5 branches (packing q, k, v, unpacking out); the
+# classifier reads the 11th layer's output, so the backward runs through 11
+# layers x 5 branches (packing dout, q, k, v, unpacking dq, dk, dv)
+STEP_LAUNCHES = {"pack_phases": 60 * 3 + 55 * 4, "dilated_branch_fwd": 60,
+                 "unpack_phases": 60 + 55 * 3, "dilated_branch_bwd_dq": 55,
+                 "dilated_branch_bwd_dkv": 55}
+# Backward kernels vs their plain version on the card, as max |err| over
+# max |ref| of each gradient. Both compute in fp32 and differ in the order of
+# sums (fp32 read 2.7e-6 at worst); a bf16 gradient is rounded once, so it
+# differs by about one bf16 ulp of its largest values (read 2.8e-3).
+BWD_REL_TOL = {"float32": 3e-5, "bfloat16": 3e-2}
+# Training-step gradients, kernel path vs plain path on the card: rel error
+# per parameter (fp32), 1 - cosine per parameter (bf16).
+GRAD_F32_REL_TOL = 1e-4
+GRAD_BF16_MAX_ONE_MINUS_COS = 1e-2
+# head widths (E / H) of the registry's other LongNet configs; the branch
+# kernels are built once per width
+OTHER_HEAD_DIMS = (16, 24, 32, 64, 96)
+BRANCH_SOURCES = ("dilated_branch_fwd", "dilated_branch_bwd_dq", "dilated_branch_bwd_dkv")
+PANDA = {"name": "panda", "setting": "multi_class", "label_dict": {i: i for i in range(6)},
+         "max_tiles": 1000000, "shuffle_tiles": True, "add_metrics": ["qwk"]}  # panda.yaml
 
 
 def emit(phase: str, **fields) -> None:
@@ -105,14 +154,19 @@ def plain_kernels():
     tensors (the port's plain path on the card)."""
     from gigapath_tpu_torch.ops import dilated_kernels as dk
 
-    saved = dk.pack_phases, dk.dilated_branch_fwd, dk.unpack_phases
+    names = ("pack_phases", "dilated_branch_fwd", "unpack_phases",
+             "dilated_branch_bwd_dq", "dilated_branch_bwd_dkv")
+    saved = {name: getattr(dk, name) for name in names}
     dk.pack_phases = dk.pack_phases_reference
     dk.dilated_branch_fwd = dk.dilated_branch_fwd_reference
     dk.unpack_phases = dk.unpack_phases_reference
+    dk.dilated_branch_bwd_dq = lambda *a: dk.dilated_branch_bwd_reference(*a, dkv=False)[0]
+    dk.dilated_branch_bwd_dkv = lambda *a: dk.dilated_branch_bwd_reference(*a, dq=False)[1:]
     try:
         yield
     finally:
-        dk.pack_phases, dk.dilated_branch_fwd, dk.unpack_phases = saved
+        for name, fn in saved.items():
+            setattr(dk, name, fn)
 
 
 def max_err(a, b) -> float:
@@ -137,15 +191,20 @@ def phase_device():
 
 
 def phase_build():
+    """Every library at once: the flagship's, and the branch kernels at the
+    registry's other head widths."""
     from gigapath_tpu_torch.ops import _build
 
+    specs = _build.FLAGSHIP + tuple(
+        (name, (("GP_HEAD_DIM", dh),)) for dh in OTHER_HEAD_DIMS for name in BRANCH_SOURCES
+    )
     t0 = time.perf_counter()
-    _build.build_all()
+    _build.build_all(specs)
     seconds = time.perf_counter() - t0
     for name, log in _build.build_log.items():
         print(f"--- ptxas {name} ---\n{log}", file=sys.stderr)
     emit("build", seconds=seconds, built=sorted(_build.build_log),
-         libraries=[_build._label(name, defines) for name, defines in _build.FLAGSHIP])
+         libraries=[_build._label(name, defines) for name, defines in specs])
 
 
 def _branch_bounds(dk, B, L, sl, r, real_len, kvlen, itemsize, dtype_name):
@@ -187,7 +246,7 @@ def phase_kernels():
         dname = str(dtype).replace("torch.", "")
         q, k, v = (torch.randn(B, L, E, device="cuda", generator=gen).to(dtype) for _ in range(3))
         totals = {name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None, err=0.0,
-                             by={}) for name in KERNELS}
+                             by={}) for name in FWD_KERNELS}
         for sl, r in zip(*SCHEDULE):
             g, S, m, Mp = dk._branch_geometry(L, sl, r)
             kvlen = dk._branch_kvlen(B, S, g, r, m, real_len, None, q.device)
@@ -239,7 +298,7 @@ def phase_kernels():
             bounds = _branch_bounds(dk, B, L, sl, r, real_len, kvlen, q.element_size(), dname)
             errs = {"pack_phases": err_pack, "dilated_branch_fwd": err_out, "unpack_phases": err_unpack}
             per_layer = {"pack_phases": 3, "dilated_branch_fwd": 1, "unpack_phases": 1}  # q, k, v packs
-            for name in KERNELS:
+            for name in FWD_KERNELS:
                 n = per_layer[name]
                 tot = totals[name]
                 tot["ms"] += n * t[name]
@@ -314,20 +373,17 @@ def phase_slide_forward():
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     x, coords = _flagship_inputs(1, gen)
-    launches, models = None, {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
         model = create_model("", "gigapath_slide_enc12l768d", dtype=dtype, seed=0)
-        models[dname] = model
         run_inference_with_slide_encoder(x, coords, model)  # warm-up
         torch.cuda.synchronize()
         dk.reset_launch_counts()
         out = run_inference_with_slide_encoder(x, coords, model)
         counts = dict(dk.LAUNCHES)
-        expected = {"pack_phases": 180, "dilated_branch_fwd": 60, "unpack_phases": 60}
+        expected = {"pack_phases": 180, "dilated_branch_fwd": 60, "unpack_phases": 60,
+                    "dilated_branch_bwd_dq": 0, "dilated_branch_bwd_dkv": 0}
         check(counts == expected, f"{dname} forward launches {counts} != {expected}")
-        if dname == "bfloat16":
-            launches = counts  # the main path: the serving dtype
         secs = []
         for _ in range(3):
             torch.cuda.synchronize()
@@ -358,9 +414,8 @@ def phase_slide_forward():
              vs_plain=per_layer,
              tolerance={"float32": f"rel <= {F32_REL_TOL}",
                         "bfloat16": f"1 - cosine <= {BF16_MAX_ONE_MINUS_COS}"}[dname])
-        del model, models[dname]
+        del model
         torch.cuda.empty_cache()
-    return launches
 
 
 def phase_ragged_batch():
@@ -388,6 +443,328 @@ def phase_ragged_batch():
     emit("ragged_batch", dtype="float32", n_valid=n_valid, max_rel_err=worst, tolerance=F32_REL_TOL)
 
 
+# ---------------------------------------------------------------------------
+# the backward kernels and the fine-tuning step
+# ---------------------------------------------------------------------------
+
+
+def _bwd_bounds(dk, B, L, sl, r, kvlen, itemsize, dtype_name):
+    """Least card time (ms) of the dq and the dkv kernel's work at this
+    branch: operations over the dtype's peak (6*Dh per valid (query, key)
+    pair for dq: q.k, dout.v, ds*k; 8*Dh for dkv: q.k, dout.v, p*dout,
+    ds*q) or bytes over the HBM rate, whichever is larger. Query rows are
+    the sequence's tokens in the cell, keys its valid keys."""
+    g, S, m, Mp = dk._branch_geometry(L, sl, r)
+    Dh, hb = E // H, H // r
+    q_rows = dk._phase_kvlen(S, g, r, m, L).astype("int64")  # [S, r]
+    kv = kvlen.cpu().numpy().astype("int64")  # [B, S, r]
+    pairs = hb * float((q_rows[None] * kv).sum())
+    rows = float(q_rows.sum()) * B * hb
+    keys = float(kv.sum()) * hb
+    # dq reads q, dout (rows), k, v (keys), lse, delta; writes dq (rows)
+    dq_bytes = (3 * rows + 2 * keys) * Dh * itemsize + 2 * rows * 4
+    # dkv reads q, dout (rows), k, v (keys), lse, delta; writes dk, dv (keys)
+    dkv_bytes = (2 * rows + 4 * keys) * Dh * itemsize + 2 * rows * 4
+    out = {}
+    for name, per_pair, nbytes in (("dilated_branch_bwd_dq", 6, dq_bytes),
+                                   ("dilated_branch_bwd_dkv", 8, dkv_bytes)):
+        out[name] = max((per_pair * Dh * pairs / PEAK_FLOPS[dtype_name] * 1e3, "operations"),
+                        (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+    return out
+
+
+def _grad_rel_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max() / (b.float().abs().max() + 1e-30))
+
+
+def phase_bwd_kernels():
+    """dq and dkv vs their plain version at the flagship's branch shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from gigapath_tpu_torch.ops import dilated_kernels as dk
+
+    L, B = N_TILES + 1, 1
+    real_len = L - 37
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    summary = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        q, k, v, do = (torch.randn(B, L, E, device="cuda", generator=gen).to(dtype) for _ in range(4))
+        totals = {name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, err=0.0, by={})
+                  for name in BWD_KERNELS}
+        for sl, r in zip(*SCHEDULE):
+            g, S, m, Mp = dk._branch_geometry(L, sl, r)
+            kvlen = dk._branch_kvlen(B, S, g, r, m, real_len, None, q.device)
+            q6, k6, v6, do6 = (dk.pack_phases(x, g, S, r, Mp, H) for x in (q, k, v, do))
+            out6, lse5 = dk.dilated_branch_fwd(q6, k6, v6, kvlen)
+            delta = (do6.float() * out6.float()).sum(-1)
+            args = (q6, k6, v6, do6, lse5, delta, kvlen)
+            dq6 = dk.dilated_branch_bwd_dq(*args)
+            dk6, dv6 = dk.dilated_branch_bwd_dkv(*args)
+            ref = dk.dilated_branch_bwd_reference(*args)
+            torch.cuda.synchronize()
+            errs, abs_errs = {}, {}
+            for gname, ours, want in zip(("dq", "dk", "dv"), (dq6, dk6, dv6), ref):
+                check(bool(torch.isfinite(ours).all()), f"bwd {dname} r={r}: non-finite {gname}")
+                errs[gname] = _grad_rel_err(ours[..., :m, :], want[..., :m, :])
+                abs_errs[gname] = max_err(ours[..., :m, :], want[..., :m, :])
+                check(errs[gname] <= BWD_REL_TOL[dname],
+                      f"bwd {dname} sl={sl} r={r}: {gname} rel err {errs[gname]} > {BWD_REL_TOL[dname]}")
+            # keys past kvlen (and pad rows) get exact-zero dk and dv
+            key_pad = torch.arange(Mp, device="cuda")[None, None, None, None, :] >= kvlen[..., None, None]
+            check(not bool(dk6[key_pad.expand_as(dk6[..., 0])].any()), f"bwd r={r}: dk past kvlen not 0")
+            check(not bool(dv6[key_pad.expand_as(dv6[..., 0])].any()), f"bwd r={r}: dv past kvlen not 0")
+
+            t = {"dilated_branch_bwd_dq": time_ms(lambda: dk.dilated_branch_bwd_dq(*args)),
+                 "dilated_branch_bwd_dkv": time_ms(lambda: dk.dilated_branch_bwd_dkv(*args))}
+            plain = {
+                "dilated_branch_bwd_dq": time_ms(
+                    lambda: dk.dilated_branch_bwd_reference(*args, dkv=False), reps=3, warmup=1),
+                "dilated_branch_bwd_dkv": time_ms(
+                    lambda: dk.dilated_branch_bwd_reference(*args, dq=False), reps=3, warmup=1),
+            }
+            # library yardstick: the backward of one SDPA call with the
+            # valid-key mask on the packed shapes, through autograd
+            hb = H // r
+            qs, ks, vs = (x.reshape(B * S * r, hb, Mp, E // H).detach().requires_grad_() for x in (q6, k6, v6))
+            key_ok = (torch.arange(Mp, device="cuda")[None] < kvlen.reshape(-1, 1))[:, None, None, :]
+            lib_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=key_ok)
+            lib_do = do6.reshape(lib_out.shape)
+            lib = time_ms(lambda: torch.autograd.grad(lib_out, (qs, ks, vs), lib_do, retain_graph=True), reps=5)
+            bounds = _bwd_bounds(dk, B, L, sl, r, kvlen, q.element_size(), dname)
+            for name in BWD_KERNELS:
+                tot = totals[name]
+                tot["ms"] += t[name]
+                tot["plain_ms"] += plain[name]
+                tot["bound_ms"] += bounds[name][0]
+                tot["library_ms"] += lib  # one library call covers dq, dk and dv
+                grads = ("dq",) if name.endswith("dq") else ("dk", "dv")
+                tot["err"] = max(tot["err"], *(abs_errs[x] for x in grads))
+                tot["by"][bounds[name][1]] = tot["by"].get(bounds[name][1], 0.0) + bounds[name][0]
+            emit("bwd_kernels", dtype=dname, sl=sl, r=r, S=S, m=m, Mp=Mp, real_len=real_len,
+                 max_rel_err=errs, max_abs_err=abs_errs, tolerance=BWD_REL_TOL[dname], ms=t, plain_ms=plain,
+                 library_ms_sdpa_bwd=lib, bound_ms={n: b[0] for n, b in bounds.items()},
+                 bound_by={n: b[1] for n, b in bounds.items()})
+            del q6, k6, v6, do6, out6, lse5, delta, args, dq6, dk6, dv6, ref, qs, ks, vs, lib_out, lib_do
+        for tot in totals.values():
+            tot["bound_by"] = max(tot.pop("by").items(), key=lambda kv: kv[1])[0]
+        summary[dname] = totals
+        emit("bwd_kernels_per_layer", dtype=dname,
+             note="sum over the 5 branches of one layer; library_ms is one SDPA backward (dq, dk, dv) per branch",
+             kernels=totals)
+    _many_cells_bwd(dk)
+    _causal_branch(dk)
+    return summary
+
+
+def _causal_branch(dk):
+    """The causal path of the forward and both backward kernels at one
+    flagship branch shape (sl = 5792, r = 2), fp32, against their plain
+    versions."""
+    import torch
+
+    L, B, sl, r = N_TILES + 1, 1, 5792, 2
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    g, S, m, Mp = dk._branch_geometry(L, sl, r)
+    q6, k6, v6, do6 = (torch.randn(B, S, r, H // r, Mp, E // H, device="cuda", generator=gen)
+                       for _ in range(4))
+    kvlen = dk._branch_kvlen(B, S, g, r, m, L - 37, None, q6.device)
+    out6, lse5 = dk.dilated_branch_fwd(q6, k6, v6, kvlen, True)
+    out_ref, lse_ref = dk.dilated_branch_fwd_reference(q6, k6, v6, kvlen, True)
+    errs = {"out": _grad_rel_err(out6, out_ref)}
+    delta = (do6 * out6).sum(-1)
+    args = (q6, k6, v6, do6, lse5, delta, kvlen, True)
+    grads = (dk.dilated_branch_bwd_dq(*args), *dk.dilated_branch_bwd_dkv(*args))
+    for gname, ours, want in zip(("dq", "dk", "dv"), grads, dk.dilated_branch_bwd_reference(*args)):
+        errs[gname] = _grad_rel_err(ours, want)
+    for name, err in errs.items():
+        check(err <= BWD_REL_TOL["float32"], f"causal {name} rel err {err} > {BWD_REL_TOL['float32']}")
+    emit("causal_branch", dtype="float32", sl=sl, r=r, max_rel_err=errs, tolerance=BWD_REL_TOL["float32"])
+
+
+def _many_cells_bwd(dk):
+    """dq and dkv past 65535 cells: 64 slides of 8192 tokens in 64-token
+    segments, r = 1, bf16, each row with its own valid length and row 0
+    with none (its gradients exactly 0)."""
+    import torch
+
+    B, L, sl, r = 64, 8192, 64, 1
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    g, S, m, Mp = dk._branch_geometry(L, sl, r)
+    cells = B * S * r * (H // r)
+    check(cells > 65535, f"many-cells check has only {cells} cells")
+    q6, k6, v6, do6 = (torch.randn(B, S, r, H // r, Mp, E // H, device="cuda", generator=gen)
+                       .to(torch.bfloat16) for _ in range(4))
+    valid = torch.randint(1, L + 1, (B,), device="cuda", generator=gen)
+    valid[0] = 0
+    kvlen = dk._branch_kvlen(B, S, g, r, m, L, valid, q6.device)
+    out6, lse5 = dk.dilated_branch_fwd(q6, k6, v6, kvlen)
+    delta = (do6.float() * out6.float()).sum(-1)
+    args = (q6, k6, v6, do6, lse5, delta, kvlen)
+    grads = (dk.dilated_branch_bwd_dq(*args), *dk.dilated_branch_bwd_dkv(*args))
+    ref = dk.dilated_branch_bwd_reference(*args)
+    errs = {}
+    for gname, ours, want in zip(("dq", "dk", "dv"), grads, ref):
+        errs[gname] = _grad_rel_err(ours, want)
+        check(errs[gname] <= BWD_REL_TOL["bfloat16"], f"bwd many cells: {gname} rel err {errs[gname]}")
+        check(bool(torch.isfinite(ours).all()), f"bwd many cells: non-finite {gname}")
+        check(not bool(ours[0].any()), f"bwd many cells: {gname} of the row with no valid key not 0")
+    emit("bwd_kernels_many_cells", dtype="bfloat16", B=B, L=L, sl=sl, r=r, cells=cells,
+         empty_rows=1, max_rel_err=errs, tolerance=BWD_REL_TOL["bfloat16"])
+
+
+def _spill_bytes(label: str) -> int:
+    """Largest spill-store count ptxas reported for a library this process
+    built (0 if none)."""
+    import re
+
+    from gigapath_tpu_torch.ops import _build
+
+    found = re.findall(r"(\d+) bytes spill stores", _build.build_log.get(label, ""))
+    return max(map(int, found), default=0)
+
+
+def phase_head_widths():
+    """The three branch kernels at the registry's other head widths (H = 16,
+    E = 16 * Dh, one r = 2 branch on 2049 tokens with a ragged real length),
+    fp32 and bf16, against their plain versions; ptxas' spill stores of
+    each."""
+    import torch
+
+    from gigapath_tpu_torch.ops import dilated_kernels as dk
+
+    L, B, sl, r = 2049, 1, 1024, 2
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for dh in OTHER_HEAD_DIMS:
+        Eh = H * dh
+        g, S, m, Mp = dk._branch_geometry(L, sl, r)
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).replace("torch.", "")
+            q, k, v, do = (torch.randn(B, L, Eh, device="cuda", generator=gen).to(dtype) for _ in range(4))
+            kvlen = dk._branch_kvlen(B, S, g, r, m, L - 37, None, q.device)
+            q6, k6, v6, do6 = (dk.pack_phases(x, g, S, r, Mp, H) for x in (q, k, v, do))
+            out6, lse5 = dk.dilated_branch_fwd(q6, k6, v6, kvlen)
+            out_ref, _ = dk.dilated_branch_fwd_reference(q6, k6, v6, kvlen)
+            delta = (do6.float() * out6.float()).sum(-1)
+            args = (q6, k6, v6, do6, lse5, delta, kvlen)
+            ours = (out6, dk.dilated_branch_bwd_dq(*args), *dk.dilated_branch_bwd_dkv(*args))
+            refs = (out_ref, *dk.dilated_branch_bwd_reference(*args))
+            errs[dname] = {}
+            for name, a, b in zip(("out", "dq", "dk", "dv"), ours, refs):
+                err = _grad_rel_err(a[..., :m, :], b[..., :m, :])
+                check(err <= BWD_REL_TOL[dname], f"Dh={dh} {dname} {name} rel err {err} > {BWD_REL_TOL[dname]}")
+                errs[dname][name] = err
+        emit("head_widths", Dh=dh, E=Eh, L=L, sl=sl, r=r, max_rel_err=errs, tolerance=BWD_REL_TOL,
+             spill_store_bytes={name: _spill_bytes(f"{name}-GP_HEAD_DIM={dh}") for name in BRANCH_SOURCES})
+
+
+def _head_and_steps(torch, lr=5e-5, scheduler="fixed"):
+    """The flagship ClassificationHead (seed 0) with the fine-tuning
+    recipe's optimizer, gc = 1."""
+    from gigapath_tpu_torch.finetune import utils as ft
+    from gigapath_tpu_torch.models.classification_head import get_model
+
+    model = get_model(input_dim=1536, latent_dim=768, feat_layer="11", n_classes=6,
+                      model_arch="gigapath_slide_enc12l768d", seed=0, dropout=0.0, drop_path_rate=0.0)
+    optimizer = ft.build_optimizer(model, lr=lr, weight_decay=0.05, layer_decay=0.95,
+                                   num_layers=len(model.slide_encoder.encoder.layers) + 1)
+    sched = ft.make_lr_scheduler(optimizer, lr=lr, min_lr=1e-6, warmup_epochs=0, epochs=1,
+                                 steps_per_epoch=100, scheduler=scheduler)
+    return model, ft.MultiSteps(optimizer, sched, gc=1), ft.get_loss_function(PANDA)
+
+
+def _grads(model):
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters() if p.grad is not None}
+
+
+def phase_finetune_step():
+    """The flagship fine-tune step through finetune/training.py."""
+    import torch
+
+    from gigapath_tpu_torch.finetune.training import forward_backward, train_step
+    from gigapath_tpu_torch.ops import dilated_kernels as dk
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x, coords = _flagship_inputs(1, gen)
+    labels = torch.tensor([[3]], device="cuda")
+    pad_mask = torch.ones(1, N_TILES, dtype=torch.bool, device="cuda")
+    batch = (x, coords, labels, pad_mask)
+    model, steps, loss_fn = _head_and_steps(torch)
+
+    # gradients of one step, kernels vs the plain path on the card
+    worst = {}
+    for dname, bf16 in (("float32", False), ("bfloat16", True)):
+        runs = []
+        for plain in (False, True):
+            model.zero_grad(set_to_none=True)
+            with plain_kernels() if plain else contextlib.nullcontext():
+                loss = forward_backward(model, loss_fn, *batch, multi_label=False, bf16=bf16)
+            runs.append((float(loss), _grads(model)))
+        (loss_k, g_k), (loss_p, g_p) = runs
+        check(set(g_k) == set(g_p), f"{dname}: the two paths reach different parameters")
+        floor = 1e-2 * max(float(g.abs().max()) for g in g_p.values())
+        errs = {}
+        for name, gp in g_p.items():
+            gk = g_k[name].float()
+            gp = gp.float()
+            check(bool(torch.isfinite(gk).all()), f"{dname}: non-finite gradient {name}")
+            if bf16:
+                cos = float((gk * gp).sum() / (gk.norm() * gp.norm() + 1e-30))
+                errs[name] = 1.0 - cos if float(gp.abs().max()) > floor else 0.0
+            else:
+                errs[name] = float((gk - gp).abs().max()) / max(float(gp.abs().max()), floor)
+        name, err = max(errs.items(), key=lambda kv: kv[1])
+        tol = GRAD_BF16_MAX_ONE_MINUS_COS if bf16 else GRAD_F32_REL_TOL
+        check(err <= tol, f"{dname} step gradient {name}: {err} > {tol}")
+        worst[dname] = {"param": name, "err": err, "tolerance": tol,
+                        "metric": "1 - cosine" if bf16 else "max |err| / max(max |ref|, 1e-2 * largest)",
+                        "loss_kernels": loss_k, "loss_plain": loss_p}
+    model.zero_grad(set_to_none=True)
+    emit("finetune_grads", n_params=len(g_p), worst=worst)
+
+    # launch counts of one bf16 training step (the main path)
+    train_step(model, loss_fn, steps, *batch, multi_label=False, bf16=True)  # warm-up
+    torch.cuda.synchronize()
+    dk.reset_launch_counts()
+    train_step(model, loss_fn, steps, *batch, multi_label=False, bf16=True)
+    torch.cuda.synchronize()
+    launches = dict(dk.LAUNCHES)
+    check(launches == STEP_LAUNCHES, f"training-step launches {launches} != {STEP_LAUNCHES}")
+
+    # ms per training step, bf16 and fp32
+    timing = {}
+    for dname, bf16 in (("bfloat16", True), ("float32", False)):
+        torch.cuda.reset_peak_memory_stats()
+        train_step(model, loss_fn, steps, *batch, multi_label=False, bf16=bf16)
+        secs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_step(model, loss_fn, steps, *batch, multi_label=False, bf16=bf16)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        ms = statistics.median(secs) * 1e3
+        timing[dname] = {"ms_per_step": ms, "runs_ms": [s_ * 1e3 for s_ in secs],
+                         "tiles_per_s": N_TILES / (ms / 1e3),
+                         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+    emit("finetune_step", tiles=N_TILES, gc=1, launches=launches, **timing)
+    del model, steps
+    torch.cuda.empty_cache()
+
+    # six optimizer steps on one fixed batch: the loss falls
+    model, steps, loss_fn = _head_and_steps(torch)
+    losses = [float(train_step(model, loss_fn, steps, *batch, multi_label=False, bf16=True))
+              for _ in range(6)]
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0] and min(losses[1:]) < losses[0],
+          f"the loss did not fall over six steps on one batch: {losses}")
+    emit("finetune_learning", lr=5e-5, losses=losses)
+    del model, steps
+    torch.cuda.empty_cache()
+    return launches, timing
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print("chip_smoke: takes no arguments", file=sys.stderr)
@@ -404,8 +781,11 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     summary = phase_kernels()["bfloat16"]
-    launches = phase_slide_forward()
+    phase_slide_forward()
     phase_ragged_batch()
+    summary.update(phase_bwd_kernels()["bfloat16"])
+    phase_head_widths()
+    launches, _ = phase_finetune_step()
     print(json.dumps({"kernels": [
         {"name": name, **meta, "launches": launches[name],
          "max_abs_err": summary[name]["err"], "ms": summary[name]["ms"],

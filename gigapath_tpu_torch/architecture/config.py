@@ -43,6 +43,7 @@ class EncoderConfig:
     layernorm_eps: float = 1e-5
     segment_length: IntList = None
     dilated_ratio: IntList = None
+    checkpoint_activations: bool = False
     extras: Dict[str, Any] = field(default_factory=dict)
 
     def __post_init__(self):

@@ -1,9 +1,11 @@
 """Transformer encoder stack (counterpart of
 ``gigapath_tpu/architecture/encoder.py``), restricted to what LongNet uses:
 pre-LN (or post-LN) blocks of self-attention and FFN with sub-LN, padding
-rows zeroed at the input, ``return_all_hiddens``, and the final
-``layer_norm``. MoE, relative-position bias, multiway and the token
-embedding are not ported.
+rows zeroed at the input, ``return_all_hiddens``, the final ``layer_norm``,
+and ``checkpoint_activations`` (each layer re-run in the backward, the
+counterpart of the JAX package's per-layer ``nn.remat``). Training mode
+comes from ``module.train()``: dropout and drop-path act only there. MoE,
+relative-position bias, multiway and the token embedding are not ported.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from gigapath_tpu_torch.architecture.config import EncoderConfig
@@ -117,8 +120,14 @@ class Encoder(nn.Module):
             x = x.masked_fill(encoder_padding_mask[..., None].to(torch.bool), 0)
 
         encoder_states = [x] if return_all_hiddens else []
+        remat = self.args.checkpoint_activations and torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer(x, encoder_padding_mask)
+            if remat:
+                # non-reentrant; the RNG state is restored for the re-run,
+                # so dropout draws the same masks twice
+                x = torch.utils.checkpoint.checkpoint(layer, x, encoder_padding_mask, use_reentrant=False)
+            else:
+                x = layer(x, encoder_padding_mask)
             if return_all_hiddens:
                 encoder_states.append(x)
         if self.layer_norm is not None:

@@ -28,10 +28,9 @@
 // key tiles past kvlen (or past the tile's last row when causal) are never
 // loaded or computed.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
 #include <cstdint>
+
+#include "branch_common.cuh"
 
 // The head width is a compile-time constant (q, the accumulator and the
 // score strip live in registers): the build compiles one library per head
@@ -43,19 +42,10 @@ static_assert(GP_HEAD_DIM % 4 == 0 && GP_HEAD_DIM <= 128, "head width: a multipl
 
 namespace {
 
-constexpr int BM = 64;  // query rows per block, one per thread
-constexpr float LN2 = 0.6931471805599453f;
+using namespace gp;
+
 constexpr float M_FLOOR = -1e20f;
 constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 template <typename T, int DH, int BN>
 __global__ void __launch_bounds__(BM)

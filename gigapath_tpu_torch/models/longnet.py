@@ -26,6 +26,7 @@ class LongNetEncoderLayer(EncoderLayer):
             dilated_ratio=args.dilated_ratio,
             subln=args.subln,
             layernorm_eps=args.layernorm_eps,
+            dropout=args.attention_dropout,
         )
 
 

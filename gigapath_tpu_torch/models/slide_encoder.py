@@ -55,7 +55,10 @@ class LongNetViT(nn.Module):
 
     ``forward`` returns a list of slide embeddings, each ``[B, embed_dim]``:
     one per hidden state (the input embedding and every layer) when
-    ``all_layer_embed``, else just the final one.
+    ``all_layer_embed``, else just the final one. It trains through
+    ``model.train()`` (dropout and drop-path act only then);
+    ``checkpoint_activations`` re-runs each encoder layer in the backward
+    instead of keeping its activations.
     """
 
     def __init__(
@@ -73,6 +76,7 @@ class LongNetViT(nn.Module):
         mlp_ratio: float = 4.0,
         segment_length: Optional[List[int]] = None,
         dilated_ratio: str = "[1, 2, 4, 8, 16]",
+        checkpoint_activations: bool = False,
     ):
         super().__init__()
         self.embed_dim = embed_dim
@@ -91,6 +95,7 @@ class LongNetViT(nn.Module):
             segment_length=list(segment_length),
             drop_path_rate=drop_path_rate,
             dropout=dropout,
+            checkpoint_activations=checkpoint_activations,
         )
         self.norm = nn.LayerNorm(embed_dim, eps=norm_eps)
 

@@ -2,13 +2,13 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface, loaded through ``ctypes``; a source that takes
-compile-time constants (the branch kernel's head width) builds one library
+compile-time constants (the branch kernels' head width) builds one library
 per set of ``-D`` defines. The libraries go to ``build/kernels/`` at the
 root of the checkout (``.gitignore`` lists ``build/``), or to
 ``$XDG_CACHE_HOME/gigapath_tpu_torch/kernels`` (``~/.cache/...``) for an
-installed package, named by a hash of
-the source, defines and flags, so an edited source rebuilds and an
-unchanged one loads as built. :func:`build_all` starts one ``nvcc`` per
+installed package, named by a hash of the source, the shared
+``csrc/*.cuh`` headers, the defines and the flags, so an edited source or
+header rebuilds and an unchanged one loads as built. :func:`build_all` starts one ``nvcc`` per
 library, all at once, and waits for them together.
 
 Nothing here runs at import: the CPU tests import every module, on
@@ -40,11 +40,14 @@ def _build_dir() -> Path:
 
 
 BUILD_DIR = _build_dir()
-# the libraries the flagship slide encoder (head width 48) runs
+# the libraries the flagship slide encoder (head width 48) runs, forward
+# and backward
 FLAGSHIP = (
     ("pack_phases", ()),
     ("dilated_branch_fwd", (("GP_HEAD_DIM", 48),)),
     ("unpack_phases", ()),
+    ("dilated_branch_bwd_dq", (("GP_HEAD_DIM", 48),)),
+    ("dilated_branch_bwd_dkv", (("GP_HEAD_DIM", 48),)),
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -58,6 +61,12 @@ _SIGNATURES = {
     "unpack_phases": ("gp_unpack_phases", [_P, _P] + [_I] * 10 + [_P]),
     "dilated_branch_fwd": (
         "gp_dilated_branch_fwd", [_P] * 6 + [_I] * 6 + [_F, _P],
+    ),
+    "dilated_branch_bwd_dq": (
+        "gp_dilated_branch_bwd_dq", [_P] * 8 + [_I] * 6 + [_F, _F, _P],
+    ),
+    "dilated_branch_bwd_dkv": (
+        "gp_dilated_branch_bwd_dkv", [_P] * 9 + [_I] * 6 + [_F, _F, _P],
     ),
 }
 
@@ -86,7 +95,8 @@ def _label(name: str, defines) -> str:
 
 
 def _target(name: str, defines=()) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers are part of every source's key
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(_flags(defines)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

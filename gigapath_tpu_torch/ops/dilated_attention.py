@@ -8,10 +8,14 @@ the positions ``p, p+r, ...``. Each branch runs the phase-major kernels of
 fused by a softmax over their log-sum-exps (plain PyTorch, as the JAX
 package left it to XLA).
 
+The fusion weights take no gradient (the lse is detached, as the JAX
+package stops it and the reference computes them under ``torch.no_grad``),
+so the backward flows through each branch's output into its kernels.
+
 Only schedules whose every ratio divides the head count take this route,
 which covers every LongNet configuration of the registry. The head-major
-fallback for other ratios, sequence parallelism, dropout and decoding are
-not ported yet (``ROADMAP.md``).
+fallback for other ratios, sequence parallelism, attention-probability
+dropout and decoding are not ported yet (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -77,9 +81,9 @@ def dilated_attention(
     if len(outs) == 1:
         return outs[0].reshape(B, L, H, Dh)
 
-    # LSE-softmax fusion across branches: [n, B, H, L] weights, each
-    # broadcast over its head's Dh lanes as [B, L, H, 1]
-    weights = torch.softmax(torch.stack(lses), dim=0)
+    # LSE-softmax fusion across branches: [n, B, H, L] weights, constant in
+    # the backward, each broadcast over its head's Dh lanes as [B, L, H, 1]
+    weights = torch.softmax(torch.stack(lses).detach(), dim=0)
     acc = None
     for o, w in zip(outs, weights):
         term = o.reshape(B, L, H, Dh).float() * w.transpose(1, 2)[..., None]
@@ -89,7 +93,10 @@ def dilated_attention(
 
 class DilatedAttention(MultiheadAttention):
     """LongNet attention module: the MultiheadAttention projections and
-    sub-LN around :func:`dilated_attention`."""
+    sub-LN around :func:`dilated_attention`. ``dropout`` (on the attention
+    probabilities) must be 0: every registry configuration trains with
+    ``attention_dropout = 0``, and the kernels never form the probabilities
+    a dropout would act on."""
 
     def __init__(
         self,
@@ -99,7 +106,12 @@ class DilatedAttention(MultiheadAttention):
         dilated_ratio: Sequence[int],
         subln: bool = False,
         layernorm_eps: float = 1e-5,
+        dropout: float = 0.0,
     ):
+        if dropout > 0.0:
+            raise NotImplementedError(
+                f"attention-probability dropout ({dropout}) is not ported yet (ROADMAP.md)"
+            )
         super().__init__(embed_dim, num_heads, subln=subln, layernorm_eps=layernorm_eps)
         self.segment_length = tuple(int(x) for x in segment_length)
         self.dilated_ratio = tuple(int(x) for x in dilated_ratio)

@@ -2,7 +2,7 @@
 ``gigapath_tpu/ops/pallas_dilated.py``).
 
 One dilated branch ``(segment length sl, ratio r)`` on dense ``[B, L, E]``
-activations runs three CUDA kernels (``csrc/``):
+activations runs three CUDA kernels (``csrc/``) forward:
 
 1. :func:`pack_phases` packs q, k and v into the diagonal-only phase-major
    layout ``[B, S, r, hb, Mp, Dh]``: head band ``p`` (heads ``p*hb ..
@@ -14,12 +14,18 @@ activations runs three CUDA kernels (``csrc/``):
 3. :func:`unpack_phases` writes ``out6`` back to dense ``[B, L, E]`` with
    exact zeros on the lanes the branch does not cover.
 
+and, backward, two more: :func:`dilated_branch_bwd_dq` and
+:func:`dilated_branch_bwd_dkv` recompute the probabilities from the saved
+lse and return the packed dq and (dk, dv), between a pack of the output
+cotangent and q/k/v and an unpack of the three gradients.
+
 Each wrapper runs its ``*_reference`` plain PyTorch version when its tensor
 lies on the CPU, launches its kernel on a CUDA tensor (or raises), and
 counts its launches in :data:`LAUNCHES`. :func:`dilated_branch_attention`
-strings the three together with the lse scatter and keeps the JAX op's
-contract: off-band lanes are exact 0, and uncovered (token, head) pairs
-have lse = -1e30.
+is the differentiable branch op (the counterpart of ``_dilated_branch``'s
+custom VJP): it strings the kernels together with the lse scatter and keeps
+the JAX op's contract: off-band lanes are exact 0, uncovered (token, head)
+pairs have lse = -1e30, and no gradient flows through the lse output.
 
 The port's packed row count ``Mp`` is ``m`` rounded up to the kernel's
 64-row tile; the TPU's VMEM caps and 128-lane quantum do not apply.
@@ -43,7 +49,10 @@ MAX_HEAD_DIM = 128  # the branch kernel takes head widths that are multiples of 
 
 # Launches of each CUDA kernel in this process. A wrapper adds one where it
 # launches its kernel and nowhere else; callers reset and read it.
-LAUNCHES = {"pack_phases": 0, "dilated_branch_fwd": 0, "unpack_phases": 0}
+LAUNCHES = {
+    "pack_phases": 0, "dilated_branch_fwd": 0, "unpack_phases": 0,
+    "dilated_branch_bwd_dq": 0, "dilated_branch_bwd_dkv": 0,
+}
 
 
 def reset_launch_counts() -> None:
@@ -177,6 +186,45 @@ def dilated_branch_fwd_reference(
     return out, lse
 
 
+def dilated_branch_bwd_reference(
+    q6: torch.Tensor, k6: torch.Tensor, v6: torch.Tensor, do6: torch.Tensor,
+    lse5: torch.Tensor, delta: torch.Tensor, kvlen: torch.Tensor,
+    is_causal: bool = False, *, dq: bool = True, dkv: bool = True,
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Packed q/k/v and output cotangent ``do6`` [B, S, r, hb, Mp, Dh], the
+    forward's ``lse5`` and ``delta = rowsum(do6 * out6)`` (fp32 [B, S, r,
+    hb, Mp]) -> ``(dq6, dk6, dv6)``, the kernels' math in plain PyTorch:
+    fp32 probabilities recomputed in base 2 from the lse, masked keys by a
+    select of -1e30 before the exponent (a cell with no valid key has lse ~
+    -6.9e19, and its gradients come out exactly 0). ``dq``/``dkv`` pick
+    which gradients to compute (the others are None). Chunked over (s, p,
+    t), as :func:`dilated_branch_fwd_reference`."""
+    B, S, r, hb, Mp, Dh = q6.shape
+    scale = Dh**-0.5
+    dq6 = torch.empty_like(q6) if dq else None
+    dk6 = torch.empty_like(k6) if dkv else None
+    dv6 = torch.empty_like(v6) if dkv else None
+    cols = torch.arange(Mp, device=q6.device)
+    causal_mask = cols[None, :] > cols[:, None] if is_causal else None
+    for s in range(S):
+        for p in range(r):
+            key_mask = cols[None, None, :] >= kvlen[:, s, p].to(torch.int64)[:, None, None]
+            if causal_mask is not None:
+                key_mask = key_mask | causal_mask[None]
+            for t in range(hb):
+                qf, kf, vf, dof = (x[:, s, p, t].float() for x in (q6, k6, v6, do6))
+                sc = (qf * (scale * LOG2E)) @ kf.transpose(1, 2)  # [B, Mp, Mp]
+                sc = sc.masked_fill(key_mask, NEG_INF)
+                pr = torch.exp2(sc - lse5[:, s, p, t, :, None] * LOG2E)
+                ds = pr * (dof @ vf.transpose(1, 2) - delta[:, s, p, t, :, None])
+                if dq:
+                    dq6[:, s, p, t] = ((ds @ kf) * scale).to(q6.dtype)
+                if dkv:
+                    dk6[:, s, p, t] = ((ds.transpose(1, 2) @ qf) * scale).to(k6.dtype)
+                    dv6[:, s, p, t] = (pr.transpose(1, 2) @ dof).to(v6.dtype)
+    return dq6, dk6, dv6
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -282,9 +330,121 @@ def dilated_branch_fwd(
     return out, lse
 
 
+def _check_bwd_inputs(name: str, q6, k6, v6, do6, lse5, delta, kvlen) -> None:
+    for arg, t in (("q6", q6), ("k6", k6), ("v6", v6), ("do6", do6)):
+        _check_cuda(f"{name} {arg}", t)
+        if t.shape != q6.shape or t.dtype != q6.dtype or t.device != q6.device:
+            raise ValueError(f"{name}: q6, k6, v6, do6 must share shape, dtype and device")
+    B, S, r, hb, Mp, Dh = q6.shape
+    for arg, t in (("lse5", lse5), ("delta", delta)):
+        _check_cuda(f"{name} {arg}", t, (torch.float32,))
+        if tuple(t.shape) != (B, S, r, hb, Mp) or t.device != q6.device:
+            raise ValueError(f"{name}: {arg} must be [B, S, r, hb, Mp] = {(B, S, r, hb, Mp)} on {q6.device}")
+    _check_cuda(f"{name} kvlen", kvlen, (torch.int32,))
+    if tuple(kvlen.shape) != (B, S, r) or kvlen.device != q6.device:
+        raise ValueError(f"{name}: kvlen must be [B, S, r] = {(B, S, r)} on {q6.device}")
+    blocks = B * S * r * hb * (Mp // ROW_TILE)
+    if Dh % 4 or Dh > MAX_HEAD_DIM or Mp <= 0 or Mp % ROW_TILE or blocks >= 2**31:
+        raise ValueError(
+            f"{name}: needs Dh % 4 == 0, Dh <= {MAX_HEAD_DIM}, Mp a positive multiple "
+            f"of {ROW_TILE} and fewer than 2^31 row tiles; got Dh={Dh}, Mp={Mp}, tiles={blocks}"
+        )
+
+
+def dilated_branch_bwd_dq(
+    q6: torch.Tensor, k6: torch.Tensor, v6: torch.Tensor, do6: torch.Tensor,
+    lse5: torch.Tensor, delta: torch.Tensor, kvlen: torch.Tensor, is_causal: bool = False,
+) -> torch.Tensor:
+    """Packed dq of the branch attention (``csrc/dilated_branch_bwd_dq.cu``);
+    arguments as :func:`dilated_branch_bwd_reference`."""
+    if q6.device.type == "cpu":
+        return dilated_branch_bwd_reference(q6, k6, v6, do6, lse5, delta, kvlen, is_causal, dkv=False)[0]
+    from gigapath_tpu_torch.ops import _build
+
+    _check_bwd_inputs("dilated_branch_bwd_dq", q6, k6, v6, do6, lse5, delta, kvlen)
+    B, S, r, hb, Mp, Dh = q6.shape
+    dq6 = torch.empty_like(q6)
+    with torch.cuda.device(q6.device):
+        rc = _build.library("dilated_branch_bwd_dq", GP_HEAD_DIM=Dh).gp_dilated_branch_bwd_dq(
+            q6.data_ptr(), k6.data_ptr(), v6.data_ptr(), do6.data_ptr(), lse5.data_ptr(),
+            delta.data_ptr(), kvlen.data_ptr(), dq6.data_ptr(), int(q6.dtype == torch.bfloat16),
+            B * S * r * hb, hb, Mp, Dh, int(is_causal), Dh**-0.5 * LOG2E, Dh**-0.5,
+            _stream(q6),
+        )
+    _raise_on(rc, "dilated_branch_bwd_dq")
+    LAUNCHES["dilated_branch_bwd_dq"] += 1
+    return dq6
+
+
+def dilated_branch_bwd_dkv(
+    q6: torch.Tensor, k6: torch.Tensor, v6: torch.Tensor, do6: torch.Tensor,
+    lse5: torch.Tensor, delta: torch.Tensor, kvlen: torch.Tensor, is_causal: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Packed ``(dk, dv)`` of the branch attention
+    (``csrc/dilated_branch_bwd_dkv.cu``); arguments as
+    :func:`dilated_branch_bwd_reference`."""
+    if q6.device.type == "cpu":
+        return dilated_branch_bwd_reference(q6, k6, v6, do6, lse5, delta, kvlen, is_causal, dq=False)[1:]
+    from gigapath_tpu_torch.ops import _build
+
+    _check_bwd_inputs("dilated_branch_bwd_dkv", q6, k6, v6, do6, lse5, delta, kvlen)
+    B, S, r, hb, Mp, Dh = q6.shape
+    dk6, dv6 = torch.empty_like(k6), torch.empty_like(v6)
+    with torch.cuda.device(q6.device):
+        rc = _build.library("dilated_branch_bwd_dkv", GP_HEAD_DIM=Dh).gp_dilated_branch_bwd_dkv(
+            q6.data_ptr(), k6.data_ptr(), v6.data_ptr(), do6.data_ptr(), lse5.data_ptr(),
+            delta.data_ptr(), kvlen.data_ptr(), dk6.data_ptr(), dv6.data_ptr(),
+            int(q6.dtype == torch.bfloat16), B * S * r * hb, hb, Mp, Dh, int(is_causal),
+            Dh**-0.5 * LOG2E, Dh**-0.5, _stream(q6),
+        )
+    _raise_on(rc, "dilated_branch_bwd_dkv")
+    LAUNCHES["dilated_branch_bwd_dkv"] += 1
+    return dk6, dv6
+
+
 # ---------------------------------------------------------------------------
 # the branch op
 # ---------------------------------------------------------------------------
+
+
+class _DilatedBranch(torch.autograd.Function):
+    """Dense q/k/v [B, L, E] -> ``(out [B, L, E], lse [B, H, L])`` of one
+    branch; the counterpart of ``_dilated_branch``'s custom VJP.
+
+    It saves the dense q/k/v (one copy shared by every branch of a layer)
+    and this branch's packed ``out6``/``lse5``, never the packed q6/k6/v6:
+    the backward re-packs them. The lse output takes no gradient. Both
+    passes run with autocast off: the kernels (and their plain versions)
+    compute in fp32 from the inputs' dtype."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kvlen, geometry, num_heads, is_causal):
+        L, E, g, S, r, m, Mp = geometry
+        with torch.autocast(q.device.type, enabled=False):
+            q6, k6, v6 = (pack_phases(x, g, S, r, Mp, num_heads) for x in (q, k, v))
+            out6, lse5 = dilated_branch_fwd(q6, k6, v6, kvlen, is_causal)
+            out = unpack_phases(out6, L, E, g, S, r)
+            lse = _scatter_lse(lse5, L, num_heads, g, r, m)
+        ctx.save_for_backward(q, k, v, kvlen, out6, lse5)
+        ctx.geometry, ctx.num_heads, ctx.is_causal = geometry, num_heads, is_causal
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):  # no gradient flows through the lse output
+        q, k, v, kvlen, out6, lse5 = ctx.saved_tensors
+        L, E, g, S, r, m, Mp = ctx.geometry
+        H, causal = ctx.num_heads, ctx.is_causal
+        with torch.autocast(q.device.type, enabled=False):
+            do6 = pack_phases(dout.to(q.dtype).contiguous(), g, S, r, Mp, H)
+            q6, k6, v6 = (pack_phases(x, g, S, r, Mp, H) for x in (q, k, v))
+            # delta = rowsum(do * out) per (token, head), in the lse layout
+            delta = (do6.float() * out6.float()).sum(dim=-1)
+            dq6 = dilated_branch_bwd_dq(q6, k6, v6, do6, lse5, delta, kvlen, causal)
+            dk6, dv6 = dilated_branch_bwd_dkv(q6, k6, v6, do6, lse5, delta, kvlen, causal)
+            # off-band lanes come back exact 0: the branch never reads them
+            grads = [unpack_phases(x6, L, E, g, S, r) for x6 in (dq6, dk6, dv6)]
+        return (*grads, None, None, None, None)
 
 
 def dilated_branch_attention(
@@ -305,6 +465,7 @@ def dilated_branch_attention(
     pairs the branch does not cover hold 0 / NEG_INF, ready for the
     cross-branch LSE-softmax fusion. Keys at positions ``>= real_len``
     (static) or ``>= valid_len_dyn[b]`` (per batch row) are masked.
+    Differentiable in q, k and v; the lse output takes no gradient.
     Requires ``num_heads % r == 0``.
     """
     B, L, E = q.shape
@@ -312,7 +473,8 @@ def dilated_branch_attention(
         raise ValueError(f"dilated_branch_attention: needs E % H == 0 and H % r == 0; got E={E}, H={num_heads}, r={r}")
     rl = L if real_len is None else min(int(real_len), L)
     g, S, m, Mp = _branch_geometry(L, int(sl), int(r))
-    q6, k6, v6 = (pack_phases(x.contiguous(), g, S, r, Mp, num_heads) for x in (q, k, v))
     kvlen = _branch_kvlen(B, S, g, r, m, rl, valid_len_dyn, q.device)
-    out6, lse5 = dilated_branch_fwd(q6, k6, v6, kvlen, is_causal)
-    return unpack_phases(out6, L, E, g, S, r), _scatter_lse(lse5, L, num_heads, g, r, m)
+    return _DilatedBranch.apply(
+        q.contiguous(), k.contiguous(), v.contiguous(), kvlen,
+        (L, E, g, S, int(r), m, Mp), num_heads, is_causal,
+    )

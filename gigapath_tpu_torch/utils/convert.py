@@ -40,7 +40,11 @@ def _flatten(tree: Mapping[str, Any], prefix=()):
 
 
 def state_dict_from_flax_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX-package param tree -> the port's ``state_dict`` (fp32 CPU tensors)."""
+    """JAX-package param tree -> the port's ``state_dict`` (fp32 CPU tensors).
+
+    Takes a slide encoder's tree or a ``ClassificationHead``'s, whose
+    ``slide_encoder`` and ``classifier`` subtrees become the key prefixes
+    of the same names."""
     out = {}
     for path, value in _flatten(params):
         arr = np.asarray(value, dtype=np.float32)

@@ -1,0 +1,153 @@
+"""The port's dilated-branch backward held against the JAX package.
+
+dq/dk/dv of the port's branch op (the backward kernels' plain versions,
+through autograd) against ``jax.vjp`` of the JAX branch op with its Pallas
+kernels in interpret mode. Inputs and cotangents come from a numpy seed.
+fp32 tolerance 1e-4: both sides compute in fp32 and differ in the order of
+sums.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gigapath_tpu.ops import pallas_dilated as jpd
+from gigapath_tpu_torch.ops import dilated_kernels as dk
+from gigapath_tpu_torch.ops.dilated_attention import DilatedAttention, dilated_attention
+
+from test_torch_dilated import BRANCH_CASES, DH, E, FLAGS, H, SCHEDULE, _data
+
+TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def _jax_branch_grads(q, k, v, do, sl, r, valid_len_dyn=None, **kw):
+    """dq, dk, dv of the JAX branch op (interpret mode), lse cotangent 0."""
+
+    def f(a, b, c):
+        return jpd.dilated_branch_attention(
+            a, b, c, sl=sl, r=r, num_heads=H, interpret=True, flags=FLAGS,
+            valid_len_dyn=valid_len_dyn, **kw,
+        )
+
+    @jax.jit
+    def grads(a, b, c, d):
+        (out, lse), vjp = jax.vjp(f, a, b, c)
+        return vjp((d, jnp.zeros_like(lse)))
+
+    return [np.asarray(g) for g in grads(*(jnp.asarray(x) for x in (q, k, v, do)))]
+
+
+def _port_branch_grads(q, k, v, do, sl, r, valid_len_dyn=None, **kw):
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out, lse = dk.dilated_branch_attention(
+        qt, kt, vt, sl, r, H,
+        valid_len_dyn=None if valid_len_dyn is None else torch.from_numpy(valid_len_dyn), **kw,
+    )
+    assert not lse.requires_grad  # the lse output takes no gradient
+    out.backward(torch.from_numpy(do))
+    return [t.grad.numpy() for t in (qt, kt, vt)]
+
+
+def _assert_grads_close(ours, ref):
+    for name, a, b in zip(("dq", "dk", "dv"), ours, ref):
+        np.testing.assert_allclose(a, b, err_msg=name, **TOL)
+
+
+@pytest.mark.parametrize("L,sl,r,rl", BRANCH_CASES)
+def test_branch_grads_match_jax(L, sl, r, rl):
+    q, k, v, do = (_data(s, 2, L, E) for s in (20, 21, 22, 23))
+    ours = _port_branch_grads(q, k, v, do, sl, r, real_len=rl)
+    ref = _jax_branch_grads(q, k, v, do, sl, r, real_len=rl)
+    _assert_grads_close(ours, ref)
+    # lanes the branch does not cover get exact-zero gradients
+    g = min(sl, L)
+    off_band = ((np.arange(L) % g) % r)[:, None] != (np.arange(E) // DH // (H // r))[None, :]
+    for grad in ours:
+        assert not grad[:, off_band].any()
+
+
+def test_branch_grads_causal_match_jax():
+    L, sl, r = 300, 128, 2
+    q, k, v, do = (_data(s, 1, L, E) for s in (24, 25, 26, 27))
+    ours = _port_branch_grads(q, k, v, do, sl, r, real_len=280, is_causal=True)
+    ref = _jax_branch_grads(q, k, v, do, sl, r, real_len=280, is_causal=True)
+    _assert_grads_close(ours, ref)
+
+
+@pytest.mark.parametrize("vl", [[300, 157], [211, 0]], ids=["ragged", "fully_masked_row"])
+def test_branch_grads_per_row_valid_len_match_jax(vl):
+    """Per-row valid lengths; a row with no valid key at all (every cell's
+    kvlen 0, lse at the sentinel) gets exact-zero dk and dv and finite dq."""
+    L, sl, r = 300, 64, 2
+    q, k, v, do = (_data(s, 2, L, E) for s in (28, 29, 30, 31))
+    vl = np.array(vl, np.int32)
+    ours = _port_branch_grads(q, k, v, do, sl, r, valid_len_dyn=vl)
+    ref = _jax_branch_grads(q, k, v, do, sl, r, valid_len_dyn=jnp.asarray(vl))
+    _assert_grads_close(ours, ref)
+    for grad in ours:
+        assert np.isfinite(grad).all()
+    if vl[1] == 0:
+        assert not ours[0][1].any() and not ours[1][1].any() and not ours[2][1].any()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bwd_reference_matches_autograd_of_fwd_reference(causal):
+    """The packed backward's plain version equals autograd through the
+    forward's plain version, cells with kvlen 0 and partial tiles included."""
+    B, S, r, hb, Mp, Dh = 2, 2, 2, 3, 64, 8
+    q6, k6, v6, do6 = (torch.from_numpy(_data(s, B, S, r, hb, Mp, Dh)) for s in (32, 33, 34, 35))
+    kvlen = torch.tensor([[[0, 17], [64, 40]], [[5, 0], [33, 64]]], dtype=torch.int32)
+    leaves = [x.clone().requires_grad_() for x in (q6, k6, v6)]
+    out6, lse5 = dk.dilated_branch_fwd_reference(*leaves, kvlen, causal)
+    out6.backward(do6)
+    delta = (do6 * out6.detach()).sum(-1)
+    dq = dk.dilated_branch_bwd_dq(q6, k6, v6, do6, lse5.detach(), delta, kvlen, causal)
+    dk6, dv6 = dk.dilated_branch_bwd_dkv(q6, k6, v6, do6, lse5.detach(), delta, kvlen, causal)
+    for ours, leaf in zip((dq, dk6, dv6), leaves):
+        torch.testing.assert_close(ours, leaf.grad, atol=1e-5, rtol=1e-5)
+    # cells without a valid key: exact zeros; keys past kvlen: exact zeros
+    assert not dq[0, 0, 0].any() and not dk6[1, 0, 1].any() and not dv6[1, 0, 1].any()
+    assert not dk6[0, 0, 1, :, 17:].any() and not dv6[0, 0, 1, :, 17:].any()
+
+
+def test_bwd_wrappers_take_the_plain_version_only_on_the_cpu():
+    """A tensor on any other device goes to the kernel path, which refuses
+    what is not a CUDA tensor instead of computing it in plain PyTorch."""
+    shape = (1, 1, 1, 2, 64, 8)
+    q6 = torch.empty(shape, device="meta")
+    lse = torch.empty(shape[:-1], device="meta")
+    kvlen = torch.empty((1, 1, 1), dtype=torch.int32, device="meta")
+    before = dict(dk.LAUNCHES)
+    for fn in (dk.dilated_branch_bwd_dq, dk.dilated_branch_bwd_dkv):
+        with pytest.raises(ValueError, match="expected a CUDA tensor"):
+            fn(q6, q6, q6, q6, lse, lse, kvlen)
+    assert dk.LAUNCHES == before
+
+
+def test_dilated_attention_grads_match_jax_with_detached_fusion_weights():
+    """The multi-branch op's gradients: the fusion softmax weights are
+    constants of the backward on both sides."""
+    from gigapath_tpu.ops.dilated_attention import dilated_attention as jax_dilated_attention
+
+    L = 300
+    q, k, v, do = (_data(s, 1, L, H, DH) for s in (36, 37, 38, 39))
+    vl = 250
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    dilated_attention(*leaves, *SCHEDULE, valid_len=vl).backward(torch.from_numpy(do))
+
+    @jax.jit
+    def grads(a, b, c, d):
+        _, vjp = jax.vjp(lambda x, y, z: jax_dilated_attention(x, y, z, *SCHEDULE, valid_len=vl), a, b, c)
+        return vjp(d)
+
+    ref = grads(*(jnp.asarray(x) for x in (q, k, v, do)))
+    for name, a, b in zip(("dq", "dk", "dv"), leaves, ref):
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(b), err_msg=name, **TOL)
+
+
+def test_attention_dropout_is_refused():
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        DilatedAttention(E, H, [32], [1], dropout=0.1)
+

@@ -165,15 +165,22 @@ def test_create_model_without_device_raises_without_cuda(monkeypatch):
 
 
 def test_port_imports_nothing_of_jax():
-    """Importing every port module leaves jax, flax, optax and gigapath_tpu
-    (the exact name, or the gigapath_tpu. prefix) out of sys.modules."""
+    """Importing every port module (the fine-tuning path's included) leaves
+    jax, flax, optax, sklearn and gigapath_tpu (the exact name, or the
+    gigapath_tpu. prefix) out of sys.modules, and pandas, yaml and h5py too:
+    the port imports those only inside the functions that read files."""
     code = (
         "import pkgutil, sys, importlib, gigapath_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, 'gigapath_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax')"
+        "banned = ('jax', 'jaxlib', 'flax', 'optax', 'sklearn', 'pandas', 'yaml', 'h5py')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in banned"
         " or m == 'gigapath_tpu' or m.startswith('gigapath_tpu.'))\n"
-        "assert len(names) >= 15, names\n"
+        "need = {'gigapath_tpu_torch.finetune.' + m for m in ('main', 'training', 'utils', 'metrics', 'params')}\n"
+        "need |= {'gigapath_tpu_torch.data.' + m for m in ('collate', 'loader', 'splits', 'slide_dataset')}\n"
+        "need |= {'gigapath_tpu_torch.models.classification_head', 'gigapath_tpu_torch.utils.checkpoint',"
+        " 'gigapath_tpu_torch.finetune.task_configs.utils'}\n"
+        "assert need <= set(names), sorted(need - set(names))\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
