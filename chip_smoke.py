@@ -8,14 +8,15 @@ stdout:
 
 1. device: ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``.
 2. build: compile the CUDA kernels of ``gigapath_tpu_torch/csrc`` (one nvcc
-   per source, in parallel); ptxas' register report goes to stderr.
+   per library, all in parallel); ptxas' register report goes to stderr.
 3. kernels: for each branch of the flagship schedule at L = 10241 (10240
    tiles + cls), E = 768, H = 16, in fp32 and bf16 with a ragged real
    length, pack -> branch attention -> unpack against their plain PyTorch
    versions on the card; CUDA-event times beside each kernel's bound and a
-   library call's time. Then the branch kernel once more at a batch of
-   more than 65535 (batch, segment, head) cells, bf16, with per-row valid
-   lengths, against its plain version.
+   library call's time (SDPA for the attention, ``torch.take`` with a
+   precomputed index for the pack, ``index_copy_`` for the unpack). Then
+   the branch kernel once more at a batch of more than 65535 (batch,
+   segment, head) cells, bf16, with per-row valid lengths.
 4. slide_forward: the flagship ``gigapath_slide_enc12l768d`` with seeded
    random weights through ``create_model`` and
    ``run_inference_with_slide_encoder`` on 10240 tiles, in fp32 and bf16,
@@ -39,8 +40,30 @@ stdout:
    cosine), the kernels' launch counts of one bf16 step (the main path the
    final ``kernels`` line reports), ms per step and peak memory in bf16
    and fp32, and six optimizer steps on one batch, whose loss must fall.
+9. q_kernels: the quantized tile tier's kernels against their plain
+   versions: ``q_matmul`` (int8 and fp8-e4m3) at the flagship tile
+   encoder's four (K, N) with M = 128 tiles x 197 tokens, and at ragged
+   shapes; ``q_flash_attention`` at B = 128, H = 24, L = 197, D = 64 and
+   at L = 1 and 65; CUDA-event times beside the bound, the plain version
+   and a library call (cuBLAS bf16 ``torch.matmul``; SDPA).
+10. tile_forward: the flagship ``gigapath_tile_enc`` (40 blocks, E =
+    1536, bf16 compute) with seeded random weights, its LayerScales drawn
+    at O(0.1-1), through ``run_inference_with_tile_encoder`` on 160
+    synthetic PNG tiles (one full 128-tile batch and a padded partial
+    one) in three tiers: bf16 (no kernel), ``int8+attn`` (both kernels)
+    and ``fp8_e4m3`` (``q_matmul`` only); each against the same tier on
+    the plain path, the launches of one 128-tile batch (exactly 160
+    ``q_matmul`` and 40 ``q_flash_attention`` in ``int8+attn``, 160 and
+    0 in ``fp8_e4m3``), ms per batch through the entry and for the
+    forward alone, a profiler breakdown of one forward, peak memory, and
+    each quantized tier's mean cosine against bf16.
+11. two_stage: the 160 ``int8+attn`` tile embeddings and their coords
+    through ``run_inference_with_slide_encoder`` on the flagship slide
+    encoder (bf16), against the plain path.
 
-Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
+Then a ``{"kernels": [...]}`` line (the launches of the dilated kernels
+are those of one training step, of the quantized ones those of one
+``int8+attn`` 128-tile batch), the ``nvidia-smi`` name/power line, and
 the last line ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero before those lines. Exits non-zero, printing no result, when
 no CUDA device is present.
@@ -54,6 +77,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 N_TILES = 10240
@@ -93,6 +117,15 @@ KERNELS = {
         route="cuda", source="gigapath_tpu_torch/csrc/dilated_branch_bwd_dkv.cu",
         replaces="gigapath_tpu/ops/pallas_dilated.py:462 (_dkv_kernel, via _bwd_impl:994, pallas_call :1044)",
     ),
+    "q_matmul": dict(
+        route="cuda", source="gigapath_tpu_torch/csrc/q_matmul.cu",
+        replaces="gigapath_tpu/quant/qmatmul.py:71 (_q_matmul_kernel, via q_matmul_pallas:101, pallas_call :125)",
+    ),
+    "q_flash_attention": dict(
+        route="cuda", source="gigapath_tpu_torch/csrc/q_flash_attention.cu",
+        replaces="gigapath_tpu/quant/qflash.py:95 (_qflash_kernel, via q_flash_attention_pallas:135, "
+                 "pallas_call :163)",
+    ),
 }
 FWD_KERNELS = ("pack_phases", "dilated_branch_fwd", "unpack_phases")
 BWD_KERNELS = ("dilated_branch_bwd_dq", "dilated_branch_bwd_dkv")
@@ -116,6 +149,27 @@ GRAD_BF16_MAX_ONE_MINUS_COS = 1e-2
 # kernels are built once per width
 OTHER_HEAD_DIMS = (16, 24, 32, 64, 96)
 BRANCH_SOURCES = ("dilated_branch_fwd", "dilated_branch_bwd_dq", "dilated_branch_bwd_dkv")
+# the flagship tile encoder gigapath_tile_enc: 224 px tiles in 16 px
+# patches (196 + cls = 197 tokens), E = 1536, 24 heads of 64, 40 blocks
+TILE_E, TILE_H, TILE_L, TILE_DEPTH = 1536, 24, 197, 40
+TILE_BATCH, TILE_COUNT = 128, 160  # one full batch and one padded partial batch
+# (K, N) of each block's four quantized matmuls, at M = 128 tiles x 197 tokens
+Q_SHAPES = {"qkv": (1536, 4608), "proj": (1536, 1536), "fc1": (1536, 8192), "fc2": (4096, 1536)}
+# q_matmul vs its plain version: both sum exact fp32 products, in another
+# order at most, as max |err| / max |ref| (read 2.9e-7 at worst; 0 at the
+# flagship shapes)
+Q_MATMUL_REL_TOL = 3e-6
+# q_flash_attention vs its plain version: bf16 out within a few bf16 ulps
+# (the kernel rounds its unnormalized probabilities to bf16, the plain
+# version its normalized ones; read one ulp, 7.8e-3 at |out| in [1, 2)),
+# fp32 out (read 7.2e-7) and the lse (read 9.5e-7) to fp32 rounding
+Q_FLASH_TOL = {"bfloat16": dict(atol=4e-3, rtol=1e-2), "float32": dict(atol=1e-5, rtol=1e-4)}
+Q_FLASH_LSE_TOL = dict(atol=1e-5, rtol=1e-5)
+# tile embeddings, kernel path vs the plain path on the card, 1 - cosine
+# per tile (read 1.4e-4 for int8+attn, where q_flash's bf16 probabilities
+# round differently; 0 for fp8_e4m3 and bf16)
+TILE_MAX_ONE_MINUS_COS = 1.5e-3
+TILE_LAUNCHES = {"": (0, 0), "int8+attn": (160, 40), "fp8_e4m3": (160, 0)}  # per 128-tile batch
 PANDA = {"name": "panda", "setting": "multi_class", "label_dict": {i: i for i in range(6)},
          "max_tiles": 1000000, "shuffle_tiles": True, "add_metrics": ["qwk"]}  # panda.yaml
 
@@ -191,11 +245,12 @@ def phase_device():
 
 
 def phase_build():
-    """Every library at once: the flagship's, and the branch kernels at the
-    registry's other head widths."""
+    """Every library at once: the flagship slide encoder's, the flagship
+    tile encoder's, and the branch kernels at the registry's other head
+    widths."""
     from gigapath_tpu_torch.ops import _build
 
-    specs = _build.FLAGSHIP + tuple(
+    specs = _build.FLAGSHIP + _build.TILE_FLAGSHIP + tuple(
         (name, (("GP_HEAD_DIM", dh),)) for dh in OTHER_HEAD_DIMS for name in BRANCH_SOURCES
     )
     t0 = time.perf_counter()
@@ -295,6 +350,7 @@ def phase_kernels():
             qs, ks, vs = (x.reshape(B * S * r, hb, Mp, E // H) for x in (q6, k6, v6))
             key_ok = (torch.arange(Mp, device="cuda")[None] < kvlen.reshape(-1, 1))[:, None, None, :]
             lib = time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=key_ok), reps=5)
+            lib_pack, lib_unpack = _copy_yardsticks(dk, q, out6, q6, dense, g, S, r, Mp)
             bounds = _branch_bounds(dk, B, L, sl, r, real_len, kvlen, q.element_size(), dname)
             errs = {"pack_phases": err_pack, "dilated_branch_fwd": err_out, "unpack_phases": err_unpack}
             per_layer = {"pack_phases": 3, "dilated_branch_fwd": 1, "unpack_phases": 1}  # q, k, v packs
@@ -306,10 +362,13 @@ def phase_kernels():
                 tot["bound_ms"] += n * bounds[name][0]
                 tot["err"] = max(tot["err"], errs[name])
                 tot["by"][bounds[name][1]] = tot["by"].get(bounds[name][1], 0.0) + n * bounds[name][0]
-            totals["dilated_branch_fwd"]["library_ms"] = (totals["dilated_branch_fwd"]["library_ms"] or 0.0) + lib
+            for name, ms in (("dilated_branch_fwd", lib), ("pack_phases", 3 * lib_pack),
+                             ("unpack_phases", lib_unpack)):
+                totals[name]["library_ms"] = (totals[name]["library_ms"] or 0.0) + ms
             emit("kernels", dtype=dname, sl=sl, r=r, g=g, S=S, m=m, Mp=Mp, real_len=real_len,
                  max_abs_err={"pack": err_pack, "out": err_out, "lse_covered": err_lse, "unpack": err_unpack},
-                 ms=t, plain_ms=plain, library_ms_sdpa=lib,
+                 ms=t, plain_ms=plain, library_ms_sdpa=lib, library_ms_take=lib_pack,
+                 library_ms_index_copy=lib_unpack,
                  bound_ms={n: b[0] for n, b in bounds.items()}, bound_by={n: b[1] for n, b in bounds.items()})
             del q6, k6, v6, out6, lse5, out_ref, lse_ref, dense, qs, ks, vs
         for tot in totals.values():
@@ -320,6 +379,31 @@ def phase_kernels():
              kernels=totals)
     _many_cells(dk)
     return summary
+
+
+def _copy_yardsticks(dk, x, out6, packed, dense, g, S, r, Mp):
+    """CUDA-event ms of one PyTorch indexing call computing the same copy
+    as the pack kernel (``torch.take`` with a precomputed index into the
+    dense input with one zero appended, for the pad slots) and of the
+    unpack's inverse scatter (``index_copy_`` of the packed elements into
+    zeros, pad slots to one spare element). Both are checked exact."""
+    import torch
+
+    B, L, E = x.shape
+    n = B * L * E
+    # element i + 1 of the dense input at its packed slots, 0 at the pads
+    slot = dk.pack_phases_reference(
+        torch.arange(1, n + 1, dtype=torch.float64, device=x.device).reshape(B, L, E), g, S, r, Mp, H
+    ).reshape(-1).to(torch.int64)
+    src = torch.where(slot > 0, slot - 1, n)
+    x_pad = torch.cat([x.reshape(-1), x.new_zeros(1)])
+    check(torch.equal(torch.take(x_pad, src).reshape(packed.shape), packed), "take yardstick != pack")
+    flat6 = out6.reshape(-1)
+    check(torch.equal(torch.zeros(n + 1, dtype=out6.dtype, device=x.device).index_copy_(0, src, flat6)[:n]
+                      .reshape(B, L, E), dense), "index_copy yardstick != unpack")
+    lib_pack = time_ms(lambda: torch.take(x_pad, src))
+    lib_unpack = time_ms(lambda: torch.zeros(n + 1, dtype=out6.dtype, device=x.device).index_copy_(0, src, flat6))
+    return lib_pack, lib_unpack
 
 
 def _many_cells(dk):
@@ -765,6 +849,341 @@ def phase_finetune_step():
     return launches, timing
 
 
+# ---------------------------------------------------------------------------
+# the quantized tile kernels, the tile encoder and the two-stage pipeline
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def plain_tile_kernels():
+    """Run the quantized tile tier with the kernels' plain PyTorch versions
+    on CUDA tensors (the port's plain path on the card)."""
+    from gigapath_tpu_torch.models import tile_encoder as te
+    from gigapath_tpu_torch.quant import qflash, qmatmul
+
+    saved = qmatmul.q_matmul, te.q_flash_attention
+    qmatmul.q_matmul = qmatmul.q_matmul_reference
+    te.q_flash_attention = qflash.q_flash_attention_reference
+    try:
+        yield
+    finally:
+        qmatmul.q_matmul, te.q_flash_attention = saved
+
+
+def reset_all_launch_counts():
+    from gigapath_tpu_torch.ops import dilated_kernels as dk
+    from gigapath_tpu_torch.quant import qflash, qmatmul
+
+    for mod in (dk, qmatmul, qflash):
+        mod.reset_launch_counts()
+
+
+def all_launch_counts() -> dict:
+    from gigapath_tpu_torch.ops import dilated_kernels as dk
+    from gigapath_tpu_torch.quant import qflash, qmatmul
+
+    return {**dk.LAUNCHES, **qmatmul.LAUNCHES, **qflash.LAUNCHES}
+
+
+def _q_matmul_check(qm, qt_mod, x, N, mode, gen, timed: bool):
+    """q_matmul vs its plain version on x [M, K] bf16 and a random [N, K]
+    weight quantized to ``mode``; returns errors, and times when asked."""
+    import torch
+
+    M, K = x.shape
+    w = torch.randn(N, K, device="cuda", generator=gen) * K**-0.5
+    qt = qt_mod.quantize_per_channel(w, mode, axis=0)
+    y = qm.q_matmul(x, qt)
+    ref = qm.q_matmul_reference(x, qt)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(y).all()) and y.shape == (M, N), f"q_matmul {mode} {M}x{K}x{N}: bad output")
+    err = max_err(y, ref)
+    rel = err / max(float(ref.abs().max()), 1e-30)
+    check(rel <= Q_MATMUL_REL_TOL, f"q_matmul {mode} {M}x{K}x{N}: rel err {rel} > {Q_MATMUL_REL_TOL}")
+    out = {"M": M, "K": K, "N": N, "mode": mode, "max_abs_err": err, "max_rel_err": rel}
+    if timed:
+        # library yardstick: one cuBLAS bf16 product with the weight's
+        # int8 / e4m3 values in bf16 (exact), the scale left out
+        w_bf16 = qt.data.to(torch.bfloat16).t()
+        flops = 2.0 * M * N * K
+        nbytes = M * K * 2 + N * K * 1 + N * 4 + M * N * 4
+        out.update(
+            ms=time_ms(lambda: qm.q_matmul(x, qt)),
+            plain_ms=time_ms(lambda: qm.q_matmul_reference(x, qt), reps=5),
+            library_ms=time_ms(lambda: torch.matmul(x, w_bf16)),
+            bound_ms=max(flops / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_PER_S) * 1e3,
+            bound_by="operations" if flops / PEAK_FLOPS["bfloat16"] > nbytes / HBM_BYTES_PER_S else "bytes",
+        )
+        out["tflops"] = flops / (out["ms"] * 1e-3) / 1e12
+    return out
+
+
+def _q_flash_case(qf, qt_mod, B, L, dtype, gen, timed: bool):
+    """q_flash_attention vs its plain version on strided q/k/v views of one
+    packed [B, L, 3, H, D] qkv, as the tile encoder hands them over."""
+    import torch
+    import torch.nn.functional as F
+
+    D = TILE_E // TILE_H
+    qkv = torch.randn(B, L, 3, TILE_H, D, device="cuda", generator=gen).to(dtype)
+    q, k, v = qkv.unbind(2)
+    out, lse = qf.q_flash_attention(q, k, v)
+    ref, lse_ref = qf.q_flash_attention_reference(q, k, v)
+    torch.cuda.synchronize()
+    dname = str(dtype).replace("torch.", "")
+    check(bool(torch.isfinite(out).all()) and out.shape == (B, L, TILE_H, D), f"q_flash {dname} L={L}: bad out")
+    torch.testing.assert_close(out, ref, **Q_FLASH_TOL[dname])
+    torch.testing.assert_close(lse, lse_ref, **Q_FLASH_LSE_TOL)
+    res = {"B": B, "L": L, "H": TILE_H, "D": D, "dtype": dname,
+           "max_abs_err": {"out": max_err(out, ref), "lse": max_err(lse, lse_ref)}}
+    if timed:
+        qq = qt_mod.quantize_dynamic(q.transpose(1, 2))
+        kq = qt_mod.quantize_dynamic(k.transpose(1, 2))
+        combined = (qq.scale * kq.scale * (D**-0.5 * qf.LOG2E)).reshape(B * TILE_H).contiguous()
+        vh = v.transpose(1, 2)
+        out_k = torch.empty((B, L, TILE_H, D), dtype=dtype, device="cuda")
+        lse_k = torch.empty((B, TILE_H, L), dtype=torch.float32, device="cuda")
+        # library: SDPA on the bf16 Q (the int8 data times sq*sk, folded)
+        # and K (the int8 data, exact in bf16), the same function
+        q_lib = (qq.data.float() * (qq.scale * kq.scale)).to(dtype).contiguous()
+        k_lib, v_lib = kq.data.to(dtype).contiguous(), vh.contiguous()
+        nbytes = 2 * B * TILE_H * L * D + 2 * B * TILE_H * L * D * qkv.element_size() + 4 * B * TILE_H * L
+        flops = 4.0 * B * TILE_H * L * L * D
+        res.update(
+            ms=time_ms(lambda: qf.q_flash_kernel(qq.data, kq.data, vh, combined, out_k.transpose(1, 2), lse_k)),
+            wrapper_ms=time_ms(lambda: qf.q_flash_attention(q, k, v)),
+            plain_ms=time_ms(lambda: qf.q_flash_attention_reference(q, k, v), reps=5),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(q_lib, k_lib, v_lib)),
+            bound_ms=max(flops / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_PER_S) * 1e3,
+            bound_by="operations" if flops / PEAK_FLOPS["bfloat16"] > nbytes / HBM_BYTES_PER_S else "bytes",
+        )
+        check(torch.equal(out_k, out), "q_flash_kernel alone != the wrapper's output")
+    return res
+
+
+def phase_q_kernels():
+    """q_matmul (int8 and fp8) at the flagship block's four (K, N) with M =
+    128 tiles x 197 tokens, plus ragged shapes; q_flash_attention at the
+    flagship's B = 128, H = 24, L = 197, D = 64, plus L = 1 and L = 65."""
+    import torch
+
+    from gigapath_tpu_torch.quant import qflash as qf
+    from gigapath_tpu_torch.quant import qmatmul as qm
+    from gigapath_tpu_torch.quant import qtensor as qt_mod
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    M = TILE_BATCH * TILE_L
+    x_full = torch.randn(M, max(k for k, _ in Q_SHAPES.values()), device="cuda", generator=gen).bfloat16()
+    summary = {"q_matmul": dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, err=0.0, by={})}
+    for mode in ("int8", "fp8_e4m3"):
+        for name, (K, N) in Q_SHAPES.items():
+            res = _q_matmul_check(qm, qt_mod, x_full[:, :K].contiguous(), N, mode, gen, timed=True)
+            emit("q_kernels", kernel="q_matmul", matmul=name, tolerance=Q_MATMUL_REL_TOL, **res)
+            if mode == "int8":  # the main path's tier; the block's four matmuls summed
+                tot = summary["q_matmul"]
+                for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+                    tot[key] += res[key]
+                tot["err"] = max(tot["err"], res["max_abs_err"])
+                tot["by"][res["bound_by"]] = tot["by"].get(res["bound_by"], 0.0) + res["bound_ms"]
+        for M_, K, N in ((197, 96, 80), (65, 100, 77), (1, 1536, 4608)):  # ragged and scalar-load paths
+            x = torch.randn(M_, K, device="cuda", generator=gen).bfloat16()
+            emit("q_kernels", kernel="q_matmul", matmul="ragged", tolerance=Q_MATMUL_REL_TOL,
+                 **_q_matmul_check(qm, qt_mod, x, N, mode, gen, timed=False))
+    tot = summary["q_matmul"]
+    tot["bound_by"] = max(tot.pop("by").items(), key=lambda kv: kv[1])[0]
+    del x_full
+
+    flag = _q_flash_case(qf, qt_mod, TILE_BATCH, TILE_L, torch.bfloat16, gen, timed=True)
+    emit("q_kernels", kernel="q_flash_attention", tolerance={"out": Q_FLASH_TOL, "lse": Q_FLASH_LSE_TOL},
+         note="ms: the kernel on quantized inputs; wrapper_ms adds the int8 quantization in torch",
+         **flag)
+    summary["q_flash_attention"] = {
+        "ms": flag["ms"], "plain_ms": flag["plain_ms"], "bound_ms": flag["bound_ms"],
+        "library_ms": flag["library_ms"], "err": flag["max_abs_err"]["out"], "bound_by": flag["bound_by"]}
+    for L, dtype in ((1, torch.bfloat16), (65, torch.bfloat16), (65, torch.float32)):
+        emit("q_kernels", kernel="q_flash_attention", **_q_flash_case(qf, qt_mod, 2, L, dtype, gen, timed=False))
+    return summary
+
+
+def _write_tiles(directory: str, n: int, seed: int):
+    """``n`` synthetic 256 x 256 PNG tiles named ``{x:05d}x_{y:05d}y.png`` on
+    a 16-column grid of 256 px steps; returns their paths."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i in range(n):
+        base = rng.integers(120, 230, size=3)
+        arr = np.clip(base + rng.normal(0, 40, size=(256, 256, 3)), 0, 255).astype(np.uint8)
+        path = os.path.join(directory, f"{256 * (i % 16):05d}x_{256 * (i // 16):05d}y.png")
+        Image.fromarray(arr).save(path)
+        paths.append(path)
+    return paths
+
+
+def _tile_encoder(tier: str):
+    """The flagship tile encoder in ``tier``, bf16 compute, seeded random
+    weights on the card; its LayerScales drawn at O(0.1-1) (at the init
+    value 1e-5 every block would be nearly the identity)."""
+    import torch
+
+    from gigapath_tpu_torch.models.tile_encoder import create_tile_encoder
+
+    model = create_tile_encoder("", "gigapath_tile_enc", quant=tier, dtype=torch.bfloat16,
+                                generator=torch.Generator(device="cuda").manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    with torch.no_grad():
+        for block in model.blocks:
+            for ls in (block.ls1, block.ls2):
+                ls.gamma.uniform_(0.1, 1.0, generator=gen)
+    return model
+
+
+def _profile(fn, top: int = 8) -> dict:
+    """One ``fn()`` under ``torch.profiler``: the device's busy time (the
+    union of the device activities' intervals) against the profiled window
+    (first to last event), its idle share, and the kernels with the most
+    device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    device = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
+                    if e.device_type == DeviceType.CUDA)
+    if not device:
+        return {"device_time": "not measured (the profiler recorded no device activity)"}
+    window_us = max(e.time_range.end for e in events) - min(e.time_range.start for e in events)
+    busy_us, cursor = 0.0, float("-inf")
+    by_name: dict = {}
+    for start, end, name in device:
+        busy_us += max(0.0, end - max(start, cursor))
+        cursor = max(cursor, end)
+        ms, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + (end - start) / 1e3, n + 1)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"window_ms": window_us / 1e3, "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": 1.0 - busy_us / window_us,
+            "top_device_ms": [{"kernel": k[:120], "ms": ms, "calls": n} for k, (ms, n) in ranked]}
+
+
+def _cosines(a, b):
+    import numpy as np
+
+    return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+
+
+def phase_tile_forward(tile_dir: str):
+    """The flagship tile encoder through run_inference_with_tile_encoder on
+    160 PNG tiles in three tiers: bf16 (no kernel), int8+attn (both
+    kernels), fp8_e4m3 (q_matmul only); each against its plain path on the
+    card, with launch counts, ms per 128-tile batch and peak memory."""
+    import numpy as np
+    import torch
+
+    from gigapath_tpu_torch.pipeline import run_inference_with_tile_encoder
+
+    paths = _write_tiles(tile_dir, TILE_COUNT, seed=10)
+    results, timing, launches = {}, {}, {}
+    for tier in ("", "int8+attn", "fp8_e4m3"):
+        name = tier or "bf16"
+        model = _tile_encoder(tier)
+        out = run_inference_with_tile_encoder(paths, model)
+        emb, coords = out["tile_embeds"], out["coords"]
+        check(emb.shape == (TILE_COUNT, TILE_E) and np.isfinite(emb).all(), f"{name}: bad tile embeddings")
+        with plain_tile_kernels():
+            ref = run_inference_with_tile_encoder(paths, model)["tile_embeds"]
+        one_minus_cos = 1.0 - _cosines(emb, ref)
+        worst = float(one_minus_cos.max())
+        check(worst <= TILE_MAX_ONE_MINUS_COS, f"{name}: 1 - cosine vs plain {worst} > {TILE_MAX_ONE_MINUS_COS}")
+
+        # ms per 128-tile batch through the entry (PNG decode and transform
+        # on the host included), and the launch counts of its first run (the
+        # main path)
+        secs = []
+        for run in range(3):
+            torch.cuda.synchronize()
+            reset_all_launch_counts()
+            t0 = time.perf_counter()
+            run_inference_with_tile_encoder(paths[:TILE_BATCH], model)  # ends in a device->host copy
+            secs.append(time.perf_counter() - t0)
+            if run == 0:
+                counts = all_launch_counts()
+        want = dict.fromkeys(counts, 0)
+        want["q_matmul"], want["q_flash_attention"] = TILE_LAUNCHES[tier]
+        check(counts == want, f"{name}: launches of one batch {counts} != {want}")
+        launches[name] = counts
+
+        # the model's forward alone on a batch held on the card (warm: the
+        # runs above compiled nothing new and quantized every weight)
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        x = torch.randn(TILE_BATCH, 224, 224, 3, device="cuda", generator=gen).bfloat16()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            fwd_ms = time_ms(lambda: model(x), reps=3, warmup=0)
+            with plain_tile_kernels():
+                plain_fwd_ms = time_ms(lambda: model(x), reps=1, warmup=0)
+            trace = _profile(lambda: model(x))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ms = statistics.median(secs) * 1e3
+        timing[name] = {"ms_per_batch": ms, "tiles_per_s": TILE_BATCH / (ms / 1e3),
+                        "forward_ms_per_batch": fwd_ms, "forward_tiles_per_s": TILE_BATCH / (fwd_ms / 1e3),
+                        "plain_forward_ms_per_batch": plain_fwd_ms, "peak_mem_gb": peak}
+        results[name] = emb
+        emit("tile_forward", tier=name, tiles=TILE_COUNT, batch=TILE_BATCH, launches_per_batch=counts,
+             vs_plain={"max_one_minus_cos": worst, "mean_one_minus_cos": float(one_minus_cos.mean()),
+                       "max_abs_err": float(np.abs(emb - ref).max())},
+             tolerance=f"1 - cosine per tile <= {TILE_MAX_ONE_MINUS_COS}", runs_ms=[t * 1e3 for t in secs],
+             forward_trace=trace, **timing[name])
+        del model, x
+        torch.cuda.empty_cache()
+        if tier == "int8+attn":
+            stage_two = (emb, coords)
+    emit("tile_tiers", note="mean per-tile cosine of each quantized tier against the bf16 tier "
+                            "(a reading on random weights; the JAX int8 parity bar is 0.999 on its fixture)",
+         mean_cosine_vs_bf16={name: float(_cosines(results[name], results["bf16"]).mean())
+                              for name in ("int8+attn", "fp8_e4m3")})
+    return launches, timing, stage_two
+
+
+def phase_two_stage(tile_embeds, coords):
+    """The int8+attn tile embeddings and their coords through
+    run_inference_with_slide_encoder on the flagship slide encoder (bf16,
+    as load_tile_slide_encoder builds it), against the plain path."""
+    import numpy as np
+    import torch
+
+    from gigapath_tpu_torch.models.slide_encoder import create_model
+    from gigapath_tpu_torch.pipeline import run_inference_with_slide_encoder
+
+    model = create_model("", "gigapath_slide_enc12l768d", dtype=torch.bfloat16, seed=0)
+    reset_all_launch_counts()
+    out = run_inference_with_slide_encoder(tile_embeds, coords, model)
+    counts = all_launch_counts()
+    want = dict.fromkeys(counts, 0)
+    want.update(pack_phases=180, dilated_branch_fwd=60, unpack_phases=60)
+    check(counts == want, f"two-stage slide launches {counts} != {want}")
+    with plain_kernels():
+        ref = run_inference_with_slide_encoder(tile_embeds, coords, model)
+    worst = 0.0
+    for a, b in zip(_embeds(out), _embeds(ref)):
+        check(a.shape == (1, E) and np.isfinite(a).all(), f"two-stage: bad slide embedding {a.shape}")
+        worst = max(worst, float(1.0 - _cosines(a, b).min()))
+    check(worst <= BF16_MAX_ONE_MINUS_COS, f"two-stage 1 - cosine {worst} > {BF16_MAX_ONE_MINUS_COS}")
+    emit("two_stage", tiles=len(tile_embeds), tier="int8+attn", slide_dtype="bfloat16", launches=counts,
+         max_one_minus_cos_vs_plain=worst, tolerance=BF16_MAX_ONE_MINUS_COS,
+         last_layer_norm=float(np.linalg.norm(out["last_layer_embed"])))
+    del model
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print("chip_smoke: takes no arguments", file=sys.stderr)
@@ -786,6 +1205,11 @@ def main() -> int:
     summary.update(phase_bwd_kernels()["bfloat16"])
     phase_head_widths()
     launches, _ = phase_finetune_step()
+    summary.update(phase_q_kernels())
+    with tempfile.TemporaryDirectory() as tile_dir:
+        tile_launches, _, (tile_embeds, coords) = phase_tile_forward(tile_dir)
+    launches.update({name: tile_launches["int8+attn"][name] for name in ("q_matmul", "q_flash_attention")})
+    phase_two_stage(tile_embeds, coords)
     print(json.dumps({"kernels": [
         {"name": name, **meta, "launches": launches[name],
          "max_abs_err": summary[name]["err"], "ms": summary[name]["ms"],

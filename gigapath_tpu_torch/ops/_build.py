@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface, loaded through ``ctypes``; a source that takes
-compile-time constants (the branch kernels' head width) builds one library
-per set of ``-D`` defines. The libraries go to ``build/kernels/`` at the
-root of the checkout (``.gitignore`` lists ``build/``), or to
+compile-time constants (the head width of the branch kernels and of the
+quantized attention) builds one library per set of ``-D`` defines. The
+libraries go to ``build/kernels/`` at the root of the checkout
+(``.gitignore`` lists ``build/``), or to
 ``$XDG_CACHE_HOME/gigapath_tpu_torch/kernels`` (``~/.cache/...``) for an
 installed package, named by a hash of the source, the shared
 ``csrc/*.cuh`` headers, the defines and the flags, so an edited source or
@@ -49,12 +50,19 @@ FLAGSHIP = (
     ("dilated_branch_bwd_dq", (("GP_HEAD_DIM", 48),)),
     ("dilated_branch_bwd_dkv", (("GP_HEAD_DIM", 48),)),
 )
+# the libraries the flagship tile encoder's quantized tier (head width 64)
+# runs
+TILE_FLAGSHIP = (
+    ("q_matmul", ()),
+    ("q_flash_attention", (("GP_HEAD_DIM", 64),)),
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LLP = ctypes.POINTER(ctypes.c_longlong)
 # C signature of each library's one entry point: (symbol, argtypes)
 _SIGNATURES = {
     "pack_phases": ("gp_pack_phases", [_P, _P] + [_I] * 10 + [_P]),
@@ -68,6 +76,8 @@ _SIGNATURES = {
     "dilated_branch_bwd_dkv": (
         "gp_dilated_branch_bwd_dkv", [_P] * 9 + [_I] * 6 + [_F, _F, _P],
     ),
+    "q_matmul": ("gp_q_matmul", [_P] * 4 + [_I] * 5 + [_P]),
+    "q_flash_attention": ("gp_q_flash_attention", [_P] * 6 + [_I] * 6 + [_LLP, _P]),
 }
 
 _lock = threading.Lock()

@@ -38,7 +38,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from gigapath_tpu_torch.ops.common import round_up
+from gigapath_tpu_torch.ops.common import check_cuda, cuda_stream, raise_on, round_up
 
 NEG_INF = -1e30  # lse of a (token, head) pair the branch does not cover
 M_FLOOR = -1e20  # running-max floor: masked keys underflow to exactly 0
@@ -230,24 +230,6 @@ def dilated_branch_bwd_reference(
 # ---------------------------------------------------------------------------
 
 
-def _check_cuda(name: str, t: torch.Tensor, dtypes=(torch.float32, torch.bfloat16)) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: expected a CUDA tensor, got one on {t.device}")
-    if t.dtype not in dtypes:
-        raise ValueError(f"{name}: dtype {t.dtype} not in {dtypes}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: tensor must be contiguous")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _raise_on(rc: int, kernel: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{kernel}: CUDA launch failed with cudaError {rc}")
-
-
 def pack_phases(
     x: torch.Tensor, g: int, S: int, r: int, Mp: int, num_heads: int
 ) -> torch.Tensor:
@@ -256,16 +238,16 @@ def pack_phases(
         return pack_phases_reference(x, g, S, r, Mp, num_heads)
     from gigapath_tpu_torch.ops import _build
 
-    _check_cuda("pack_phases", x)
+    check_cuda("pack_phases", x)
     B, L, E = x.shape
     hb, Dh = num_heads // r, E // num_heads
     out = torch.empty((B, S, r, hb, Mp, Dh), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         rc = _build.library("pack_phases").gp_pack_phases(
             x.data_ptr(), out.data_ptr(), x.element_size(),
-            B, L, E, g, S, r, hb, Dh, Mp, _stream(x),
+            B, L, E, g, S, r, hb, Dh, Mp, cuda_stream(x),
         )
-    _raise_on(rc, "pack_phases")
+    raise_on(rc, "pack_phases")
     LAUNCHES["pack_phases"] += 1
     return out
 
@@ -277,7 +259,7 @@ def unpack_phases(p6: torch.Tensor, L: int, E: int, g: int, S: int, r: int) -> t
         return unpack_phases_reference(p6, L, E, g, S, r)
     from gigapath_tpu_torch.ops import _build
 
-    _check_cuda("unpack_phases", p6)
+    check_cuda("unpack_phases", p6)
     B, S_, r_, hb, Mp, Dh = p6.shape
     if (S_, r_, r_ * hb * Dh) != (S, r, E):
         raise ValueError(f"unpack_phases: packed shape {tuple(p6.shape)} does not fit S={S}, r={r}, E={E}")
@@ -285,9 +267,9 @@ def unpack_phases(p6: torch.Tensor, L: int, E: int, g: int, S: int, r: int) -> t
     with torch.cuda.device(p6.device):
         rc = _build.library("unpack_phases").gp_unpack_phases(
             p6.data_ptr(), out.data_ptr(), p6.element_size(),
-            B, L, E, g, S, r, hb, Dh, Mp, _stream(p6),
+            B, L, E, g, S, r, hb, Dh, Mp, cuda_stream(p6),
         )
-    _raise_on(rc, "unpack_phases")
+    raise_on(rc, "unpack_phases")
     LAUNCHES["unpack_phases"] += 1
     return out
 
@@ -303,10 +285,10 @@ def dilated_branch_fwd(
     from gigapath_tpu_torch.ops import _build
 
     for name, t in (("q6", q6), ("k6", k6), ("v6", v6)):
-        _check_cuda(f"dilated_branch_fwd {name}", t)
+        check_cuda(f"dilated_branch_fwd {name}", t)
         if t.shape != q6.shape or t.dtype != q6.dtype or t.device != q6.device:
             raise ValueError("dilated_branch_fwd: q6, k6, v6 must share shape, dtype and device")
-    _check_cuda("dilated_branch_fwd kvlen", kvlen, (torch.int32,))
+    check_cuda("dilated_branch_fwd kvlen", kvlen, (torch.int32,))
     B, S, r, hb, Mp, Dh = q6.shape
     if tuple(kvlen.shape) != (B, S, r) or kvlen.device != q6.device:
         raise ValueError(f"dilated_branch_fwd: kvlen must be [B, S, r] = {(B, S, r)} on {q6.device}")
@@ -323,24 +305,24 @@ def dilated_branch_fwd(
             q6.data_ptr(), k6.data_ptr(), v6.data_ptr(), kvlen.data_ptr(),
             out.data_ptr(), lse.data_ptr(), int(q6.dtype == torch.bfloat16),
             B * S * r * hb, hb, Mp, Dh, int(is_causal), Dh**-0.5 * LOG2E,
-            _stream(q6),
+            cuda_stream(q6),
         )
-    _raise_on(rc, "dilated_branch_fwd")
+    raise_on(rc, "dilated_branch_fwd")
     LAUNCHES["dilated_branch_fwd"] += 1
     return out, lse
 
 
 def _check_bwd_inputs(name: str, q6, k6, v6, do6, lse5, delta, kvlen) -> None:
     for arg, t in (("q6", q6), ("k6", k6), ("v6", v6), ("do6", do6)):
-        _check_cuda(f"{name} {arg}", t)
+        check_cuda(f"{name} {arg}", t)
         if t.shape != q6.shape or t.dtype != q6.dtype or t.device != q6.device:
             raise ValueError(f"{name}: q6, k6, v6, do6 must share shape, dtype and device")
     B, S, r, hb, Mp, Dh = q6.shape
     for arg, t in (("lse5", lse5), ("delta", delta)):
-        _check_cuda(f"{name} {arg}", t, (torch.float32,))
+        check_cuda(f"{name} {arg}", t, (torch.float32,))
         if tuple(t.shape) != (B, S, r, hb, Mp) or t.device != q6.device:
             raise ValueError(f"{name}: {arg} must be [B, S, r, hb, Mp] = {(B, S, r, hb, Mp)} on {q6.device}")
-    _check_cuda(f"{name} kvlen", kvlen, (torch.int32,))
+    check_cuda(f"{name} kvlen", kvlen, (torch.int32,))
     if tuple(kvlen.shape) != (B, S, r) or kvlen.device != q6.device:
         raise ValueError(f"{name}: kvlen must be [B, S, r] = {(B, S, r)} on {q6.device}")
     blocks = B * S * r * hb * (Mp // ROW_TILE)
@@ -369,9 +351,9 @@ def dilated_branch_bwd_dq(
             q6.data_ptr(), k6.data_ptr(), v6.data_ptr(), do6.data_ptr(), lse5.data_ptr(),
             delta.data_ptr(), kvlen.data_ptr(), dq6.data_ptr(), int(q6.dtype == torch.bfloat16),
             B * S * r * hb, hb, Mp, Dh, int(is_causal), Dh**-0.5 * LOG2E, Dh**-0.5,
-            _stream(q6),
+            cuda_stream(q6),
         )
-    _raise_on(rc, "dilated_branch_bwd_dq")
+    raise_on(rc, "dilated_branch_bwd_dq")
     LAUNCHES["dilated_branch_bwd_dq"] += 1
     return dq6
 
@@ -395,9 +377,9 @@ def dilated_branch_bwd_dkv(
             q6.data_ptr(), k6.data_ptr(), v6.data_ptr(), do6.data_ptr(), lse5.data_ptr(),
             delta.data_ptr(), kvlen.data_ptr(), dk6.data_ptr(), dv6.data_ptr(),
             int(q6.dtype == torch.bfloat16), B * S * r * hb, hb, Mp, Dh, int(is_causal),
-            Dh**-0.5 * LOG2E, Dh**-0.5, _stream(q6),
+            Dh**-0.5 * LOG2E, Dh**-0.5, cuda_stream(q6),
         )
-    _raise_on(rc, "dilated_branch_bwd_dkv")
+    raise_on(rc, "dilated_branch_bwd_dkv")
     LAUNCHES["dilated_branch_bwd_dkv"] += 1
     return dk6, dv6
 

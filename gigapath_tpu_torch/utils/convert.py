@@ -5,8 +5,11 @@
   (nested dicts of numpy arrays) into the port's ``state_dict``: the inverse
   of the JAX package's ``convert_torch_entry``. Dense ``kernel`` [in, out]
   becomes ``weight`` [out, in], a 4-D conv kernel goes from HWIO back to
-  OIHW, a norm ``scale`` becomes ``weight``, and flax's ``layers_N``
-  becomes ``layers.N``.
+  OIHW, a norm ``scale`` becomes ``weight``, and flax's ``layers_N`` and
+  ``blocks_N`` become ``layers.N`` and ``blocks.N``.
+- :func:`flax_params_from_state_dict` is its inverse, for the tile
+  encoder's and the slide encoder's names: it gives the flax-path tree the
+  quantized artifact (:mod:`gigapath_tpu_torch.quant.convert`) stores.
 """
 
 from __future__ import annotations
@@ -42,12 +45,12 @@ def _flatten(tree: Mapping[str, Any], prefix=()):
 def state_dict_from_flax_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX-package param tree -> the port's ``state_dict`` (fp32 CPU tensors).
 
-    Takes a slide encoder's tree or a ``ClassificationHead``'s, whose
-    ``slide_encoder`` and ``classifier`` subtrees become the key prefixes
-    of the same names."""
+    Takes a tile encoder's tree, a slide encoder's or a
+    ``ClassificationHead``'s, whose ``slide_encoder`` and ``classifier``
+    subtrees become the key prefixes of the same names."""
     out = {}
     for path, value in _flatten(params):
-        arr = np.asarray(value, dtype=np.float32)
+        arr = np.array(value, dtype=np.float32)  # a writable copy
         parts = list(path)
         leaf = parts[-1]
         if leaf == "kernel":
@@ -55,6 +58,28 @@ def state_dict_from_flax_params(params: Mapping[str, Any]) -> Dict[str, torch.Te
             arr = arr.T if arr.ndim == 2 else arr.transpose(3, 2, 0, 1)
         elif leaf == "scale":
             parts[-1] = "weight"
-        key = re.sub(r"\blayers_(\d+)\b", r"layers.\1", ".".join(parts))
+        key = re.sub(r"\b(layers|blocks)_(\d+)\b", r"\1.\2", ".".join(parts))
         out[key] = torch.from_numpy(np.ascontiguousarray(arr))
     return out
+
+
+def flax_params_from_state_dict(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The port's ``state_dict`` -> a nested flax-path tree of fp32 numpy
+    arrays, the inverse of :func:`state_dict_from_flax_params`: a 2-D
+    ``weight`` becomes a transposed ``kernel``, a 4-D one an HWIO
+    ``kernel``, a 1-D one (a LayerNorm's) ``scale``."""
+    tree: Dict[str, Any] = {}
+    for key, value in state.items():
+        arr = value.detach().cpu().float().numpy()
+        parts = re.sub(r"\b(layers|blocks)\.(\d+)\b", r"\1_\2", key).split(".")
+        if parts[-1] == "weight":
+            parts[-1] = "scale" if arr.ndim == 1 else "kernel"
+            if arr.ndim == 2:
+                arr = arr.T
+            elif arr.ndim == 4:
+                arr = arr.transpose(2, 3, 1, 0)
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = np.ascontiguousarray(arr)
+    return tree

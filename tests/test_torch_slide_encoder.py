@@ -180,6 +180,9 @@ def test_port_imports_nothing_of_jax():
         "need |= {'gigapath_tpu_torch.data.' + m for m in ('collate', 'loader', 'splits', 'slide_dataset')}\n"
         "need |= {'gigapath_tpu_torch.models.classification_head', 'gigapath_tpu_torch.utils.checkpoint',"
         " 'gigapath_tpu_torch.finetune.task_configs.utils'}\n"
+        "need |= {'gigapath_tpu_torch.quant.' + m for m in ('qtensor', 'qmatmul', 'qflash', 'convert')}\n"
+        "need |= {'gigapath_tpu_torch.models.tile_encoder', 'gigapath_tpu_torch.data.transforms',"
+        " 'gigapath_tpu_torch.data.tile_dataset', 'gigapath_tpu_torch.pipeline'}\n"
         "assert need <= set(names), sorted(need - set(names))\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n"
