@@ -60,10 +60,40 @@ stdout:
 11. two_stage: the 160 ``int8+attn`` tile embeddings and their coords
     through ``run_inference_with_slide_encoder`` on the flagship slide
     encoder (bf16), against the plain path.
+12. stream_kernels: the streaming chunk-pair kernels (forward, dq, dkv)
+    against their plain versions at flagship chunk pairs (2048-row blocks
+    at the token offsets of a 10240-tile slide, H = 16, Dh = 48) for each
+    of the 5 branch geometries (g = 1024, 5792 and three clamped to L =
+    10241), fp32 and bf16: pairs across segment boundaries, the 1-row cls
+    block as queries and as keys, a ragged valid bound, a pair whose rows
+    are all masked (out and gradients exactly 0), a nonzero lse cotangent;
+    the kernels' device times (``torch.profiler``; a small pair's CUDA-event
+    time is the wrapper's host work) beside the bound, the plain version
+    and one SDPA call with the boolean mask (and its backward); ptxas'
+    registers and spills.
+13. stream_forward: ``create_streaming_session`` and
+    ``run_inference_with_slide_encoder_streaming`` on one 10240-tile slide
+    (chunks of 2048): fp32 against the dense kernel path (two independent
+    kernel paths), bf16 against the streaming plain path; the launches of
+    one forward (exactly the session's 1776 folds of ``stream_pair_fwd``,
+    no other kernel); out-of-order delivery with duplicates and an
+    export/restore halfway, both bit-exact; ``peek()`` after every chunk;
+    ms per slide, tiles/s and peak memory beside the dense entry's, and a
+    profiler breakdown of one bf16 forward. Then the gradients of one
+    layer's streaming attention (``streaming_dilated_attention``) against
+    the dense kernel path's, with the backward kernels' launches.
+14. stream_serve: ``StreamingSubmitter.stream_slide`` answers 3 requests
+    (10240, 4097 and 2048 tiles, chunks in reverse order), each against the
+    dense entry; ``head_streaming_submitter`` and ``streaming_head_logits``
+    on a flagship ``ClassificationHead`` (4097 tiles) against its dense
+    logits.
 
 Then a ``{"kernels": [...]}`` line (the launches of the dilated kernels
 are those of one training step, of the quantized ones those of one
-``int8+attn`` 128-tile batch), the ``nvidia-smi`` name/power line, and
+``int8+attn`` 128-tile batch, of ``stream_pair_fwd`` those of one
+streaming forward, of the stream backward kernels those of the backward
+through one layer's streaming attention), the ``nvidia-smi`` name/power
+line, and
 the last line ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero before those lines. Exits non-zero, printing no result, when
 no CUDA device is present.
@@ -126,6 +156,18 @@ KERNELS = {
         replaces="gigapath_tpu/quant/qflash.py:95 (_qflash_kernel, via q_flash_attention_pallas:135, "
                  "pallas_call :163)",
     ),
+    "stream_pair_fwd": dict(
+        route="cuda", source="gigapath_tpu_torch/csrc/stream_pair_fwd.cu",
+        replaces="gigapath_tpu/ops/pallas_streaming.py:125 (_fwd_kernel, via _fwd_impl:306, pallas_call :326)",
+    ),
+    "stream_pair_bwd_dq": dict(
+        route="cuda", source="gigapath_tpu_torch/csrc/stream_pair_bwd_dq.cu",
+        replaces="gigapath_tpu/ops/pallas_streaming.py:195 (_dq_kernel, via _bwd_impl:349, pallas_call :380)",
+    ),
+    "stream_pair_bwd_dkv": dict(
+        route="cuda", source="gigapath_tpu_torch/csrc/stream_pair_bwd_dkv.cu",
+        replaces="gigapath_tpu/ops/pallas_streaming.py:242 (_dkv_kernel, via _bwd_impl:349, pallas_call :403)",
+    ),
 }
 FWD_KERNELS = ("pack_phases", "dilated_branch_fwd", "unpack_phases")
 BWD_KERNELS = ("dilated_branch_bwd_dq", "dilated_branch_bwd_dkv")
@@ -170,6 +212,32 @@ Q_FLASH_LSE_TOL = dict(atol=1e-5, rtol=1e-5)
 # round differently; 0 for fp8_e4m3 and bf16)
 TILE_MAX_ONE_MINUS_COS = 1.5e-3
 TILE_LAUNCHES = {"": (0, 0), "int8+attn": (160, 40), "fp8_e4m3": (160, 0)}  # per 128-tile batch
+# the streaming chunked prefill of the flagship slide: 10240 tiles in
+# chunks of 2048 behind the cls token, so token blocks (0, 1), (1, 2049),
+# ... (8193, 10241); the branches' segments clamp to L = 10241
+STREAM_CHUNK = 2048
+STREAM_BLOCKS = [(0, 1)] + [(1 + i * STREAM_CHUNK, 1 + (i + 1) * STREAM_CHUNK) for i in range(5)]
+STREAM_L = STREAM_BLOCKS[-1][1]
+STREAM_FOLDS = 1776  # 148 folds per layer (fold_plan at these bounds) x 12 layers
+# chunk pairs (g, r, query block, key block, valid bound): per branch one
+# timed pair (the first of each (g, r)) and the edge cases
+STREAM_CASES = [
+    (1024, 1, 1, 1, STREAM_L, "segment boundaries inside the block"),
+    (1024, 1, 1, 3, STREAM_L, "disjoint segments: every row masked"),
+    (5792, 2, 3, 3, STREAM_L, "across the 5792 boundary"),
+    (5792, 2, 0, 1, STREAM_L, "the 1-row cls block as queries"),
+    (STREAM_L, 4, 2, 4, STREAM_L, "one clamped segment"),
+    (STREAM_L, 8, 5, 5, STREAM_L - 37, "a ragged valid bound"),
+    (STREAM_L, 16, 4, 5, STREAM_L, "one clamped segment"),
+    (STREAM_L, 16, 5, 0, STREAM_L, "the 1-row cls block as keys"),
+]
+STREAM_KERNELS = ("stream_pair_fwd", "stream_pair_bwd_dq", "stream_pair_bwd_dkv")
+STREAM_REQUESTS = (N_TILES, 4097, 2048)  # tiles of the three served slides; the head takes the second
+# a stream kernel vs its plain version on the card: out as the branch
+# kernels (the plain version rounds its probabilities to bf16 before PV,
+# the kernel keeps them fp32), lse on covered rows, gradients as
+# BWD_REL_TOL
+STREAM_LSE_TOL = {"float32": dict(atol=1e-4, rtol=1e-5), "bfloat16": dict(atol=1e-3, rtol=1e-5)}
 PANDA = {"name": "panda", "setting": "multi_class", "label_dict": {i: i for i in range(6)},
          "max_tiles": 1000000, "shuffle_tiles": True, "add_metrics": ["qwk"]}  # panda.yaml
 
@@ -200,6 +268,28 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, kernel: str, reps: int = 10) -> float:
+    """Median device time (ms) of the CUDA kernel whose name contains
+    ``kernel`` over ``reps`` calls of ``fn``, from ``torch.profiler``'s
+    device activity (which may miss a launch or two of a window). Unlike
+    :func:`time_ms` it leaves out the wrapper's host work, which is most of
+    one call's time on a small chunk pair."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    durations = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and kernel in e.name]
+    check(reps // 2 <= len(durations) <= reps, f"the profiler saw {len(durations)} launches of {kernel} in {reps}")
+    return statistics.median(durations) / 1e3
 
 
 @contextlib.contextmanager
@@ -245,12 +335,12 @@ def phase_device():
 
 
 def phase_build():
-    """Every library at once: the flagship slide encoder's, the flagship
-    tile encoder's, and the branch kernels at the registry's other head
-    widths."""
+    """Every library at once: the flagship slide encoder's (dense and
+    streaming), the flagship tile encoder's, and the branch kernels at the
+    registry's other head widths."""
     from gigapath_tpu_torch.ops import _build
 
-    specs = _build.FLAGSHIP + _build.TILE_FLAGSHIP + tuple(
+    specs = _build.FLAGSHIP + _build.TILE_FLAGSHIP + _build.STREAM_FLAGSHIP + tuple(
         (name, (("GP_HEAD_DIM", dh),)) for dh in OTHER_HEAD_DIMS for name in BRANCH_SOURCES
     )
     t0 = time.perf_counter()
@@ -872,17 +962,19 @@ def plain_tile_kernels():
 
 def reset_all_launch_counts():
     from gigapath_tpu_torch.ops import dilated_kernels as dk
+    from gigapath_tpu_torch.ops import streaming_kernels as sk
     from gigapath_tpu_torch.quant import qflash, qmatmul
 
-    for mod in (dk, qmatmul, qflash):
+    for mod in (dk, qmatmul, qflash, sk):
         mod.reset_launch_counts()
 
 
 def all_launch_counts() -> dict:
     from gigapath_tpu_torch.ops import dilated_kernels as dk
+    from gigapath_tpu_torch.ops import streaming_kernels as sk
     from gigapath_tpu_torch.quant import qflash, qmatmul
 
-    return {**dk.LAUNCHES, **qmatmul.LAUNCHES, **qflash.LAUNCHES}
+    return {**dk.LAUNCHES, **qmatmul.LAUNCHES, **qflash.LAUNCHES, **sk.LAUNCHES}
 
 
 def _q_matmul_check(qm, qt_mod, x, N, mode, gen, timed: bool):
@@ -1184,6 +1276,436 @@ def phase_two_stage(tile_embeds, coords):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# streaming chunked prefill: the chunk-pair kernels, the streaming forward
+# and the streaming serve path
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def plain_stream_kernels():
+    """Run the chunk-pair op with the kernels' plain PyTorch versions on
+    CUDA tensors (the streaming plain path on the card)."""
+    from gigapath_tpu_torch.ops import streaming_kernels as sk
+
+    saved = sk.stream_pair_fwd, sk.stream_pair_bwd_dq, sk.stream_pair_bwd_dkv
+    sk.stream_pair_fwd = sk.stream_pair_fwd_reference
+    sk.stream_pair_bwd_dq = lambda *a: sk.stream_pair_bwd_reference(*a, dkv=False)[0]
+    sk.stream_pair_bwd_dkv = lambda *a: sk.stream_pair_bwd_reference(*a, dq=False)[1:]
+    try:
+        yield
+    finally:
+        sk.stream_pair_fwd, sk.stream_pair_bwd_dq, sk.stream_pair_bwd_dkv = saved
+
+
+def _ptxas(label: str) -> dict:
+    """Most registers and spill-store bytes ptxas reported for a library
+    this process built (over its fp32 and bf16 instantiations)."""
+    import re
+
+    from gigapath_tpu_torch.ops import _build
+
+    log = _build.build_log.get(label, "")
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
+    return {"registers": max(regs, default=None), "spill_store_bytes": _spill_bytes(label)}
+
+
+def _stream_bounds(pairs: int, cq: int, ck: int, itemsize: int, dtype_name: str) -> dict:
+    """Least card time (ms) of each stream kernel's work on one pair: the
+    (query, key) pairs the masks admit times 4, 6 or 8 Dh operations over
+    the dtype's peak, or each input read once and each output written once
+    over the HBM rate, whichever is larger."""
+    D = E // H
+    vec = cq * H * 4  # one fp32 [B, H, cq] vector
+    rows, keys = cq * H * D * itemsize, ck * H * D * itemsize
+    work = {
+        "stream_pair_fwd": (4, 2 * rows + 2 * keys + vec),  # q, k, v in; out, lse out
+        "stream_pair_bwd_dq": (6, 3 * rows + 2 * keys + 2 * vec),  # q, dout, k, v, lse, delta in; dq out
+        "stream_pair_bwd_dkv": (8, 2 * rows + 4 * keys + 2 * vec),  # q, dout, k, v, lse, delta in; dk, dv out
+    }
+    out = {}
+    for name, (per_pair, nbytes) in work.items():
+        out[name] = max((per_pair * D * pairs / PEAK_FLOPS[dtype_name] * 1e3, "operations"),
+                        (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+    return out
+
+
+def phase_stream_kernels():
+    """The three chunk-pair kernels against their plain versions at the
+    flagship's chunk pairs (STREAM_CASES), fp32 and bf16, on strided q, k, v
+    (views of packed [B, c, 3, H, Dh] blocks); times of each branch's first
+    pair."""
+    import torch
+    import torch.nn.functional as F
+
+    from gigapath_tpu_torch.ops import streaming_kernels as sk
+
+    D = E // H
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    summary = {name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, err=0.0, by={})
+               for name in STREAM_KERNELS}
+    timed_branches = set()
+    for g, r, qi, ki, valid, note in STREAM_CASES:
+        (q0, q1), (k0, k1) = STREAM_BLOCKS[qi], STREAM_BLOCKS[ki]
+        cq, ck = q1 - q0, k1 - k0
+        timed = (g, r) not in timed_branches
+        timed_branches.add((g, r))
+        mask = sk.pair_mask(q0, cq, k0, ck, g, r, valid, H, "cuda")
+        pairs = int(mask.sum())
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).replace("torch.", "")
+            q = torch.randn(1, cq, 3, H, D, device="cuda", generator=gen).to(dtype)[:, :, 0]
+            kv = torch.randn(1, ck, 3, H, D, device="cuda", generator=gen).to(dtype)
+            k, v = kv[:, :, 1], kv[:, :, 2]
+            do = torch.randn(1, cq, H, D, device="cuda", generator=gen).to(dtype)
+            dlse = torch.randn(1, H, cq, device="cuda", generator=gen)
+            geo = (q0, k0, g, r, valid)
+            out, lse = sk.stream_pair_fwd(q, k, v, *geo)
+            out_ref, lse_ref = sk.stream_pair_fwd_reference(q, k, v, *geo)
+            torch.cuda.synchronize()
+            covered = lse_ref > -5e7
+            check(bool(torch.equal(lse > -1e7, covered)), f"stream fwd {dname} g={g} r={r}: covered rows differ")
+            check(bool((lse[~covered] <= -1e19).all()), f"stream fwd g={g} r={r}: masked-row lse above -1e19")
+            check(bool(torch.isfinite(out).all()), f"stream fwd {dname} g={g} r={r}: non-finite out")
+            check(not bool(out.transpose(1, 2)[~covered].any()), f"stream fwd g={g} r={r}: masked rows not 0")
+            torch.testing.assert_close(out, out_ref, **KERNEL_TOL[dname])
+            torch.testing.assert_close(lse[covered], lse_ref[covered], **STREAM_LSE_TOL[dname])
+            errs = {"out": max_err(out, out_ref),
+                    "lse_covered": max_err(lse[covered], lse_ref[covered]) if pairs else 0.0}
+
+            # the backward with a nonzero lse cotangent folded into delta
+            delta = ((do.float() * out.float()).sum(-1).transpose(1, 2) - dlse).contiguous()
+            args = (q, k, v, do, lse, delta, *geo)
+            dq = sk.stream_pair_bwd_dq(*args)
+            dk, dv = sk.stream_pair_bwd_dkv(*args)
+            ref = sk.stream_pair_bwd_reference(*args)
+            torch.cuda.synchronize()
+            rel = {}
+            for gname, ours, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+                check(bool(torch.isfinite(ours).all()), f"stream bwd {dname} g={g} r={r}: non-finite {gname}")
+                errs[gname] = max_err(ours, want)
+                if pairs == 0:
+                    check(not bool(ours.any()), f"stream bwd g={g} r={r}: {gname} of a masked pair not 0")
+                    rel[gname] = 0.0
+                else:
+                    rel[gname] = _grad_rel_err(ours, want)
+                    check(rel[gname] <= BWD_REL_TOL[dname],
+                          f"stream bwd {dname} g={g} r={r}: {gname} rel err {rel[gname]} > {BWD_REL_TOL[dname]}")
+            record = dict(dtype=dname, g=g, r=r, q_block=[q0, q1], k_block=[k0, k1], valid=valid, note=note,
+                          visible_pairs=pairs, max_abs_err=errs, max_rel_err_grads=rel)
+            if timed:
+                calls = {"stream_pair_fwd": lambda: sk.stream_pair_fwd(q, k, v, *geo),
+                         "stream_pair_bwd_dq": lambda: sk.stream_pair_bwd_dq(*args),
+                         "stream_pair_bwd_dkv": lambda: sk.stream_pair_bwd_dkv(*args)}
+                # the kernel's device time, and one wrapper call's (its host
+                # work, the output fills and the launch) by CUDA events
+                t = {name: device_ms(fn, f"{name}_kernel") for name, fn in calls.items()}
+                record["ms"] = t
+                record["wrapper_ms"] = {name: time_ms(fn) for name, fn in calls.items()}
+                bounds = _stream_bounds(pairs, cq, ck, q.element_size(), dname)
+                record["bound_ms"] = {n: b[0] for n, b in bounds.items()}
+                record["bound_by"] = {n: b[1] for n, b in bounds.items()}
+            if timed and dname == "bfloat16":
+                plain = {
+                    "stream_pair_fwd": time_ms(lambda: sk.stream_pair_fwd_reference(q, k, v, *geo), reps=3, warmup=1),
+                    "stream_pair_bwd_dq": time_ms(lambda: sk.stream_pair_bwd_reference(*args, dkv=False), reps=3,
+                                                  warmup=1),
+                    "stream_pair_bwd_dkv": time_ms(lambda: sk.stream_pair_bwd_reference(*args, dq=False), reps=3,
+                                                   warmup=1),
+                }
+                # library yardstick: one SDPA call with the boolean [H, cq, ck]
+                # mask (and the backward of one, for dq, dk and dv at once)
+                qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+                lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask[None]), reps=5)
+                lib_out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask[None])
+                do_h = do.transpose(1, 2)
+                lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, (qh, kh, vh), do_h, retain_graph=True), reps=5)
+                library = {"stream_pair_fwd": lib_fwd, "stream_pair_bwd_dq": lib_bwd, "stream_pair_bwd_dkv": lib_bwd}
+                record.update(plain_ms=plain, library_ms=library)
+                for name in STREAM_KERNELS:
+                    tot = summary[name]
+                    tot["ms"] += t[name]
+                    tot["plain_ms"] += plain[name]
+                    tot["library_ms"] += library[name]
+                    tot["bound_ms"] += bounds[name][0]
+                    tot["by"][bounds[name][1]] = tot["by"].get(bounds[name][1], 0.0) + bounds[name][0]
+                del qh, kh, vh, lib_out
+            for name, keys in (("stream_pair_fwd", ("out",)), ("stream_pair_bwd_dq", ("dq",)),
+                               ("stream_pair_bwd_dkv", ("dk", "dv"))):
+                if dname == "bfloat16":
+                    summary[name]["err"] = max(summary[name]["err"], *(errs[x] for x in keys))
+            emit("stream_kernels", **record)
+            del q, kv, k, v, do, out, lse, out_ref, lse_ref, dq, dk, dv, ref
+        del mask
+    for tot in summary.values():
+        tot["bound_by"] = max(tot.pop("by").items(), key=lambda kv: kv[1])[0]
+    emit("stream_kernels_per_branch", dtype="bfloat16",
+         note="sum over one chunk pair per branch (the timed pairs); ms is the kernel's device time (torch.profiler), "
+              "plain_ms and library_ms CUDA events around one call; library_ms of dq and dkv is one SDPA backward "
+              "(dq, dk and dv) per pair",
+         kernels=summary,
+         ptxas={name: _ptxas(f"{name}-GP_HEAD_DIM={E // H}") for name in STREAM_KERNELS},
+         tolerance={"out": KERNEL_TOL, "lse_covered": STREAM_LSE_TOL, "grads_rel": BWD_REL_TOL})
+    return summary
+
+
+def _slide_chunks(x, coords, order):
+    """(idx, embeds, coords) host chunks of one slide in ``order``."""
+    xs, cs = x[0].cpu().numpy(), coords[0].cpu().numpy()
+    bounds = [(a - 1, b - 1) for a, b in STREAM_BLOCKS[1:]]
+    return [(i, xs[bounds[i][0]:bounds[i][1]], cs[bounds[i][0]:bounds[i][1]]) for i in order]
+
+
+def _run_session(model, chunks, peek=False):
+    """A streaming session over the flagship slide's ``chunks`` (already
+    bf16-rounded); the last-layer embedding of a peek after every feed
+    when ``peek``."""
+    from gigapath_tpu_torch.models.slide_encoder import create_streaming_session
+
+    session = create_streaming_session(model, N_TILES, chunk_tiles=STREAM_CHUNK, all_layer_embed=True)
+    peeks = []
+    for idx, embeds, coords in chunks:
+        session.feed(idx, embeds, coords)
+        if peek:
+            peeks.append(session.peek()[-1].float().cpu().numpy())
+    return session, session.finalize(), peeks
+
+
+def phase_stream_forward():
+    """The streaming forward of the flagship slide through its entries."""
+    import numpy as np
+    import torch
+
+    from gigapath_tpu_torch.models.slide_encoder import create_model
+    from gigapath_tpu_torch.models.streaming_encoder import embeds_to_outputs
+    from gigapath_tpu_torch.pipeline import (
+        run_inference_with_slide_encoder,
+        run_inference_with_slide_encoder_streaming,
+    )
+    from gigapath_tpu_torch.quant.qtensor import bf16_round_trip
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    x, coords = _flagship_inputs(1, gen)
+    in_order = _slide_chunks(x, coords, range(5))
+    rounded = [(i, bf16_round_trip(e), c) for i, e, c in in_order]
+    result = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        model = create_model("", "gigapath_slide_enc12l768d", dtype=dtype, seed=0)
+        run_inference_with_slide_encoder_streaming(in_order, N_TILES, model, chunk_tiles=STREAM_CHUNK)  # warm-up
+        torch.cuda.synchronize()
+        reset_all_launch_counts()
+        stream = run_inference_with_slide_encoder_streaming(in_order, N_TILES, model, chunk_tiles=STREAM_CHUNK)
+        counts = all_launch_counts()
+        want = dict.fromkeys(counts, 0)
+        want["stream_pair_fwd"] = STREAM_FOLDS
+        check(counts == want, f"{dname} streaming forward launches {counts} != {want}")
+        reset_all_launch_counts()
+        session, embeds, _ = _run_session(model, rounded)
+        check(session.folds == STREAM_FOLDS == all_launch_counts()["stream_pair_fwd"],
+              f"{dname}: session folds {session.folds}, launches {all_launch_counts()['stream_pair_fwd']}")
+        by_session = embeds_to_outputs(embeds)
+        check(all(np.array_equal(by_session[key], stream[key]) for key in stream),
+              f"{dname}: create_streaming_session and the pipeline entry differ")
+        dense = run_inference_with_slide_encoder(x, coords, model)
+        per_layer = []
+        if dname == "float32":
+            ref = dense  # the dense kernel path (pack / branch / unpack kernels)
+        else:
+            with plain_stream_kernels():
+                ref = run_inference_with_slide_encoder_streaming(in_order, N_TILES, model, chunk_tiles=STREAM_CHUNK)
+        for a, b in zip(_embeds(stream), _embeds(ref)):
+            check(a.shape == (1, E) and np.isfinite(a).all(), f"{dname}: bad streaming embedding {a.shape}")
+            rel = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-12))
+            cos = float(_cosines(a, b)[0])
+            per_layer.append({"rel": rel, "one_minus_cos": 1.0 - cos})
+            if dname == "float32":
+                check(rel <= F32_REL_TOL, f"fp32 streaming vs dense kernel path rel err {rel} > {F32_REL_TOL}")
+            else:
+                check(1.0 - cos <= BF16_MAX_ONE_MINUS_COS,
+                      f"bf16 streaming vs plain path 1 - cosine {1.0 - cos} > {BF16_MAX_ONE_MINUS_COS}")
+
+        # ms per slide through the streaming and the dense entry, peak memory
+        timing = {}
+        for name, fn in (("stream", lambda: run_inference_with_slide_encoder_streaming(
+                in_order, N_TILES, model, chunk_tiles=STREAM_CHUNK)),
+                         ("dense", lambda: run_inference_with_slide_encoder(x, coords, model))):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            secs = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()  # ends in a device->host copy
+                secs.append(time.perf_counter() - t0)
+            ms = statistics.median(secs) * 1e3
+            timing[name] = {"ms_per_slide": ms, "runs_ms": [t_ * 1e3 for t_ in secs],
+                            "tiles_per_s": N_TILES / (ms / 1e3),
+                            "peak_mem_gb_above_model": (torch.cuda.max_memory_allocated() - base) / 2**30}
+        record = dict(dtype=dname, tiles=N_TILES, chunk_tiles=STREAM_CHUNK, launches=counts,
+                      session_folds=session.folds, vs=("dense kernel path" if dname == "float32"
+                                                       else "streaming plain path"),
+                      per_layer=per_layer, vs_dense_entry_rel=float(max(
+                          np.abs(a - b).max() / max(np.abs(b).max(), 1e-12)
+                          for a, b in zip(_embeds(stream), _embeds(dense)))), **timing,
+                      tolerance={"float32": f"rel <= {F32_REL_TOL}",
+                                 "bfloat16": f"1 - cosine <= {BF16_MAX_ONE_MINUS_COS}"}[dname])
+        if dname == "bfloat16":
+            record.update(_stream_session_checks(model, rounded, stream))
+            with torch.inference_mode():
+                record["forward_trace"] = _profile(lambda: run_inference_with_slide_encoder_streaming(
+                    in_order, N_TILES, model, chunk_tiles=STREAM_CHUNK))
+        emit("stream_forward", **record)
+        result[dname] = timing
+        result["launches"] = counts
+        del model
+        torch.cuda.empty_cache()
+    result["backward"] = _stream_backward()
+    return result
+
+
+def _stream_session_checks(model, rounded, stream):
+    """Out-of-order delivery with duplicates and an export/restore halfway,
+    both bit-exact against in-order; a peek after every chunk."""
+    import numpy as np
+
+    from gigapath_tpu_torch.models.slide_encoder import create_streaming_session
+    from gigapath_tpu_torch.models.streaming_encoder import embeds_to_outputs
+
+    def same(embeds):
+        out = embeds_to_outputs(embeds)
+        return all(np.array_equal(out[key], stream[key]) for key in stream)
+
+    order = [3, 1, 4, 0, 2, 2, 0]
+    _, shuffled, _ = _run_session(model, [rounded[i] for i in order])
+    check(same(shuffled), "out-of-order delivery with duplicates is not bit-exact")
+
+    first = create_streaming_session(model, N_TILES, chunk_tiles=STREAM_CHUNK, all_layer_embed=True)
+    for i in (0, 3, 1):  # chunk 3 held ahead of the frontier
+        first.feed(*rounded[i])
+    state = first.export_state()
+    resumed = create_streaming_session(model, N_TILES, chunk_tiles=STREAM_CHUNK, all_layer_embed=True)
+    resumed.restore_state(state)
+    for i in (2, 4):
+        resumed.feed(*rounded[i])
+    check(same(resumed.finalize()), "export/restore halfway is not bit-exact")
+
+    _, final, peeks = _run_session(model, rounded, peek=True)
+    last = final[-1].float().cpu().numpy()
+    cosines = [float(_cosines(p, last)[0]) for p in peeks]
+    check(np.array_equal(peeks[-1], last), "the peek after the last chunk differs from finalize()")
+    check(cosines[-1] >= cosines[0] and cosines[0] < 1.0, f"peek cosines do not rise: {cosines}")
+    return {"out_of_order": {"order": order, "bit_exact": True},
+            "export_restore": {"exported_after": [0, 3, 1], "arrays": len(state), "bit_exact": True},
+            "peek_cosine_to_final": cosines,
+            "peek_rises_at_every_chunk": all(b >= a for a, b in zip(cosines, cosines[1:]))}
+
+
+def _stream_backward():
+    """Gradients of one flagship layer's streaming attention
+    (``streaming_dilated_attention`` over the slide's token blocks) against
+    the dense kernel path's (``dilated_attention``), fp32, with the launches
+    of the streaming backward."""
+    import torch
+
+    from gigapath_tpu_torch.ops.dilated_attention import dilated_attention
+    from gigapath_tpu_torch.ops.streaming_prefill import streaming_dilated_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    D = E // H
+    q, k, v = (torch.randn(1, STREAM_L, H, D, device="cuda", generator=gen) for _ in range(3))
+    w = torch.randn(1, STREAM_L, H, D, device="cuda", generator=gen)
+    grads = {}
+    for name in ("stream", "dense"):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        if name == "stream":
+            blocks = streaming_dilated_attention(
+                *([t[:, a:b] for a, b in STREAM_BLOCKS] for t in leaves), STREAM_BLOCKS, *SCHEDULE)
+            loss = sum((blk * w[:, a:b]).sum() for blk, (a, b) in zip(blocks, STREAM_BLOCKS))
+            torch.cuda.synchronize()
+            reset_all_launch_counts()
+            loss.backward()
+            torch.cuda.synchronize()
+            launches = all_launch_counts()
+        else:
+            (dilated_attention(*leaves, *SCHEDULE).float() * w).sum().backward()
+        grads[name] = [t.grad for t in leaves]
+    want = dict.fromkeys(launches, 0)
+    want.update(stream_pair_bwd_dq=STREAM_FOLDS // 12, stream_pair_bwd_dkv=STREAM_FOLDS // 12)
+    check(launches == want, f"streaming backward launches {launches} != {want}")
+    rel = {}
+    for gname, a, b in zip(("dq", "dk", "dv"), grads["stream"], grads["dense"]):
+        rel[gname] = _grad_rel_err(a, b)
+        check(rel[gname] <= GRAD_F32_REL_TOL, f"streaming backward {gname} rel err vs dense {rel[gname]}")
+    emit("stream_backward", dtype="float32", L=STREAM_L, launches=launches, max_rel_err_vs_dense=rel,
+         tolerance=GRAD_F32_REL_TOL)
+    return launches
+
+
+def phase_stream_serve():
+    """Three slides of different lengths through the streaming submitter,
+    each against the dense entry; the head path against the dense head."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from gigapath_tpu_torch.models.classification_head import get_model
+    from gigapath_tpu_torch.models.slide_encoder import create_model
+    from gigapath_tpu_torch.pipeline import run_inference_with_slide_encoder
+    from gigapath_tpu_torch.serve.streaming import (
+        StreamingSubmitter,
+        head_streaming_submitter,
+        streaming_head_logits,
+    )
+
+    from gigapath_tpu_torch.quant.qtensor import bf16_round_trip
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    x, coords = _flagship_inputs(1, gen)
+    # the dense entry rounds its input through bf16; the submitter takes
+    # what it is given, so it is given the rounded embeddings
+    xs, cs = bf16_round_trip(x[0].cpu().numpy()), coords[0].cpu().numpy()
+
+    def chunks(n):
+        starts = range(0, n, STREAM_CHUNK)
+        return [types.SimpleNamespace(chunk_id=i, payload=xs[a:min(a + STREAM_CHUNK, n)],
+                                      coords=cs[a:min(a + STREAM_CHUNK, n)])
+                for i, a in reversed(list(enumerate(starts)))]
+
+    model = create_model("", "gigapath_slide_enc12l768d", seed=0)
+    submitter = StreamingSubmitter(model, chunk_tiles=STREAM_CHUNK)
+    requests = []
+    for n in STREAM_REQUESTS:
+        t0 = time.perf_counter()
+        out = submitter.stream_slide(f"slide-{n}", chunks(n), n)
+        wall = time.perf_counter() - t0
+        dense = run_inference_with_slide_encoder(xs[:n], cs[:n], model)
+        rel = max(float(np.abs(out[key] - dense[key]).max() / max(np.abs(dense[key]).max(), 1e-12))
+                  for key in dense)
+        check(out.keys() == dense.keys() and rel <= F32_REL_TOL, f"served slide of {n} tiles: rel err {rel}")
+        requests.append({"tiles": n, "ms": wall * 1e3, "max_rel_err_vs_dense": rel})
+    check(submitter.served == 3, f"served {submitter.served} != 3")
+    del model
+    torch.cuda.empty_cache()
+
+    n = STREAM_REQUESTS[1]
+    head = get_model(input_dim=1536, latent_dim=768, feat_layer="11", n_classes=6,
+                     model_arch="gigapath_slide_enc12l768d", seed=0).eval()
+    head_sub = head_streaming_submitter(head, chunk_tiles=STREAM_CHUNK)
+    logits = streaming_head_logits(head, head_sub.stream_slide("head", chunks(n), n))
+    with torch.no_grad():
+        dense_logits = head(torch.from_numpy(xs[None, :n]).cuda(), coords[:, :n]).float().cpu().numpy()
+    rel = float(np.abs(logits - dense_logits).max() / max(np.abs(dense_logits).max(), 1e-12))
+    check(logits.shape == (1, 6) and rel <= F32_REL_TOL, f"streaming head logits rel err {rel}")
+    emit("stream_serve", dtype="float32", requests=requests, served=submitter.served,
+         head={"tiles": n, "logits": logits.tolist(), "max_rel_err_vs_dense_head": rel},
+         tolerance=F32_REL_TOL)
+    del head
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print("chip_smoke: takes no arguments", file=sys.stderr)
@@ -1210,6 +1732,11 @@ def main() -> int:
         tile_launches, _, (tile_embeds, coords) = phase_tile_forward(tile_dir)
     launches.update({name: tile_launches["int8+attn"][name] for name in ("q_matmul", "q_flash_attention")})
     phase_two_stage(tile_embeds, coords)
+    summary.update(phase_stream_kernels())
+    stream = phase_stream_forward()
+    phase_stream_serve()
+    launches["stream_pair_fwd"] = stream["launches"]["stream_pair_fwd"]
+    launches.update({name: stream["backward"][name] for name in ("stream_pair_bwd_dq", "stream_pair_bwd_dkv")})
     print(json.dumps({"kernels": [
         {"name": name, **meta, "launches": launches[name],
          "max_abs_err": summary[name]["err"], "ms": summary[name]["ms"],

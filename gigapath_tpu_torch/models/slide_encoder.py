@@ -214,6 +214,26 @@ def load_pretrained(model: LongNetViT, path: str):
     return missing, unexpected
 
 
+def create_streaming_session(
+    model: LongNetViT,
+    n_tiles: int,
+    *,
+    chunk_tiles: Optional[int] = None,
+    all_layer_embed: bool = False,
+):
+    """The chunk-granular ``LongNetViT`` entry (streaming chunked prefill): a
+    :class:`~gigapath_tpu_torch.models.streaming_encoder.StreamingEncoderSession`
+    whose ``feed(idx, tile_embeds, coords)`` takes the chunk plan in any
+    arrival order and whose ``finalize()`` returns the same output list as
+    ``model(x, coords, all_layer_embed=...)``, which stays the dense fallback
+    and oracle. ``chunk_tiles`` defaults to ``GIGAPATH_PREFILL_CHUNK``."""
+    from gigapath_tpu_torch.models.streaming_encoder import StreamingEncoderSession
+
+    return StreamingEncoderSession(
+        model, n_tiles, chunk_tiles=chunk_tiles, all_layer_embed=all_layer_embed,
+    )
+
+
 def create_model(
     pretrained: str = "",
     model_arch: str = "gigapath_slide_enc12l768d",

@@ -2,9 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface, loaded through ``ctypes``; a source that takes
-compile-time constants (the head width of the branch kernels and of the
-quantized attention) builds one library per set of ``-D`` defines. The
-libraries go to ``build/kernels/`` at the root of the checkout
+compile-time constants (the head width of the branch kernels, of the
+streaming chunk-pair kernels and of the quantized attention) builds one
+library per set of ``-D`` defines. The libraries go to ``build/kernels/`` at the root of the checkout
 (``.gitignore`` lists ``build/``), or to
 ``$XDG_CACHE_HOME/gigapath_tpu_torch/kernels`` (``~/.cache/...``) for an
 installed package, named by a hash of the source, the shared
@@ -56,6 +56,13 @@ TILE_FLAGSHIP = (
     ("q_matmul", ()),
     ("q_flash_attention", (("GP_HEAD_DIM", 64),)),
 )
+# the libraries the flagship slide encoder's streaming chunked prefill (head
+# width 48) runs: the chunk-pair forward and its backward
+STREAM_FLAGSHIP = (
+    ("stream_pair_fwd", (("GP_HEAD_DIM", 48),)),
+    ("stream_pair_bwd_dq", (("GP_HEAD_DIM", 48),)),
+    ("stream_pair_bwd_dkv", (("GP_HEAD_DIM", 48),)),
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -63,6 +70,7 @@ NVCC_FLAGS = (
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LLP = ctypes.POINTER(ctypes.c_longlong)
+_IP = ctypes.POINTER(ctypes.c_int)
 # C signature of each library's one entry point: (symbol, argtypes)
 _SIGNATURES = {
     "pack_phases": ("gp_pack_phases", [_P, _P] + [_I] * 10 + [_P]),
@@ -78,6 +86,13 @@ _SIGNATURES = {
     ),
     "q_matmul": ("gp_q_matmul", [_P] * 4 + [_I] * 5 + [_P]),
     "q_flash_attention": ("gp_q_flash_attention", [_P] * 6 + [_I] * 6 + [_LLP, _P]),
+    "stream_pair_fwd": ("gp_stream_pair_fwd", [_P] * 5 + [_I] * 3 + [_IP, _I, _LLP, _F, _P]),
+    "stream_pair_bwd_dq": (
+        "gp_stream_pair_bwd_dq", [_P] * 7 + [_I] * 3 + [_IP, _I, _LLP, _F, _F, _P],
+    ),
+    "stream_pair_bwd_dkv": (
+        "gp_stream_pair_bwd_dkv", [_P] * 8 + [_I] * 3 + [_IP, _I, _LLP, _F, _F, _P],
+    ),
 }
 
 _lock = threading.Lock()

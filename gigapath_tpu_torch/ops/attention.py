@@ -2,10 +2,15 @@
 ``gigapath_tpu/ops/attention.py``).
 
 ``attention_with_lse`` is plain softmax attention on ``[B, L, H, D]``
-tensors returning ``(out, lse [B, H, L])``; :class:`MultiheadAttention`
-holds the q/k/v/out projections and the sub-LayerNorm, with ``_attend`` as
-the hook :class:`~gigapath_tpu_torch.ops.dilated_attention.DilatedAttention`
-overrides. xPos, multiway and the decode cache are not ported yet.
+tensors returning ``(out, lse [B, H, L])``; :func:`combine_partials` (the
+counterpart of ``gigapath_tpu/ops/flash_attention.py:combine_partials``,
+kept here beside the attention that emits the ``(out, lse)`` contract it
+merges) folds two such partials over disjoint key sets into one;
+:class:`MultiheadAttention` holds the q/k/v/out projections and the
+sub-LayerNorm, with ``_attend`` as the hook
+:class:`~gigapath_tpu_torch.ops.dilated_attention.DilatedAttention`
+overrides. xPos, multiway, the decode cache and ``partial_attention`` (it
+calls the flash kernel, ``ROADMAP.md`` Queue B) are not ported yet.
 """
 
 from __future__ import annotations
@@ -70,6 +75,29 @@ def attention_with_lse(
         probs = probs.masked_fill(pad_mask, 0.0)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
     return out.to(q.dtype), lse
+
+
+def combine_partials(
+    out_a: torch.Tensor,
+    lse_a: torch.Tensor,
+    out_b: torch.Tensor,
+    lse_b: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge two partial-softmax results by their stored log-sum-exps.
+
+    ``out_*`` are ``[B, L, H, D]`` outputs each normalized over its own key
+    set, ``lse_*`` the matching ``[B, H, L]`` log-sum-exps; returns the pair
+    normalized over the union of the key sets. A fully masked partial
+    (large negative lse) folds in with weight 0. Accumulates in fp32 and
+    returns ``out`` in ``out_a``'s dtype.
+    """
+    lse = torch.logaddexp(lse_a, lse_b)
+
+    def w4(w):  # [B, H, L] -> broadcastable [B, L, H, 1]
+        return w.transpose(1, 2)[..., None]
+
+    out = out_a.float() * w4(torch.exp(lse_a - lse)) + out_b.float() * w4(torch.exp(lse_b - lse))
+    return out.to(out_a.dtype), lse
 
 
 class MultiheadAttention(nn.Module):

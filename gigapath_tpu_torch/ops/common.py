@@ -29,3 +29,11 @@ def raise_on(rc: int, kernel: str) -> None:
     """Raise if a kernel's C entry point returned a CUDA error code."""
     if rc != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with cudaError {rc}")
+
+
+def env_flag(name: str) -> bool:
+    """A truthy ``GIGAPATH_*`` flag: unset, '', '0', 'false' and 'no' mean
+    off (the JAX package's one truthiness convention)."""
+    import os
+
+    return os.environ.get(name, "").strip().lower() not in ("", "0", "false", "no")

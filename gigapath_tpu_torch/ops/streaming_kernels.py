@@ -1,0 +1,364 @@
+"""Streaming chunk-pair kernels (counterpart of
+``gigapath_tpu/ops/pallas_streaming.py``).
+
+One fold of the streaming chunked prefill attends a query block against one
+resident key block under one dilated branch ``(segment length g, ratio r)``:
+head ``h`` of phase ``p = h // ceil(H/r)`` sees key ``u`` from query ``t``
+iff both sit on phase ``p``'s lattice (``(pos % g) % r == p``), share a
+segment (``t // g == u // g``) and ``u < valid_len``. Three CUDA kernels
+(``csrc/``) compute it from the blocks' global offsets, with no mask tensor:
+
+- :func:`stream_pair_fwd` -> ``(out [B, cq, H, D] in q's dtype, lse [B, H,
+  cq] fp32)``, the pair's chunk-normalized partial;
+- :func:`stream_pair_bwd_dq` and :func:`stream_pair_bwd_dkv`, its backward
+  from the stored lse, with the lse cotangent folded into the delta term
+  (``delta' = rowsum(dout * out) - dlse``).
+
+Each wrapper runs its ``*_reference`` plain PyTorch version when its tensor
+lies on the CPU, launches its kernel on a CUDA tensor (or raises), and counts
+its launches in :data:`LAUNCHES`. The plain versions reproduce the JAX
+package's jnp tier (``streaming_prefill.pair_partial_attention``): a dense
+``[H, cq, ck]`` mask, natural-log softmax, masked logits at
+``ops/attention.py:NEG_INF`` (-1e8), so a fully masked row's lse is ~-1e8 +
+log(ck) there and ~-6.9e19 in the kernels (the ``M_FLOOR`` discipline of
+``ops/dilated_kernels.py``); either weighs 0 in every downstream combine, so
+compare lse on covered rows only.
+
+:func:`pair_partial` is the differentiable op (``_PairPartial``, the
+counterpart of ``_pair_with_lse``'s custom VJP) with
+``pallas_pair_partial``'s contract: ``[B, c, H, D]`` blocks in, offsets as
+Python ints. The kernels fix their own tiles: there are no block-size knobs
+and no plan lookup. They take the blocks through their strides (no
+transposes), and a ratio that does not divide H needs nothing special.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from gigapath_tpu_torch.ops.attention import NEG_INF
+from gigapath_tpu_torch.ops.common import check_cuda, cuda_stream, raise_on
+
+LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
+NO_VALID = 2**31 - 1  # valid_len=None: no key is past the valid bound
+M_FLOOR = -1e20  # the kernels' running-max floor
+# lse of a row with no visible key in the kernels (and of the rows off the
+# phase lattice, which the wrapper fills)
+KERNEL_LSE_SENTINEL = (M_FLOOR + math.log2(1e-30)) * LN2
+ROW_TILE = 64  # lattice rows per block of the forward and dq kernels
+KEY_ROWS_DKV = 32  # lattice keys per block of the dkv kernel
+MAX_HEAD_DIM = 128  # the kernels take head widths that are multiples of 8 up to this
+
+# Launches of each CUDA kernel in this process. A wrapper adds one where it
+# launches its kernel and nowhere else; callers reset and read it.
+LAUNCHES = {"stream_pair_fwd": 0, "stream_pair_bwd_dq": 0, "stream_pair_bwd_dkv": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# masks and lattices
+# ---------------------------------------------------------------------------
+
+
+def pair_mask(
+    q0: int, cq: int, k0: int, ck: int, segment_len: int, ratio: int,
+    valid_len: Optional[int], num_heads: int, device=None,
+) -> torch.Tensor:
+    """The ``[H, cq, ck]`` bool mask of one pair: ``(h, i, j)`` is True iff
+    query ``q0 + i`` of head ``h`` sees key ``k0 + j``."""
+    t = q0 + torch.arange(cq, device=device)
+    u = k0 + torch.arange(ck, device=device)
+    phases = torch.arange(num_heads, device=device) // -(-num_heads // ratio)
+    same_seg = (t[:, None] // segment_len) == (u[None, :] // segment_len)
+    k_ok = ((u % segment_len) % ratio)[None, :] == phases[:, None]
+    q_ok = ((t % segment_len) % ratio)[None, :] == phases[:, None]
+    mask = same_seg[None] & k_ok[:, None, :] & q_ok[:, :, None]
+    if valid_len is not None:
+        mask = mask & (u < valid_len)[None, None, :]
+    return mask
+
+
+def lattice(off: int, c: int, segment_len: int, ratio: int) -> Tuple[int, int]:
+    """``(step, shift)`` of a block's phase lattice: every row ``i`` of the
+    ``c``-row block at global offset ``off`` that phase ``p`` can see has
+    ``(off + i) % step == (p + shift) % step``. ``step = r`` when the segment
+    length is a multiple of r, or when the block lies in one segment ``s``
+    (then ``shift = s*g % r``); else ``step = 1``, every row."""
+    g, r = segment_len, ratio
+    if g % r == 0:
+        return r, 0
+    seg = off // g
+    if (off + c - 1) // g == seg:
+        return r, (seg * g) % r
+    return 1, 0
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+
+def stream_pair_fwd_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q0: int, k0: int,
+    segment_len: int, ratio: int, valid_len: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(out [B, cq, H, D] in q's dtype, lse [B, H, cq] fp32)`` of one pair,
+    as the JAX package's jnp tier computes it: fp32 logits times Dh^-1/2,
+    masked logits at NEG_INF, a natural-log softmax, the probabilities cast
+    to v's dtype before the PV product, summed in fp32."""
+    B, cq, H, D = q.shape
+    ck = k.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * D**-0.5
+    mask = pair_mask(q0, cq, k0, ck, segment_len, ratio, valid_len, H, q.device)
+    s = s.masked_fill(~mask, NEG_INF)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None]).masked_fill(~mask, 0.0)
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    return out.to(q.dtype), lse
+
+
+def stream_pair_bwd_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, q0: int, k0: int, segment_len: int,
+    ratio: int, valid_len: Optional[int] = None, *, dq: bool = True, dkv: bool = True,
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """The kernels' backward in plain PyTorch: from q/k/v and the output
+    cotangent ``dout`` [B, c, H, D], the forward's ``lse`` and ``delta' =
+    rowsum(dout * out) - dlse`` (fp32 [B, H, cq]) -> ``(dq, dk, dv)`` in
+    the inputs' dtype. The probabilities are recomputed from the lse and
+    selected to 0 where the pair is masked, whatever the row's lse.
+    ``dq``/``dkv`` pick which gradients to compute (the others are None)."""
+    B, cq, H, D = q.shape
+    ck = k.shape[1]
+    scale = D**-0.5
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, dout))
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    mask = pair_mask(q0, cq, k0, ck, segment_len, ratio, valid_len, H, q.device)
+    p = torch.where(mask, torch.exp(s - lse[..., None]), torch.zeros((), device=q.device))
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", dof, vf) - delta[..., None])
+    dq_ = dk_ = dv_ = None
+    if dq:
+        dq_ = (torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale).to(q.dtype)
+    if dkv:
+        dk_ = (torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale).to(k.dtype)
+        dv_ = torch.einsum("bhqk,bqhd->bkhd", p, dof).to(v.dtype)
+    return dq_, dk_, dv_
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _geometry(H: int, q0: int, cq: int, k0: int, ck: int, g: int, r: int, valid: int):
+    """The kernels' int32 geometry array (``PairGeom`` in
+    ``csrc/stream_common.cuh``) and their lattice row counts."""
+    qstep, qshift = lattice(q0, cq, g, r)
+    kstep, kshift = lattice(k0, ck, g, r)
+    geo = (ctypes.c_int * 13)(
+        H, -(-H // r), g, r, q0, cq, qstep, qshift, k0, ck, kstep, kshift, valid,
+    )
+    return geo, -(-cq // qstep), -(-ck // kstep)
+
+
+def _strides(*tensors: torch.Tensor):
+    """(batch, row, head) element strides of each [B, c, H, D] tensor."""
+    flat = [s for t in tensors for s in (t.stride(0), t.stride(1), t.stride(2))]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
+def _check(name: str, q, k, v, q0, k0, segment_len, ratio, valid, dout=None) -> None:
+    """Raise unless the blocks are CUDA [B, c, H, D] tensors of one dtype on
+    one device, the head width contiguous and taken by the kernels, and the
+    geometry fits the kernels' int32 arithmetic."""
+    blocks = (("q", q), ("k", k), ("v", v)) + ((("dout", dout),) if dout is not None else ())
+    for arg, t in blocks:
+        if t.device.type != "cuda" or t.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"{name} {arg}: needs a CUDA fp32 or bf16 tensor, got {t.dtype} on {t.device}")
+        if t.dim() != 4 or t.stride(3) != 1 or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} {arg}: needs [B, c, H, D] with D contiguous, of q's dtype and device")
+    B, cq, H, D = q.shape
+    ck = k.shape[1]
+    if k.shape != (B, ck, H, D) or v.shape != k.shape or (dout is not None and dout.shape != q.shape):
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} do not fit")
+    if D % 8 or D > MAX_HEAD_DIM or min(B, cq, ck, H) < 1:
+        raise ValueError(f"{name}: needs D % 8 == 0, D <= {MAX_HEAD_DIM} and non-empty blocks; got {tuple(q.shape)}")
+    if segment_len < 1 or ratio < 1 or min(q0, k0) < 0 or max(q0 + cq, k0 + ck, valid) > NO_VALID:
+        raise ValueError(f"{name}: geometry out of range (q0={q0}, k0={k0}, g={segment_len}, r={ratio})")
+
+
+def stream_pair_fwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q0: int, k0: int,
+    segment_len: int, ratio: int, valid_len: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One pair's ``(out, lse)`` (``csrc/stream_pair_fwd.cu``); arguments as
+    :func:`stream_pair_fwd_reference`."""
+    if q.device.type == "cpu":
+        return stream_pair_fwd_reference(q, k, v, q0, k0, segment_len, ratio, valid_len)
+    from gigapath_tpu_torch.ops import _build
+
+    valid = NO_VALID if valid_len is None else int(valid_len)
+    _check("stream_pair_fwd", q, k, v, q0, k0, segment_len, ratio, valid)
+    B, cq, H, D = q.shape
+    geo, q_rows, _ = _geometry(H, q0, cq, k0, k.shape[1], segment_len, ratio, valid)
+    n_qtiles = -(-q_rows // ROW_TILE)
+    if B * H * n_qtiles >= 2**31:
+        raise ValueError(f"stream_pair_fwd: {B * H * n_qtiles} blocks do not fit one grid")
+    # rows off the phase lattice are never touched by the kernel: zeros and
+    # the fully-masked sentinel
+    out = torch.zeros((B, cq, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.full((B, H, cq), KERNEL_LSE_SENTINEL, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        rc = _build.library("stream_pair_fwd", GP_HEAD_DIM=D).gp_stream_pair_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            int(q.dtype == torch.bfloat16), B, D, geo, n_qtiles, _strides(q, k, v, out),
+            D**-0.5 * LOG2E, cuda_stream(q),
+        )
+    raise_on(rc, "stream_pair_fwd")
+    LAUNCHES["stream_pair_fwd"] += 1
+    return out, lse
+
+
+def _check_vectors(name: str, q: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor) -> None:
+    B, cq, H, _ = q.shape
+    for arg, t in (("lse", lse), ("delta", delta)):
+        check_cuda(f"{name} {arg}", t, (torch.float32,))
+        if tuple(t.shape) != (B, H, cq) or t.device != q.device:
+            raise ValueError(f"{name}: {arg} must be [B, H, cq] = {(B, H, cq)} on {q.device}")
+
+
+def stream_pair_bwd_dq(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, q0: int, k0: int, segment_len: int,
+    ratio: int, valid_len: Optional[int] = None,
+) -> torch.Tensor:
+    """One pair's dq (``csrc/stream_pair_bwd_dq.cu``); arguments as
+    :func:`stream_pair_bwd_reference`."""
+    if q.device.type == "cpu":
+        return stream_pair_bwd_reference(
+            q, k, v, dout, lse, delta, q0, k0, segment_len, ratio, valid_len, dkv=False)[0]
+    from gigapath_tpu_torch.ops import _build
+
+    valid = NO_VALID if valid_len is None else int(valid_len)
+    _check("stream_pair_bwd_dq", q, k, v, q0, k0, segment_len, ratio, valid, dout)
+    _check_vectors("stream_pair_bwd_dq", q, lse, delta)
+    B, cq, H, D = q.shape
+    geo, q_rows, _ = _geometry(H, q0, cq, k0, k.shape[1], segment_len, ratio, valid)
+    n_qtiles = -(-q_rows // ROW_TILE)
+    if B * H * n_qtiles >= 2**31:
+        raise ValueError(f"stream_pair_bwd_dq: {B * H * n_qtiles} blocks do not fit one grid")
+    dq = torch.zeros((B, cq, H, D), dtype=q.dtype, device=q.device)  # rows off the lattice: 0
+    with torch.cuda.device(q.device):
+        rc = _build.library("stream_pair_bwd_dq", GP_HEAD_DIM=D).gp_stream_pair_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), int(q.dtype == torch.bfloat16), B, D, geo,
+            n_qtiles, _strides(q, k, v, dout, dq), D**-0.5 * LOG2E, D**-0.5, cuda_stream(q),
+        )
+    raise_on(rc, "stream_pair_bwd_dq")
+    LAUNCHES["stream_pair_bwd_dq"] += 1
+    return dq
+
+
+def stream_pair_bwd_dkv(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, q0: int, k0: int, segment_len: int,
+    ratio: int, valid_len: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One pair's ``(dk, dv)`` (``csrc/stream_pair_bwd_dkv.cu``); arguments
+    as :func:`stream_pair_bwd_reference`."""
+    if q.device.type == "cpu":
+        return stream_pair_bwd_reference(
+            q, k, v, dout, lse, delta, q0, k0, segment_len, ratio, valid_len, dq=False)[1:]
+    from gigapath_tpu_torch.ops import _build
+
+    valid = NO_VALID if valid_len is None else int(valid_len)
+    _check("stream_pair_bwd_dkv", q, k, v, q0, k0, segment_len, ratio, valid, dout)
+    _check_vectors("stream_pair_bwd_dkv", q, lse, delta)
+    B, cq, H, D = q.shape
+    ck = k.shape[1]
+    geo, _, k_rows = _geometry(H, q0, cq, k0, ck, segment_len, ratio, valid)
+    n_ktiles = -(-k_rows // KEY_ROWS_DKV)
+    if B * H * n_ktiles >= 2**31:
+        raise ValueError(f"stream_pair_bwd_dkv: {B * H * n_ktiles} blocks do not fit one grid")
+    # keys off the lattice or past the valid bound: 0
+    dk = torch.zeros((B, ck, H, D), dtype=k.dtype, device=k.device)
+    dv = torch.zeros((B, ck, H, D), dtype=v.dtype, device=v.device)
+    with torch.cuda.device(q.device):
+        rc = _build.library("stream_pair_bwd_dkv", GP_HEAD_DIM=D).gp_stream_pair_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), int(q.dtype == torch.bfloat16), B, D,
+            geo, n_ktiles, _strides(q, k, v, dout, dk, dv), D**-0.5 * LOG2E, D**-0.5,
+            cuda_stream(q),
+        )
+    raise_on(rc, "stream_pair_bwd_dkv")
+    LAUNCHES["stream_pair_bwd_dkv"] += 1
+    return dk, dv
+
+
+# ---------------------------------------------------------------------------
+# the op
+# ---------------------------------------------------------------------------
+
+
+class _PairPartial(torch.autograd.Function):
+    """``(q, k, v)`` blocks -> ``(out, lse)`` of one pair; the counterpart of
+    ``_pair_with_lse``'s custom VJP. The forward saves q, k, v, out and lse;
+    the backward takes the cotangents of both outputs (the lse is
+    differentiated downstream: ``combine_partials`` merges through it), a
+    missing dlse counting as zeros. Both passes run with autocast off: the
+    kernels and their plain versions compute in fp32 from the inputs'
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, geometry):
+        with torch.autocast(q.device.type, enabled=False):
+            out, lse = stream_pair_fwd(q, k, v, *geometry)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.geometry = geometry
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        with torch.autocast(q.device.type, enabled=False):
+            if dout is None:
+                dout = torch.zeros_like(out)
+            dout = dout.to(q.dtype).contiguous()
+            delta = (dout.float() * out.float()).sum(dim=-1).transpose(1, 2)
+            if dlse is not None:
+                delta = delta - dlse.float()
+            delta = delta.contiguous()
+            dq = stream_pair_bwd_dq(q, k, v, dout, lse, delta, *ctx.geometry)
+            dk, dv = stream_pair_bwd_dkv(q, k, v, dout, lse, delta, *ctx.geometry)
+        return dq, dk, dv, None
+
+
+def pair_partial(
+    q_blk: torch.Tensor,
+    k_blk: torch.Tensor,
+    v_blk: torch.Tensor,
+    q0: int,
+    k0: int,
+    *,
+    segment_len: int,
+    ratio: int,
+    valid_len: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunk-normalized ``(out [B, cq, H, D] in q's dtype, lse [B, H, cq]
+    fp32)`` of one dilated branch restricted to one resident key block,
+    ``q_blk`` [B, cq, H, D] at global token offset ``q0`` against
+    ``k_blk``/``v_blk`` [B, ck, H, D] at ``k0``; keys at global positions
+    ``>= valid_len`` are masked. Differentiable in the three blocks, through
+    both outputs."""
+    geometry = (int(q0), int(k0), int(segment_len), int(ratio),
+                None if valid_len is None else int(valid_len))
+    return _PairPartial.apply(q_blk, k_blk, v_blk, geometry)

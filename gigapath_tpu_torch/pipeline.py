@@ -6,7 +6,10 @@
 - :func:`run_inference_with_tile_encoder` embeds a list of PNG tiles in
   fixed-size batches;
 - :func:`run_inference_with_slide_encoder` turns the tile embeddings and
-  their coordinates into all-layer slide embeddings.
+  their coordinates into all-layer slide embeddings;
+- :func:`run_inference_with_slide_encoder_streaming` does the same from a
+  stream of tile-embedding chunks (streaming chunked prefill), never
+  building the slide's tile sequence.
 
 Slide tiling (``tile_one_slide``, OpenSlide) is not ported yet.
 """
@@ -121,3 +124,34 @@ def run_inference_with_slide_encoder(
     }
     outputs["last_layer_embed"] = outputs[f"layer_{len(slide_embeds) - 1}_embed"]
     return outputs
+
+
+def run_inference_with_slide_encoder_streaming(
+    chunks,
+    n_tiles: int,
+    slide_encoder_model: LongNetViT,
+    *,
+    chunk_tiles: Optional[int] = None,
+) -> Dict[str, np.ndarray]:
+    """Streaming twin of :func:`run_inference_with_slide_encoder`.
+
+    ``chunks`` is any iterable of ``(chunk_idx, tile_embeds [c, C], coords
+    [c, 2])`` triples, or of objects with ``chunk_id``, ``payload`` and
+    ``coords``, cut by the plan ``chunk_bounds(n_tiles, chunk_tiles)``, in
+    any arrival order. Each chunk is rounded through bf16 (as the dense entry
+    rounds its input) and folds into the encoder as it arrives. Returns the
+    same ``layer_{i}_embed`` / ``last_layer_embed`` dict as the dense entry,
+    which stays the fallback and oracle."""
+    from gigapath_tpu_torch.models.streaming_encoder import StreamingEncoderSession, embeds_to_outputs
+    from gigapath_tpu_torch.quant.qtensor import bf16_round_trip
+
+    session = StreamingEncoderSession(
+        slide_encoder_model, int(n_tiles), chunk_tiles=chunk_tiles, all_layer_embed=True,
+    )
+    for item in chunks:
+        if hasattr(item, "chunk_id"):
+            session.feed(item.chunk_id, bf16_round_trip(item.payload), item.coords)
+        else:
+            idx, embeds, coords = item
+            session.feed(idx, bf16_round_trip(embeds), coords)
+    return embeds_to_outputs(session.finalize())

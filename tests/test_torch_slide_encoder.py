@@ -165,7 +165,8 @@ def test_create_model_without_device_raises_without_cuda(monkeypatch):
 
 
 def test_port_imports_nothing_of_jax():
-    """Importing every port module (the fine-tuning path's included) leaves
+    """Importing every port module (the fine-tuning, tile and streaming
+    paths' included) leaves
     jax, flax, optax, sklearn and gigapath_tpu (the exact name, or the
     gigapath_tpu. prefix) out of sys.modules, and pandas, yaml and h5py too:
     the port imports those only inside the functions that read files."""
@@ -183,6 +184,10 @@ def test_port_imports_nothing_of_jax():
         "need |= {'gigapath_tpu_torch.quant.' + m for m in ('qtensor', 'qmatmul', 'qflash', 'convert')}\n"
         "need |= {'gigapath_tpu_torch.models.tile_encoder', 'gigapath_tpu_torch.data.transforms',"
         " 'gigapath_tpu_torch.data.tile_dataset', 'gigapath_tpu_torch.pipeline'}\n"
+        "need |= {'gigapath_tpu_torch.ops.streaming_kernels', 'gigapath_tpu_torch.ops.streaming_prefill',"
+        " 'gigapath_tpu_torch.models.streaming_encoder', 'gigapath_tpu_torch.serve.streaming',"
+        " 'gigapath_tpu_torch.obs.drift', 'gigapath_tpu_torch.obs.runlog',"
+        " 'gigapath_tpu_torch.finetune.predict', 'gigapath_tpu_torch.inference'}\n"
         "assert need <= set(names), sorted(need - set(names))\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n"
