@@ -88,12 +88,37 @@ stdout:
     on a flagship ``ClassificationHead`` (4097 tiles) against its dense
     logits.
 
+15. fusion_kernels: the stream-fusion route's four kernels against their
+    plain versions at the flagship's branch shapes (L = 10241), fp32 and
+    bf16, with a ragged real length (timed) and a B = 2 batch with per-row
+    valid lengths: ``pack_phases_direct`` and ``unpack_phases_direct`` on the
+    three single-segment branches (r = 4, 8, 16), bit-exact and bit-equal
+    to ``pack_phases``/``unpack_phases``; ``fusion_epilogue_fwd`` over the
+    five branches' packed results, also against the default route's dense
+    fusion; ``fusion_epilogue_bwd`` per branch, exact zeros off the
+    extent; each kernel's device time (from a CUDA graph of 20 calls; one
+    call's CUDA-event time, mostly the wrapper's host work, beside it)
+    against the bound, the plain version and a library call
+    (``torch.take``, ``index_copy_``; none for the epilogue, whose line
+    carries the device time of the default route's fusion of the same
+    packed results instead).
+16. fusion_forward: the flagship forward with ``GIGAPATH_STREAM_FUSION=1
+    GIGAPATH_PACK_DIRECT=1`` against the default route, fp32 (rel) and
+    bf16 (cosine), with its exact launches; ms per slide and peak memory
+    of both routes on 10240 tiles and (bf16) on one 102400-tile slide, with
+    the peak of one attention call alone there; a profiler breakdown of
+    one bf16 forward on each route.
+17. fusion_step: the flagship fine-tune step on that route: fp32
+    gradients against the default route, the exact launches of one bf16
+    step, ms per step and peak memory of both routes (bf16).
+
 Then a ``{"kernels": [...]}`` line (the launches of the dilated kernels
 are those of one training step, of the quantized ones those of one
 ``int8+attn`` 128-tile batch, of ``stream_pair_fwd`` those of one
 streaming forward, of the stream backward kernels those of the backward
-through one layer's streaming attention), the ``nvidia-smi`` name/power
-line, and
+through one layer's streaming attention, of the four stream-fusion
+kernels those of one bf16 training step on their route), the
+``nvidia-smi`` name/power line, and
 the last line ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero before those lines. Exits non-zero, printing no result, when
 no CUDA device is present.
@@ -115,6 +140,7 @@ E, H = 768, 16
 SCHEDULE = ([1024, 5792, 32768, 185363, 1048576], [1, 2, 4, 8, 16])
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # fp32 FMA pipes; bf16 tensor cores
+PROFILE_PAUSE_S = 0.02  # idle host time at each edge of a device_ms profiler window
 # Kernel vs plain version on the card. Both compute in fp32 from the same
 # inputs and differ only in the order of sums (fp32 out error read 7.7e-7),
 # so a bf16 output differs by at most about one bf16 ulp of its value (read
@@ -168,6 +194,26 @@ KERNELS = {
         route="cuda", source="gigapath_tpu_torch/csrc/stream_pair_bwd_dkv.cu",
         replaces="gigapath_tpu/ops/pallas_streaming.py:242 (_dkv_kernel, via _bwd_impl:349, pallas_call :403)",
     ),
+    "pack_phases_direct": dict(
+        route="cuda", source="gigapath_tpu_torch/csrc/pack_phases_direct.cu",
+        replaces="gigapath_tpu/ops/pallas_dilated.py:1203 (_pack_kernel_direct, via _pack_phases:1254, "
+                 "pallas_call :1266)",
+    ),
+    "unpack_phases_direct": dict(
+        route="cuda", source="gigapath_tpu_torch/csrc/unpack_phases_direct.cu",
+        replaces="gigapath_tpu/ops/pallas_dilated.py:1230 (_unpack_kernel_direct, via _unpack_phases:1305, "
+                 "pallas_call :1321)",
+    ),
+    "fusion_epilogue_fwd": dict(
+        route="cuda", source="gigapath_tpu_torch/csrc/fusion_epilogue_fwd.cu",
+        replaces="gigapath_tpu/ops/pallas_dilated.py:1849 (_epilogue_fwd_kernel, via _epilogue_pass_call:1895, "
+                 "pallas_call :1948)",
+    ),
+    "fusion_epilogue_bwd": dict(
+        route="cuda", source="gigapath_tpu_torch/csrc/fusion_epilogue_bwd.cu",
+        replaces="gigapath_tpu/ops/pallas_dilated.py:1958 (_epilogue_bwd_kernel, via _epilogue_bwd_call:1985, "
+                 "pallas_call :2016)",
+    ),
 }
 FWD_KERNELS = ("pack_phases", "dilated_branch_fwd", "unpack_phases")
 BWD_KERNELS = ("dilated_branch_bwd_dq", "dilated_branch_bwd_dkv")
@@ -177,7 +223,8 @@ BWD_KERNELS = ("dilated_branch_bwd_dq", "dilated_branch_bwd_dkv")
 # layers x 5 branches (packing dout, q, k, v, unpacking dq, dk, dv)
 STEP_LAUNCHES = {"pack_phases": 60 * 3 + 55 * 4, "dilated_branch_fwd": 60,
                  "unpack_phases": 60 + 55 * 3, "dilated_branch_bwd_dq": 55,
-                 "dilated_branch_bwd_dkv": 55}
+                 "dilated_branch_bwd_dkv": 55, "pack_phases_direct": 0,
+                 "unpack_phases_direct": 0, "fusion_epilogue_fwd": 0, "fusion_epilogue_bwd": 0}
 # Backward kernels vs their plain version on the card, as max |err| over
 # max |ref| of each gradient. Both compute in fp32 and differ in the order of
 # sums (fp32 read 2.7e-6 at worst); a bf16 gradient is rounded once, so it
@@ -238,6 +285,34 @@ STREAM_REQUESTS = (N_TILES, 4097, 2048)  # tiles of the three served slides; the
 # the kernel keeps them fp32), lse on covered rows, gradients as
 # BWD_REL_TOL
 STREAM_LSE_TOL = {"float32": dict(atol=1e-4, rtol=1e-5), "bfloat16": dict(atol=1e-3, rtol=1e-5)}
+# the stream-fusion route with direct packs (GIGAPATH_STREAM_FUSION=1,
+# GIGAPATH_PACK_DIRECT=1): the flagship's three branches clamped to one
+# segment (r = 4, 8, 16) take the direct pack and unpack, the r = 1 and 2
+# branches the row-2/3 kernels; one epilogue launch per layer forward, one
+# per branch and layer backward (11 layers with feat_layer 11)
+FUSION_KERNELS = ("pack_phases_direct", "unpack_phases_direct", "fusion_epilogue_fwd", "fusion_epilogue_bwd")
+FUSION_ENV = {"GIGAPATH_STREAM_FUSION": "1", "GIGAPATH_PACK_DIRECT": "1"}
+FUSION_FWD_LAUNCHES = {"pack_phases": 12 * 2 * 3, "dilated_branch_fwd": 60, "unpack_phases": 0,
+                       "dilated_branch_bwd_dq": 0, "dilated_branch_bwd_dkv": 0,
+                       "pack_phases_direct": 12 * 3 * 3, "unpack_phases_direct": 0,
+                       "fusion_epilogue_fwd": 12, "fusion_epilogue_bwd": 0}
+FUSION_STEP_LAUNCHES = {"pack_phases": 72 + 11 * 2 * 3, "dilated_branch_fwd": 60,
+                        "unpack_phases": 11 * 2 * 3, "dilated_branch_bwd_dq": 55,
+                        "dilated_branch_bwd_dkv": 55, "pack_phases_direct": 108 + 11 * 3 * 3,
+                        "unpack_phases_direct": 11 * 3 * 3, "fusion_epilogue_fwd": 12,
+                        "fusion_epilogue_bwd": 55}
+# the epilogue kernels vs their plain versions (and the forward vs the
+# default route's dense fusion): the same fp32 arithmetic in another order
+# (expf against torch.exp, fused multiply-adds): fp32 out read 4.5e-8 at
+# worst, bf16 out one bf16 rounding (read 4.9e-4), fused_lse 9.5e-7, the
+# backward 0 in both
+EPILOGUE_TOL = {"float32": dict(atol=5e-7, rtol=1e-6), "bfloat16": dict(atol=5e-3, rtol=1e-2)}
+EPILOGUE_BWD_TOL = {"float32": dict(atol=1e-6, rtol=1e-6), "bfloat16": dict(atol=4e-3, rtol=1e-2)}
+FUSED_LSE_TOL = dict(atol=1e-5, rtol=1e-6)
+# the slide forward on the stream-fusion route vs the default route, both
+# on their kernels: fp32 sums in another order (read 1.4e-6)
+FUSION_F32_REL_TOL = 1e-5
+LONG_TILES = 102400  # one 320 x 320-tile slide, L = 102401 with cls
 PANDA = {"name": "panda", "setting": "multi_class", "label_dict": {i: i for i in range(6)},
          "max_tiles": 1000000, "shuffle_tiles": True, "add_metrics": ["qwk"]}  # panda.yaml
 
@@ -270,26 +345,58 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, kernel: str, reps: int = 10) -> float:
+def device_ms(fn, kernel: str, reps: int = 10, attempts: int = 3) -> float:
     """Median device time (ms) of the CUDA kernel whose name contains
     ``kernel`` over ``reps`` calls of ``fn``, from ``torch.profiler``'s
-    device activity (which may miss a launch or two of a window). Unlike
-    :func:`time_ms` it leaves out the wrapper's host work, which is most of
-    one call's time on a small chunk pair."""
+    device activity. Unlike :func:`time_ms` it leaves out the wrapper's host
+    work, which is most of one call's time on a small chunk pair.
+
+    The profiler can drop device records near the edges of its window (a
+    card run saw 3 of 10 launches), so the launches sit between two idle
+    pauses, and a window that records fewer than half of them is measured
+    again, at most ``attempts`` times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    seen = []
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAUSE_S)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAUSE_S)
+        durations = [e.time_range.end - e.time_range.start for e in prof.events()
+                     if e.device_type == DeviceType.CUDA and kernel in e.name]
+        check(len(durations) <= reps, f"the profiler saw {len(durations)} launches of {kernel} in {reps}")
+        if len(durations) >= reps // 2:
+            return statistics.median(durations) / 1e3
+        seen.append(len(durations))
+    raise AssertionError(f"the profiler saw {seen} launches of {kernel} in {attempts} windows of {reps}")
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time (ms) of one ``fn()``: ``reps`` calls captured in one CUDA
+    graph, its replay timed with CUDA events (median of 5) over ``reps``.
+    For kernels of a few microseconds, where one call's CUDA-event time is
+    the wrapper's host work and the profiler drops records."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    durations = [e.time_range.end - e.time_range.start for e in prof.events()
-                 if e.device_type == DeviceType.CUDA and kernel in e.name]
-    check(reps // 2 <= len(durations) <= reps, f"the profiler saw {len(durations)} launches of {kernel} in {reps}")
-    return statistics.median(durations) / 1e3
+    ms = time_ms(graph.replay, reps=5, warmup=1) / reps
+    del graph
+    return ms
 
 
 @contextlib.contextmanager
@@ -299,11 +406,10 @@ def plain_kernels():
     from gigapath_tpu_torch.ops import dilated_kernels as dk
 
     names = ("pack_phases", "dilated_branch_fwd", "unpack_phases",
-             "dilated_branch_bwd_dq", "dilated_branch_bwd_dkv")
+             "dilated_branch_bwd_dq", "dilated_branch_bwd_dkv", *FUSION_KERNELS)
     saved = {name: getattr(dk, name) for name in names}
-    dk.pack_phases = dk.pack_phases_reference
-    dk.dilated_branch_fwd = dk.dilated_branch_fwd_reference
-    dk.unpack_phases = dk.unpack_phases_reference
+    for name in ("pack_phases", "dilated_branch_fwd", "unpack_phases", *FUSION_KERNELS):
+        setattr(dk, name, getattr(dk, name + "_reference"))
     dk.dilated_branch_bwd_dq = lambda *a: dk.dilated_branch_bwd_reference(*a, dkv=False)[0]
     dk.dilated_branch_bwd_dkv = lambda *a: dk.dilated_branch_bwd_reference(*a, dq=False)[1:]
     try:
@@ -556,7 +662,8 @@ def phase_slide_forward():
         out = run_inference_with_slide_encoder(x, coords, model)
         counts = dict(dk.LAUNCHES)
         expected = {"pack_phases": 180, "dilated_branch_fwd": 60, "unpack_phases": 60,
-                    "dilated_branch_bwd_dq": 0, "dilated_branch_bwd_dkv": 0}
+                    "dilated_branch_bwd_dq": 0, "dilated_branch_bwd_dkv": 0, "pack_phases_direct": 0,
+                    "unpack_phases_direct": 0, "fusion_epilogue_fwd": 0, "fusion_epilogue_bwd": 0}
         check(counts == expected, f"{dname} forward launches {counts} != {expected}")
         secs = []
         for _ in range(3):
@@ -1706,6 +1813,387 @@ def phase_stream_serve():
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the stream-fusion route: direct pack/unpack and the fusion epilogue
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def env_flags(values: dict):
+    """Set environment variables for the body, then restore them."""
+    import os
+
+    saved = {key: os.environ.get(key) for key in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+
+
+def _device_busy_ms(fn) -> float:
+    """Device busy time (ms) of one ``fn()`` under ``torch.profiler``."""
+    fn()
+    busy = _profile(fn).get("device_busy_ms")
+    check(busy is not None, "the profiler recorded no device activity")
+    return busy
+
+
+def _fusion_bounds(B, L, plan, itemsize):
+    """Least card time (ms) of each new kernel's work in one flagship layer
+    (bytes over the HBM rate; they do a few operations per element): the
+    direct pack's three tensors and one unpack in each clamped branch, the
+    epilogue forward over the five branches (covered packed elements, one
+    lse per covered (token, head), out and fused_lse written), and its
+    backward over the five branches (covered dY lanes, lse and fused_lse,
+    the whole packed cotangent written)."""
+    pack = unpack = bwd = 0.0
+    fwd = B * L * E * itemsize + B * L * H * 4  # out, fused_lse
+    for g, S, r, m, Mp in plan.branches:
+        band = B * L * E // r
+        fwd += band * itemsize + B * L * H // r * 4
+        bwd += band * itemsize + 2 * (B * L * H // r) * 4 + B * S * Mp * E * itemsize
+        if S == 1 and r > 1:
+            pack += 3 * (band + B * Mp * E) * itemsize
+            unpack += (band + B * L * E) * itemsize
+    return {name: b / HBM_BYTES_PER_S * 1e3 for name, b in (
+        ("pack_phases_direct", pack), ("unpack_phases_direct", unpack),
+        ("fusion_epilogue_fwd", fwd), ("fusion_epilogue_bwd", bwd))}
+
+
+def _dense_fusion(dk, outs, lses, plan):
+    """The default route's fusion of the same packed results: five unpacks,
+    the lse scatter, the softmax and the weighted sum."""
+    import torch
+
+    L, B = plan.L, outs[0].shape[0]
+    dense = [dk.unpack_phases(o6, L, E, g, S, r) for o6, (g, S, r, m, Mp) in zip(outs, plan.branches)]
+    lse = torch.stack([dk._scatter_lse(l5, L, H, g, r, m) for l5, (g, S, r, m, Mp) in zip(lses, plan.branches)])
+    acc = None
+    for o, w in zip(dense, torch.softmax(lse, dim=0)):
+        term = o.reshape(B, L, H, E // H).float() * w.transpose(1, 2)[..., None]
+        acc = term if acc is None else acc + term
+    return acc.to(outs[0].dtype)
+
+
+def _dense_fusion_bwd(dk, dy, weights, plan):
+    """The default route's backward of the same fusion: each branch's dense
+    cotangent (dY times its weight) packed for its backward kernels."""
+    B, L = dy.shape[:2]
+    return [dk.pack_phases((dy.reshape(B, L, H, E // H).float() * w.transpose(1, 2)[..., None])
+                           .reshape(B, L, E).to(dy.dtype), g, S, r, Mp, H)
+            for w, (g, S, r, m, Mp) in zip(weights, plan.branches)]
+
+
+def _fusion_case(dk, B, dtype, gen, real_len, valid, timed: bool):
+    """The four kernels vs their plain versions on one flagship layer's
+    branches (q, k, v at L = 10241); returns the per-layer summary."""
+    import torch
+
+    L = N_TILES + 1
+    dname = str(dtype).replace("torch.", "")
+    q, k, v = (torch.randn(B, L, E, device="cuda", generator=gen).to(dtype) for _ in range(3))
+    plan = dk.plan_stream_fusion(L, E, H, *SCHEDULE)
+    tot = {name: dict(ms=0.0, plain_ms=0.0, err=0.0, library_ms=None) for name in FUSION_KERNELS}
+    outs, lses = [], []
+    for (g, S, r, m, Mp), sl in zip(plan.branches, SCHEDULE[0]):
+        kvlen = dk._branch_kvlen(B, S, g, r, m, real_len, valid, q.device)
+        if S == 1 and r > 1:
+            # direct pack: exact copy of its plain version and of the row-2 pack
+            q6, k6, v6 = (dk.pack_phases_direct(x, g, S, r, Mp, H) for x in (q, k, v))
+            for x, x6 in ((q, q6), (k, k6), (v, v6)):
+                check(torch.equal(x6, dk.pack_phases_direct_reference(x, g, S, r, Mp, H)),
+                      f"pack_phases_direct {dname} B={B} r={r}: differs from its plain version")
+                check(torch.equal(x6, dk.pack_phases(x, g, S, r, Mp, H)),
+                      f"pack_phases_direct {dname} B={B} r={r}: differs from pack_phases")
+        else:
+            q6, k6, v6 = (dk.pack_phases(x, g, S, r, Mp, H) for x in (q, k, v))
+        out6, lse5 = dk.dilated_branch_fwd(q6, k6, v6, kvlen)
+        outs.append(out6)
+        lses.append(lse5)
+        if not (S == 1 and r > 1):
+            continue
+        dense = dk.unpack_phases_direct(out6, L, E, g, S, r)
+        check(torch.equal(dense, dk.unpack_phases_direct_reference(out6, L, E, g, S, r)),
+              f"unpack_phases_direct {dname} B={B} r={r}: differs from its plain version")
+        check(torch.equal(dense, dk.unpack_phases(out6, L, E, g, S, r)),
+              f"unpack_phases_direct {dname} B={B} r={r}: differs from unpack_phases")
+        if timed:
+            pack = lambda: dk.pack_phases_direct(q, g, S, r, Mp, H)  # noqa: E731
+            unpack = lambda: dk.unpack_phases_direct(out6, L, E, g, S, r)  # noqa: E731
+            lib_pack, lib_unpack = _copy_yardsticks(dk, q, out6, q6, dense, g, S, r, Mp)
+            for name, fn, plain, n, lib in (
+                ("pack_phases_direct", pack, lambda: dk.pack_phases_direct_reference(q, g, S, r, Mp, H), 3, lib_pack),
+                ("unpack_phases_direct", unpack, lambda: dk.unpack_phases_direct_reference(out6, L, E, g, S, r),
+                 1, lib_unpack),
+            ):
+                t = tot[name]
+                t["ms"] += n * graph_ms(fn)
+                t["event_ms"] = t.get("event_ms", 0.0) + n * time_ms(fn)
+                t["plain_ms"] += n * time_ms(plain, reps=5)
+                t["library_ms"] = (t["library_ms"] or 0.0) + n * lib
+        del q6, k6, v6, dense
+
+    # the epilogue forward against its plain version
+    out, fused = dk.fusion_epilogue_fwd(outs, lses, plan)
+    out_ref, fused_ref = dk.fusion_epilogue_fwd_reference(outs, lses, plan)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out).all()), f"fusion_epilogue_fwd {dname} B={B}: non-finite out")
+    torch.testing.assert_close(out, out_ref, **EPILOGUE_TOL[dname])
+    covered = fused_ref > -1e19
+    torch.testing.assert_close(fused[covered], fused_ref[covered], **FUSED_LSE_TOL)
+    check(bool((fused[~covered] <= -1e19).all()), f"fusion_epilogue_fwd {dname}: uncovered fused_lse above -1e19")
+    tot["fusion_epilogue_fwd"]["err"] = max_err(out, out_ref)
+    # against the default route's fusion of the same packed results
+    dense_out = _dense_fusion(dk, outs, lses, plan).reshape(B, L, E)
+    torch.testing.assert_close(out, dense_out, **EPILOGUE_TOL[dname])
+
+    # the epilogue backward, one launch per branch: packed cotangents, exact 0
+    # off the segment and the sequence
+    dy = torch.randn(B, L, E, device="cuda", generator=gen).to(dtype)
+    err_bwd = 0.0
+    for l5, branch in zip(lses, plan.branches):
+        g, S, r, m, Mp = branch
+        d6 = dk.fusion_epilogue_bwd(dy, fused, l5, branch, H)
+        d6_ref = dk.fusion_epilogue_bwd_reference(dy, fused, l5, branch, H)
+        torch.testing.assert_close(d6, d6_ref, **EPILOGUE_BWD_TOL[dname])
+        err_bwd = max(err_bwd, max_err(d6, d6_ref))
+        inside = dk.pack_phases_reference(torch.ones(1, L, E, device="cuda"), g, S, r, Mp, H) > 0
+        check(not bool(d6[:, ~inside[0]].any()), f"fusion_epilogue_bwd {dname} r={r}: slots off the extent not 0")
+        check(bool(torch.isfinite(d6).all()), f"fusion_epilogue_bwd {dname} r={r}: non-finite")
+    tot["fusion_epilogue_bwd"]["err"] = err_bwd
+    for name in ("pack_phases_direct", "unpack_phases_direct"):
+        tot[name]["err"] = 0.0  # checked bit-exact above
+    record = {"dtype": dname, "B": B, "real_len": real_len,
+              "valid": None if valid is None else valid.tolist(),
+              "max_abs_err": {"epilogue_out": tot["fusion_epilogue_fwd"]["err"],
+                              "epilogue_vs_dense_fusion": max_err(out, dense_out),
+                              "fused_lse_covered": max_err(fused[covered], fused_ref[covered]),
+                              "epilogue_bwd": err_bwd, "pack_direct": 0.0, "unpack_direct": 0.0}}
+    if timed:
+        weights = torch.softmax(torch.stack([dk._scatter_lse(l5, L, H, g, r, m)
+                                             for l5, (g, S, r, m, Mp) in zip(lses, plan.branches)]), dim=0)
+        fwd = lambda: dk.fusion_epilogue_fwd(outs, lses, plan)  # noqa: E731
+        t = tot["fusion_epilogue_fwd"]
+        t["ms"] = graph_ms(fwd)
+        t["event_ms"] = time_ms(fwd)
+        t["plain_ms"] = time_ms(lambda: dk.fusion_epilogue_fwd_reference(outs, lses, plan), reps=3, warmup=1)
+        t["dense_route_ms"] = _device_busy_ms(lambda: _dense_fusion(dk, outs, lses, plan))
+        t = tot["fusion_epilogue_bwd"]
+        for l5, br in zip(lses, plan.branches):
+            bwd = lambda: dk.fusion_epilogue_bwd(dy, fused, l5, br, H)  # noqa: E731
+            t["ms"] += graph_ms(bwd)
+            t["event_ms"] = t.get("event_ms", 0.0) + time_ms(bwd)
+            t["plain_ms"] += time_ms(lambda: dk.fusion_epilogue_bwd_reference(dy, fused, l5, br, H), reps=3, warmup=1)
+        t["dense_route_ms"] = _device_busy_ms(lambda: _dense_fusion_bwd(dk, dy, weights, plan))
+        bounds = _fusion_bounds(B, L, plan, q.element_size())
+        for name in FUSION_KERNELS:
+            tot[name].update(bound_ms=bounds[name], bound_by="bytes")
+        record["per_layer"] = tot
+    emit("fusion_kernels", **record)
+    return tot
+
+
+def phase_fusion_kernels():
+    """The four kernels vs their plain versions at the flagship's branch
+    shapes: fp32 and bf16 with a ragged real length (timed), and a B = 2
+    batch with per-row valid lengths."""
+    import torch
+
+    from gigapath_tpu_torch.ops import dilated_kernels as dk
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    L = N_TILES + 1
+    summary = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        summary[str(dtype).replace("torch.", "")] = _fusion_case(dk, 1, dtype, gen, L - 37, None, timed=True)
+        _fusion_case(dk, 2, dtype, gen, L, torch.tensor([L, 7002], device="cuda"), timed=False)
+    return summary
+
+
+def _route_embeds(model, x, coords, flags_on: bool):
+    from gigapath_tpu_torch.pipeline import run_inference_with_slide_encoder
+
+    with env_flags(FUSION_ENV) if flags_on else contextlib.nullcontext():
+        return run_inference_with_slide_encoder(x, coords, model)
+
+
+def _timed_routes(model, x, coords, reps: int = 3) -> dict:
+    """ms per slide (host clock to the device->host copy, median) and peak
+    memory above the model of both routes."""
+    import torch
+
+    out = {}
+    for route, on in (("default", False), ("stream_fusion", True)):
+        _route_embeds(model, x, coords, on)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        secs = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _route_embeds(model, x, coords, on)
+            secs.append(time.perf_counter() - t0)
+        ms = statistics.median(secs) * 1e3
+        out[route] = {"ms_per_slide": ms, "runs_ms": [s_ * 1e3 for s_ in secs],
+                      "tiles_per_s": x.shape[1] / (ms / 1e3),
+                      "peak_mem_gb_above_model": (torch.cuda.max_memory_allocated() - base) / 2**30}
+    return out
+
+
+def phase_fusion_forward():
+    """The flagship forward on the stream-fusion route against the default
+    route, fp32 and bf16: exact launches, per-layer agreement, ms per slide
+    and peak memory of both routes at 10240 and 102400 tiles, and a
+    profiler breakdown of one bf16 forward on each route."""
+    import numpy as np
+    import torch
+
+    from gigapath_tpu_torch.models.slide_encoder import create_model
+    from gigapath_tpu_torch.ops import dilated_kernels as dk
+    from gigapath_tpu_torch.ops.dilated_attention import dilated_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    x, coords = _flagship_inputs(1, gen)
+    result = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        model = create_model("", "gigapath_slide_enc12l768d", dtype=dtype, seed=0)
+        default = _route_embeds(model, x, coords, False)
+        _route_embeds(model, x, coords, True)  # warm-up
+        torch.cuda.synchronize()
+        dk.reset_launch_counts()
+        fused = _route_embeds(model, x, coords, True)
+        counts = dict(dk.LAUNCHES)
+        check(counts == FUSION_FWD_LAUNCHES, f"{dname} stream-fusion forward launches {counts} != {FUSION_FWD_LAUNCHES}")
+        per_layer = []
+        for a, b in zip(_embeds(fused), _embeds(default)):
+            check(a.shape == (1, E) and np.isfinite(a).all(), f"{dname}: bad embedding {a.shape}")
+            rel = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-12))
+            one_minus_cos = 1.0 - float(_cosines(a, b)[0])
+            per_layer.append({"rel": rel, "one_minus_cos": one_minus_cos})
+            if dname == "float32":
+                check(rel <= FUSION_F32_REL_TOL, f"fp32 stream-fusion vs default route rel err {rel}")
+            else:
+                check(one_minus_cos <= BF16_MAX_ONE_MINUS_COS,
+                      f"bf16 stream-fusion vs default route 1 - cosine {one_minus_cos}")
+        record = dict(dtype=dname, tiles=N_TILES, launches=counts, vs="the default route (kernels)",
+                      per_layer=per_layer, **_timed_routes(model, x, coords),
+                      tolerance={"float32": f"rel <= {FUSION_F32_REL_TOL}",
+                                 "bfloat16": f"1 - cosine <= {BF16_MAX_ONE_MINUS_COS}"}[dname])
+        if dname == "bfloat16":
+            with torch.inference_mode():
+                record["forward_trace"] = {route: _profile(lambda: _route_embeds(model, x, coords, on))
+                                           for route, on in (("default", False), ("stream_fusion", True))}
+        emit("fusion_forward", **record)
+        result[dname] = record
+        del model
+        torch.cuda.empty_cache()
+
+    # one 102400-tile slide, bf16, both routes
+    del x, coords
+    idx = torch.arange(LONG_TILES, device="cuda")
+    coords = (torch.stack([idx // 320, idx % 320], dim=-1).float() * 256.0)[None]
+    x = torch.randn(1, LONG_TILES, 1536, device="cuda", generator=gen)
+    model = create_model("", "gigapath_slide_enc12l768d", dtype=torch.bfloat16, seed=0)
+    timing = _timed_routes(model, x, coords, reps=2)
+    a, b = (_embeds(_route_embeds(model, x, coords, on))[-1] for on in (True, False))
+    one_minus_cos = 1.0 - float(_cosines(a, b)[0])
+    check(np.isfinite(a).all() and one_minus_cos <= BF16_MAX_ONE_MINUS_COS,
+          f"102400 tiles: stream-fusion vs default 1 - cosine {one_minus_cos}")
+    del model, x
+    torch.cuda.empty_cache()
+    # the attention alone: one dilated_attention call's peak memory above
+    # its q/k/v on each route (the whole forward's peak lies elsewhere)
+    q, k, v = (torch.randn(1, LONG_TILES + 1, H, E // H, device="cuda", generator=gen).to(torch.bfloat16)
+               for _ in range(3))
+    for route, on in (("default", False), ("stream_fusion", True)):
+        with env_flags(FUSION_ENV) if on else contextlib.nullcontext(), torch.inference_mode():
+            dilated_attention(q, k, v, *SCHEDULE)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            dilated_attention(q, k, v, *SCHEDULE)
+            timing[route]["attention_peak_gb_above_qkv"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    emit("fusion_forward_long", dtype="bfloat16", tiles=LONG_TILES, last_layer_one_minus_cos=one_minus_cos, **timing)
+    result["long"] = timing
+    del q, k, v
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_fusion_step():
+    """The flagship fine-tune step on the stream-fusion route: fp32
+    gradients against the default route, the exact launches of one bf16
+    step, ms per step and peak memory of both routes in bf16."""
+    import torch
+
+    from gigapath_tpu_torch.finetune.training import forward_backward, train_step
+    from gigapath_tpu_torch.ops import dilated_kernels as dk
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    x, coords = _flagship_inputs(1, gen)
+    labels = torch.tensor([[2]], device="cuda")
+    pad_mask = torch.ones(1, N_TILES, dtype=torch.bool, device="cuda")
+    batch = (x, coords, labels, pad_mask)
+    model, steps, loss_fn = _head_and_steps(torch)
+
+    runs = []
+    for on in (False, True):
+        model.zero_grad(set_to_none=True)
+        with env_flags(FUSION_ENV) if on else contextlib.nullcontext():
+            loss = forward_backward(model, loss_fn, *batch, multi_label=False, bf16=False)
+        runs.append((float(loss), _grads(model)))
+    (loss_d, g_d), (loss_f, g_f) = runs
+    check(set(g_d) == set(g_f), "the two routes reach different parameters")
+    floor = 1e-2 * max(float(g.abs().max()) for g in g_d.values())
+    errs = {}
+    for name, gd in g_d.items():
+        gf = g_f[name].float()
+        check(bool(torch.isfinite(gf).all()), f"stream-fusion route: non-finite gradient {name}")
+        errs[name] = float((gf - gd.float()).abs().max()) / max(float(gd.abs().max()), floor)
+    worst_name, worst = max(errs.items(), key=lambda kv: kv[1])
+    check(worst <= GRAD_F32_REL_TOL, f"fp32 step gradient {worst_name}: stream-fusion vs default {worst}")
+    model.zero_grad(set_to_none=True)
+
+    with env_flags(FUSION_ENV):
+        train_step(model, loss_fn, steps, *batch, multi_label=False, bf16=True)  # warm-up
+        torch.cuda.synchronize()
+        dk.reset_launch_counts()
+        train_step(model, loss_fn, steps, *batch, multi_label=False, bf16=True)
+        torch.cuda.synchronize()
+    launches = dict(dk.LAUNCHES)
+    check(launches == FUSION_STEP_LAUNCHES, f"stream-fusion step launches {launches} != {FUSION_STEP_LAUNCHES}")
+
+    timing = {}
+    for route, on in (("default", False), ("stream_fusion", True)):
+        with env_flags(FUSION_ENV) if on else contextlib.nullcontext():
+            torch.cuda.reset_peak_memory_stats()
+            train_step(model, loss_fn, steps, *batch, multi_label=False, bf16=True)
+            secs = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                train_step(model, loss_fn, steps, *batch, multi_label=False, bf16=True)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+        ms = statistics.median(secs) * 1e3
+        timing[route] = {"ms_per_step": ms, "runs_ms": [s_ * 1e3 for s_ in secs],
+                         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+    emit("fusion_step", tiles=N_TILES, launches=launches,
+         grads_fp32={"param": worst_name, "err": worst, "tolerance": GRAD_F32_REL_TOL,
+                     "loss_default": loss_d, "loss_stream_fusion": loss_f},
+         bfloat16=timing)
+    del model, steps
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print("chip_smoke: takes no arguments", file=sys.stderr)
@@ -1737,6 +2225,10 @@ def main() -> int:
     phase_stream_serve()
     launches["stream_pair_fwd"] = stream["launches"]["stream_pair_fwd"]
     launches.update({name: stream["backward"][name] for name in ("stream_pair_bwd_dq", "stream_pair_bwd_dkv")})
+    summary.update(phase_fusion_kernels()["bfloat16"])
+    phase_fusion_forward()
+    fusion_launches = phase_fusion_step()
+    launches.update({name: fusion_launches[name] for name in FUSION_KERNELS})
     print(json.dumps({"kernels": [
         {"name": name, **meta, "launches": launches[name],
          "max_abs_err": summary[name]["err"], "ms": summary[name]["ms"],

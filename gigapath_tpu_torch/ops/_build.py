@@ -42,13 +42,18 @@ def _build_dir() -> Path:
 
 BUILD_DIR = _build_dir()
 # the libraries the flagship slide encoder (head width 48) runs, forward
-# and backward
+# and backward, on the default route and on the direct-pack and
+# stream-fusion routes
 FLAGSHIP = (
     ("pack_phases", ()),
     ("dilated_branch_fwd", (("GP_HEAD_DIM", 48),)),
     ("unpack_phases", ()),
     ("dilated_branch_bwd_dq", (("GP_HEAD_DIM", 48),)),
     ("dilated_branch_bwd_dkv", (("GP_HEAD_DIM", 48),)),
+    ("pack_phases_direct", ()),
+    ("unpack_phases_direct", ()),
+    ("fusion_epilogue_fwd", ()),
+    ("fusion_epilogue_bwd", ()),
 )
 # the libraries the flagship tile encoder's quantized tier (head width 64)
 # runs
@@ -84,6 +89,10 @@ _SIGNATURES = {
     "dilated_branch_bwd_dkv": (
         "gp_dilated_branch_bwd_dkv", [_P] * 9 + [_I] * 6 + [_F, _F, _P],
     ),
+    "pack_phases_direct": ("gp_pack_phases_direct", [_P, _P] + [_I] * 8 + [_P]),
+    "unpack_phases_direct": ("gp_unpack_phases_direct", [_P, _P] + [_I] * 8 + [_P]),
+    "fusion_epilogue_fwd": ("gp_fusion_epilogue_fwd", [_LLP, _LLP, _IP, _I, _P, _P] + [_I] * 5 + [_P]),
+    "fusion_epilogue_bwd": ("gp_fusion_epilogue_bwd", [_P] * 4 + [_I] * 9 + [_P]),
     "q_matmul": ("gp_q_matmul", [_P] * 4 + [_I] * 5 + [_P]),
     "q_flash_attention": ("gp_q_flash_attention", [_P] * 6 + [_I] * 6 + [_LLP, _P]),
     "stream_pair_fwd": ("gp_stream_pair_fwd", [_P] * 5 + [_I] * 3 + [_IP, _I, _LLP, _F, _P]),

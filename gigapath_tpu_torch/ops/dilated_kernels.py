@@ -27,18 +27,34 @@ custom VJP): it strings the kernels together with the lse scatter and keeps
 the JAX op's contract: off-band lanes are exact 0, uncovered (token, head)
 pairs have lse = -1e30, and no gradient flows through the lse output.
 
+Two more routes, chosen by a :class:`PipelineFlags` snapshot (the JAX
+package's, resolved once per public call through
+:func:`gigapath_tpu_torch.plan.resolve_plan`):
+
+- ``pack_direct``: a single-segment branch with ``r > 1`` packs and unpacks
+  through :func:`pack_phases_direct` / :func:`unpack_phases_direct`, which
+  stage whole row-blocks of ``[B, L, E]`` in shared memory;
+- ``stream_fusion``: :func:`dilated_attention_stream_fused` keeps every
+  branch's ``(out6, lse5)`` packed (:func:`dilated_branch_attention_packed`)
+  and folds them in one :func:`fusion_epilogue_fwd` launch into the fused
+  ``[B, L, E]``; its backward (:func:`fusion_epilogue_bwd`, one launch per
+  branch) hands each branch its cotangent already packed, so no dense
+  per-branch ``out``/``lse`` exists in either direction.
+
 The port's packed row count ``Mp`` is ``m`` rounded up to the kernel's
 64-row tile; the TPU's VMEM caps and 128-lane quantum do not apply.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+import os
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from gigapath_tpu_torch.ops.common import check_cuda, cuda_stream, raise_on, round_up
+from gigapath_tpu_torch.ops.common import check_cuda, cuda_stream, env_flag, raise_on, round_up
 
 NEG_INF = -1e30  # lse of a (token, head) pair the branch does not cover
 M_FLOOR = -1e20  # running-max floor: masked keys underflow to exactly 0
@@ -52,12 +68,120 @@ MAX_HEAD_DIM = 128  # the branch kernel takes head widths that are multiples of 
 LAUNCHES = {
     "pack_phases": 0, "dilated_branch_fwd": 0, "unpack_phases": 0,
     "dilated_branch_bwd_dq": 0, "dilated_branch_bwd_dkv": 0,
+    "pack_phases_direct": 0, "unpack_phases_direct": 0,
+    "fusion_epilogue_fwd": 0, "fusion_epilogue_bwd": 0,
 }
+MAX_FUSED_BRANCHES = 8  # branches one fusion_epilogue_fwd launch takes
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# the dispatch-flag snapshot
+# ---------------------------------------------------------------------------
+
+
+class PipelineFlags(NamedTuple):
+    """One snapshot of the kernel-dispatch flags, with the JAX package's
+    field names and defaults (``gigapath_tpu/ops/pallas_dilated.py``).
+
+    Resolved once per public ``dilated_attention`` call and handed to every
+    branch and, through ``ctx``, to the backward, so the two passes of one
+    call never see different flags. The port acts on ``pack_direct``,
+    ``stream_fusion``, ``streaming_fusion`` and the pipelined fields
+    (``pipelined_fwd``/``_bwd`` or a ``"pipelined"`` branch variant raise:
+    those kernels are not ported). The other fields are carried so that a
+    plan or a caller can set them, and are unused here: ``pipe_block_k``,
+    ``pipe_bwd_block_k``, the branch ``block`` of ``branch_plans`` and the
+    fold blocks are TPU tiling; ``ring_attn`` belongs to sequence
+    parallelism; the drivers read ``quant_tile`` and ``chunked_prefill``
+    from their own environment variables; the port's streaming fold always
+    runs its kernels (``fold_pallas``)."""
+
+    pipelined_fwd: bool = False
+    pipelined_bwd: bool = False
+    pipe_block_k: Optional[int] = None
+    pipe_bwd_block_k: Optional[int] = None
+    pack_direct: bool = False
+    stream_fusion: bool = False
+    ring_attn: bool = False
+    chunked_prefill: bool = False
+    quant_tile: str = ""
+    quant_pallas: bool = False
+    # the online dense fold over branches (not the packed epilogue)
+    streaming_fusion: bool = False
+    # (segment_length, ratio, variant, block) per branch class; only a plan
+    # fills it
+    branch_plans: Tuple[Tuple[int, int, str, int], ...] = ()
+    fold_pallas: bool = False
+    fold_block_q: Optional[int] = None
+    fold_block_k: Optional[int] = None
+    fold_branches: Tuple[Tuple[int, int, int, int], ...] = ()
+
+
+# field -> its environment variable: the plan resolver lets a blessed plan
+# fill only the fields whose variable is unset
+FLAG_ENV = {
+    "pipelined_fwd": "GIGAPATH_PIPELINED_ATTN",
+    "pipelined_bwd": "GIGAPATH_PIPELINED_BWD",
+    "pipe_block_k": "GIGAPATH_PIPE_BLOCK_K",
+    "pipe_bwd_block_k": "GIGAPATH_PIPE_BWD_BLOCK_K",
+    "pack_direct": "GIGAPATH_PACK_DIRECT",
+    "stream_fusion": "GIGAPATH_STREAM_FUSION",
+    "streaming_fusion": "GIGAPATH_STREAMING_FUSION",
+    "ring_attn": "GIGAPATH_RING_ATTN",
+    "chunked_prefill": "GIGAPATH_CHUNKED_PREFILL",
+    "quant_tile": "GIGAPATH_QUANT_TILE",
+    "quant_pallas": "GIGAPATH_QUANT_PALLAS",
+    "fold_pallas": "GIGAPATH_FOLD_PALLAS",
+    "fold_block_q": "GIGAPATH_FOLD_BLOCK_Q",
+    "fold_block_k": "GIGAPATH_FOLD_BLOCK_K",
+}
+
+
+def snapshot_flags() -> PipelineFlags:
+    """Read the dispatch flags the port acts on from the environment, once:
+    GIGAPATH_PIPELINED_ATTN/_BWD, GIGAPATH_PIPE(_BWD)_BLOCK_K,
+    GIGAPATH_PACK_DIRECT, GIGAPATH_STREAM_FUSION and
+    GIGAPATH_STREAMING_FUSION. The other fields keep their defaults."""
+
+    def _int(name: str) -> Optional[int]:
+        raw = os.environ.get(name, "").strip()
+        return int(raw) if raw else None
+
+    return PipelineFlags(
+        pipelined_fwd=env_flag("GIGAPATH_PIPELINED_ATTN"),
+        pipelined_bwd=env_flag("GIGAPATH_PIPELINED_BWD"),
+        pipe_block_k=_int("GIGAPATH_PIPE_BLOCK_K"),
+        pipe_bwd_block_k=_int("GIGAPATH_PIPE_BWD_BLOCK_K"),
+        pack_direct=env_flag("GIGAPATH_PACK_DIRECT"),
+        stream_fusion=env_flag("GIGAPATH_STREAM_FUSION"),
+        streaming_fusion=env_flag("GIGAPATH_STREAMING_FUSION"),
+    )
+
+
+def check_not_pipelined(flags: PipelineFlags, segment_lengths: Sequence[int],
+                        dilated_ratios: Sequence[int], is_causal: bool) -> None:
+    """Raise where the JAX package would run its pipelined kernels (rows 6
+    and 8 of ``PERF.md``, not ported): ``pipelined_fwd``/``pipelined_bwd``,
+    or a branch plan's ``"pipelined"`` variant, on a non-causal call (a
+    causal call runs the serial kernels there too)."""
+    if is_causal:
+        return
+    variants = {(int(sl), int(r)): v for sl, r, v, _ in flags.branch_plans}
+    for sl, r in zip(segment_lengths, dilated_ratios):
+        variant = variants.get((int(sl), int(r)), "")
+        fwd = variant == "pipelined" or (variant == "" and flags.pipelined_fwd)
+        if fwd or flags.pipelined_bwd:
+            raise NotImplementedError(
+                f"the pipelined dilated-branch kernels (pipelined_fwd={fwd}, "
+                f"pipelined_bwd={flags.pipelined_bwd} at branch ({sl}, {r})) are not "
+                "ported yet: ROADMAP.md Queue B, rows 6 and 8. Unset "
+                "GIGAPATH_PIPELINED_ATTN / GIGAPATH_PIPELINED_BWD for the serial kernels"
+            )
 
 
 # ---------------------------------------------------------------------------
@@ -154,6 +278,37 @@ def unpack_phases_reference(
     return x.reshape(B, S * g, E)[:, :L]
 
 
+def _check_direct(name: str, L: int, g: int, S: int, r: int) -> None:
+    if S != 1 or g != L or r < 2:
+        raise ValueError(f"{name}: takes one segment covering the sequence and r > 1; got L={L}, g={g}, S={S}, r={r}")
+
+
+def pack_phases_direct_reference(
+    x: torch.Tensor, g: int, S: int, r: int, Mp: int, num_heads: int
+) -> torch.Tensor:
+    """Single-segment pack read off ``[B, L, E]`` in row-blocks of r tokens:
+    dense row ``j*r + p`` gives packed row j of phase p. Rows >= L (and so
+    every packed row past the dense extent) are exact zeros."""
+    B, L, E = x.shape
+    _check_direct("pack_phases_direct", L, g, S, r)
+    hb, Dh = num_heads // r, E // num_heads
+    x6 = torch.nn.functional.pad(x, (0, 0, 0, Mp * r - L)).reshape(B, Mp, r, r, hb, Dh)
+    diag = x6.diagonal(dim1=2, dim2=3)  # [B, Mp, hb, Dh, r(phase == band)]
+    return diag.permute(0, 4, 2, 1, 3).unsqueeze(1).contiguous()
+
+
+def unpack_phases_direct_reference(
+    p6: torch.Tensor, L: int, E: int, g: int, S: int, r: int
+) -> torch.Tensor:
+    """Inverse of :func:`pack_phases_direct_reference`: packed [B, 1, r, hb,
+    Mp, Dh] -> dense [B, L, E], off-band lanes exact 0."""
+    B, _, _, hb, Mp, Dh = p6.shape
+    _check_direct("unpack_phases_direct", L, g, S, r)
+    x6 = p6.new_zeros((B, Mp, r, r, hb, Dh))  # [b, j, phase, band, t, d]
+    x6.diagonal(dim1=2, dim2=3).copy_(p6[:, 0].permute(0, 3, 2, 4, 1))
+    return x6.reshape(B, Mp * r, E)[:, :L]
+
+
 def dilated_branch_fwd_reference(
     q6: torch.Tensor, k6: torch.Tensor, v6: torch.Tensor, kvlen: torch.Tensor,
     is_causal: bool = False,
@@ -223,6 +378,51 @@ def dilated_branch_bwd_reference(
                     dk6[:, s, p, t] = ((ds.transpose(1, 2) @ qf) * scale).to(k6.dtype)
                     dv6[:, s, p, t] = (pr.transpose(1, 2) @ dof).to(v6.dtype)
     return dq6, dk6, dv6
+
+
+def fusion_epilogue_fwd_reference(
+    outs: Sequence[torch.Tensor], lses: Sequence[torch.Tensor], plan: "EpiloguePlan"
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every branch's packed ``(out6, lse5)`` -> ``(out [B, L, E] in out6's
+    dtype, fused_lse [B, L, H] fp32)``: the kernel's fp32 online softmax
+    over the branches in plain PyTorch, its running max floored at
+    ``M_FLOOR``. A branch weighs exactly 0 at a (token, head) it does not
+    cover (lse -1e30 there); a pair no branch covers gives out 0 and
+    ``fused_lse = NEG_INF``."""
+    L, E, H = plan.L, plan.E, plan.H
+    B, dev = outs[0].shape[0], outs[0].device
+    m_run = torch.full((B, L, H, 1), M_FLOOR, dtype=torch.float32, device=dev)
+    l_run = torch.zeros_like(m_run)
+    acc = torch.zeros((B, L, H, E // H), dtype=torch.float32, device=dev)
+    for o6, l5, (g, S, r, m, _) in zip(outs, lses, plan.branches):
+        o = unpack_phases_reference(o6.float(), L, E, g, S, r).reshape(acc.shape)
+        lse = _scatter_lse(l5, L, H, g, r, m).transpose(1, 2)[..., None]
+        m_new = torch.maximum(m_run, lse)
+        a, w = torch.exp(m_run - m_new), torch.exp(lse - m_new)
+        acc = acc * a + o * w
+        l_run = l_run * a + w
+        m_run = m_new
+    covered = l_run > 0
+    l_safe = torch.where(covered, l_run, torch.ones_like(l_run))
+    out = torch.where(covered, acc / l_safe, torch.zeros_like(acc)).reshape(B, L, E)
+    fused = torch.where(covered, m_run + torch.log(l_safe), torch.full_like(m_run, NEG_INF))
+    return out.to(outs[0].dtype), fused[..., 0]
+
+
+def fusion_epilogue_bwd_reference(
+    dy: torch.Tensor, fused_lse: torch.Tensor, lse5: torch.Tensor,
+    branch: Tuple[int, int, int, int, int], num_heads: int,
+) -> torch.Tensor:
+    """One branch's packed output cotangent ``d_out6 = exp(lse_branch -
+    fused_lse) * dY`` in fp32, stored in dY's dtype in the branch's packed
+    layout ``[B, S, r, hb, Mp, Dh]``, exact zeros at every slot outside the
+    segment or the sequence. ``branch`` is ``(g, S, r, m, Mp)``."""
+    g, S, r, m, Mp = branch
+    B, L, E = dy.shape
+    H = num_heads
+    w = torch.exp(_scatter_lse(lse5, L, H, g, r, m) - fused_lse.transpose(1, 2))  # [B, H, L]
+    x = dy.float().reshape(B, L, H, E // H) * w.transpose(1, 2)[..., None]
+    return pack_phases_reference(x.reshape(B, L, E).to(dy.dtype), g, S, r, Mp, H)
 
 
 # ---------------------------------------------------------------------------
@@ -384,9 +584,160 @@ def dilated_branch_bwd_dkv(
     return dk6, dv6
 
 
+def pack_phases_direct(
+    x: torch.Tensor, g: int, S: int, r: int, Mp: int, num_heads: int
+) -> torch.Tensor:
+    """Single-segment dense [B, L, E] -> packed [B, 1, r, hb, Mp, Dh]
+    through shared-memory row-blocks (``csrc/pack_phases_direct.cu``)."""
+    if x.device.type == "cpu":
+        return pack_phases_direct_reference(x, g, S, r, Mp, num_heads)
+    from gigapath_tpu_torch.ops import _build
+
+    check_cuda("pack_phases_direct", x)
+    B, L, E = x.shape
+    _check_direct("pack_phases_direct", L, g, S, r)
+    hb, Dh = num_heads // r, E // num_heads
+    out = torch.empty((B, 1, r, hb, Mp, Dh), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _build.library("pack_phases_direct").gp_pack_phases_direct(
+            x.data_ptr(), out.data_ptr(), x.element_size(), B, L, E, r, hb, Dh, Mp, cuda_stream(x),
+        )
+    raise_on(rc, "pack_phases_direct")
+    LAUNCHES["pack_phases_direct"] += 1
+    return out
+
+
+def unpack_phases_direct(p6: torch.Tensor, L: int, E: int, g: int, S: int, r: int) -> torch.Tensor:
+    """Packed [B, 1, r, hb, Mp, Dh] -> dense [B, L, E], off-band lanes exact
+    0, through shared-memory row-blocks (``csrc/unpack_phases_direct.cu``)."""
+    if p6.device.type == "cpu":
+        return unpack_phases_direct_reference(p6, L, E, g, S, r)
+    from gigapath_tpu_torch.ops import _build
+
+    check_cuda("unpack_phases_direct", p6)
+    _check_direct("unpack_phases_direct", L, g, S, r)
+    B, S_, r_, hb, Mp, Dh = p6.shape
+    if (S_, r_, r_ * hb * Dh) != (1, r, E) or Mp * r < L:
+        raise ValueError(f"unpack_phases_direct: packed shape {tuple(p6.shape)} does not fit L={L}, r={r}, E={E}")
+    out = torch.empty((B, L, E), dtype=p6.dtype, device=p6.device)
+    with torch.cuda.device(p6.device):
+        rc = _build.library("unpack_phases_direct").gp_unpack_phases_direct(
+            p6.data_ptr(), out.data_ptr(), p6.element_size(), B, L, E, r, hb, Dh, Mp, cuda_stream(p6),
+        )
+    raise_on(rc, "unpack_phases_direct")
+    LAUNCHES["unpack_phases_direct"] += 1
+    return out
+
+
+def fusion_epilogue_fwd(
+    outs: Sequence[torch.Tensor], lses: Sequence[torch.Tensor], plan: "EpiloguePlan"
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every branch's packed ``(out6, lse5)`` -> ``(out [B, L, E], fused_lse
+    [B, L, H] fp32)`` in one launch (``csrc/fusion_epilogue_fwd.cu``);
+    arguments as :func:`fusion_epilogue_fwd_reference`."""
+    if outs[0].device.type == "cpu":
+        return fusion_epilogue_fwd_reference(outs, lses, plan)
+    from gigapath_tpu_torch.ops import _build
+
+    L, E, H = plan.L, plan.E, plan.H
+    Dh, n = E // H, len(plan.branches)
+    B, dtype, dev = outs[0].shape[0], outs[0].dtype, outs[0].device
+    if not 1 <= n <= MAX_FUSED_BRANCHES or len(outs) != n or len(lses) != n or Dh % 4:
+        raise ValueError(f"fusion_epilogue_fwd: needs 1..{MAX_FUSED_BRANCHES} branches and Dh % 4 == 0; "
+                         f"got {len(outs)} outs, {len(lses)} lses, {n} planned, Dh={Dh}")
+    for i, (o6, l5, (g, S, r, m, Mp)) in enumerate(zip(outs, lses, plan.branches)):
+        check_cuda(f"fusion_epilogue_fwd out6[{i}]", o6)
+        check_cuda(f"fusion_epilogue_fwd lse5[{i}]", l5, (torch.float32,))
+        if (o6.shape != (B, S, r, H // r, Mp, Dh) or l5.shape != (B, S, r, H // r, Mp)
+                or o6.dtype != dtype or o6.device != dev or l5.device != dev):
+            raise ValueError(f"fusion_epilogue_fwd: branch {i} tensors {tuple(o6.shape)}, {tuple(l5.shape)} "
+                             f"do not fit (B, S, r, hb, Mp, Dh) = {(B, S, r, H // r, Mp, Dh)} in {dtype}")
+    out = torch.empty((B, L, E), dtype=dtype, device=dev)
+    fused = torch.empty((B, L, H), dtype=torch.float32, device=dev)
+    out_ptrs = (ctypes.c_longlong * n)(*(o6.data_ptr() for o6 in outs))
+    lse_ptrs = (ctypes.c_longlong * n)(*(l5.data_ptr() for l5 in lses))
+    geo = (ctypes.c_int * (4 * n))(*(v for g, S, r, _, Mp in plan.branches for v in (g, S, r, Mp)))
+    with torch.cuda.device(dev):
+        rc = _build.library("fusion_epilogue_fwd").gp_fusion_epilogue_fwd(
+            out_ptrs, lse_ptrs, geo, n, out.data_ptr(), fused.data_ptr(),
+            int(dtype == torch.bfloat16), B, L, H, Dh, cuda_stream(out),
+        )
+    raise_on(rc, "fusion_epilogue_fwd")
+    LAUNCHES["fusion_epilogue_fwd"] += 1
+    return out, fused
+
+
+def fusion_epilogue_bwd(
+    dy: torch.Tensor, fused_lse: torch.Tensor, lse5: torch.Tensor,
+    branch: Tuple[int, int, int, int, int], num_heads: int,
+) -> torch.Tensor:
+    """One branch's packed output cotangent (``csrc/fusion_epilogue_bwd.cu``);
+    arguments as :func:`fusion_epilogue_bwd_reference`."""
+    if dy.device.type == "cpu":
+        return fusion_epilogue_bwd_reference(dy, fused_lse, lse5, branch, num_heads)
+    from gigapath_tpu_torch.ops import _build
+
+    g, S, r, m, Mp = branch
+    B, L, E = dy.shape
+    H = num_heads
+    Dh = E // H
+    check_cuda("fusion_epilogue_bwd dy", dy)
+    check_cuda("fusion_epilogue_bwd fused_lse", fused_lse, (torch.float32,))
+    check_cuda("fusion_epilogue_bwd lse5", lse5, (torch.float32,))
+    if (fused_lse.shape != (B, L, H) or lse5.shape != (B, S, r, H // r, Mp) or Dh % 4
+            or fused_lse.device != dy.device or lse5.device != dy.device):
+        raise ValueError(f"fusion_epilogue_bwd: fused_lse {tuple(fused_lse.shape)}, lse5 {tuple(lse5.shape)} do "
+                         f"not fit B={B}, L={L}, H={H}, (S, r, Mp)={(S, r, Mp)}, or Dh={Dh} is not a multiple of 4")
+    d6 = torch.empty((B, S, r, H // r, Mp, Dh), dtype=dy.dtype, device=dy.device)
+    with torch.cuda.device(dy.device):
+        rc = _build.library("fusion_epilogue_bwd").gp_fusion_epilogue_bwd(
+            dy.data_ptr(), fused_lse.data_ptr(), lse5.data_ptr(), d6.data_ptr(),
+            int(dy.dtype == torch.bfloat16), B, L, H, Dh, g, S, r, Mp, cuda_stream(dy),
+        )
+    raise_on(rc, "fusion_epilogue_bwd")
+    LAUNCHES["fusion_epilogue_bwd"] += 1
+    return d6
+
+
 # ---------------------------------------------------------------------------
-# the branch op
+# the branch ops
 # ---------------------------------------------------------------------------
+
+
+def _pack(x, g, S, r, Mp, num_heads, pack_direct: bool) -> torch.Tensor:
+    """Row 4's direct pack where the JAX package takes it (one segment,
+    ``r > 1``, ``pack_direct``), else row 2's pack."""
+    if pack_direct and S == 1 and r > 1:
+        return pack_phases_direct(x, g, S, r, Mp, num_heads)
+    return pack_phases(x, g, S, r, Mp, num_heads)
+
+
+def _unpack(p6, L, E, g, S, r, pack_direct: bool) -> torch.Tensor:
+    """Row 5's direct unpack where :func:`_pack` takes row 4, else row 3's."""
+    if pack_direct and S == 1 and r > 1:
+        return unpack_phases_direct(p6, L, E, g, S, r)
+    return unpack_phases(p6, L, E, g, S, r)
+
+
+def _branch_packed_fwd(q, k, v, kvlen, geometry, num_heads, is_causal, pack_direct):
+    """Dense q/k/v -> the branch's packed ``(out6, lse5)``."""
+    L, E, g, S, r, m, Mp = geometry
+    q6, k6, v6 = (_pack(x, g, S, r, Mp, num_heads, pack_direct) for x in (q, k, v))
+    return dilated_branch_fwd(q6, k6, v6, kvlen, is_causal)
+
+
+def _branch_bwd(q, k, v, kvlen, do6, out6, lse5, geometry, num_heads, is_causal, pack_direct):
+    """The packed output cotangent ``do6`` (and the forward's packed
+    results) -> dense ``(dq, dk, dv)``; the counterpart of
+    ``_branch_bwd_core``. Off-band lanes come back exact 0: the branch never
+    reads them."""
+    L, E, g, S, r, m, Mp = geometry
+    q6, k6, v6 = (_pack(x, g, S, r, Mp, num_heads, pack_direct) for x in (q, k, v))
+    # delta = rowsum(do * out) per (token, head), in the lse layout
+    delta = (do6.float() * out6.float()).sum(dim=-1)
+    dq6 = dilated_branch_bwd_dq(q6, k6, v6, do6, lse5, delta, kvlen, is_causal)
+    dk6, dv6 = dilated_branch_bwd_dkv(q6, k6, v6, do6, lse5, delta, kvlen, is_causal)
+    return [_unpack(x6, L, E, g, S, r, pack_direct) for x6 in (dq6, dk6, dv6)]
 
 
 class _DilatedBranch(torch.autograd.Function):
@@ -397,18 +748,18 @@ class _DilatedBranch(torch.autograd.Function):
     and this branch's packed ``out6``/``lse5``, never the packed q6/k6/v6:
     the backward re-packs them. The lse output takes no gradient. Both
     passes run with autocast off: the kernels (and their plain versions)
-    compute in fp32 from the inputs' dtype."""
+    compute in fp32 from the inputs' dtype. ``pack_direct`` is the
+    forward's flag, kept on ``ctx`` for the backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kvlen, geometry, num_heads, is_causal):
+    def forward(ctx, q, k, v, kvlen, geometry, num_heads, is_causal, pack_direct):
         L, E, g, S, r, m, Mp = geometry
         with torch.autocast(q.device.type, enabled=False):
-            q6, k6, v6 = (pack_phases(x, g, S, r, Mp, num_heads) for x in (q, k, v))
-            out6, lse5 = dilated_branch_fwd(q6, k6, v6, kvlen, is_causal)
-            out = unpack_phases(out6, L, E, g, S, r)
+            out6, lse5 = _branch_packed_fwd(q, k, v, kvlen, geometry, num_heads, is_causal, pack_direct)
+            out = _unpack(out6, L, E, g, S, r, pack_direct)
             lse = _scatter_lse(lse5, L, num_heads, g, r, m)
         ctx.save_for_backward(q, k, v, kvlen, out6, lse5)
-        ctx.geometry, ctx.num_heads, ctx.is_causal = geometry, num_heads, is_causal
+        ctx.geometry, ctx.num_heads, ctx.is_causal, ctx.pack_direct = geometry, num_heads, is_causal, pack_direct
         ctx.mark_non_differentiable(lse)
         return out, lse
 
@@ -416,17 +767,52 @@ class _DilatedBranch(torch.autograd.Function):
     def backward(ctx, dout, _dlse):  # no gradient flows through the lse output
         q, k, v, kvlen, out6, lse5 = ctx.saved_tensors
         L, E, g, S, r, m, Mp = ctx.geometry
-        H, causal = ctx.num_heads, ctx.is_causal
         with torch.autocast(q.device.type, enabled=False):
-            do6 = pack_phases(dout.to(q.dtype).contiguous(), g, S, r, Mp, H)
-            q6, k6, v6 = (pack_phases(x, g, S, r, Mp, H) for x in (q, k, v))
-            # delta = rowsum(do * out) per (token, head), in the lse layout
-            delta = (do6.float() * out6.float()).sum(dim=-1)
-            dq6 = dilated_branch_bwd_dq(q6, k6, v6, do6, lse5, delta, kvlen, causal)
-            dk6, dv6 = dilated_branch_bwd_dkv(q6, k6, v6, do6, lse5, delta, kvlen, causal)
-            # off-band lanes come back exact 0: the branch never reads them
-            grads = [unpack_phases(x6, L, E, g, S, r) for x6 in (dq6, dk6, dv6)]
-        return (*grads, None, None, None, None)
+            do6 = _pack(dout.to(q.dtype).contiguous(), g, S, r, Mp, ctx.num_heads, ctx.pack_direct)
+            grads = _branch_bwd(q, k, v, kvlen, do6, out6, lse5, ctx.geometry, ctx.num_heads,
+                                ctx.is_causal, ctx.pack_direct)
+        return (*grads, None, None, None, None, None)
+
+
+class _DilatedBranchPacked(torch.autograd.Function):
+    """Dense q/k/v [B, L, E] -> the branch's packed ``(out6, lse5)``; the
+    counterpart of ``_dilated_branch_packed``'s custom VJP. Its backward
+    takes the output cotangent already packed (the fusion epilogue's
+    backward writes it so) and skips the pack of ``do``. Saves and runs as
+    :class:`_DilatedBranch`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kvlen, geometry, num_heads, is_causal, pack_direct):
+        with torch.autocast(q.device.type, enabled=False):
+            out6, lse5 = _branch_packed_fwd(q, k, v, kvlen, geometry, num_heads, is_causal, pack_direct)
+        ctx.save_for_backward(q, k, v, kvlen, out6, lse5)
+        ctx.geometry, ctx.num_heads, ctx.is_causal, ctx.pack_direct = geometry, num_heads, is_causal, pack_direct
+        ctx.mark_non_differentiable(lse5)
+        return out6, lse5
+
+    @staticmethod
+    def backward(ctx, do6, _dlse5):  # no gradient flows through the lse output
+        q, k, v, kvlen, out6, lse5 = ctx.saved_tensors
+        with torch.autocast(q.device.type, enabled=False):
+            grads = _branch_bwd(q, k, v, kvlen, do6.to(q.dtype).contiguous(), out6, lse5, ctx.geometry,
+                                ctx.num_heads, ctx.is_causal, ctx.pack_direct)
+        return (*grads, None, None, None, None, None)
+
+
+def _branch_args(q, k, v, sl, r, num_heads, real_len, valid_len_dyn, flags):
+    """(geometry, kvlen, flags) of one branch call; resolves the flags
+    through the plan seam when the caller holds none."""
+    B, L, E = q.shape
+    if E % num_heads or num_heads % r:
+        raise ValueError(f"dilated branch: needs E % H == 0 and H % r == 0; got E={E}, H={num_heads}, r={r}")
+    if flags is None:
+        from gigapath_tpu_torch.plan import resolve_plan
+
+        flags = resolve_plan("dilated_branch", (q, k, v))
+    rl = L if real_len is None else min(int(real_len), L)
+    g, S, m, Mp = _branch_geometry(L, int(sl), int(r))
+    kvlen = _branch_kvlen(B, S, g, int(r), m, rl, valid_len_dyn, q.device)
+    return (L, E, g, S, int(r), m, Mp), kvlen, flags
 
 
 def dilated_branch_attention(
@@ -440,6 +826,7 @@ def dilated_branch_attention(
     real_len: Optional[int] = None,
     valid_len_dyn: Optional[torch.Tensor] = None,
     is_causal: bool = False,
+    flags: Optional[PipelineFlags] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One dilated-attention branch on dense [B, L, E] activations.
 
@@ -448,15 +835,141 @@ def dilated_branch_attention(
     cross-branch LSE-softmax fusion. Keys at positions ``>= real_len``
     (static) or ``>= valid_len_dyn[b]`` (per batch row) are masked.
     Differentiable in q, k and v; the lse output takes no gradient.
-    Requires ``num_heads % r == 0``.
+    Requires ``num_heads % r == 0``. ``flags`` pins the dispatch (None:
+    resolved once through the plan seam).
     """
-    B, L, E = q.shape
-    if E % num_heads or num_heads % r:
-        raise ValueError(f"dilated_branch_attention: needs E % H == 0 and H % r == 0; got E={E}, H={num_heads}, r={r}")
-    rl = L if real_len is None else min(int(real_len), L)
-    g, S, m, Mp = _branch_geometry(L, int(sl), int(r))
-    kvlen = _branch_kvlen(B, S, g, r, m, rl, valid_len_dyn, q.device)
+    geometry, kvlen, flags = _branch_args(q, k, v, sl, r, num_heads, real_len, valid_len_dyn, flags)
+    check_not_pipelined(flags, (sl,), (r,), is_causal)
     return _DilatedBranch.apply(
-        q.contiguous(), k.contiguous(), v.contiguous(), kvlen,
-        (L, E, g, S, int(r), m, Mp), num_heads, is_causal,
+        q.contiguous(), k.contiguous(), v.contiguous(), kvlen, geometry, num_heads, is_causal,
+        bool(flags.pack_direct),
     )
+
+
+def dilated_branch_attention_packed(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    sl: int,
+    r: int,
+    num_heads: int,
+    *,
+    real_len: Optional[int] = None,
+    valid_len_dyn: Optional[torch.Tensor] = None,
+    is_causal: bool = False,
+    flags: Optional[PipelineFlags] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One dilated branch returning its packed results ``(out6 [B, S, r,
+    hb, Mp, Dh], lse5 [B, S, r, hb, Mp] fp32)``, the fusion epilogue's
+    input; arguments as :func:`dilated_branch_attention`."""
+    geometry, kvlen, flags = _branch_args(q, k, v, sl, r, num_heads, real_len, valid_len_dyn, flags)
+    check_not_pipelined(flags, (sl,), (r,), is_causal)
+    return _DilatedBranchPacked.apply(
+        q.contiguous(), k.contiguous(), v.contiguous(), kvlen, geometry, num_heads, is_causal,
+        bool(flags.pack_direct),
+    )
+
+
+# ---------------------------------------------------------------------------
+# the stream-fusion epilogue
+# ---------------------------------------------------------------------------
+
+
+class EpiloguePlan(NamedTuple):
+    """Static geometry of one fusion epilogue: ``branches`` holds each
+    branch's ``(g, S, r, m, Mp)`` in the port's packed layout."""
+
+    L: int
+    E: int
+    H: int
+    branches: Tuple[Tuple[int, int, int, int, int], ...]
+
+
+def plan_stream_fusion(
+    L: int, E: int, H: int, segment_lengths: Sequence[int], dilated_ratios: Sequence[int]
+) -> Optional[EpiloguePlan]:
+    """The epilogue's plan, or None where it does not apply: one branch
+    (nothing to fuse), more than :data:`MAX_FUSED_BRANCHES`, or a ratio that
+    does not divide H and E. The JAX package also refuses schedules whose
+    branches cannot share a TPU block alignment and splits the rest into
+    alignment classes chained through HBM; the kernel here reads any
+    branch at any token, so it has neither, and where the JAX package
+    falls back to the dense fusion the results are equal."""
+    n = len(segment_lengths)
+    if n < 2 or n > MAX_FUSED_BRANCHES or len(dilated_ratios) != n:
+        return None
+    branches = []
+    for sl, r in zip(segment_lengths, dilated_ratios):
+        sl, r = int(sl), int(r)
+        if H % r or E % r:
+            return None
+        g, S, m, Mp = _branch_geometry(L, sl, r)
+        branches.append((g, S, r, m, Mp))
+    return EpiloguePlan(L=L, E=E, H=H, branches=tuple(branches))
+
+
+class _FusionEpilogue(torch.autograd.Function):
+    """Packed ``(out6, lse5)`` of every branch -> the fused [B, L, E]; the
+    counterpart of ``_fusion_epilogue``'s custom VJP. It saves only the
+    branches' lse tables (the branch ops hold them already) and the
+    compact ``fused_lse [B, L, H]``. The fusion weights are constants in the
+    backward, so no cotangent reaches the lse tables. Autocast is off: the
+    kernel reads the packed results in their dtype and writes ``out`` in
+    it."""
+
+    @staticmethod
+    def forward(ctx, plan, *packed):
+        outs, lses = packed[0::2], packed[1::2]
+        with torch.autocast(outs[0].device.type, enabled=False):
+            out, fused = fusion_epilogue_fwd(outs, lses, plan)
+        ctx.save_for_backward(fused, *lses)
+        ctx.plan = plan
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        fused, *lses = ctx.saved_tensors
+        plan = ctx.plan
+        grads = []
+        with torch.autocast(dy.device.type, enabled=False):
+            dy = dy.contiguous()
+            for l5, branch in zip(lses, plan.branches):
+                grads += [fusion_epilogue_bwd(dy, fused, l5, branch, plan.H), None]
+        return (None, *grads)
+
+
+def dilated_attention_stream_fused(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    segment_lengths: Sequence[int],
+    dilated_ratios: Sequence[int],
+    num_heads: int,
+    *,
+    real_len: Optional[int] = None,
+    valid_len_dyn: Optional[torch.Tensor] = None,
+    is_causal: bool = False,
+    flags: Optional[PipelineFlags] = None,
+) -> torch.Tensor:
+    """Multi-branch dilated attention on dense [B, L, E] through the fusion
+    epilogue: every branch runs :func:`dilated_branch_attention_packed` and
+    the packed results go straight into :class:`_FusionEpilogue`, so no
+    dense per-branch out/lse exists, forward or backward. Needs a schedule
+    :func:`plan_stream_fusion` accepts. ``flags`` as
+    :func:`dilated_branch_attention` (None: resolved once here)."""
+    B, L, E = q.shape
+    if flags is None:
+        from gigapath_tpu_torch.plan import resolve_plan
+
+        flags = resolve_plan("dilated_stream", (q, k, v))
+    plan = plan_stream_fusion(L, E, num_heads, segment_lengths, dilated_ratios)
+    if plan is None:
+        raise ValueError(f"dilated_attention_stream_fused: schedule {list(segment_lengths)}/"
+                         f"{list(dilated_ratios)} at L={L}, E={E}, H={num_heads} has no epilogue plan")
+    packed = []
+    for sl, r in zip(segment_lengths, dilated_ratios):
+        packed += dilated_branch_attention_packed(
+            q, k, v, int(sl), int(r), num_heads, real_len=real_len,
+            valid_len_dyn=valid_len_dyn, is_causal=is_causal, flags=flags,
+        )
+    return _FusionEpilogue.apply(plan, *packed)

@@ -1,0 +1,40 @@
+"""Geometry-keyed execution plans (counterpart of ``gigapath_tpu/plan/``):
+:func:`resolve_plan` is the one seam the dilated-attention dispatch routes
+through. The registry reader honours the JAX package's file format, so one
+``PLAN_REGISTRY.json`` serves both packages."""
+
+from gigapath_tpu_torch.plan.executionplan import (
+    BRANCH_VARIANTS,
+    FUSION_CLASSES,
+    ExecutionPlan,
+    apply_plan,
+    geometry_key,
+    lookup_plan,
+    plan_enabled,
+    reset_plan_state,
+    resolve_plan,
+    shape_signature,
+)
+from gigapath_tpu_torch.plan.registry import (
+    REGISTRY_SCHEMA_VERSION,
+    CorruptPlanRegistry,
+    load_registry,
+    registry_path,
+)
+
+__all__ = [
+    "BRANCH_VARIANTS",
+    "FUSION_CLASSES",
+    "ExecutionPlan",
+    "apply_plan",
+    "geometry_key",
+    "lookup_plan",
+    "plan_enabled",
+    "reset_plan_state",
+    "resolve_plan",
+    "shape_signature",
+    "REGISTRY_SCHEMA_VERSION",
+    "CorruptPlanRegistry",
+    "load_registry",
+    "registry_path",
+]
