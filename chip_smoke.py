@@ -30,9 +30,10 @@ stdout:
    then bf16 past 65535 cells with per-row valid lengths, one row with none
    (its gradients exactly 0), and the causal forward and backward at one
    branch shape.
-7. head_widths: the forward, dq and dkv kernels at the registry's other
-   head widths (16, 24, 32, 64, 96) against their plain versions, with
-   ptxas' spill stores of each (the build phase builds every width).
+7. head_widths: the forward, dq and dkv kernels (and the three
+   segment-flash kernels) at the registry's other head widths (16, 24, 32,
+   64, 96) against their plain versions, with ptxas' spill stores of each
+   (the build phase builds every width).
 8. finetune_step: the flagship ``ClassificationHead`` (``feat_layer`` 11, 6
    classes as PANDA) built by ``get_model`` and trained by
    ``finetune/training.py``'s ``train_step`` on a synthetic 10240-tile
@@ -112,12 +113,48 @@ stdout:
     gradients against the default route, the exact launches of one bf16
     step, ms per step and peak memory of both routes (bf16).
 
+18. ffn_gelu: the feed-forward GELU of a bf16 [10241, 3072] fc1 output in
+    its own dtype against the explicit fp32 round trip, in bf16 ulps (at
+    most one).
+19. flash_kernels: the segment-flash kernels (rows 11-14: flash_fwd,
+    flash_bwd_dq, flash_bwd_dkv on the segmented layout, flat_fwd,
+    flat_bwd_dq, flat_bwd_dkv on the flat one) against their plain versions
+    at the five head-major branches of one flagship layer with ratios [1,
+    2, 4, 6, 12] (L = 10241; the r = 1 branch flat), fp32 and bf16, full
+    length (timed: CUDA events beside the bound, the plain version and SDPA
+    with a boolean key mask and its backward) and with a ragged real
+    length; the B = 2 ragged batch's counts formed on the card (every
+    branch segmented); a causal case of each layout; flash_attention and
+    partial_attention on [1, 10241, 16, 48] with [B, H] valid counts
+    against attention_with_lse.
+20. bhld_forward: the flagship with ``dilated_ratio="[1, 2, 4, 6, 12]"``
+    (6 and 12 do not divide H = 16: the head-major route, warned once)
+    through ``run_inference_with_slide_encoder`` on 10240 tiles, fp32 and
+    bf16: exact launches (48 flash_fwd, 12 flat_fwd), each layer's
+    embedding against the plain versions on the card, ms per slide, peak
+    memory above the model, a profiler breakdown and the allocations live
+    at the peak (bf16); a B = 2 ragged batch (60 flash_fwd), each row
+    against its slide alone.
+21. bhld_vs_fused: the flagship's own schedule through the public
+    ``dilated_attention_bhld`` against the default phase-major route (two
+    kernel families), fp32 and bf16, stacked and streaming fusion, with
+    both routes' ms.
+22. bhld_step: the fine-tune step at those ratios: fp32 gradients against
+    the plain versions, the exact launches of one bf16 step (48/44/44 on
+    the segmented kernels, 12/11/11 on the flat ones), ms per step and
+    peak memory.
+
+Phase 16 also replays a ``torch.cuda.memory`` allocation history of one
+bf16 forward per route (10240 and 102400 tiles) to its peak and reports the
+allocations live there by the port's source line.
+
 Then a ``{"kernels": [...]}`` line (the launches of the dilated kernels
 are those of one training step, of the quantized ones those of one
 ``int8+attn`` 128-tile batch, of ``stream_pair_fwd`` those of one
 streaming forward, of the stream backward kernels those of the backward
 through one layer's streaming attention, of the four stream-fusion
-kernels those of one bf16 training step on their route), the
+kernels those of one bf16 training step on their route, of the six
+segment-flash kernels those of one bf16 step of ``bhld_step``), the
 ``nvidia-smi`` name/power line, and
 the last line ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero before those lines. Exits non-zero, printing no result, when
@@ -213,6 +250,32 @@ KERNELS = {
         route="cuda", source="gigapath_tpu_torch/csrc/fusion_epilogue_bwd.cu",
         replaces="gigapath_tpu/ops/pallas_dilated.py:1958 (_epilogue_bwd_kernel, via _epilogue_bwd_call:1985, "
                  "pallas_call :2016)",
+    ),
+    "flash_fwd": dict(
+        route="cuda", source="gigapath_tpu_torch/csrc/flash_fwd.cu",
+        replaces="gigapath_tpu/ops/pallas_flash.py:97 (_fwd_kernel, via _fwd_impl:344, pallas_call :367)",
+    ),
+    "flash_bwd_dq": dict(
+        route="cuda", source="gigapath_tpu_torch/csrc/flash_bwd_dq.cu",
+        replaces="gigapath_tpu/ops/pallas_flash.py:200 (_dq_kernel, via _bwd_impl:389, pallas_call :415)",
+    ),
+    "flash_bwd_dkv": dict(
+        route="cuda", source="gigapath_tpu_torch/csrc/flash_bwd_dkv.cu",
+        replaces="gigapath_tpu/ops/pallas_flash.py:259 (_dkv_kernel, via _bwd_impl:389, pallas_call :432)",
+    ),
+    "flat_fwd": dict(
+        route="cuda", source="gigapath_tpu_torch/csrc/flash_fwd.cu",
+        replaces="gigapath_tpu/ops/pallas_flash.py:97 (_fwd_kernel, via _flat_fwd_impl:480, pallas_call :494)",
+    ),
+    "flat_bwd_dq": dict(
+        route="cuda", source="gigapath_tpu_torch/csrc/flash_bwd_dq.cu",
+        replaces="gigapath_tpu/ops/pallas_flash.py:200 (_dq_kernel flat=True, via _flat_bwd_impl:513, "
+                 "pallas_call :555)",
+    ),
+    "flat_bwd_dkv": dict(
+        route="cuda", source="gigapath_tpu_torch/csrc/flash_bwd_dkv.cu",
+        replaces="gigapath_tpu/ops/pallas_flash.py:259 (_dkv_kernel flat=True, via _flat_bwd_impl:513, "
+                 "pallas_call :568)",
     ),
 }
 FWD_KERNELS = ("pack_phases", "dilated_branch_fwd", "unpack_phases")
@@ -313,6 +376,23 @@ FUSED_LSE_TOL = dict(atol=1e-5, rtol=1e-6)
 # on their kernels: fp32 sums in another order (read 1.4e-6)
 FUSION_F32_REL_TOL = 1e-5
 LONG_TILES = 102400  # one 320 x 320-tile slide, L = 102401 with cls
+# the head-major route: the flagship at the LongNet paper's ratios
+# (6 and 12 do not divide H = 16, so every layer takes the route); its r = 1
+# branch (g = 1024) takes the flat kernel, the other four the segmented one;
+# a forward launches 12 x 4 flash_fwd and 12 flat_fwd, a ragged B = 2
+# batch (per-row valid lengths) 12 x 5 flash_fwd; a step with feat_layer 11
+# runs the backward through 11 layers
+BHLD_RATIOS = "[1, 2, 4, 6, 12]"
+BHLD_SCHEDULE = (SCHEDULE[0], [1, 2, 4, 6, 12])
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flat_fwd", "flat_bwd_dq", "flat_bwd_dkv")
+FLASH_SOURCES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+BHLD_FWD_LAUNCHES = {"flash_fwd": 48, "flat_fwd": 12}
+BHLD_RAGGED_LAUNCHES = {"flash_fwd": 60}
+BHLD_STEP_LAUNCHES = {"flash_fwd": 48, "flat_fwd": 12, "flash_bwd_dq": 44, "flash_bwd_dkv": 44,
+                      "flat_bwd_dq": 11, "flat_bwd_dkv": 11}
+# the head-major route vs its plain versions, and vs the phase-major route
+# on the flagship's own schedule: fp32 sums in another order
+BHLD_F32_REL_TOL = 1e-5
 PANDA = {"name": "panda", "setting": "multi_class", "label_dict": {i: i for i in range(6)},
          "max_tiles": 1000000, "shuffle_tiles": True, "add_metrics": ["qwk"]}  # panda.yaml
 
@@ -441,13 +521,13 @@ def phase_device():
 
 
 def phase_build():
-    """Every library at once: the flagship slide encoder's (dense and
-    streaming), the flagship tile encoder's, and the branch kernels at the
-    registry's other head widths."""
+    """Every library at once: the flagship slide encoder's (dense,
+    streaming and head-major), the flagship tile encoder's, and the branch
+    and segment-flash kernels at the registry's other head widths."""
     from gigapath_tpu_torch.ops import _build
 
-    specs = _build.FLAGSHIP + _build.TILE_FLAGSHIP + _build.STREAM_FLAGSHIP + tuple(
-        (name, (("GP_HEAD_DIM", dh),)) for dh in OTHER_HEAD_DIMS for name in BRANCH_SOURCES
+    specs = _build.FLAGSHIP + _build.TILE_FLAGSHIP + _build.STREAM_FLAGSHIP + _build.FLASH_FLAGSHIP + tuple(
+        (name, (("GP_HEAD_DIM", dh),)) for dh in OTHER_HEAD_DIMS for name in BRANCH_SOURCES + FLASH_SOURCES
     )
     t0 = time.perf_counter()
     _build.build_all(specs)
@@ -909,11 +989,14 @@ def _spill_bytes(label: str) -> int:
 def phase_head_widths():
     """The three branch kernels at the registry's other head widths (H = 16,
     E = 16 * Dh, one r = 2 branch on 2049 tokens with a ragged real length),
-    fp32 and bf16, against their plain versions; ptxas' spill stores of
-    each."""
+    and the three segment-flash kernels there (a head-major r = 3 branch and
+    a flat r = 1 one), fp32 and bf16, against their plain versions; ptxas'
+    spill stores of each."""
     import torch
 
+    from gigapath_tpu_torch.ops import dilated_attention as pda
     from gigapath_tpu_torch.ops import dilated_kernels as dk
+    from gigapath_tpu_torch.ops import flash_kernels as fk
 
     L, B, sl, r = 2049, 1, 1024, 2
     gen = torch.Generator(device="cuda").manual_seed(8)
@@ -937,18 +1020,32 @@ def phase_head_widths():
                 err = _grad_rel_err(a[..., :m, :], b[..., :m, :])
                 check(err <= BWD_REL_TOL[dname], f"Dh={dh} {dname} {name} rel err {err} > {BWD_REL_TOL[dname]}")
                 errs[dname][name] = err
+        # the segment-flash kernels at this width: one dilated head-major
+        # branch (segmented) and one flat r = 1 branch, ragged real length
+        flash_errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).replace("torch.", "")
+            qh, kh, vh, do = (torch.randn(B, H, L, dh, device="cuda", generator=gen).to(dtype) for _ in range(4))
+            for sl_, r_ in ((1024, 3), (256, 1)):
+                flat, fargs, _ = _flash_branch(fk, pda, qh, kh, vh, do, sl_, r_, L - 37, None)
+                flash_errs[f"{dname} r={r_}"] = _check_flash(
+                    f"Dh={dh} r={r_}", dname, flat, _flash_fwd_bwd(fk, flat, fargs),
+                    _flash_fwd_bwd(fk, flat, fargs, plain=True), dq_rows=L - 37 if flat else None)
         emit("head_widths", Dh=dh, E=Eh, L=L, sl=sl, r=r, max_rel_err=errs, tolerance=BWD_REL_TOL,
-             spill_store_bytes={name: _spill_bytes(f"{name}-GP_HEAD_DIM={dh}") for name in BRANCH_SOURCES})
+             flash_max_err=flash_errs,
+             spill_store_bytes={name: _spill_bytes(f"{name}-GP_HEAD_DIM={dh}")
+                                for name in BRANCH_SOURCES + FLASH_SOURCES})
 
 
-def _head_and_steps(torch, lr=5e-5, scheduler="fixed"):
+def _head_and_steps(torch, lr=5e-5, scheduler="fixed", **slide_kwargs):
     """The flagship ClassificationHead (seed 0) with the fine-tuning
-    recipe's optimizer, gc = 1."""
+    recipe's optimizer, gc = 1; ``slide_kwargs`` go to the slide encoder."""
     from gigapath_tpu_torch.finetune import utils as ft
     from gigapath_tpu_torch.models.classification_head import get_model
 
     model = get_model(input_dim=1536, latent_dim=768, feat_layer="11", n_classes=6,
-                      model_arch="gigapath_slide_enc12l768d", seed=0, dropout=0.0, drop_path_rate=0.0)
+                      model_arch="gigapath_slide_enc12l768d", seed=0, dropout=0.0, drop_path_rate=0.0,
+                      **slide_kwargs)
     optimizer = ft.build_optimizer(model, lr=lr, weight_decay=0.05, layer_decay=0.95,
                                    num_layers=len(model.slide_encoder.encoder.layers) + 1)
     sched = ft.make_lr_scheduler(optimizer, lr=lr, min_lr=1e-6, warmup_epochs=0, epochs=1,
@@ -1069,19 +1166,21 @@ def plain_tile_kernels():
 
 def reset_all_launch_counts():
     from gigapath_tpu_torch.ops import dilated_kernels as dk
+    from gigapath_tpu_torch.ops import flash_kernels as fk
     from gigapath_tpu_torch.ops import streaming_kernels as sk
     from gigapath_tpu_torch.quant import qflash, qmatmul
 
-    for mod in (dk, qmatmul, qflash, sk):
+    for mod in (dk, qmatmul, qflash, sk, fk):
         mod.reset_launch_counts()
 
 
 def all_launch_counts() -> dict:
     from gigapath_tpu_torch.ops import dilated_kernels as dk
+    from gigapath_tpu_torch.ops import flash_kernels as fk
     from gigapath_tpu_torch.ops import streaming_kernels as sk
     from gigapath_tpu_torch.quant import qflash, qmatmul
 
-    return {**dk.LAUNCHES, **qmatmul.LAUNCHES, **qflash.LAUNCHES, **sk.LAUNCHES}
+    return {**dk.LAUNCHES, **qmatmul.LAUNCHES, **qflash.LAUNCHES, **sk.LAUNCHES, **fk.LAUNCHES}
 
 
 def _q_matmul_check(qm, qt_mod, x, N, mode, gen, timed: bool):
@@ -2090,6 +2189,8 @@ def phase_fusion_forward():
             with torch.inference_mode():
                 record["forward_trace"] = {route: _profile(lambda: _route_embeds(model, x, coords, on))
                                            for route, on in (("default", False), ("stream_fusion", True))}
+            record["peak_breakdown"] = {route: _peak_breakdown(lambda: _route_embeds(model, x, coords, on))
+                                        for route, on in (("default", False), ("stream_fusion", True))}
         emit("fusion_forward", **record)
         result[dname] = record
         del model
@@ -2106,6 +2207,8 @@ def phase_fusion_forward():
     one_minus_cos = 1.0 - float(_cosines(a, b)[0])
     check(np.isfinite(a).all() and one_minus_cos <= BF16_MAX_ONE_MINUS_COS,
           f"102400 tiles: stream-fusion vs default 1 - cosine {one_minus_cos}")
+    for route, on in (("default", False), ("stream_fusion", True)):
+        timing[route]["peak_breakdown"] = _peak_breakdown(lambda: _route_embeds(model, x, coords, on))
     del model, x
     torch.cuda.empty_cache()
     # the attention alone: one dilated_attention call's peak memory above
@@ -2194,6 +2297,577 @@ def phase_fusion_step():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the head-major dilated route: the segment-flash kernels, the forward and
+# step with ratios that do not divide the heads, the flash entry points
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def plain_flash_kernels():
+    """Run the head-major route and the flash entry points with the
+    segment-flash kernels' plain PyTorch versions on CUDA tensors."""
+    from gigapath_tpu_torch.ops import flash_kernels as fk
+
+    saved = {name: getattr(fk, name) for name in FLASH_KERNELS}
+    fk.flash_fwd, fk.flat_fwd = fk.flash_fwd_reference, fk.flat_fwd_reference
+    fk.flash_bwd_dq = lambda *a: fk.flash_bwd_reference(*a, dkv=False)[0]
+    fk.flash_bwd_dkv = lambda *a: fk.flash_bwd_reference(*a, dq=False)[1:]
+    fk.flat_bwd_dq = lambda *a: fk.flat_bwd_reference(*a, dkv=False)[0]
+    fk.flat_bwd_dkv = lambda *a: fk.flat_bwd_reference(*a, dq=False)[1:]
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(fk, name, fn)
+
+
+def _flash_bounds(rows_per_cell, kv_per_cell, B, itemsize, dtype_name, flat: bool):
+    """Least card time (ms) of each segment-flash kernel's work on one
+    branch: the (query, key) pairs the masks admit (each cell's real query
+    rows times its valid keys) times 4, 6 or 8 D operations over the
+    dtype's peak, or each input read once and each output written once
+    over the HBM rate, whichever is larger. ``rows_per_cell`` /
+    ``kv_per_cell``: [H, S] (or [B, H, S]) counts."""
+    import numpy as np
+
+    D = E // H
+    rows_c = np.broadcast_to(np.asarray(rows_per_cell, np.int64), np.shape(kv_per_cell))
+    kv_c = np.asarray(kv_per_cell, np.int64)
+    if kv_c.ndim == 2:
+        rows_c, kv_c = rows_c[None].repeat(B, 0), kv_c[None].repeat(B, 0)
+    pairs = float((rows_c * kv_c).sum())
+    rows, keys = float(rows_c.sum()), float(kv_c.sum())
+    prefix = "flat" if flat else "flash"
+    work = {
+        f"{prefix}_fwd": (4, (2 * rows + 2 * keys) * D * itemsize + rows * 4),
+        f"{prefix}_bwd_dq": (6, (3 * rows + 2 * keys) * D * itemsize + 2 * rows * 4),
+        f"{prefix}_bwd_dkv": (8, (2 * rows + 4 * keys) * D * itemsize + 2 * rows * 4),
+    }
+    return {name: max((per_pair * D * pairs / PEAK_FLOPS[dtype_name] * 1e3, "operations"),
+                      (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+            for name, (per_pair, nbytes) in work.items()}
+
+
+def _flash_branch(fk, pda, qh, kh, vh, do, sl, r, real_len, valid):
+    """One head-major branch's kernel inputs, as the route forms them:
+    ``(flat, args)`` where args are ``(q, k, v, do, kvlen or (g,
+    real_len))`` in the kernels' layout."""
+    B, _, L, _ = qh.shape
+    g, Lp, n, gp, m = pda._bhld_geom(L, sl, r)
+    if valid is None and pda._flat_eligible(g, r):
+        return True, (qh, kh, vh, do, (g, real_len)), (g, Lp, n, gp, m)
+    kvlen = pda._bhld_kvlen(B, H, n, g, r, m, real_len, valid, qh.device)
+    x5 = [pda._seg_dilate(x, g, Lp, n, gp, r) for x in (qh, kh, vh, do)]
+    return False, (*x5, kvlen), (g, Lp, n, gp, m)
+
+
+def _flash_fwd_bwd(fk, flat, args, causal=False, plain=False):
+    """The forward and both backward kernels (or their plain versions) on
+    one branch: ``(out, lse, dq, dk, dv)``."""
+    q, k, v, do, extra = args
+    if flat:
+        g, rl = extra
+        fwd = fk.flat_fwd_reference if plain else fk.flat_fwd
+        out, lse = fwd(q, k, v, g, rl, causal)
+        delta = (do.float() * out.float()).sum(-1)
+        a = (q, k, v, do, lse, delta, g, rl, causal)
+        if plain:
+            return (out, lse, *fk.flat_bwd_reference(*a))
+        return (out, lse, fk.flat_bwd_dq(*a), *fk.flat_bwd_dkv(*a))
+    fwd = fk.flash_fwd_reference if plain else fk.flash_fwd
+    out, lse = fwd(q, k, v, extra, causal)
+    delta = (do.float() * out.float()).sum(-1)
+    a = (q, k, v, do, lse, delta, extra, causal)
+    if plain:
+        return (out, lse, *fk.flash_bwd_reference(*a))
+    return (out, lse, fk.flash_bwd_dq(*a), *fk.flash_bwd_dkv(*a))
+
+
+def _check_flash(label, dname, flat, ours, ref, dq_rows=None):
+    """A branch's kernels against their plain versions: out and the covered
+    lse by KERNEL_TOL / LSE_TOL, uncovered rows' lse at the sentinel, the
+    gradients by BWD_REL_TOL (dq on the rows where it is specified)."""
+    import torch
+
+    out, lse, dq, dk, dv = ours
+    r_out, r_lse, r_dq, r_dk, r_dv = ref
+    torch.cuda.synchronize()
+    for name, t in zip(("out", "dq", "dk", "dv"), (out, dq, dk, dv)):
+        check(bool(torch.isfinite(t).all()), f"{label} {dname}: non-finite {name}")
+    torch.testing.assert_close(out, r_out, **KERNEL_TOL[dname])
+    covered = r_lse > -1e19
+    torch.testing.assert_close(lse[covered], r_lse[covered], **LSE_TOL[dname])
+    check(bool((lse[~covered] <= -1e19).all()), f"{label} {dname}: uncovered lse above -1e19")
+    if dq_rows is not None:
+        dq, r_dq = dq[:, :, :dq_rows], r_dq[:, :, :dq_rows]
+    errs = {"out": max_err(out, r_out), "lse_covered": max_err(lse[covered], r_lse[covered])}
+    for name, a, b in (("dq", dq, r_dq), ("dk", dk, r_dk), ("dv", dv, r_dv)):
+        errs[name] = _grad_rel_err(a, b)
+        check(errs[name] <= BWD_REL_TOL[dname], f"{label} {dname} {name}: rel err {errs[name]} > {BWD_REL_TOL[dname]}")
+    return errs
+
+
+def _sdpa_yardstick(flat, args, pda, geom):
+    """CUDA-event ms of one SDPA call with a boolean key mask on the same
+    segment tensors, and of its backward: [B*H*S, 1, M, D]."""
+    import torch
+    import torch.nn.functional as F
+
+    q, k, v, do, extra = args
+    if flat:
+        g, rl = extra
+        q, k, v, do = (pda._seg_dilate(x, g, geom[1], geom[2], g, 1) for x in (q, k, v, do))
+        S = q.shape[2]
+        counts = torch.tensor([max(0, min(g, rl - s * g)) for s in range(S)], device=q.device)
+        kvlen = counts.expand(q.shape[0], q.shape[1], S)
+    else:
+        kvlen = extra if extra is not None else torch.full(q.shape[:3], k.shape[3], device=q.device)
+    M, D = q.shape[3], q.shape[4]
+    qs, ks, vs = (x.reshape(-1, 1, M, D).detach().requires_grad_() for x in (q, k, v))
+    key_ok = (torch.arange(M, device=q.device)[None] < kvlen.reshape(-1, 1))[:, None, None, :]
+    fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=key_ok), reps=5)
+    out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=key_ok)
+    dout = do.reshape(out.shape)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), dout, retain_graph=True), reps=5)
+    return fwd_ms, bwd_ms
+
+
+def _flash_layer(fk, pda, B, dtype, gen, real_len, valid, timed: bool):
+    """The six kernels vs their plain versions on one layer of the §1
+    configuration (the five head-major branches at L = 10241); returns the
+    per-layer totals of each kernel when ``timed``."""
+    import torch
+
+    L = N_TILES + 1
+    dname = str(dtype).replace("torch.", "")
+    qh, kh, vh, do = (torch.randn(B, H, L, E // H, device="cuda", generator=gen).to(dtype) for _ in range(4))
+    totals = {name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, err=0.0, by={})
+              for name in FLASH_KERNELS}
+    records = []
+    for sl, r in zip(*BHLD_SCHEDULE):
+        flat, args, geom = _flash_branch(fk, pda, qh, kh, vh, do, sl, r, real_len, valid)
+        g, Lp, n, gp, m = geom
+        if not flat:
+            check(args[4] is None or args[4].device.type == "cuda", "the count table is not on the card")
+        ours = _flash_fwd_bwd(fk, flat, args)
+        ref = _flash_fwd_bwd(fk, flat, args, plain=True)
+        errs = _check_flash(f"flash r={r}", dname, flat, ours, ref, dq_rows=real_len if flat else None)
+        record = {"sl": sl, "r": r, "g": g, "S": n, "m": m, "kernel": "flat" if flat else "segmented",
+                  "max_err": errs}
+        if timed:
+            prefix = "flat" if flat else "flash"
+            q, k, v, dout, extra = args
+            out, lse = ours[0], ours[1]
+            delta = (dout.float() * out.float()).sum(-1)
+            if flat:
+                fwd = lambda: fk.flat_fwd(q, k, v, *extra)  # noqa: E731
+                bargs = (q, k, v, dout, lse, delta, *extra)
+                dq_fn, dkv_fn = (lambda: fk.flat_bwd_dq(*bargs)), (lambda: fk.flat_bwd_dkv(*bargs))
+                p_fwd = lambda: fk.flat_fwd_reference(q, k, v, *extra)  # noqa: E731
+                p_dq = lambda: fk.flat_bwd_reference(*bargs, dkv=False)  # noqa: E731
+                p_dkv = lambda: fk.flat_bwd_reference(*bargs, dq=False)  # noqa: E731
+                rows = fk.flat_kvlen(n, g, L)
+                kv_cells = [fk.flat_kvlen(n, g, real_len)] * H
+            else:
+                fwd = lambda: fk.flash_fwd(q, k, v, extra)  # noqa: E731
+                bargs = (q, k, v, dout, lse, delta, extra)
+                dq_fn, dkv_fn = (lambda: fk.flash_bwd_dq(*bargs)), (lambda: fk.flash_bwd_dkv(*bargs))
+                p_fwd = lambda: fk.flash_fwd_reference(q, k, v, extra)  # noqa: E731
+                p_dq = lambda: fk.flash_bwd_reference(*bargs, dkv=False)  # noqa: E731
+                p_dkv = lambda: fk.flash_bwd_reference(*bargs, dq=False)  # noqa: E731
+                full = pda._branch_kvlen_bhld(H, n, g, r, m, L)
+                rows = full if full is not None else [[m] * n] * H
+                kv_cells = extra.cpu().numpy() if extra is not None else rows
+            bounds = _flash_bounds(rows, kv_cells, B, q.element_size(), dname, flat)
+            lib_fwd, lib_bwd = _sdpa_yardstick(flat, args, pda, geom)
+            t = {f"{prefix}_fwd": time_ms(fwd), f"{prefix}_bwd_dq": time_ms(dq_fn),
+                 f"{prefix}_bwd_dkv": time_ms(dkv_fn)}
+            plain = {f"{prefix}_fwd": time_ms(p_fwd, reps=2, warmup=1),
+                     f"{prefix}_bwd_dq": time_ms(p_dq, reps=2, warmup=1),
+                     f"{prefix}_bwd_dkv": time_ms(p_dkv, reps=2, warmup=1)}
+            lib = {f"{prefix}_fwd": lib_fwd, f"{prefix}_bwd_dq": lib_bwd, f"{prefix}_bwd_dkv": lib_bwd}
+            err_of = {f"{prefix}_fwd": errs["out"], f"{prefix}_bwd_dq": max_err(ours[2], ref[2]) if not flat
+                      else max_err(ours[2][:, :, :real_len], ref[2][:, :, :real_len]),
+                      f"{prefix}_bwd_dkv": max(max_err(ours[3], ref[3]), max_err(ours[4], ref[4]))}
+            for name in t:
+                tot = totals[name]
+                tot["ms"] += t[name]
+                tot["plain_ms"] += plain[name]
+                tot["library_ms"] += lib[name]
+                tot["bound_ms"] += bounds[name][0]
+                tot["err"] = max(tot["err"], err_of[name])
+                tot["by"][bounds[name][1]] = tot["by"].get(bounds[name][1], 0.0) + bounds[name][0]
+            record.update(ms=t, plain_ms=plain, library_ms_sdpa={"fwd": lib_fwd, "bwd": lib_bwd},
+                          bound_ms={k_: b[0] for k_, b in bounds.items()},
+                          bound_by={k_: b[1] for k_, b in bounds.items()})
+        records.append(record)
+        del ours, ref, args
+    for tot in totals.values():
+        tot["bound_by"] = max(tot.pop("by").items(), key=lambda kv: kv[1])[0] if tot["by"] else "operations"
+    emit("flash_kernels", dtype=dname, B=B, real_len=real_len, valid=None if valid is None else valid.tolist(),
+         schedule=BHLD_SCHEDULE, branches=records, tolerance={"out": KERNEL_TOL[dname], "lse": LSE_TOL[dname],
+                                                               "grads_rel": BWD_REL_TOL[dname]},
+         **({"per_layer": totals, "note": "sums over the layer's branches (flat: r = 1; segmented: r = 2, 4, 6, "
+             "12); library_ms is one SDPA call with the boolean key mask per branch (its backward for dq and "
+             "dkv)"} if timed else {}))
+    return totals
+
+
+def phase_flash_kernels():
+    """Rows 11-14 against their plain versions on the card: the five
+    head-major branches of one flagship layer at ratios [1, 2, 4, 6, 12],
+    fp32 and bf16, full length (timed) and with a ragged real length; the
+    B = 2 ragged batch's runtime counts (the r = 1 branch on the segmented
+    kernel); a causal case of each layout; flash_attention and
+    partial_attention on [1, 10241, 16, 48] with [B, H] valid counts
+    against attention_with_lse."""
+    import torch
+
+    from gigapath_tpu_torch.ops import dilated_attention as pda
+    from gigapath_tpu_torch.ops import flash_kernels as fk
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    L = N_TILES + 1
+    summary = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        summary[dname] = _flash_layer(fk, pda, 1, dtype, gen, L, None, timed=True)
+        _flash_layer(fk, pda, 1, dtype, gen, L - 37, None, timed=False)
+        _flash_layer(fk, pda, 2, dtype, gen, L, torch.tensor([L, 7002], device="cuda"), timed=False)
+
+    # causal, both layouts, fp32, at flagship-width shapes
+    errs = {}
+    q5, k5, v5, d5 = (torch.randn(1, H, 2, 700, E // H, device="cuda", generator=gen) for _ in range(4))
+    kvlen = torch.tensor([[[700, 513]] * H], dtype=torch.int32, device="cuda")
+    args = (q5, k5, v5, d5, kvlen)
+    errs["segmented"] = _check_flash("causal segmented", "float32", False,
+                                     _flash_fwd_bwd(fk, False, args, causal=True),
+                                     _flash_fwd_bwd(fk, False, args, causal=True, plain=True))
+    qf, kf, vf, df = (torch.randn(1, H, 2500, E // H, device="cuda", generator=gen) for _ in range(4))
+    args = (qf, kf, vf, df, (1024, 2400))
+    errs["flat"] = _check_flash("causal flat", "float32", True, _flash_fwd_bwd(fk, True, args, causal=True),
+                                _flash_fwd_bwd(fk, True, args, causal=True, plain=True), dq_rows=2400)
+    emit("flash_causal", dtype="float32", max_err=errs, tolerance=BWD_REL_TOL["float32"])
+    _flash_entry_points(fk, gen)
+    return summary
+
+
+def _flash_entry_points(fk, gen):
+    """flash_attention and partial_attention (kernel) against
+    attention_with_lse (plain) on [1, 10241, 16, 48] with [B, H] valid
+    counts on the card, fp32; each one flash_fwd launch."""
+    import torch
+
+    from gigapath_tpu_torch.ops.attention import attention_with_lse
+    from gigapath_tpu_torch.ops.flash_attention import flash_attention, partial_attention
+
+    L = N_TILES + 1
+    q, k, v = (torch.randn(1, L, H, E // H, device="cuda", generator=gen) for _ in range(3))
+    counts = torch.randint(1, L + 1, (1, H), device="cuda", generator=gen).to(torch.int32)
+    counts[0, 0] = L
+    results = {}
+    for name, fn, kk, vv, cnt in (
+        ("flash_attention", flash_attention, k, v, counts),
+        ("partial_attention", partial_attention, k[:, : L // 2], v[:, : L // 2], (counts // 2).clamp_min(1)),
+    ):
+        fk.reset_launch_counts()
+        out, lse = fn(q, kk, vv, kv_valid_len=cnt)
+        torch.cuda.synchronize()
+        launches = dict(fk.LAUNCHES)
+        check(launches["flash_fwd"] == 1 and sum(launches.values()) == 1, f"{name} launches {launches}")
+        ref_out, ref_lse = attention_with_lse(q, kk, vv, kv_valid_len=cnt)
+        torch.testing.assert_close(out, ref_out, **KERNEL_TOL["float32"])
+        torch.testing.assert_close(lse, ref_lse, **LSE_TOL["float32"])
+        results[name] = {"Lk": kk.shape[1], "max_abs_err": {"out": max_err(out, ref_out), "lse": max_err(lse, ref_lse)},
+                         "ms": time_ms(lambda: fn(q, kk, vv, kv_valid_len=cnt), reps=5)}
+        del out, lse, ref_out, ref_lse
+        torch.cuda.empty_cache()
+    emit("flash_entry_points", dtype="float32", shape=[1, L, H, E // H], vs="attention_with_lse",
+         tolerance={"out": KERNEL_TOL["float32"], "lse": LSE_TOL["float32"]}, **results)
+
+
+def _bhld_model(dtype):
+    from gigapath_tpu_torch.models.slide_encoder import create_model
+
+    return create_model("", "gigapath_slide_enc12l768d", dtype=dtype, seed=0, dilated_ratio=BHLD_RATIOS)
+
+
+def phase_bhld_forward():
+    """The flagship with ratios [1, 2, 4, 6, 12] through
+    run_inference_with_slide_encoder on 10240 tiles, fp32 and bf16: the
+    head-major route's exact launches (the warning given once), each layer's
+    embedding against the same model on the plain versions, ms per slide,
+    peak memory above the model and a profiler breakdown (bf16); then a B =
+    2 ragged batch, each row against its slide alone."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from gigapath_tpu_torch.ops import dilated_attention as pda
+    from gigapath_tpu_torch.ops import flash_kernels as fk
+    from gigapath_tpu_torch.pipeline import run_inference_with_slide_encoder
+
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    x, coords = _flagship_inputs(1, gen)
+    result = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        model = _bhld_model(dtype)
+        pda._WARNED.clear()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run_inference_with_slide_encoder(x, coords, model)  # warm-up
+            torch.cuda.synchronize()
+            reset_all_launch_counts()
+            out = run_inference_with_slide_encoder(x, coords, model)
+        counts = all_launch_counts()
+        n_warn = sum("head-major" in str(w.message) for w in caught)
+        check(n_warn == 1, f"{dname}: {n_warn} head-major warnings in two forwards, not 1")
+        want = {**dict.fromkeys(counts, 0), **BHLD_FWD_LAUNCHES}
+        check(counts == want, f"{dname} head-major forward launches {counts} != {want}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        secs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_inference_with_slide_encoder(x, coords, model)  # ends in a device->host copy
+            secs.append(time.perf_counter() - t0)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        with plain_flash_kernels():
+            ref = run_inference_with_slide_encoder(x, coords, model)
+        per_layer = []
+        for a, b in zip(_embeds(out), _embeds(ref)):
+            check(a.shape == (1, E) and np.isfinite(a).all(), f"{dname}: bad embedding {a.shape}")
+            rel = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-12))
+            one_minus_cos = 1.0 - float(_cosines(a, b)[0])
+            per_layer.append({"rel": rel, "one_minus_cos": one_minus_cos})
+            if dname == "float32":
+                check(rel <= BHLD_F32_REL_TOL, f"fp32 head-major embedding rel err {rel} > {BHLD_F32_REL_TOL}")
+            else:
+                check(one_minus_cos <= BF16_MAX_ONE_MINUS_COS,
+                      f"bf16 head-major embedding 1 - cosine {one_minus_cos} > {BF16_MAX_ONE_MINUS_COS}")
+        ms = statistics.median(secs) * 1e3
+        record = dict(dtype=dname, tiles=N_TILES, ratios=BHLD_RATIOS, launches=counts, warnings=n_warn,
+                      ms_per_slide=ms, runs_ms=[s_ * 1e3 for s_ in secs], tiles_per_s=N_TILES / (ms / 1e3),
+                      peak_mem_gb_above_model=peak, vs_plain=per_layer,
+                      tolerance={"float32": f"rel <= {BHLD_F32_REL_TOL}",
+                                 "bfloat16": f"1 - cosine <= {BF16_MAX_ONE_MINUS_COS}"}[dname])
+        if dname == "bfloat16":
+            with torch.inference_mode():
+                record["forward_trace"] = _profile(lambda: run_inference_with_slide_encoder(x, coords, model))
+            record["peak_breakdown"] = _peak_breakdown(lambda: run_inference_with_slide_encoder(x, coords, model))
+        emit("bhld_forward", **record)
+        result[dname] = record
+        del model
+        torch.cuda.empty_cache()
+
+    # a B = 2 ragged batch: per-row valid lengths put the r = 1 branch on the
+    # segmented kernel with counts formed on the card
+    x2, coords2 = _flagship_inputs(2, gen)
+    n_valid = [N_TILES, 7001]
+    pad_mask = torch.arange(N_TILES, device="cuda")[None] < torch.tensor(n_valid, device="cuda")[:, None]
+    model = _bhld_model(torch.float32)
+    reset_all_launch_counts()
+    batch = run_inference_with_slide_encoder(x2, coords2, model, pad_mask=pad_mask)
+    counts = all_launch_counts()
+    want = {**dict.fromkeys(counts, 0), **BHLD_RAGGED_LAUNCHES}
+    check(counts == want, f"head-major ragged batch launches {counts} != {want}")
+    worst = 0.0
+    for row, n in enumerate(n_valid):
+        alone = run_inference_with_slide_encoder(x2[row, :n], coords2[row, :n], model)
+        for a, b in zip(_embeds(batch), _embeds(alone)):
+            worst = max(worst, float(np.abs(a[row] - b[0]).max() / max(np.abs(b[0]).max(), 1e-12)))
+    check(worst <= F32_REL_TOL, f"head-major ragged batch row vs alone rel err {worst} > {F32_REL_TOL}")
+    emit("bhld_ragged_batch", dtype="float32", n_valid=n_valid, launches=counts, max_rel_err=worst,
+         tolerance=F32_REL_TOL)
+    del model
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_bhld_vs_fused():
+    """The flagship's own schedule through the public
+    dilated_attention_bhld (segment-flash kernels) against the default
+    phase-major route (dilated_attention: the branch kernels), fp32 and
+    bf16, stacked and streaming fusion, at L = 10241: two independent kernel
+    families; both routes' ms."""
+    import torch
+
+    from gigapath_tpu_torch.ops import flash_kernels as fk
+    from gigapath_tpu_torch.ops.dilated_attention import dilated_attention, dilated_attention_bhld
+
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    L = N_TILES + 1
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        q, k, v = (torch.randn(1, L, H, E // H, device="cuda", generator=gen).to(dtype) for _ in range(3))
+        fused = dilated_attention(q, k, v, *SCHEDULE)
+        record = {"dtype": dname, "L": L, "schedule": SCHEDULE}
+        for streaming in (False, True):
+            fk.reset_launch_counts()
+            bhld = dilated_attention_bhld(q, k, v, *SCHEDULE, streaming_fusion=streaming)
+            torch.cuda.synchronize()
+            launches = dict(fk.LAUNCHES)
+            check(launches == {**dict.fromkeys(launches, 0), "flash_fwd": 4, "flat_fwd": 1},
+                  f"bhld launches {launches}")
+            a, b = bhld.float().reshape(-1), fused.float().reshape(-1)
+            rel = float((a - b).abs().max() / b.abs().max())
+            one_minus_cos = 1.0 - float(a @ b / (a.norm() * b.norm()))
+            if dname == "float32":
+                check(rel <= BHLD_F32_REL_TOL, f"bhld vs fused fp32 rel err {rel} > {BHLD_F32_REL_TOL}")
+            else:
+                check(one_minus_cos <= BF16_MAX_ONE_MINUS_COS, f"bhld vs fused bf16 1 - cos {one_minus_cos}")
+            record["streaming" if streaming else "stacked"] = {"rel": rel, "one_minus_cos": one_minus_cos}
+        record["ms"] = {"bhld": time_ms(lambda: dilated_attention_bhld(q, k, v, *SCHEDULE), reps=5),
+                        "fused_default": time_ms(lambda: dilated_attention(q, k, v, *SCHEDULE), reps=5)}
+        emit("bhld_vs_fused", tolerance={"float32": f"rel <= {BHLD_F32_REL_TOL}",
+                                         "bfloat16": f"1 - cosine <= {BF16_MAX_ONE_MINUS_COS}"}[dname], **record)
+        del q, k, v, fused, bhld
+        torch.cuda.empty_cache()
+
+
+def phase_bhld_step():
+    """The fine-tune step at ratios [1, 2, 4, 6, 12] through
+    finetune/training.py (the head and settings of finetune_step): fp32
+    gradients against the plain-version step, the exact launches of one
+    bf16 step, ms per step and peak memory in bf16 and fp32."""
+    import torch
+
+    from gigapath_tpu_torch.finetune.training import forward_backward, train_step
+
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    x, coords = _flagship_inputs(1, gen)
+    labels = torch.tensor([[4]], device="cuda")
+    pad_mask = torch.ones(1, N_TILES, dtype=torch.bool, device="cuda")
+    batch = (x, coords, labels, pad_mask)
+    model, steps, loss_fn = _head_and_steps(torch, dilated_ratio=BHLD_RATIOS)
+
+    runs = []
+    for plain in (False, True):
+        model.zero_grad(set_to_none=True)
+        with plain_flash_kernels() if plain else contextlib.nullcontext():
+            loss = forward_backward(model, loss_fn, *batch, multi_label=False, bf16=False)
+        runs.append((float(loss), _grads(model)))
+    (loss_k, g_k), (loss_p, g_p) = runs
+    check(set(g_k) == set(g_p), "the two paths reach different parameters")
+    floor = 1e-2 * max(float(g.abs().max()) for g in g_p.values())
+    errs = {}
+    for name, gp in g_p.items():
+        gk = g_k[name].float()
+        check(bool(torch.isfinite(gk).all()), f"head-major step: non-finite gradient {name}")
+        errs[name] = float((gk - gp.float()).abs().max()) / max(float(gp.abs().max()), floor)
+    worst_name, worst = max(errs.items(), key=lambda kv: kv[1])
+    check(worst <= GRAD_F32_REL_TOL, f"head-major fp32 step gradient {worst_name}: {worst} > {GRAD_F32_REL_TOL}")
+    model.zero_grad(set_to_none=True)
+
+    train_step(model, loss_fn, steps, *batch, multi_label=False, bf16=True)  # warm-up
+    torch.cuda.synchronize()
+    reset_all_launch_counts()
+    train_step(model, loss_fn, steps, *batch, multi_label=False, bf16=True)
+    torch.cuda.synchronize()
+    counts = all_launch_counts()
+    want = {**dict.fromkeys(counts, 0), **BHLD_STEP_LAUNCHES}
+    check(counts == want, f"head-major step launches {counts} != {want}")
+
+    timing = {}
+    for dname, bf16 in (("bfloat16", True), ("float32", False)):
+        torch.cuda.reset_peak_memory_stats()
+        train_step(model, loss_fn, steps, *batch, multi_label=False, bf16=bf16)
+        secs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_step(model, loss_fn, steps, *batch, multi_label=False, bf16=bf16)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        ms = statistics.median(secs) * 1e3
+        timing[dname] = {"ms_per_step": ms, "runs_ms": [s_ * 1e3 for s_ in secs],
+                         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+    emit("bhld_step", tiles=N_TILES, ratios=BHLD_RATIOS, launches=counts,
+         grads_fp32={"param": worst_name, "err": worst, "tolerance": GRAD_F32_REL_TOL,
+                     "loss_kernels": loss_k, "loss_plain": loss_p}, **timing)
+    del model, steps
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_ffn_gelu():
+    """The feed-forward GELU on the card: the activation of a bf16 fc1
+    output in its own dtype against the explicit fp32 round trip, in bf16
+    ulps of the larger value, at the flagship's [10241, 3072] with values
+    out to +-8; fails above one ulp."""
+    import torch
+
+    from gigapath_tpu_torch.ops.feedforward import FeedForwardNetwork
+
+    gen = torch.Generator(device="cuda").manual_seed(35)
+    ffn = FeedForwardNetwork(E, 4 * E).cuda().to(torch.bfloat16)
+    h = (torch.randn(N_TILES + 1, 4 * E, device="cuda", generator=gen) * 2.5).clamp(-8, 8).to(torch.bfloat16)
+    a = ffn.act(h).float()
+    b = ffn.act(h.float()).to(torch.bfloat16).float()
+    big = torch.maximum(a.abs(), b.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    ulps = float(((a - b).abs() / ulp).max())
+    differ = int((a != b).sum())
+    check(ulps <= 1.0, f"bf16 GELU in its dtype differs from the fp32 round trip by {ulps} ulps")
+    emit("ffn_gelu", shape=list(h.shape), dtype="bfloat16", max_ulps=ulps, elements_differing=differ,
+         elements=h.numel(), tolerance="<= 1 bf16 ulp")
+
+
+def _peak_breakdown(fn, top: int = 6) -> dict:
+    """One ``fn()`` under ``torch.cuda.memory``'s allocation history: the
+    peak of live allocations above the start, and the bytes live at that
+    peak grouped by the innermost frame in ``gigapath_tpu_torch`` that
+    allocated them (the snapshot's device trace replayed to its peak)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.memory._record_memory_history(enabled="all", context="alloc", stacks="python",
+                                             max_entries=1_000_000)
+    try:
+        fn()
+        torch.cuda.synchronize()
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    trace = [e for dev in snap.get("device_traces", []) for e in dev]
+    if not trace:
+        return {"peak": "not measured (the snapshot holds no device trace)"}
+
+    def where(entry):
+        for frame in entry.get("frames", []):
+            name = frame.get("filename", "")
+            if "gigapath_tpu_torch" in name:
+                return f"{name.split('gigapath_tpu_torch/')[-1]}:{frame.get('line')} ({frame.get('name')})"
+        return "other"
+
+    live, total, peak, peak_at = {}, 0, 0, -1
+    for i, e in enumerate(trace):
+        if e["action"] == "alloc":
+            live[e["addr"]] = e["size"]
+            total += e["size"]
+            if total > peak:
+                peak, peak_at = total, i
+        elif e["action"] == "free_completed" and e["addr"] in live:
+            total -= live.pop(e["addr"])
+    held, by_site = {}, {}
+    for e in trace[: peak_at + 1]:
+        if e["action"] == "alloc":
+            held[e["addr"]] = e
+        elif e["action"] == "free_completed":
+            held.pop(e["addr"], None)
+    for e in held.values():
+        site = where(e)
+        by_site[site] = by_site.get(site, 0) + e["size"]
+    ranked = sorted(by_site.items(), key=lambda kv: -kv[1])[:top]
+    return {"peak_gb_above_start": peak / 2**30,
+            "live_at_peak_gb": [{"site": site, "gb": b / 2**30} for site, b in ranked]}
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print("chip_smoke: takes no arguments", file=sys.stderr)
@@ -2229,6 +2903,12 @@ def main() -> int:
     phase_fusion_forward()
     fusion_launches = phase_fusion_step()
     launches.update({name: fusion_launches[name] for name in FUSION_KERNELS})
+    phase_ffn_gelu()
+    summary.update(phase_flash_kernels()["bfloat16"])
+    phase_bhld_forward()
+    phase_bhld_vs_fused()
+    bhld_launches = phase_bhld_step()
+    launches.update({name: bhld_launches[name] for name in FLASH_KERNELS})
     print(json.dumps({"kernels": [
         {"name": name, **meta, "launches": launches[name],
          "max_abs_err": summary[name]["err"], "ms": summary[name]["ms"],

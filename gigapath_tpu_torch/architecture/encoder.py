@@ -11,7 +11,7 @@ relative-position bias, multiway and the token embedding are not ported.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -85,7 +85,13 @@ class EncoderLayer(nn.Module):
 class Encoder(nn.Module):
     """Encoder stack returning the reference's output dict
     (``encoder_out``, ``encoder_embedding``, ``encoder_padding_mask``,
-    ``encoder_states``)."""
+    ``encoder_states``).
+
+    ``state_readout`` (with ``return_all_hiddens``) reduces each hidden
+    state as soon as its layer has run, and ``encoder_states`` holds the
+    reductions: a caller that reads one row or a mean of each state then
+    never holds more than one full ``[B, L, E]`` state at a time. Without
+    it ``encoder_states`` holds the full states, as in the reference."""
 
     layer_cls = EncoderLayer  # subclass hook (LongNetEncoder overrides)
 
@@ -111,6 +117,7 @@ class Encoder(nn.Module):
         token_embeddings: torch.Tensor,
         encoder_padding_mask: Optional[torch.Tensor] = None,
         return_all_hiddens: bool = False,
+        state_readout: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     ) -> Dict[str, Any]:
         x = embed = self.embed_scale * token_embeddings
         if self.layernorm_embedding is not None:
@@ -119,7 +126,8 @@ class Encoder(nn.Module):
         if encoder_padding_mask is not None:
             x = x.masked_fill(encoder_padding_mask[..., None].to(torch.bool), 0)
 
-        encoder_states = [x] if return_all_hiddens else []
+        keep = state_readout or (lambda state: state)
+        encoder_states = [keep(x)] if return_all_hiddens else []
         remat = self.args.checkpoint_activations and torch.is_grad_enabled()
         for layer in self.layers:
             if remat:
@@ -129,7 +137,7 @@ class Encoder(nn.Module):
             else:
                 x = layer(x, encoder_padding_mask)
             if return_all_hiddens:
-                encoder_states.append(x)
+                encoder_states.append(keep(x))
         if self.layer_norm is not None:
             x = self.layer_norm(x)
         return {

@@ -141,24 +141,24 @@ class LongNetViT(nn.Module):
             encoder_padding_mask = torch.cat(
                 [torch.zeros((B, 1), dtype=torch.bool, device=x.device), ~pad_mask], dim=1
             )
+        def readout(h: torch.Tensor) -> torch.Tensor:  # [B, L, E] -> [B, E], before the norm
+            if not self.global_pool:
+                return h[:, 0].clone()  # a copy: a view would keep the whole state alive
+            if pad_mask is not None:
+                valid = pad_mask.to(h.dtype)[..., None]
+                return (h[:, 1:] * valid).sum(dim=1) / valid.sum(dim=1).clamp_min(1.0)
+            return h[:, 1:].mean(dim=1)
+
+        # each layer's state is reduced as soon as it is made, so the
+        # forward never holds the 13 full states at once
         out = self.encoder(
             token_embeddings=x,
             encoder_padding_mask=encoder_padding_mask,
             return_all_hiddens=all_layer_embed,
+            state_readout=readout,
         )
-        x_list = out["encoder_states"] if all_layer_embed else [out["encoder_out"]]
-
-        outcomes = []
-        for h in x_list:
-            if not self.global_pool:
-                outcomes.append(self.norm(h[:, 0]))
-            elif pad_mask is not None:
-                valid = pad_mask.to(h.dtype)[..., None]
-                pooled = (h[:, 1:] * valid).sum(dim=1) / valid.sum(dim=1).clamp_min(1.0)
-                outcomes.append(self.norm(pooled))
-            else:
-                outcomes.append(self.norm(h[:, 1:].mean(dim=1)))
-        return outcomes
+        x_list = out["encoder_states"] if all_layer_embed else [readout(out["encoder_out"])]
+        return [self.norm(h) for h in x_list]
 
 
 def _arch(defaults: dict, kwargs: dict) -> LongNetViT:

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface, loaded through ``ctypes``; a source that takes
 compile-time constants (the head width of the branch kernels, of the
-streaming chunk-pair kernels and of the quantized attention) builds one
-library per set of ``-D`` defines. The libraries go to ``build/kernels/`` at the root of the checkout
+streaming chunk-pair kernels, of the segment-flash kernels and of the
+quantized attention) builds one library per set of ``-D`` defines. The
+libraries go to ``build/kernels/`` at the root of the checkout
 (``.gitignore`` lists ``build/``), or to
 ``$XDG_CACHE_HOME/gigapath_tpu_torch/kernels`` (``~/.cache/...``) for an
 installed package, named by a hash of the source, the shared
@@ -68,6 +69,14 @@ STREAM_FLAGSHIP = (
     ("stream_pair_bwd_dq", (("GP_HEAD_DIM", 48),)),
     ("stream_pair_bwd_dkv", (("GP_HEAD_DIM", 48),)),
 )
+# the libraries the head-major dilated route and the flash entry points of
+# the flagship slide encoder (head width 48) run: the segment-flash forward,
+# dq and dkv, each in its segmented and its flat layout
+FLASH_FLAGSHIP = (
+    ("flash_fwd", (("GP_HEAD_DIM", 48),)),
+    ("flash_bwd_dq", (("GP_HEAD_DIM", 48),)),
+    ("flash_bwd_dkv", (("GP_HEAD_DIM", 48),)),
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -102,6 +111,9 @@ _SIGNATURES = {
     "stream_pair_bwd_dkv": (
         "gp_stream_pair_bwd_dkv", [_P] * 8 + [_I] * 3 + [_IP, _I, _LLP, _F, _F, _P],
     ),
+    "flash_fwd": ("gp_flash_fwd", [_P] * 6 + [_I] * 9 + [_F, _P]),
+    "flash_bwd_dq": ("gp_flash_bwd_dq", [_P] * 8 + [_I] * 9 + [_F, _F, _P]),
+    "flash_bwd_dkv": ("gp_flash_bwd_dkv", [_P] * 9 + [_I] * 10 + [_F, _F, _P]),
 }
 
 _lock = threading.Lock()

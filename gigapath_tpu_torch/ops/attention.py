@@ -9,8 +9,10 @@ merges) folds two such partials over disjoint key sets into one;
 :class:`MultiheadAttention` holds the q/k/v/out projections and the
 sub-LayerNorm, with ``_attend`` as the hook
 :class:`~gigapath_tpu_torch.ops.dilated_attention.DilatedAttention`
-overrides. xPos, multiway, the decode cache and ``partial_attention`` (it
-calls the flash kernel, ``ROADMAP.md`` Queue B) are not ported yet.
+overrides. ``flash_attention`` and ``partial_attention`` (on the
+segment-flash kernel) are in :mod:`~gigapath_tpu_torch.ops.flash_attention`,
+which re-exports :func:`combine_partials`. xPos, multiway and the decode
+cache are not ported yet.
 """
 
 from __future__ import annotations

@@ -1,8 +1,12 @@
 """Feed-forward block (counterpart of ``gigapath_tpu/ops/feedforward.py``):
-fc1 -> activation in fp32 -> [sub-LN] -> fc2.
+fc1 -> activation -> [sub-LN] -> fc2.
 
 The JAX package's ``gelu`` is flax's default, the tanh approximation, so
 the port uses ``approximate="tanh"`` (torchscale itself uses exact GELU).
+The activation takes ``fc1``'s output in its own dtype: PyTorch computes a
+bf16 GELU in fp32 internally and rounds once, so the result equals that of
+an explicit fp32 round trip, without the two fp32 ``[L, ffn_dim]`` copies
+(nor the fp32 tensor autograd would save for the backward).
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ class FeedForwardNetwork(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.fc1(x)
-        h = self.act(h.float()).to(h.dtype)
+        h = self.act(h)
         h = self.activation_dropout(h)
         if self.ffn_layernorm is not None:
             h = self.ffn_layernorm(h)

@@ -171,9 +171,18 @@ def test_dilated_attention_matches_jax_generic(valid_len):
 
 
 def test_ratio_not_dividing_heads_raises():
-    q = torch.zeros(1, 40, 6, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        dilated_attention(q, q, q, [16, 32], [1, 4])
+    """A ratio that does not divide H no longer raises: the call warns and
+    takes the head-major route (the segment-flash kernels), equal to the
+    JAX package's head-major route (interpret mode)."""
+    from gigapath_tpu.ops.dilated_attention import dilated_attention_bhld as jax_bhld
+    from gigapath_tpu_torch.ops import dilated_attention as pda
+
+    q, k, v = (_data(s, 1, 40, 6, 4) for s in (24, 25, 26))
+    pda._WARNED.clear()
+    with pytest.warns(UserWarning, match="head-major"):
+        ours = dilated_attention(*(torch.from_numpy(x) for x in (q, k, v)), [16, 32], [1, 4])
+    ref = jax_bhld(*(jnp.asarray(x) for x in (q, k, v)), [16, 32], [1, 4], interpret=True, use_pallas=True)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=2e-5, rtol=1e-5)
 
 
 def test_attention_with_lse_matches_jax():

@@ -165,8 +165,8 @@ def test_create_model_without_device_raises_without_cuda(monkeypatch):
 
 
 def test_port_imports_nothing_of_jax():
-    """Importing every port module (the fine-tuning, tile and streaming
-    paths' included) leaves
+    """Importing every port module (the fine-tuning, tile, streaming and
+    head-major paths' included) leaves
     jax, flax, optax, sklearn and gigapath_tpu (the exact name, or the
     gigapath_tpu. prefix) out of sys.modules, and pandas, yaml and h5py too:
     the port imports those only inside the functions that read files."""
@@ -188,6 +188,7 @@ def test_port_imports_nothing_of_jax():
         " 'gigapath_tpu_torch.models.streaming_encoder', 'gigapath_tpu_torch.serve.streaming',"
         " 'gigapath_tpu_torch.obs.drift', 'gigapath_tpu_torch.obs.runlog',"
         " 'gigapath_tpu_torch.finetune.predict', 'gigapath_tpu_torch.inference'}\n"
+        "need |= {'gigapath_tpu_torch.ops.' + m for m in ('flash_kernels', 'flash_attention', 'norms')}\n"
         "assert need <= set(names), sorted(need - set(names))\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n"
