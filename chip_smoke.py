@@ -144,6 +144,30 @@ stdout:
     the segmented kernels, 12/11/11 on the flat ones), ms per step and
     peak memory.
 
+23. pipe_kernels: the pipelined branch kernels (rows 6 and 8:
+    dilated_branch_fwd_pipe, dilated_branch_bwd_dq_pipe,
+    dilated_branch_bwd_dkv_pipe) against their plain versions at the five
+    branches of one flagship layer (L = 10241), fp32 and bf16, at full
+    length (timed: CUDA events beside the bound, the plain version, the
+    serial twin and SDPA with the key mask and its backward), at a ragged
+    real length and in a B = 2 batch whose counts are formed on the card;
+    each against its serial twin on the same inputs (fp32 within
+    KERNEL_TOL; bf16 1 - cosine within the route limit, the roundings
+    differing on purpose); past 65535 cells. The build phase builds them at
+    every head width, and head_widths checks them there.
+24. pipe_forward: the flagship with ``GIGAPATH_PIPELINED_ATTN=1`` on 10240
+    tiles, fp32 and bf16, on the default route (60 pipelined forwards, 0
+    serial) and the stream-fusion route (60 and 12 epilogues); then no flag
+    and a plan blessed by the port's ``bless_plan`` into a temporary
+    registry that pipelines only the r = 1 branch (12 + 48 serial); each
+    layer's embedding against the serial route; ms per slide and peak
+    memory of both in turns; (bf16) a profiler breakdown of each with the
+    idle share.
+25. pipe_step: the fine-tune step with ``GIGAPATH_PIPELINED_ATTN=1
+    GIGAPATH_PIPELINED_BWD=1``: fp32 gradients against the serial route,
+    the exact launches of one bf16 step (60/55/55 pipelined, 0 serial), ms
+    per step and peak memory beside the serial step.
+
 Phase 16 also replays a ``torch.cuda.memory`` allocation history of one
 bf16 forward per route (10240 and 102400 tiles) to its peak and reports the
 allocations live there by the port's source line.
@@ -154,7 +178,8 @@ are those of one training step, of the quantized ones those of one
 streaming forward, of the stream backward kernels those of the backward
 through one layer's streaming attention, of the four stream-fusion
 kernels those of one bf16 training step on their route, of the six
-segment-flash kernels those of one bf16 step of ``bhld_step``), the
+segment-flash kernels those of one bf16 step of ``bhld_step``, of the
+three pipelined kernels those of one bf16 step of ``pipe_step``), the
 ``nvidia-smi`` name/power line, and
 the last line ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero before those lines. Exits non-zero, printing no result, when
@@ -277,9 +302,27 @@ KERNELS = {
         replaces="gigapath_tpu/ops/pallas_flash.py:259 (_dkv_kernel flat=True, via _flat_bwd_impl:513, "
                  "pallas_call :568)",
     ),
+    "dilated_branch_fwd_pipe": dict(
+        route="cuda", source="gigapath_tpu_torch/csrc/dilated_branch_fwd_pipe.cu",
+        replaces="gigapath_tpu/ops/pallas_dilated.py:166 (_fwd_kernel_pipe, via _fwd_impl_pipe:267, "
+                 "pallas_call :330)",
+    ),
+    "dilated_branch_bwd_dq_pipe": dict(
+        route="cuda", source="gigapath_tpu_torch/csrc/dilated_branch_bwd_dq_pipe.cu",
+        replaces="gigapath_tpu/ops/pallas_dilated.py:521 (_dq_kernel_pipe, via _bwd_impl_pipe:679, "
+                 "pallas_call :738)",
+    ),
+    "dilated_branch_bwd_dkv_pipe": dict(
+        route="cuda", source="gigapath_tpu_torch/csrc/dilated_branch_bwd_dkv_pipe.cu",
+        replaces="gigapath_tpu/ops/pallas_dilated.py:590 (_dkv_kernel_pipe, via _bwd_impl_pipe:679, "
+                 "pallas_call :798)",
+    ),
 }
 FWD_KERNELS = ("pack_phases", "dilated_branch_fwd", "unpack_phases")
 BWD_KERNELS = ("dilated_branch_bwd_dq", "dilated_branch_bwd_dkv")
+# the pipelined twins of the branch kernels (rows 6 and 8) of rows 1, 7a, 7b
+PIPE_KERNELS = ("dilated_branch_fwd_pipe", "dilated_branch_bwd_dq_pipe", "dilated_branch_bwd_dkv_pipe")
+NO_PIPE = dict.fromkeys(PIPE_KERNELS, 0)
 # launches of one flagship training step with feat_layer 11: the forward
 # runs 12 layers x 5 branches (packing q, k, v, unpacking out); the
 # classifier reads the 11th layer's output, so the backward runs through 11
@@ -287,7 +330,7 @@ BWD_KERNELS = ("dilated_branch_bwd_dq", "dilated_branch_bwd_dkv")
 STEP_LAUNCHES = {"pack_phases": 60 * 3 + 55 * 4, "dilated_branch_fwd": 60,
                  "unpack_phases": 60 + 55 * 3, "dilated_branch_bwd_dq": 55,
                  "dilated_branch_bwd_dkv": 55, "pack_phases_direct": 0,
-                 "unpack_phases_direct": 0, "fusion_epilogue_fwd": 0, "fusion_epilogue_bwd": 0}
+                 "unpack_phases_direct": 0, "fusion_epilogue_fwd": 0, "fusion_epilogue_bwd": 0, **NO_PIPE}
 # Backward kernels vs their plain version on the card, as max |err| over
 # max |ref| of each gradient. Both compute in fp32 and differ in the order of
 # sums (fp32 read 2.7e-6 at worst); a bf16 gradient is rounded once, so it
@@ -358,12 +401,12 @@ FUSION_ENV = {"GIGAPATH_STREAM_FUSION": "1", "GIGAPATH_PACK_DIRECT": "1"}
 FUSION_FWD_LAUNCHES = {"pack_phases": 12 * 2 * 3, "dilated_branch_fwd": 60, "unpack_phases": 0,
                        "dilated_branch_bwd_dq": 0, "dilated_branch_bwd_dkv": 0,
                        "pack_phases_direct": 12 * 3 * 3, "unpack_phases_direct": 0,
-                       "fusion_epilogue_fwd": 12, "fusion_epilogue_bwd": 0}
+                       "fusion_epilogue_fwd": 12, "fusion_epilogue_bwd": 0, **NO_PIPE}
 FUSION_STEP_LAUNCHES = {"pack_phases": 72 + 11 * 2 * 3, "dilated_branch_fwd": 60,
                         "unpack_phases": 11 * 2 * 3, "dilated_branch_bwd_dq": 55,
                         "dilated_branch_bwd_dkv": 55, "pack_phases_direct": 108 + 11 * 3 * 3,
                         "unpack_phases_direct": 11 * 3 * 3, "fusion_epilogue_fwd": 12,
-                        "fusion_epilogue_bwd": 55}
+                        "fusion_epilogue_bwd": 55, **NO_PIPE}
 # the epilogue kernels vs their plain versions (and the forward vs the
 # default route's dense fusion): the same fp32 arithmetic in another order
 # (expf against torch.exp, fused multiply-adds): fp32 out read 4.5e-8 at
@@ -393,6 +436,23 @@ BHLD_STEP_LAUNCHES = {"flash_fwd": 48, "flat_fwd": 12, "flash_bwd_dq": 44, "flas
 # the head-major route vs its plain versions, and vs the phase-major route
 # on the flagship's own schedule: fp32 sums in another order
 BHLD_F32_REL_TOL = 1e-5
+# the pipelined route: GIGAPATH_PIPELINED_ATTN=1 swaps each of a forward's
+# 60 branch forwards for the pipelined kernel (packs and unpacks as on the
+# serial route); with GIGAPATH_PIPELINED_BWD=1 a step's 55 dq and 55 dkv go
+# pipelined too; a blessed plan that marks only the r = 1 branch
+# (1024, 1, "pipelined", 0) pipelines 12 of the 60 forwards
+SLIDE_FWD_LAUNCHES = {"pack_phases": 180, "dilated_branch_fwd": 60, "unpack_phases": 60,
+                      "dilated_branch_bwd_dq": 0, "dilated_branch_bwd_dkv": 0, "pack_phases_direct": 0,
+                      "unpack_phases_direct": 0, "fusion_epilogue_fwd": 0, "fusion_epilogue_bwd": 0, **NO_PIPE}
+PIPE_FWD_ENV = {"GIGAPATH_PIPELINED_ATTN": "1"}
+PIPE_STEP_ENV = {"GIGAPATH_PIPELINED_ATTN": "1", "GIGAPATH_PIPELINED_BWD": "1"}
+PIPE_FWD_LAUNCHES = {**SLIDE_FWD_LAUNCHES, "dilated_branch_fwd": 0, "dilated_branch_fwd_pipe": 60}
+PIPE_FUSION_FWD_LAUNCHES = {**FUSION_FWD_LAUNCHES, "dilated_branch_fwd": 0, "dilated_branch_fwd_pipe": 60}
+PIPE_PLAN_BRANCH = (1024, 1, "pipelined", 0)
+PIPE_PLAN_LAUNCHES = {**SLIDE_FWD_LAUNCHES, "dilated_branch_fwd": 48, "dilated_branch_fwd_pipe": 12}
+PIPE_STEP_LAUNCHES = {**STEP_LAUNCHES, "dilated_branch_fwd": 0, "dilated_branch_bwd_dq": 0,
+                      "dilated_branch_bwd_dkv": 0, "dilated_branch_fwd_pipe": 60,
+                      "dilated_branch_bwd_dq_pipe": 55, "dilated_branch_bwd_dkv_pipe": 55}
 PANDA = {"name": "panda", "setting": "multi_class", "label_dict": {i: i for i in range(6)},
          "max_tiles": 1000000, "shuffle_tiles": True, "add_metrics": ["qwk"]}  # panda.yaml
 
@@ -486,12 +546,14 @@ def plain_kernels():
     from gigapath_tpu_torch.ops import dilated_kernels as dk
 
     names = ("pack_phases", "dilated_branch_fwd", "unpack_phases",
-             "dilated_branch_bwd_dq", "dilated_branch_bwd_dkv", *FUSION_KERNELS)
+             "dilated_branch_bwd_dq", "dilated_branch_bwd_dkv", *FUSION_KERNELS, *PIPE_KERNELS)
     saved = {name: getattr(dk, name) for name in names}
-    for name in ("pack_phases", "dilated_branch_fwd", "unpack_phases", *FUSION_KERNELS):
+    for name in ("pack_phases", "dilated_branch_fwd", "unpack_phases", *FUSION_KERNELS, "dilated_branch_fwd_pipe"):
         setattr(dk, name, getattr(dk, name + "_reference"))
     dk.dilated_branch_bwd_dq = lambda *a: dk.dilated_branch_bwd_reference(*a, dkv=False)[0]
     dk.dilated_branch_bwd_dkv = lambda *a: dk.dilated_branch_bwd_reference(*a, dq=False)[1:]
+    dk.dilated_branch_bwd_dq_pipe = lambda *a: dk.dilated_branch_bwd_pipe_reference(*a, dkv=False)[0]
+    dk.dilated_branch_bwd_dkv_pipe = lambda *a: dk.dilated_branch_bwd_pipe_reference(*a, dq=False)[1:]
     try:
         yield
     finally:
@@ -527,7 +589,8 @@ def phase_build():
     from gigapath_tpu_torch.ops import _build
 
     specs = _build.FLAGSHIP + _build.TILE_FLAGSHIP + _build.STREAM_FLAGSHIP + _build.FLASH_FLAGSHIP + tuple(
-        (name, (("GP_HEAD_DIM", dh),)) for dh in OTHER_HEAD_DIMS for name in BRANCH_SOURCES + FLASH_SOURCES
+        (name, (("GP_HEAD_DIM", dh),)) for dh in OTHER_HEAD_DIMS
+        for name in BRANCH_SOURCES + PIPE_KERNELS + FLASH_SOURCES
     )
     t0 = time.perf_counter()
     _build.build_all(specs)
@@ -741,9 +804,7 @@ def phase_slide_forward():
         dk.reset_launch_counts()
         out = run_inference_with_slide_encoder(x, coords, model)
         counts = dict(dk.LAUNCHES)
-        expected = {"pack_phases": 180, "dilated_branch_fwd": 60, "unpack_phases": 60,
-                    "dilated_branch_bwd_dq": 0, "dilated_branch_bwd_dkv": 0, "pack_phases_direct": 0,
-                    "unpack_phases_direct": 0, "fusion_epilogue_fwd": 0, "fusion_epilogue_bwd": 0}
+        expected = SLIDE_FWD_LAUNCHES
         check(counts == expected, f"{dname} forward launches {counts} != {expected}")
         secs = []
         for _ in range(3):
@@ -987,9 +1048,10 @@ def _spill_bytes(label: str) -> int:
 
 
 def phase_head_widths():
-    """The three branch kernels at the registry's other head widths (H = 16,
-    E = 16 * Dh, one r = 2 branch on 2049 tokens with a ragged real length),
-    and the three segment-flash kernels there (a head-major r = 3 branch and
+    """The three branch kernels and their three pipelined twins at the
+    registry's other head widths (H = 16, E = 16 * Dh, one r = 2 branch on
+    2049 tokens with a ragged real length), and the three segment-flash
+    kernels there (a head-major r = 3 branch and
     a flat r = 1 one), fp32 and bf16, against their plain versions; ptxas'
     spill stores of each."""
     import torch
@@ -1015,8 +1077,15 @@ def phase_head_widths():
             args = (q6, k6, v6, do6, lse5, delta, kvlen)
             ours = (out6, dk.dilated_branch_bwd_dq(*args), *dk.dilated_branch_bwd_dkv(*args))
             refs = (out_ref, *dk.dilated_branch_bwd_reference(*args))
+            # the pipelined kernels at this width (their ring takes 32-key
+            # stages above a head width of 64)
+            out_p, lse_p = dk.dilated_branch_fwd_pipe(q6, k6, v6, kvlen)
+            args_p = (q6, k6, v6, do6, lse_p, (do6.float() * out_p.float()).sum(-1), kvlen)
+            ours += (out_p, dk.dilated_branch_bwd_dq_pipe(*args_p), *dk.dilated_branch_bwd_dkv_pipe(*args_p))
+            refs += (dk.dilated_branch_fwd_pipe_reference(q6, k6, v6, kvlen)[0],
+                     *dk.dilated_branch_bwd_pipe_reference(*args_p))
             errs[dname] = {}
-            for name, a, b in zip(("out", "dq", "dk", "dv"), ours, refs):
+            for name, a, b in zip(("out", "dq", "dk", "dv", "pipe_out", "pipe_dq", "pipe_dk", "pipe_dv"), ours, refs):
                 err = _grad_rel_err(a[..., :m, :], b[..., :m, :])
                 check(err <= BWD_REL_TOL[dname], f"Dh={dh} {dname} {name} rel err {err} > {BWD_REL_TOL[dname]}")
                 errs[dname][name] = err
@@ -1034,7 +1103,7 @@ def phase_head_widths():
         emit("head_widths", Dh=dh, E=Eh, L=L, sl=sl, r=r, max_rel_err=errs, tolerance=BWD_REL_TOL,
              flash_max_err=flash_errs,
              spill_store_bytes={name: _spill_bytes(f"{name}-GP_HEAD_DIM={dh}")
-                                for name in BRANCH_SOURCES + FLASH_SOURCES})
+                                for name in BRANCH_SOURCES + PIPE_KERNELS + FLASH_SOURCES})
 
 
 def _head_and_steps(torch, lr=5e-5, scheduler="fixed", **slide_kwargs):
@@ -2121,28 +2190,37 @@ def _route_embeds(model, x, coords, flags_on: bool):
         return run_inference_with_slide_encoder(x, coords, model)
 
 
-def _timed_routes(model, x, coords, reps: int = 3) -> dict:
+def _timed_env_routes(model, x, coords, routes: dict, reps: int = 3) -> dict:
     """ms per slide (host clock to the device->host copy, median) and peak
-    memory above the model of both routes."""
+    memory above the model of each route (name -> environment) in turns."""
     import torch
 
+    from gigapath_tpu_torch.pipeline import run_inference_with_slide_encoder
+
     out = {}
-    for route, on in (("default", False), ("stream_fusion", True)):
-        _route_embeds(model, x, coords, on)  # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        secs = []
-        for _ in range(reps):
+    for route, env in routes.items():
+        with env_flags(env):
+            run_inference_with_slide_encoder(x, coords, model)  # warm-up
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            _route_embeds(model, x, coords, on)
-            secs.append(time.perf_counter() - t0)
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            secs = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run_inference_with_slide_encoder(x, coords, model)
+                secs.append(time.perf_counter() - t0)
         ms = statistics.median(secs) * 1e3
         out[route] = {"ms_per_slide": ms, "runs_ms": [s_ * 1e3 for s_ in secs],
                       "tiles_per_s": x.shape[1] / (ms / 1e3),
                       "peak_mem_gb_above_model": (torch.cuda.max_memory_allocated() - base) / 2**30}
     return out
+
+
+def _timed_routes(model, x, coords, reps: int = 3) -> dict:
+    """ms per slide and peak memory above the model of the default and the
+    stream-fusion route."""
+    return _timed_env_routes(model, x, coords, {"default": {}, "stream_fusion": FUSION_ENV}, reps)
 
 
 def phase_fusion_forward():
@@ -2230,52 +2308,55 @@ def phase_fusion_forward():
     return result
 
 
-def phase_fusion_step():
-    """The flagship fine-tune step on the stream-fusion route: fp32
-    gradients against the default route, the exact launches of one bf16
-    step, ms per step and peak memory of both routes in bf16."""
+def _route_step(seed: int, label: int, env: dict, want: dict, timing_routes: dict):
+    """The flagship fine-tune step (finetune_step's head and settings) on
+    the route ``env`` selects: fp32 gradients against the default route
+    (the worst per parameter within GRAD_F32_REL_TOL), the exact launches
+    of one bf16 step (``want``), and ms per step and peak memory of each of
+    ``timing_routes`` (name -> environment) in turn, bf16. Returns
+    ``(launches, grads record, timing)``."""
     import torch
 
     from gigapath_tpu_torch.finetune.training import forward_backward, train_step
     from gigapath_tpu_torch.ops import dilated_kernels as dk
 
-    gen = torch.Generator(device="cuda").manual_seed(23)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     x, coords = _flagship_inputs(1, gen)
-    labels = torch.tensor([[2]], device="cuda")
+    labels = torch.tensor([[label]], device="cuda")
     pad_mask = torch.ones(1, N_TILES, dtype=torch.bool, device="cuda")
     batch = (x, coords, labels, pad_mask)
     model, steps, loss_fn = _head_and_steps(torch)
 
     runs = []
-    for on in (False, True):
+    for route_env in ({}, env):
         model.zero_grad(set_to_none=True)
-        with env_flags(FUSION_ENV) if on else contextlib.nullcontext():
+        with env_flags(route_env):
             loss = forward_backward(model, loss_fn, *batch, multi_label=False, bf16=False)
         runs.append((float(loss), _grads(model)))
-    (loss_d, g_d), (loss_f, g_f) = runs
-    check(set(g_d) == set(g_f), "the two routes reach different parameters")
+    (loss_d, g_d), (loss_r, g_r) = runs
+    check(set(g_d) == set(g_r), f"{env}: the two routes reach different parameters")
     floor = 1e-2 * max(float(g.abs().max()) for g in g_d.values())
     errs = {}
     for name, gd in g_d.items():
-        gf = g_f[name].float()
-        check(bool(torch.isfinite(gf).all()), f"stream-fusion route: non-finite gradient {name}")
-        errs[name] = float((gf - gd.float()).abs().max()) / max(float(gd.abs().max()), floor)
+        gr = g_r[name].float()
+        check(bool(torch.isfinite(gr).all()), f"{env}: non-finite gradient {name}")
+        errs[name] = float((gr - gd.float()).abs().max()) / max(float(gd.abs().max()), floor)
     worst_name, worst = max(errs.items(), key=lambda kv: kv[1])
-    check(worst <= GRAD_F32_REL_TOL, f"fp32 step gradient {worst_name}: stream-fusion vs default {worst}")
+    check(worst <= GRAD_F32_REL_TOL, f"{env}: fp32 step gradient {worst_name} vs the default route {worst}")
     model.zero_grad(set_to_none=True)
 
-    with env_flags(FUSION_ENV):
+    with env_flags(env):
         train_step(model, loss_fn, steps, *batch, multi_label=False, bf16=True)  # warm-up
         torch.cuda.synchronize()
         dk.reset_launch_counts()
         train_step(model, loss_fn, steps, *batch, multi_label=False, bf16=True)
         torch.cuda.synchronize()
     launches = dict(dk.LAUNCHES)
-    check(launches == FUSION_STEP_LAUNCHES, f"stream-fusion step launches {launches} != {FUSION_STEP_LAUNCHES}")
+    check(launches == want, f"{env}: step launches {launches} != {want}")
 
     timing = {}
-    for route, on in (("default", False), ("stream_fusion", True)):
-        with env_flags(FUSION_ENV) if on else contextlib.nullcontext():
+    for route, route_env in timing_routes.items():
+        with env_flags(route_env):
             torch.cuda.reset_peak_memory_stats()
             train_step(model, loss_fn, steps, *batch, multi_label=False, bf16=True)
             secs = []
@@ -2288,12 +2369,20 @@ def phase_fusion_step():
         ms = statistics.median(secs) * 1e3
         timing[route] = {"ms_per_step": ms, "runs_ms": [s_ * 1e3 for s_ in secs],
                          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
-    emit("fusion_step", tiles=N_TILES, launches=launches,
-         grads_fp32={"param": worst_name, "err": worst, "tolerance": GRAD_F32_REL_TOL,
-                     "loss_default": loss_d, "loss_stream_fusion": loss_f},
-         bfloat16=timing)
     del model, steps
     torch.cuda.empty_cache()
+    grads = {"param": worst_name, "err": worst, "tolerance": GRAD_F32_REL_TOL,
+             "loss_default": loss_d, "loss_route": loss_r}
+    return launches, grads, timing
+
+
+def phase_fusion_step():
+    """The flagship fine-tune step on the stream-fusion route: fp32
+    gradients against the default route, the exact launches of one bf16
+    step, ms per step and peak memory of both routes in bf16."""
+    launches, grads, timing = _route_step(23, 2, FUSION_ENV, FUSION_STEP_LAUNCHES,
+                                          {"default": {}, "stream_fusion": FUSION_ENV})
+    emit("fusion_step", tiles=N_TILES, launches=launches, grads_fp32=grads, bfloat16=timing)
     return launches
 
 
@@ -2795,6 +2884,295 @@ def phase_bhld_step():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the pipelined branch kernels (rows 6 and 8): the kernels, the forward on
+# both phase-major routes and through a blessed plan, the fine-tune step
+# ---------------------------------------------------------------------------
+
+
+def _one_minus_cos(a, b) -> float:
+    a, b = a.float().reshape(-1), b.float().reshape(-1)
+    return 1.0 - float(a @ b / (a.norm() * b.norm() + 1e-30))
+
+
+def _pipe_branch(dk, q, k, v, do, sl, r, real_len, valid, timed: bool):
+    """The three pipelined kernels on one flagship branch of dense q, k, v,
+    do [B, L, E] against their plain versions (forward KERNEL_TOL and
+    LSE_TOL, gradients BWD_REL_TOL, as rows 1 and 7) and against their
+    serial twins on the same inputs (fp32: KERNEL_TOL; bf16: 1 - cosine
+    within the route limit, since the roundings differ on purpose);
+    returns the record and, when ``timed``, each kernel's numbers."""
+    import torch
+    import torch.nn.functional as F
+
+    B, L, _ = q.shape
+    dname = str(q.dtype).replace("torch.", "")
+    g, S, m, Mp = dk._branch_geometry(L, sl, r)
+    kvlen = dk._branch_kvlen(B, S, g, r, m, real_len, valid, q.device)
+    check(kvlen.device.type == "cuda", "the count table is not on the card")
+    q6, k6, v6, do6 = (dk.pack_phases(x, g, S, r, Mp, H) for x in (q, k, v, do))
+    out6, lse5 = dk.dilated_branch_fwd_pipe(q6, k6, v6, kvlen)
+    out_ref, lse_ref = dk.dilated_branch_fwd_pipe_reference(q6, k6, v6, kvlen)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out6).all()), f"fwd_pipe {dname} r={r}: non-finite out")
+    torch.testing.assert_close(out6[..., :m, :], out_ref[..., :m, :], **KERNEL_TOL[dname])
+    covered = lse_ref > -1e19
+    torch.testing.assert_close(lse5[covered], lse_ref[covered], **LSE_TOL[dname])
+    check(bool((lse5[~covered] <= -1e19).all()), f"fwd_pipe {dname} r={r}: uncovered lse above -1e19")
+    errs = {"out": max_err(out6[..., :m, :], out_ref[..., :m, :]),
+            "lse_covered": max_err(lse5[covered], lse_ref[covered])}
+    delta = (do6.float() * out6.float()).sum(-1)
+    args = (q6, k6, v6, do6, lse5, delta, kvlen)
+    grads = (dk.dilated_branch_bwd_dq_pipe(*args), *dk.dilated_branch_bwd_dkv_pipe(*args))
+    for gname, ours, want in zip(("dq", "dk", "dv"), grads, dk.dilated_branch_bwd_pipe_reference(*args)):
+        check(bool(torch.isfinite(ours).all()), f"bwd_pipe {dname} r={r}: non-finite {gname}")
+        err = _grad_rel_err(ours[..., :m, :], want[..., :m, :])
+        check(err <= BWD_REL_TOL[dname], f"bwd_pipe {dname} sl={sl} r={r}: {gname} rel err {err}")
+        errs[gname] = max_err(ours[..., :m, :], want[..., :m, :])
+        errs[gname + "_rel"] = err
+    key_pad = torch.arange(Mp, device="cuda")[None, None, None, None, :] >= kvlen[..., None, None]
+    for gname, x6 in (("dk", grads[1]), ("dv", grads[2])):
+        check(not bool(x6[key_pad.expand_as(x6[..., 0])].any()), f"bwd_pipe r={r}: {gname} past kvlen not 0")
+
+    # the serial twins on the same inputs
+    out_s, lse_s = dk.dilated_branch_fwd(q6, k6, v6, kvlen)
+    args_s = (q6, k6, v6, do6, lse_s, (do6.float() * out_s.float()).sum(-1), kvlen)
+    serial = (out_s, dk.dilated_branch_bwd_dq(*args_s), *dk.dilated_branch_bwd_dkv(*args_s))
+    vs_serial = {}
+    for name, a, b in zip(("out", "dq", "dk", "dv"), (out6, *grads), serial):
+        a, b = a[..., :m, :], b[..., :m, :]
+        if dname == "float32":
+            torch.testing.assert_close(a, b, **KERNEL_TOL[dname])
+            vs_serial[name] = max_err(a, b)
+        else:
+            vs_serial[name] = _one_minus_cos(a, b)
+            check(vs_serial[name] <= BF16_MAX_ONE_MINUS_COS,
+                  f"bf16 pipelined vs serial r={r} {name}: 1 - cosine {vs_serial[name]}")
+    if dname == "float32":
+        torch.testing.assert_close(lse5[covered], lse_s[covered], **LSE_TOL[dname])
+    record = {"dtype": dname, "B": B, "sl": sl, "r": r, "S": S, "m": m, "Mp": Mp, "real_len": real_len,
+              "valid": None if valid is None else valid.tolist(), "max_err_vs_plain": errs,
+              "vs_serial": vs_serial, "vs_serial_metric": "max |err|" if dname == "float32" else "1 - cosine"}
+    if not timed:
+        return record, None
+    fns = {"dilated_branch_fwd_pipe": lambda: dk.dilated_branch_fwd_pipe(q6, k6, v6, kvlen),
+           "dilated_branch_bwd_dq_pipe": lambda: dk.dilated_branch_bwd_dq_pipe(*args),
+           "dilated_branch_bwd_dkv_pipe": lambda: dk.dilated_branch_bwd_dkv_pipe(*args)}
+    twins = {"dilated_branch_fwd_pipe": lambda: dk.dilated_branch_fwd(q6, k6, v6, kvlen),
+             "dilated_branch_bwd_dq_pipe": lambda: dk.dilated_branch_bwd_dq(*args),
+             "dilated_branch_bwd_dkv_pipe": lambda: dk.dilated_branch_bwd_dkv(*args)}
+    plains = {"dilated_branch_fwd_pipe": lambda: dk.dilated_branch_fwd_pipe_reference(q6, k6, v6, kvlen),
+              "dilated_branch_bwd_dq_pipe": lambda: dk.dilated_branch_bwd_pipe_reference(*args, dkv=False),
+              "dilated_branch_bwd_dkv_pipe": lambda: dk.dilated_branch_bwd_pipe_reference(*args, dq=False)}
+    hb = H // r
+    qs, ks, vs = (x.reshape(B * S * r, hb, Mp, E // H).detach().requires_grad_() for x in (q6, k6, v6))
+    key_ok = (torch.arange(Mp, device="cuda")[None] < kvlen.reshape(-1, 1))[:, None, None, :]
+    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=key_ok), reps=5)
+    lib_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=key_ok)
+    lib_do = do6.reshape(lib_out.shape)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, (qs, ks, vs), lib_do, retain_graph=True), reps=5)
+    bounds = {"dilated_branch_fwd_pipe": _branch_bounds(dk, B, L, sl, r, real_len, kvlen, q.element_size(),
+                                                        dname)["dilated_branch_fwd"]}
+    bwd = _bwd_bounds(dk, B, L, sl, r, kvlen, q.element_size(), dname)
+    bounds["dilated_branch_bwd_dq_pipe"] = bwd["dilated_branch_bwd_dq"]
+    bounds["dilated_branch_bwd_dkv_pipe"] = bwd["dilated_branch_bwd_dkv"]
+    numbers = {}
+    for name in PIPE_KERNELS:
+        numbers[name] = {
+            "ms": time_ms(fns[name]), "serial_ms": time_ms(twins[name]),
+            "plain_ms": time_ms(plains[name], reps=2, warmup=1),
+            "library_ms": lib_fwd if name == "dilated_branch_fwd_pipe" else lib_bwd,
+            "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+            "err": errs["out"] if name == "dilated_branch_fwd_pipe" else (
+                errs["dq"] if name == "dilated_branch_bwd_dq_pipe" else max(errs["dk"], errs["dv"])),
+        }
+    record["per_kernel"] = numbers
+    return record, numbers
+
+
+def _many_cells_pipe(dk):
+    """The three pipelined kernels past 65535 cells (64 slides of 8192
+    tokens in 64-token segments, r = 1, bf16, per-row valid lengths, row 0
+    with none: out and gradients exactly 0 there) against their plain
+    versions."""
+    import torch
+
+    B, L, sl, r = 64, 8192, 64, 1
+    gen = torch.Generator(device="cuda").manual_seed(44)
+    g, S, m, Mp = dk._branch_geometry(L, sl, r)
+    cells = B * S * r * (H // r)
+    check(cells > 65535, f"many-cells check has only {cells} cells")
+    q6, k6, v6, do6 = (torch.randn(B, S, r, H // r, Mp, E // H, device="cuda", generator=gen)
+                       .to(torch.bfloat16) for _ in range(4))
+    valid = torch.randint(1, L + 1, (B,), device="cuda", generator=gen)
+    valid[0] = 0
+    kvlen = dk._branch_kvlen(B, S, g, r, m, L, valid, q6.device)
+    out6, lse5 = dk.dilated_branch_fwd_pipe(q6, k6, v6, kvlen)
+    out_ref, lse_ref = dk.dilated_branch_fwd_pipe_reference(q6, k6, v6, kvlen)
+    torch.testing.assert_close(out6, out_ref, **KERNEL_TOL["bfloat16"])
+    covered = lse_ref > -1e19
+    torch.testing.assert_close(lse5[covered], lse_ref[covered], **LSE_TOL["bfloat16"])
+    check(not bool(out6[~covered].any()), "pipe many cells: fully masked rows not 0")
+    delta = (do6.float() * out6.float()).sum(-1)
+    args = (q6, k6, v6, do6, lse5, delta, kvlen)
+    grads = (dk.dilated_branch_bwd_dq_pipe(*args), *dk.dilated_branch_bwd_dkv_pipe(*args))
+    errs = {"out": max_err(out6, out_ref)}
+    for gname, ours, want in zip(("dq", "dk", "dv"), grads, dk.dilated_branch_bwd_pipe_reference(*args)):
+        errs[gname] = _grad_rel_err(ours, want)
+        check(errs[gname] <= BWD_REL_TOL["bfloat16"], f"pipe many cells: {gname} rel err {errs[gname]}")
+        check(bool(torch.isfinite(ours).all()), f"pipe many cells: non-finite {gname}")
+        check(not bool(ours[0].any()), f"pipe many cells: {gname} of the row with no valid key not 0")
+    emit("pipe_kernels_many_cells", dtype="bfloat16", B=B, L=L, sl=sl, r=r, cells=cells, empty_rows=1,
+         max_err=errs, tolerance={"out": KERNEL_TOL["bfloat16"], "grads_rel": BWD_REL_TOL["bfloat16"]})
+
+
+def phase_pipe_kernels():
+    """Rows 6 and 8 on the card: the five branches of one flagship layer
+    (L = 10241), fp32 and bf16, at full length (timed: per-layer sums of the
+    kernel, its serial twin, its plain version and SDPA with the key mask,
+    and its backward, beside the bound) and at a ragged real length; a B = 2
+    batch with per-row valid counts formed on the card; past 65535 cells."""
+    import torch
+
+    from gigapath_tpu_torch.ops import dilated_kernels as dk
+
+    L = N_TILES + 1
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    summary = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        totals = {name: dict(ms=0.0, serial_ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, err=0.0, by={})
+                  for name in PIPE_KERNELS}
+        for B, real_len, valid, timed in ((1, L, None, True), (1, L - 37, None, False),
+                                          (2, L, torch.tensor([L, 7002], device="cuda"), False)):
+            q, k, v, do = (torch.randn(B, L, E, device="cuda", generator=gen).to(dtype) for _ in range(4))
+            for sl, r in zip(*SCHEDULE):
+                record, numbers = _pipe_branch(dk, q, k, v, do, sl, r, real_len, valid, timed)
+                emit("pipe_kernels", **record)
+                for name, num in (numbers or {}).items():
+                    tot = totals[name]
+                    for key in ("ms", "serial_ms", "plain_ms", "bound_ms", "library_ms"):
+                        tot[key] += num[key]
+                    tot["err"] = max(tot["err"], num["err"])
+                    tot["by"][num["bound_by"]] = tot["by"].get(num["bound_by"], 0.0) + num["bound_ms"]
+            del q, k, v, do
+        for tot in totals.values():
+            tot["bound_by"] = max(tot.pop("by").items(), key=lambda kv: kv[1])[0]
+            tot["vs_serial"] = tot["ms"] / tot["serial_ms"]
+        summary[dname] = totals
+        emit("pipe_kernels_per_layer", dtype=dname, kernels=totals,
+             note="sum over the 5 branches of one layer at full length; serial_ms is the serial twin "
+                  "(rows 1, 7a, 7b) on the same inputs; library_ms is SDPA with the key mask, and its "
+                  "backward (dq, dk, dv) for dq and dkv")
+    _many_cells_pipe(dk)
+    return summary
+
+
+def _vs_serial(dname, got, want, what: str) -> list:
+    """Each layer's embedding against the serial route's: fp32 rel within
+    F32_REL_TOL, bf16 1 - cosine within BF16_MAX_ONE_MINUS_COS."""
+    import numpy as np
+
+    per_layer = []
+    for a, b in zip(_embeds(got), _embeds(want)):
+        check(a.shape == (1, E) and np.isfinite(a).all(), f"{what} {dname}: bad embedding {a.shape}")
+        rel = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-12))
+        one_minus_cos = 1.0 - float(_cosines(a, b)[0])
+        per_layer.append({"rel": rel, "one_minus_cos": one_minus_cos})
+        if dname == "float32":
+            check(rel <= F32_REL_TOL, f"{what} fp32 vs the serial route: rel err {rel} > {F32_REL_TOL}")
+        else:
+            check(one_minus_cos <= BF16_MAX_ONE_MINUS_COS,
+                  f"{what} bf16 vs the serial route: 1 - cosine {one_minus_cos} > {BF16_MAX_ONE_MINUS_COS}")
+    return per_layer
+
+
+def phase_pipe_forward():
+    """The flagship through run_inference_with_slide_encoder on 10240 tiles,
+    fp32 and bf16, with GIGAPATH_PIPELINED_ATTN=1 on the default route
+    (exactly 60 pipelined forwards, 0 serial) and on the stream-fusion route
+    (60 and 12 epilogues), then with no flag and a plan blessed by the
+    port's bless_plan that pipelines only the r = 1 branch (12 + 48); each
+    layer's embedding against the serial default route; ms per slide, peak
+    memory above the model and (bf16) a profiler breakdown of the serial
+    and the pipelined forward, with the card's idle share."""
+    import torch
+
+    from gigapath_tpu_torch import plan as tplan
+    from gigapath_tpu_torch.models.slide_encoder import create_model
+    from gigapath_tpu_torch.ops import dilated_kernels as dk
+    from gigapath_tpu_torch.pipeline import run_inference_with_slide_encoder
+
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    x, coords = _flagship_inputs(1, gen)
+    result = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        model = create_model("", "gigapath_slide_enc12l768d", dtype=dtype, seed=0)
+        serial = run_inference_with_slide_encoder(x, coords, model)
+        record = {"dtype": dname, "tiles": N_TILES}
+        for route, env, want in (("pipelined", PIPE_FWD_ENV, PIPE_FWD_LAUNCHES),
+                                 ("pipelined_stream_fusion", {**PIPE_FWD_ENV, **FUSION_ENV},
+                                  PIPE_FUSION_FWD_LAUNCHES)):
+            with env_flags(env):
+                run_inference_with_slide_encoder(x, coords, model)  # warm-up
+                torch.cuda.synchronize()
+                dk.reset_launch_counts()
+                out = run_inference_with_slide_encoder(x, coords, model)
+                counts = dict(dk.LAUNCHES)
+            check(counts == want, f"{dname} {route} forward launches {counts} != {want}")
+            record[route] = {"launches": counts, "vs_serial": _vs_serial(dname, out, serial, route)}
+        # a plan blessed with the port's own writer, no flag set: only the
+        # r = 1 branch's forward goes pipelined
+        with tempfile.TemporaryDirectory() as reg_dir:
+            path = f"{reg_dir}/PLAN_REGISTRY.json"
+            with env_flags({"GIGAPATH_PLAN_REGISTRY": path}):
+                tplan.reset_plan_state()
+                qkv = torch.empty(1, N_TILES + 1, H, E // H, dtype=dtype, device="meta")
+                key = tplan.geometry_key("dilated_attention", (qkv, qkv, qkv))
+                tplan.bless_plan(key, tplan.ExecutionPlan(branches=(PIPE_PLAN_BRANCH,)).as_dict(),
+                                 provenance={"by": "chip_smoke"})
+                run_inference_with_slide_encoder(x, coords, model)  # warm-up
+                torch.cuda.synchronize()
+                dk.reset_launch_counts()
+                tplan.reset_plan_state()
+                out = run_inference_with_slide_encoder(x, coords, model)
+                counts, stats = dict(dk.LAUNCHES), tplan.plan_stats()
+            tplan.reset_plan_state()
+        check(counts == PIPE_PLAN_LAUNCHES, f"{dname} planned forward launches {counts} != {PIPE_PLAN_LAUNCHES}")
+        check(stats["hits"] == 12, f"{dname} planned forward: plan hits {stats} (one per layer expected)")
+        record["plan"] = {"key": key, "branch": PIPE_PLAN_BRANCH, "launches": counts, "plan_stats": stats,
+                          "vs_serial": _vs_serial(dname, out, serial, "plan")}
+        record["timing"] = _timed_env_routes(model, x, coords, {
+            "serial": {}, "pipelined": PIPE_FWD_ENV, "pipelined_again": PIPE_FWD_ENV, "serial_again": {}})
+        if dname == "bfloat16":
+            with torch.inference_mode():
+                record["forward_trace"] = {}
+                for route, env in (("serial", {}), ("pipelined", PIPE_FWD_ENV)):
+                    with env_flags(env):
+                        record["forward_trace"][route] = _profile(
+                            lambda: run_inference_with_slide_encoder(x, coords, model))
+        record["tolerance"] = {"float32": f"rel <= {F32_REL_TOL}",
+                               "bfloat16": f"1 - cosine <= {BF16_MAX_ONE_MINUS_COS}"}[dname]
+        emit("pipe_forward", **record)
+        result[dname] = record
+        del model
+        torch.cuda.empty_cache()
+    return result
+
+
+def phase_pipe_step():
+    """The flagship fine-tune step (feat_layer 11) with
+    GIGAPATH_PIPELINED_ATTN=1 and GIGAPATH_PIPELINED_BWD=1: fp32 gradients
+    against the serial route, the exact launches of one bf16 step (60 / 55
+    / 55 pipelined, 0 serial forward, dq and dkv), ms per step and peak
+    memory beside the serial step in the same run, in turns."""
+    launches, grads, timing = _route_step(43, 5, PIPE_STEP_ENV, PIPE_STEP_LAUNCHES, {
+        "serial": {}, "pipelined": PIPE_STEP_ENV, "pipelined_again": PIPE_STEP_ENV, "serial_again": {}})
+    emit("pipe_step", tiles=N_TILES, launches=launches, grads_fp32=grads, bfloat16=timing)
+    return launches
+
+
 def phase_ffn_gelu():
     """The feed-forward GELU on the card: the activation of a bf16 fc1
     output in its own dtype against the explicit fp32 round trip, in bf16
@@ -2909,6 +3287,10 @@ def main() -> int:
     phase_bhld_vs_fused()
     bhld_launches = phase_bhld_step()
     launches.update({name: bhld_launches[name] for name in FLASH_KERNELS})
+    summary.update(phase_pipe_kernels()["bfloat16"])
+    phase_pipe_forward()
+    pipe_launches = phase_pipe_step()
+    launches.update({name: pipe_launches[name] for name in PIPE_KERNELS})
     print(json.dumps({"kernels": [
         {"name": name, **meta, "launches": launches[name],
          "max_abs_err": summary[name]["err"], "ms": summary[name]["ms"],

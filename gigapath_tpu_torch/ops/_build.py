@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface, loaded through ``ctypes``; a source that takes
-compile-time constants (the head width of the branch kernels, of the
-streaming chunk-pair kernels, of the segment-flash kernels and of the
+compile-time constants (the head width of the serial and pipelined
+branch kernels, of the streaming chunk-pair kernels, of the segment-flash kernels and of the
 quantized attention) builds one library per set of ``-D`` defines. The
 libraries go to ``build/kernels/`` at the root of the checkout
 (``.gitignore`` lists ``build/``), or to
@@ -44,7 +44,7 @@ def _build_dir() -> Path:
 BUILD_DIR = _build_dir()
 # the libraries the flagship slide encoder (head width 48) runs, forward
 # and backward, on the default route and on the direct-pack and
-# stream-fusion routes
+# stream-fusion routes, with the serial and the pipelined branch kernels
 FLAGSHIP = (
     ("pack_phases", ()),
     ("dilated_branch_fwd", (("GP_HEAD_DIM", 48),)),
@@ -55,6 +55,9 @@ FLAGSHIP = (
     ("unpack_phases_direct", ()),
     ("fusion_epilogue_fwd", ()),
     ("fusion_epilogue_bwd", ()),
+    ("dilated_branch_fwd_pipe", (("GP_HEAD_DIM", 48),)),
+    ("dilated_branch_bwd_dq_pipe", (("GP_HEAD_DIM", 48),)),
+    ("dilated_branch_bwd_dkv_pipe", (("GP_HEAD_DIM", 48),)),
 )
 # the libraries the flagship tile encoder's quantized tier (head width 64)
 # runs
@@ -102,6 +105,13 @@ _SIGNATURES = {
     "unpack_phases_direct": ("gp_unpack_phases_direct", [_P, _P] + [_I] * 8 + [_P]),
     "fusion_epilogue_fwd": ("gp_fusion_epilogue_fwd", [_LLP, _LLP, _IP, _I, _P, _P] + [_I] * 5 + [_P]),
     "fusion_epilogue_bwd": ("gp_fusion_epilogue_bwd", [_P] * 4 + [_I] * 9 + [_P]),
+    "dilated_branch_fwd_pipe": ("gp_dilated_branch_fwd_pipe", [_P] * 6 + [_I] * 5 + [_F, _P]),
+    "dilated_branch_bwd_dq_pipe": (
+        "gp_dilated_branch_bwd_dq_pipe", [_P] * 8 + [_I] * 5 + [_F, _F, _P],
+    ),
+    "dilated_branch_bwd_dkv_pipe": (
+        "gp_dilated_branch_bwd_dkv_pipe", [_P] * 9 + [_I] * 5 + [_F, _F, _P],
+    ),
     "q_matmul": ("gp_q_matmul", [_P] * 4 + [_I] * 5 + [_P]),
     "q_flash_attention": ("gp_q_flash_attention", [_P] * 6 + [_I] * 6 + [_LLP, _P]),
     "stream_pair_fwd": ("gp_stream_pair_fwd", [_P] * 5 + [_I] * 3 + [_IP, _I, _LLP, _F, _P]),

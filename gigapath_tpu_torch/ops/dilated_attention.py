@@ -40,7 +40,11 @@ The fusion weights take no gradient (the lse is detached, as the JAX
 package stops it and the reference computes them under ``torch.no_grad``),
 so the backward flows through each branch's output into its kernels.
 
-The pipelined kernels (``GIGAPATH_PIPELINED_*`` raise), sequence
+On both phase-major routes a non-causal branch takes the pipelined
+kernels where the flags or a blessed plan's branch variant select them
+(``GIGAPATH_PIPELINED_ATTN``, ``GIGAPATH_PIPELINED_BWD``;
+``dilated_kernels._branch_pipelined``); the head-major route and causal
+calls stay on their serial kernels, as in the JAX package. Sequence
 parallelism, attention-probability dropout and decoding are not ported yet
 (``ROADMAP.md``).
 """
@@ -60,7 +64,6 @@ from gigapath_tpu_torch.ops.common import round_up
 from gigapath_tpu_torch.ops.dilated_kernels import (
     MAX_FUSED_BRANCHES,
     PipelineFlags,
-    check_not_pipelined,
     dilated_attention_stream_fused,
     dilated_branch_attention,
     dyn_sparse_counts,
@@ -135,7 +138,6 @@ def dilated_attention(
             q, k, v, segment_lengths, dilated_ratios, is_causal=is_causal, valid_len=valid_len,
             streaming_fusion=streaming_fusion,
         )
-    check_not_pipelined(flags, segment_lengths, dilated_ratios, is_causal)
     real_len, valid_dyn = _normalize_valid_len(valid_len, B, L)
     qE, kE, vE = (x.reshape(B, L, E) for x in (q, k, v))
     multi = len(segment_lengths) > 1

@@ -41,6 +41,17 @@ package's, resolved once per public call through
   branch) hands each branch its cotangent already packed, so no dense
   per-branch ``out``/``lse`` exists in either direction.
 
+On either route a non-causal branch takes the pipelined kernels where the
+JAX package takes them (:func:`_branch_pipelined`): the forward
+:func:`dilated_branch_fwd_pipe` under ``pipelined_fwd``
+(``GIGAPATH_PIPELINED_ATTN``) or a plan's ``"pipelined"`` variant for the
+branch, the backward :func:`dilated_branch_bwd_dq_pipe` and
+:func:`dilated_branch_bwd_dkv_pipe` under ``pipelined_bwd``
+(``GIGAPATH_PIPELINED_BWD``). They compute the serial kernels' function
+with the pipelined Pallas kernels' bf16 roundings, staging the next tile
+with ``cp.async`` while the current one computes. A causal call runs the
+serial kernels whatever the flags say, as in the JAX package.
+
 The port's packed row count ``Mp`` is ``m`` rounded up to the kernel's
 64-row tile; the TPU's VMEM caps and 128-lane quantum do not apply.
 """
@@ -70,6 +81,7 @@ LAUNCHES = {
     "dilated_branch_bwd_dq": 0, "dilated_branch_bwd_dkv": 0,
     "pack_phases_direct": 0, "unpack_phases_direct": 0,
     "fusion_epilogue_fwd": 0, "fusion_epilogue_bwd": 0,
+    "dilated_branch_fwd_pipe": 0, "dilated_branch_bwd_dq_pipe": 0, "dilated_branch_bwd_dkv_pipe": 0,
 }
 MAX_FUSED_BRANCHES = 8  # branches one fusion_epilogue_fwd launch takes
 
@@ -91,15 +103,17 @@ class PipelineFlags(NamedTuple):
     Resolved once per public ``dilated_attention`` call and handed to every
     branch and, through ``ctx``, to the backward, so the two passes of one
     call never see different flags. The port acts on ``pack_direct``,
-    ``stream_fusion``, ``streaming_fusion`` and the pipelined fields
-    (``pipelined_fwd``/``_bwd`` or a ``"pipelined"`` branch variant raise:
-    those kernels are not ported). The other fields are carried so that a
+    ``stream_fusion``, ``streaming_fusion``, ``pipelined_fwd``,
+    ``pipelined_bwd`` and the variant of ``branch_plans``
+    (:func:`_branch_pipelined`). The other fields are carried so that a
     plan or a caller can set them, and are unused here: ``pipe_block_k``,
-    ``pipe_bwd_block_k``, the branch ``block`` of ``branch_plans`` and the
-    fold blocks are TPU tiling; ``ring_attn`` belongs to sequence
-    parallelism; the drivers read ``quant_tile`` and ``chunked_prefill``
-    from their own environment variables; the port's streaming fold always
-    runs its kernels (``fold_pallas``)."""
+    ``pipe_bwd_block_k`` (the pipelined kernels' TPU key blocks; the CUDA
+    kernels stage 64 keys, or 32 above a head width of 64), the branch
+    ``block`` of ``branch_plans`` and the fold blocks are TPU VMEM tiling;
+    ``ring_attn`` belongs to sequence parallelism; the drivers read
+    ``quant_tile`` and ``chunked_prefill`` from their own environment
+    variables; the port's streaming fold always runs its kernels
+    (``fold_pallas``)."""
 
     pipelined_fwd: bool = False
     pipelined_bwd: bool = False
@@ -163,25 +177,23 @@ def snapshot_flags() -> PipelineFlags:
     )
 
 
-def check_not_pipelined(flags: PipelineFlags, segment_lengths: Sequence[int],
-                        dilated_ratios: Sequence[int], is_causal: bool) -> None:
-    """Raise where the JAX package would run its pipelined kernels (rows 6
-    and 8 of ``PERF.md``, not ported): ``pipelined_fwd``/``pipelined_bwd``,
-    or a branch plan's ``"pipelined"`` variant, on a non-causal call (a
-    causal call runs the serial kernels there too)."""
-    if is_causal:
-        return
-    variants = {(int(sl), int(r)): v for sl, r, v, _ in flags.branch_plans}
-    for sl, r in zip(segment_lengths, dilated_ratios):
-        variant = variants.get((int(sl), int(r)), "")
-        fwd = variant == "pipelined" or (variant == "" and flags.pipelined_fwd)
-        if fwd or flags.pipelined_bwd:
-            raise NotImplementedError(
-                f"the pipelined dilated-branch kernels (pipelined_fwd={fwd}, "
-                f"pipelined_bwd={flags.pipelined_bwd} at branch ({sl}, {r})) are not "
-                "ported yet: ROADMAP.md Queue B, rows 6 and 8. Unset "
-                "GIGAPATH_PIPELINED_ATTN / GIGAPATH_PIPELINED_BWD for the serial kernels"
-            )
+def _branch_pipelined(flags: PipelineFlags, sl: int, r: int) -> Tuple[bool, bool]:
+    """(forward pipelined?, backward pipelined?) for one branch, as the JAX
+    package's ``_branch_pipelined``: a plan's variant for the branch's own
+    ``(sl, r)`` pins the forward (``"serial"``/``"pipelined"``; ``""``
+    takes ``pipelined_fwd``), and the backward always follows the global
+    ``pipelined_bwd``. The caller runs the serial kernels on a causal call
+    whatever this says."""
+    variant = ""
+    for entry in flags.branch_plans:
+        if int(entry[0]) == int(sl) and int(entry[1]) == int(r):
+            variant = str(entry[2])
+            break
+    if variant == "serial":
+        return False, bool(flags.pipelined_bwd)
+    if variant == "pipelined":
+        return True, bool(flags.pipelined_bwd)
+    return bool(flags.pipelined_fwd), bool(flags.pipelined_bwd)
 
 
 # ---------------------------------------------------------------------------
@@ -225,15 +237,15 @@ def _branch_kvlen(
     B: int, S: int, g: int, r: int, m: int, real_len: int,
     vl_dyn: Optional[torch.Tensor], device: torch.device,
 ) -> torch.Tensor:
-    """[B, S, r] int32 valid sparse-key counts: the static table from
-    ``real_len`` combined by minimum with the optional per-batch valid
-    lengths ``vl_dyn``."""
-    static = torch.from_numpy(_phase_kvlen(S, g, r, m, real_len)).to(device)
-    static = static[None].expand(B, S, r)
-    if vl_dyn is None:
-        return static.contiguous()
-    counts = dyn_sparse_counts(vl_dyn, g, r, m, torch.arange(r, device=device), S)
-    return torch.minimum(static, counts.transpose(1, 2)).contiguous()
+    """[B, S, r] int32 valid sparse-key counts of the valid length
+    ``min(real_len, vl_dyn[b])`` per row (``vl_dyn`` None: ``real_len``),
+    counted on ``device``: nothing is copied from the host, so a CUDA
+    caller's stream never waits for the card here."""
+    valid = torch.full((B,), int(real_len), dtype=torch.int64, device=device)
+    if vl_dyn is not None:
+        valid = torch.minimum(valid, vl_dyn.reshape(B).to(device=device, dtype=torch.int64))
+    counts = dyn_sparse_counts(valid, g, r, m, torch.arange(r, device=device), S)  # [B, r, S]
+    return counts.transpose(1, 2).contiguous()
 
 
 def _scatter_lse(lse5: torch.Tensor, L: int, H: int, g: int, r: int, m: int) -> torch.Tensor:
@@ -374,6 +386,94 @@ def dilated_branch_bwd_reference(
                 ds = pr * (dof @ vf.transpose(1, 2) - delta[:, s, p, t, :, None])
                 if dq:
                     dq6[:, s, p, t] = ((ds @ kf) * scale).to(q6.dtype)
+                if dkv:
+                    dk6[:, s, p, t] = ((ds.transpose(1, 2) @ qf) * scale).to(k6.dtype)
+                    dv6[:, s, p, t] = (pr.transpose(1, 2) @ dof).to(v6.dtype)
+    return dq6, dk6, dv6
+
+
+def _pipe_key_stage(head_dim: int) -> int:
+    """Keys per ring stage of the pipelined kernels (and rows per query
+    stage of their dK/dV): 64, or 32 above a head width of 64."""
+    return 32 if head_dim > 64 else 64
+
+
+def _round_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """fp32 ``x`` rounded to ``dtype`` and widened back (a no-op in fp32):
+    the pipelined Pallas kernels' ``.astype`` before a matmul."""
+    return x if dtype == torch.float32 else x.to(dtype).float()
+
+
+def dilated_branch_fwd_pipe_reference(
+    q6: torch.Tensor, k6: torch.Tensor, v6: torch.Tensor, kvlen: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The pipelined forward's math in plain PyTorch (non-causal):
+    ``(out6, lse [B, S, r, hb, Mp] fp32)`` as
+    :func:`dilated_branch_fwd_reference`, with the pipelined Pallas
+    kernel's roundings (q*scale*log2(e) and the probabilities rounded to the
+    input dtype before their products) and an fp32 online softmax over key
+    stages of the kernel's width (:func:`_pipe_key_stage`), so a comparison
+    on the card measures the kernel and not the blocking. Chunked over (s,
+    p, t): the largest temporary is one [B, Mp, stage] score block."""
+    B, S, r, hb, Mp, Dh = q6.shape
+    qscale = Dh**-0.5 * LOG2E
+    width = _pipe_key_stage(Dh)
+    out = torch.empty_like(q6)
+    lse = torch.empty((B, S, r, hb, Mp), dtype=torch.float32, device=q6.device)
+    cols = torch.arange(Mp, device=q6.device)
+    for s in range(S):
+        for p in range(r):
+            key_mask = cols[None, None, :] >= kvlen[:, s, p].to(torch.int64)[:, None, None]  # [B, 1, Mp]
+            for t in range(hb):
+                qh = _round_to(q6[:, s, p, t].float() * qscale, q6.dtype)
+                kf, vf = k6[:, s, p, t].float(), v6[:, s, p, t].float()
+                m_run = torch.full((B, Mp, 1), M_FLOOR, dtype=torch.float32, device=q6.device)
+                l_run = torch.zeros_like(m_run)
+                acc = torch.zeros((B, Mp, Dh), dtype=torch.float32, device=q6.device)
+                for j0 in range(0, Mp, width):
+                    sc = qh @ kf[:, j0:j0 + width].transpose(1, 2)  # [B, Mp, width]
+                    sc = sc.masked_fill(key_mask[..., j0:j0 + width], NEG_INF)
+                    m_new = torch.maximum(m_run, sc.amax(dim=-1, keepdim=True))
+                    pr = torch.exp2(sc - m_new)
+                    alpha = torch.exp2(m_run - m_new)
+                    l_run = l_run * alpha + pr.sum(dim=-1, keepdim=True)
+                    acc = acc * alpha + _round_to(pr, q6.dtype) @ vf[:, j0:j0 + width]
+                    m_run = m_new
+                safe_l = l_run.clamp_min(1e-30)
+                out[:, s, p, t] = (acc / safe_l).to(q6.dtype)
+                lse[:, s, p, t] = ((m_run + torch.log2(safe_l)) * LN2)[..., 0]
+    return out, lse
+
+
+def dilated_branch_bwd_pipe_reference(
+    q6: torch.Tensor, k6: torch.Tensor, v6: torch.Tensor, do6: torch.Tensor,
+    lse5: torch.Tensor, delta: torch.Tensor, kvlen: torch.Tensor,
+    *, dq: bool = True, dkv: bool = True,
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """The pipelined backward's math in plain PyTorch (non-causal):
+    ``(dq6, dk6, dv6)`` from the arguments of
+    :func:`dilated_branch_bwd_reference`, with the pipelined Pallas
+    kernels' roundings: the logits from q*scale*log2(e) rounded to the input
+    dtype, ds rounded to it before ``ds @ k`` (dQ), p and ds fp32 against
+    fp32 dout and unscaled q (dK/dV). Chunked over (s, p, t), as
+    :func:`dilated_branch_bwd_reference`."""
+    B, S, r, hb, Mp, Dh = q6.shape
+    scale = Dh**-0.5
+    dq6 = torch.empty_like(q6) if dq else None
+    dk6 = torch.empty_like(k6) if dkv else None
+    dv6 = torch.empty_like(v6) if dkv else None
+    cols = torch.arange(Mp, device=q6.device)
+    for s in range(S):
+        for p in range(r):
+            key_mask = cols[None, None, :] >= kvlen[:, s, p].to(torch.int64)[:, None, None]
+            for t in range(hb):
+                qf, kf, vf, dof = (x[:, s, p, t].float() for x in (q6, k6, v6, do6))
+                qh = _round_to(qf * (scale * LOG2E), q6.dtype)
+                sc = (qh @ kf.transpose(1, 2)).masked_fill(key_mask, NEG_INF)  # [B, Mp, Mp]
+                pr = torch.exp2(sc - lse5[:, s, p, t, :, None] * LOG2E)
+                ds = pr * (dof @ vf.transpose(1, 2) - delta[:, s, p, t, :, None])
+                if dq:
+                    dq6[:, s, p, t] = ((_round_to(ds, q6.dtype) @ kf) * scale).to(q6.dtype)
                 if dkv:
                     dk6[:, s, p, t] = ((ds.transpose(1, 2) @ qf) * scale).to(k6.dtype)
                     dv6[:, s, p, t] = (pr.transpose(1, 2) @ dof).to(v6.dtype)
@@ -584,6 +684,108 @@ def dilated_branch_bwd_dkv(
     return dk6, dv6
 
 
+def _check_pipe(name: str, is_causal: bool, *tensors: torch.Tensor) -> None:
+    """The pipelined kernels take non-causal calls and 16-byte aligned
+    tensors (their ring's ``cp.async`` copies)."""
+    if is_causal:
+        raise ValueError(f"{name}: the pipelined kernels are non-causal only (a causal call runs the serial kernels)")
+    for t in tensors:
+        if t.device.type == "cuda" and t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensors must be 16-byte aligned for the cp.async ring")
+
+
+def dilated_branch_fwd_pipe(
+    q6: torch.Tensor, k6: torch.Tensor, v6: torch.Tensor, kvlen: torch.Tensor,
+    is_causal: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pipelined packed branch attention -> ``(out6, lse [B, S, r, hb, Mp]
+    fp32)`` (``csrc/dilated_branch_fwd_pipe.cu``); arguments as
+    :func:`dilated_branch_fwd`, non-causal only."""
+    _check_pipe("dilated_branch_fwd_pipe", is_causal, q6, k6, v6)
+    if q6.device.type == "cpu":
+        return dilated_branch_fwd_pipe_reference(q6, k6, v6, kvlen)
+    from gigapath_tpu_torch.ops import _build
+
+    for name, t in (("q6", q6), ("k6", k6), ("v6", v6)):
+        check_cuda(f"dilated_branch_fwd_pipe {name}", t)
+        if t.shape != q6.shape or t.dtype != q6.dtype or t.device != q6.device:
+            raise ValueError("dilated_branch_fwd_pipe: q6, k6, v6 must share shape, dtype and device")
+    check_cuda("dilated_branch_fwd_pipe kvlen", kvlen, (torch.int32,))
+    B, S, r, hb, Mp, Dh = q6.shape
+    if tuple(kvlen.shape) != (B, S, r) or kvlen.device != q6.device:
+        raise ValueError(f"dilated_branch_fwd_pipe: kvlen must be [B, S, r] = {(B, S, r)} on {q6.device}")
+    blocks = B * S * r * hb * (Mp // ROW_TILE)
+    if Dh % 4 or Dh > MAX_HEAD_DIM or Mp <= 0 or Mp % ROW_TILE or blocks >= 2**31:
+        raise ValueError(
+            f"dilated_branch_fwd_pipe: needs Dh % 4 == 0, Dh <= {MAX_HEAD_DIM}, Mp a positive multiple "
+            f"of {ROW_TILE} and fewer than 2^31 query tiles; got Dh={Dh}, Mp={Mp}, tiles={blocks}"
+        )
+    out = torch.empty_like(q6)
+    lse = torch.empty((B, S, r, hb, Mp), dtype=torch.float32, device=q6.device)
+    with torch.cuda.device(q6.device):
+        rc = _build.library("dilated_branch_fwd_pipe", GP_HEAD_DIM=Dh).gp_dilated_branch_fwd_pipe(
+            q6.data_ptr(), k6.data_ptr(), v6.data_ptr(), kvlen.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), int(q6.dtype == torch.bfloat16),
+            B * S * r * hb, hb, Mp, Dh, Dh**-0.5 * LOG2E, cuda_stream(q6),
+        )
+    raise_on(rc, "dilated_branch_fwd_pipe")
+    LAUNCHES["dilated_branch_fwd_pipe"] += 1
+    return out, lse
+
+
+def dilated_branch_bwd_dq_pipe(
+    q6: torch.Tensor, k6: torch.Tensor, v6: torch.Tensor, do6: torch.Tensor,
+    lse5: torch.Tensor, delta: torch.Tensor, kvlen: torch.Tensor, is_causal: bool = False,
+) -> torch.Tensor:
+    """Pipelined packed dq of the branch attention
+    (``csrc/dilated_branch_bwd_dq_pipe.cu``); arguments as
+    :func:`dilated_branch_bwd_pipe_reference`, non-causal only."""
+    _check_pipe("dilated_branch_bwd_dq_pipe", is_causal, k6, v6)
+    if q6.device.type == "cpu":
+        return dilated_branch_bwd_pipe_reference(q6, k6, v6, do6, lse5, delta, kvlen, dkv=False)[0]
+    from gigapath_tpu_torch.ops import _build
+
+    _check_bwd_inputs("dilated_branch_bwd_dq_pipe", q6, k6, v6, do6, lse5, delta, kvlen)
+    B, S, r, hb, Mp, Dh = q6.shape
+    dq6 = torch.empty_like(q6)
+    with torch.cuda.device(q6.device):
+        rc = _build.library("dilated_branch_bwd_dq_pipe", GP_HEAD_DIM=Dh).gp_dilated_branch_bwd_dq_pipe(
+            q6.data_ptr(), k6.data_ptr(), v6.data_ptr(), do6.data_ptr(), lse5.data_ptr(),
+            delta.data_ptr(), kvlen.data_ptr(), dq6.data_ptr(), int(q6.dtype == torch.bfloat16),
+            B * S * r * hb, hb, Mp, Dh, Dh**-0.5 * LOG2E, Dh**-0.5, cuda_stream(q6),
+        )
+    raise_on(rc, "dilated_branch_bwd_dq_pipe")
+    LAUNCHES["dilated_branch_bwd_dq_pipe"] += 1
+    return dq6
+
+
+def dilated_branch_bwd_dkv_pipe(
+    q6: torch.Tensor, k6: torch.Tensor, v6: torch.Tensor, do6: torch.Tensor,
+    lse5: torch.Tensor, delta: torch.Tensor, kvlen: torch.Tensor, is_causal: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pipelined packed ``(dk, dv)`` of the branch attention
+    (``csrc/dilated_branch_bwd_dkv_pipe.cu``); arguments as
+    :func:`dilated_branch_bwd_pipe_reference`, non-causal only."""
+    _check_pipe("dilated_branch_bwd_dkv_pipe", is_causal, q6, do6, lse5, delta)
+    if q6.device.type == "cpu":
+        return dilated_branch_bwd_pipe_reference(q6, k6, v6, do6, lse5, delta, kvlen, dq=False)[1:]
+    from gigapath_tpu_torch.ops import _build
+
+    _check_bwd_inputs("dilated_branch_bwd_dkv_pipe", q6, k6, v6, do6, lse5, delta, kvlen)
+    B, S, r, hb, Mp, Dh = q6.shape
+    dk6, dv6 = torch.empty_like(k6), torch.empty_like(v6)
+    with torch.cuda.device(q6.device):
+        rc = _build.library("dilated_branch_bwd_dkv_pipe", GP_HEAD_DIM=Dh).gp_dilated_branch_bwd_dkv_pipe(
+            q6.data_ptr(), k6.data_ptr(), v6.data_ptr(), do6.data_ptr(), lse5.data_ptr(),
+            delta.data_ptr(), kvlen.data_ptr(), dk6.data_ptr(), dv6.data_ptr(),
+            int(q6.dtype == torch.bfloat16), B * S * r * hb, hb, Mp, Dh,
+            Dh**-0.5 * LOG2E, Dh**-0.5, cuda_stream(q6),
+        )
+    raise_on(rc, "dilated_branch_bwd_dkv_pipe")
+    LAUNCHES["dilated_branch_bwd_dkv_pipe"] += 1
+    return dk6, dv6
+
+
 def pack_phases_direct(
     x: torch.Tensor, g: int, S: int, r: int, Mp: int, num_heads: int
 ) -> torch.Tensor:
@@ -719,24 +921,33 @@ def _unpack(p6, L, E, g, S, r, pack_direct: bool) -> torch.Tensor:
     return unpack_phases(p6, L, E, g, S, r)
 
 
-def _branch_packed_fwd(q, k, v, kvlen, geometry, num_heads, is_causal, pack_direct):
-    """Dense q/k/v -> the branch's packed ``(out6, lse5)``."""
+def _branch_packed_fwd(q, k, v, kvlen, geometry, num_heads, is_causal, pack_direct, pipe_fwd):
+    """Dense q/k/v -> the branch's packed ``(out6, lse5)``; the counterpart
+    of ``_branch_packed_fwd_impl``: row 6's pipelined kernel when
+    ``pipe_fwd`` and not causal, else row 1's."""
     L, E, g, S, r, m, Mp = geometry
     q6, k6, v6 = (_pack(x, g, S, r, Mp, num_heads, pack_direct) for x in (q, k, v))
+    if pipe_fwd and not is_causal:
+        return dilated_branch_fwd_pipe(q6, k6, v6, kvlen)
     return dilated_branch_fwd(q6, k6, v6, kvlen, is_causal)
 
 
-def _branch_bwd(q, k, v, kvlen, do6, out6, lse5, geometry, num_heads, is_causal, pack_direct):
+def _branch_bwd(q, k, v, kvlen, do6, out6, lse5, geometry, num_heads, is_causal, pack_direct, pipe_bwd):
     """The packed output cotangent ``do6`` (and the forward's packed
     results) -> dense ``(dq, dk, dv)``; the counterpart of
-    ``_branch_bwd_core``. Off-band lanes come back exact 0: the branch never
-    reads them."""
+    ``_branch_bwd_core``: row 8's pipelined kernels when ``pipe_bwd`` and
+    not causal, else row 7's. Off-band lanes come back exact 0: the branch
+    never reads them."""
     L, E, g, S, r, m, Mp = geometry
     q6, k6, v6 = (_pack(x, g, S, r, Mp, num_heads, pack_direct) for x in (q, k, v))
     # delta = rowsum(do * out) per (token, head), in the lse layout
     delta = (do6.float() * out6.float()).sum(dim=-1)
-    dq6 = dilated_branch_bwd_dq(q6, k6, v6, do6, lse5, delta, kvlen, is_causal)
-    dk6, dv6 = dilated_branch_bwd_dkv(q6, k6, v6, do6, lse5, delta, kvlen, is_causal)
+    if pipe_bwd and not is_causal:
+        dq6 = dilated_branch_bwd_dq_pipe(q6, k6, v6, do6, lse5, delta, kvlen)
+        dk6, dv6 = dilated_branch_bwd_dkv_pipe(q6, k6, v6, do6, lse5, delta, kvlen)
+    else:
+        dq6 = dilated_branch_bwd_dq(q6, k6, v6, do6, lse5, delta, kvlen, is_causal)
+        dk6, dv6 = dilated_branch_bwd_dkv(q6, k6, v6, do6, lse5, delta, kvlen, is_causal)
     return [_unpack(x6, L, E, g, S, r, pack_direct) for x6 in (dq6, dk6, dv6)]
 
 
@@ -748,18 +959,20 @@ class _DilatedBranch(torch.autograd.Function):
     and this branch's packed ``out6``/``lse5``, never the packed q6/k6/v6:
     the backward re-packs them. The lse output takes no gradient. Both
     passes run with autocast off: the kernels (and their plain versions)
-    compute in fp32 from the inputs' dtype. ``pack_direct`` is the
-    forward's flag, kept on ``ctx`` for the backward."""
+    compute in fp32 from the inputs' dtype. ``pack_direct`` and
+    ``pipe_bwd`` are the forward's flags, kept on ``ctx`` for the
+    backward, which never reads the flags afresh."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kvlen, geometry, num_heads, is_causal, pack_direct):
+    def forward(ctx, q, k, v, kvlen, geometry, num_heads, is_causal, pack_direct, pipe_fwd, pipe_bwd):
         L, E, g, S, r, m, Mp = geometry
         with torch.autocast(q.device.type, enabled=False):
-            out6, lse5 = _branch_packed_fwd(q, k, v, kvlen, geometry, num_heads, is_causal, pack_direct)
+            out6, lse5 = _branch_packed_fwd(q, k, v, kvlen, geometry, num_heads, is_causal, pack_direct, pipe_fwd)
             out = _unpack(out6, L, E, g, S, r, pack_direct)
             lse = _scatter_lse(lse5, L, num_heads, g, r, m)
         ctx.save_for_backward(q, k, v, kvlen, out6, lse5)
-        ctx.geometry, ctx.num_heads, ctx.is_causal, ctx.pack_direct = geometry, num_heads, is_causal, pack_direct
+        ctx.geometry, ctx.num_heads, ctx.is_causal = geometry, num_heads, is_causal
+        ctx.pack_direct, ctx.pipe_bwd = pack_direct, pipe_bwd
         ctx.mark_non_differentiable(lse)
         return out, lse
 
@@ -770,8 +983,8 @@ class _DilatedBranch(torch.autograd.Function):
         with torch.autocast(q.device.type, enabled=False):
             do6 = _pack(dout.to(q.dtype).contiguous(), g, S, r, Mp, ctx.num_heads, ctx.pack_direct)
             grads = _branch_bwd(q, k, v, kvlen, do6, out6, lse5, ctx.geometry, ctx.num_heads,
-                                ctx.is_causal, ctx.pack_direct)
-        return (*grads, None, None, None, None, None)
+                                ctx.is_causal, ctx.pack_direct, ctx.pipe_bwd)
+        return (*grads, None, None, None, None, None, None, None)
 
 
 class _DilatedBranchPacked(torch.autograd.Function):
@@ -782,11 +995,12 @@ class _DilatedBranchPacked(torch.autograd.Function):
     :class:`_DilatedBranch`."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kvlen, geometry, num_heads, is_causal, pack_direct):
+    def forward(ctx, q, k, v, kvlen, geometry, num_heads, is_causal, pack_direct, pipe_fwd, pipe_bwd):
         with torch.autocast(q.device.type, enabled=False):
-            out6, lse5 = _branch_packed_fwd(q, k, v, kvlen, geometry, num_heads, is_causal, pack_direct)
+            out6, lse5 = _branch_packed_fwd(q, k, v, kvlen, geometry, num_heads, is_causal, pack_direct, pipe_fwd)
         ctx.save_for_backward(q, k, v, kvlen, out6, lse5)
-        ctx.geometry, ctx.num_heads, ctx.is_causal, ctx.pack_direct = geometry, num_heads, is_causal, pack_direct
+        ctx.geometry, ctx.num_heads, ctx.is_causal = geometry, num_heads, is_causal
+        ctx.pack_direct, ctx.pipe_bwd = pack_direct, pipe_bwd
         ctx.mark_non_differentiable(lse5)
         return out6, lse5
 
@@ -795,13 +1009,14 @@ class _DilatedBranchPacked(torch.autograd.Function):
         q, k, v, kvlen, out6, lse5 = ctx.saved_tensors
         with torch.autocast(q.device.type, enabled=False):
             grads = _branch_bwd(q, k, v, kvlen, do6.to(q.dtype).contiguous(), out6, lse5, ctx.geometry,
-                                ctx.num_heads, ctx.is_causal, ctx.pack_direct)
-        return (*grads, None, None, None, None, None)
+                                ctx.num_heads, ctx.is_causal, ctx.pack_direct, ctx.pipe_bwd)
+        return (*grads, None, None, None, None, None, None, None)
 
 
 def _branch_args(q, k, v, sl, r, num_heads, real_len, valid_len_dyn, flags):
-    """(geometry, kvlen, flags) of one branch call; resolves the flags
-    through the plan seam when the caller holds none."""
+    """(geometry, kvlen, (pack_direct, pipe_fwd, pipe_bwd)) of one branch
+    call: the flags resolved through the plan seam when the caller holds
+    none, read once here for both passes."""
     B, L, E = q.shape
     if E % num_heads or num_heads % r:
         raise ValueError(f"dilated branch: needs E % H == 0 and H % r == 0; got E={E}, H={num_heads}, r={r}")
@@ -812,7 +1027,7 @@ def _branch_args(q, k, v, sl, r, num_heads, real_len, valid_len_dyn, flags):
     rl = L if real_len is None else min(int(real_len), L)
     g, S, m, Mp = _branch_geometry(L, int(sl), int(r))
     kvlen = _branch_kvlen(B, S, g, int(r), m, rl, valid_len_dyn, q.device)
-    return (L, E, g, S, int(r), m, Mp), kvlen, flags
+    return (L, E, g, S, int(r), m, Mp), kvlen, (bool(flags.pack_direct), *_branch_pipelined(flags, sl, r))
 
 
 def dilated_branch_attention(
@@ -836,13 +1051,12 @@ def dilated_branch_attention(
     (static) or ``>= valid_len_dyn[b]`` (per batch row) are masked.
     Differentiable in q, k and v; the lse output takes no gradient.
     Requires ``num_heads % r == 0``. ``flags`` pins the dispatch (None:
-    resolved once through the plan seam).
+    resolved once through the plan seam): the pack kernels, and the
+    pipelined kernels where :func:`_branch_pipelined` takes them.
     """
-    geometry, kvlen, flags = _branch_args(q, k, v, sl, r, num_heads, real_len, valid_len_dyn, flags)
-    check_not_pipelined(flags, (sl,), (r,), is_causal)
+    geometry, kvlen, dispatch = _branch_args(q, k, v, sl, r, num_heads, real_len, valid_len_dyn, flags)
     return _DilatedBranch.apply(
-        q.contiguous(), k.contiguous(), v.contiguous(), kvlen, geometry, num_heads, is_causal,
-        bool(flags.pack_direct),
+        q.contiguous(), k.contiguous(), v.contiguous(), kvlen, geometry, num_heads, is_causal, *dispatch,
     )
 
 
@@ -862,11 +1076,9 @@ def dilated_branch_attention_packed(
     """One dilated branch returning its packed results ``(out6 [B, S, r,
     hb, Mp, Dh], lse5 [B, S, r, hb, Mp] fp32)``, the fusion epilogue's
     input; arguments as :func:`dilated_branch_attention`."""
-    geometry, kvlen, flags = _branch_args(q, k, v, sl, r, num_heads, real_len, valid_len_dyn, flags)
-    check_not_pipelined(flags, (sl,), (r,), is_causal)
+    geometry, kvlen, dispatch = _branch_args(q, k, v, sl, r, num_heads, real_len, valid_len_dyn, flags)
     return _DilatedBranchPacked.apply(
-        q.contiguous(), k.contiguous(), v.contiguous(), kvlen, geometry, num_heads, is_causal,
-        bool(flags.pack_direct),
+        q.contiguous(), k.contiguous(), v.contiguous(), kvlen, geometry, num_heads, is_causal, *dispatch,
     )
 
 

@@ -1,7 +1,7 @@
 """Geometry-keyed execution plans (counterpart of ``gigapath_tpu/plan/``):
 :func:`resolve_plan` is the one seam the dilated-attention dispatch routes
-through. The registry reader honours the JAX package's file format, so one
-``PLAN_REGISTRY.json`` serves both packages."""
+through. The registry reader and writer honour the JAX package's file
+format, so one ``PLAN_REGISTRY.json`` serves both packages."""
 
 from gigapath_tpu_torch.plan.executionplan import (
     BRANCH_VARIANTS,
@@ -11,6 +11,8 @@ from gigapath_tpu_torch.plan.executionplan import (
     geometry_key,
     lookup_plan,
     plan_enabled,
+    plan_registry_signature,
+    plan_stats,
     reset_plan_state,
     resolve_plan,
     shape_signature,
@@ -18,8 +20,11 @@ from gigapath_tpu_torch.plan.executionplan import (
 from gigapath_tpu_torch.plan.registry import (
     REGISTRY_SCHEMA_VERSION,
     CorruptPlanRegistry,
+    bless_plan,
     load_registry,
+    new_registry,
     registry_path,
+    save_registry,
 )
 
 __all__ = [
@@ -30,11 +35,16 @@ __all__ = [
     "geometry_key",
     "lookup_plan",
     "plan_enabled",
+    "plan_registry_signature",
+    "plan_stats",
     "reset_plan_state",
     "resolve_plan",
     "shape_signature",
     "REGISTRY_SCHEMA_VERSION",
     "CorruptPlanRegistry",
+    "bless_plan",
     "load_registry",
+    "new_registry",
     "registry_path",
+    "save_registry",
 ]

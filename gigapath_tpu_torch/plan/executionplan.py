@@ -19,7 +19,8 @@ degrade dispatch to the flags and defaults but never mis-dispatch.
 
 The geometry key is the JAX package's, dtype names included
 (``dilated_attention|bfloat16[1,10241,16,48];...``), so one registry file
-gives the same plan to both packages.
+gives the same plan to both packages. :func:`plan_stats` counts lookups and
+hits, :func:`plan_registry_signature` names the active registry state.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import os
 import warnings
 from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
-from gigapath_tpu_torch.plan.registry import CorruptPlanRegistry, load_registry, registry_path
+from gigapath_tpu_torch.plan.registry import CorruptPlanRegistry, _digest, load_registry, registry_path
 
 BRANCH_VARIANTS = ("", "serial", "pipelined")
 FUSION_CLASSES = ("", "dense", "stream", "streaming")
@@ -62,6 +63,21 @@ class ExecutionPlan(NamedTuple):
     fold_block_q: Optional[int] = None
     fold_block_k: Optional[int] = None
     fold_branches: Tuple[Tuple[int, int, int, int], ...] = ()
+
+    def as_dict(self) -> Dict[str, Any]:
+        """Registry serialization: only the fields with an opinion."""
+        doc: Dict[str, Any] = {}
+        if self.branches:
+            doc["branches"] = [[int(sl), int(r), str(v), int(b)] for sl, r, v, b in self.branches]
+        if self.fold_branches:
+            doc["fold_branches"] = [[int(sl), int(r), int(bq), int(bk)] for sl, r, bq, bk in self.fold_branches]
+        if self.fusion:
+            doc["fusion"] = str(self.fusion)
+        for field in _SCALAR_PLAN_FIELDS:
+            value = getattr(self, field)
+            if value is not None:
+                doc[field] = value
+        return doc
 
     @classmethod
     def from_dict(cls, doc: Dict[str, Any]) -> "ExecutionPlan":
@@ -129,6 +145,7 @@ def geometry_key(name: str, shapes: Sequence[Any]) -> str:
 # one parsed registry per (path, mtime, size): an edit is seen on the next
 # resolve, an unchanged file costs one os.stat
 _CACHE: Dict[str, Any] = {"stamp": None, "doc": None}
+_STATS: Dict[str, int] = {"lookups": 0, "hits": 0}
 _WARNED: set = set()
 
 
@@ -139,9 +156,19 @@ def _warn_once(msg: str) -> None:
 
 
 def reset_plan_state() -> None:
-    """Drop the registry cache and the warn-once memory."""
+    """Drop the registry cache, the lookup counters and the warn-once
+    memory."""
     _CACHE["stamp"] = _CACHE["doc"] = None
+    _STATS["lookups"] = _STATS["hits"] = 0
     _WARNED.clear()
+
+
+def plan_stats() -> Dict[str, float]:
+    """Lookups and hits since the process started (or the last reset), and
+    the hit rate."""
+    lookups = _STATS["lookups"]
+    return {"lookups": lookups, "hits": _STATS["hits"],
+            "plan_hit_rate": (_STATS["hits"] / lookups) if lookups else 0.0}
 
 
 def plan_enabled() -> bool:
@@ -170,17 +197,31 @@ def _registry_doc() -> dict:
     return _CACHE["doc"]
 
 
+def plan_registry_signature() -> str:
+    """Identity of the active plan state: the verified registry's entries
+    digest when lookup is on and the registry holds entries, else
+    ``"plan-none"`` (off, missing, empty and refused registries all give
+    the flag/default dispatch)."""
+    if not plan_enabled():
+        return "plan-none"
+    entries = _registry_doc().get("entries") or {}
+    return _digest(entries) if entries else "plan-none"
+
+
 def lookup_plan(key: str) -> Optional[ExecutionPlan]:
     """The registry's plan for one geometry key, or None; a malformed entry
-    is refused with one warning."""
+    is refused with one warning. Counts into :func:`plan_stats`."""
+    _STATS["lookups"] += 1
     entry = (_registry_doc().get("entries") or {}).get(key)
     if entry is None:
         return None
     try:
-        return ExecutionPlan.from_dict(entry)
+        plan = ExecutionPlan.from_dict(entry)
     except (ValueError, TypeError, KeyError) as e:
         _warn_once(f"plan registry entry for {key!r} refused ({type(e).__name__}: {e}); using flag/default dispatch")
         return None
+    _STATS["hits"] += 1
+    return plan
 
 
 def apply_plan(plan: ExecutionPlan, snap):

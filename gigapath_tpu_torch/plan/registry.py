@@ -6,10 +6,12 @@ One JSON document at ``GIGAPATH_PLAN_REGISTRY`` (default:
 key ``name|shape-signature``, holding one serialized
 :class:`~gigapath_tpu_torch.plan.executionplan.ExecutionPlan` per geometry,
 and a sha256 over the canonical serialization of its entries. The format is
-the JAX package's, so one file serves both packages; its writer
-(``save_registry``/``bless_plan``, used by the JAX package's autotuner) is
-not ported. A file whose digest does not match is refused
-(:class:`CorruptPlanRegistry`), never read in part.
+the JAX package's, so one file serves both packages. A file whose digest
+does not match is refused (:class:`CorruptPlanRegistry`), never read in
+part. :func:`save_registry` writes atomically (a ``.tmp-*`` sibling renamed
+into place, so a killed writer never leaves a torn registry) with the
+digest stamped; :func:`bless_plan` loads strictly before it writes, so a
+corrupt registry is refused, never overwritten.
 """
 
 from __future__ import annotations
@@ -68,3 +70,34 @@ def load_registry(path: Optional[str] = None) -> dict:
             f"{path}: entries digest mismatch (manifest {str(expected)[:12]}..., actual {actual[:12]}...)"
         )
     return doc
+
+
+def save_registry(doc: dict, path: Optional[str] = None) -> str:
+    """Atomic verified save of ``doc``'s entries with their digest stamped;
+    returns the path."""
+    path = path or registry_path()
+    entries = doc.get("entries", {})
+    doc = {"v": REGISTRY_SCHEMA_VERSION, "entries": entries, "sha256": _digest(entries)}
+    parent = os.path.dirname(os.path.abspath(path))
+    os.makedirs(parent, exist_ok=True)
+    tmp = os.path.join(parent, f".tmp-{os.path.basename(path)}-{os.getpid()}")
+    with open(tmp, "w", encoding="utf-8") as fh:
+        json.dump(doc, fh, indent=1, sort_keys=True, allow_nan=False)
+        fh.write("\n")
+    os.replace(tmp, path)
+    return path
+
+
+def bless_plan(key: str, plan_doc: Dict[str, Any], *, path: Optional[str] = None,
+               provenance: Optional[dict] = None) -> str:
+    """Read-modify-write one blessed plan (``ExecutionPlan.as_dict()``)
+    under the geometry key ``key``; a strict load first, so a corrupt
+    registry raises :class:`CorruptPlanRegistry` instead of being
+    overwritten. Returns the path."""
+    path = path or registry_path()
+    doc = load_registry(path)
+    entry = dict(plan_doc)
+    if provenance:
+        entry["provenance"] = dict(provenance)
+    doc["entries"][key] = entry
+    return save_registry(doc, path)

@@ -148,6 +148,27 @@ def test_dyn_sparse_counts_match_jax():
         np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
 
 
+FLAGSHIP_L = 10241
+FLAGSHIP_BRANCHES = [(FLAGSHIP_L, sl, r, FLAGSHIP_L - 37)
+                     for sl, r in zip([1024, 5792, 32768, 185363, 1048576], [1, 2, 4, 8, 16])]
+
+
+@pytest.mark.parametrize("L,sl,r,rl", BRANCH_CASES + FLAGSHIP_BRANCHES)
+@pytest.mark.parametrize("per_row", [False, True], ids=["static", "per_row"])
+def test_branch_kvlen_counted_on_device_equals_numpy_table(L, sl, r, rl, per_row):
+    """The [B, S, r] count table, now counted with torch on the tensors'
+    device, is bit-equal to the numpy table of each row's valid length
+    (``_phase_kvlen``): the static ``real_len``, or its minimum with a
+    per-row length."""
+    g, S, m, Mp = dk._branch_geometry(L, sl, r)
+    rows = [0, L // 3, L - 1, L] if per_row else [L, L]
+    vl = torch.tensor(rows, dtype=torch.int32) if per_row else None
+    table = dk._branch_kvlen(len(rows), S, g, r, m, rl, vl, torch.device("cpu"))
+    assert table.dtype == torch.int32 and table.shape == (len(rows), S, r) and table.is_contiguous()
+    want = np.stack([dk._phase_kvlen(S, g, r, m, min(rl, n)) for n in rows])
+    np.testing.assert_array_equal(table.numpy(), want)
+
+
 SCHEDULE = ([32, 64, 128, 512, 1024], [1, 2, 4, 8, 16])
 
 

@@ -28,7 +28,8 @@ FLAG_VARS = sorted(set(dk.FLAG_ENV.values()) | {"GIGAPATH_PLAN", "GIGAPATH_PLAN_
 SCHEDULE = ([32, 64, 128, 512, 1024], [1, 2, 4, 8, 16])  # at L = 300: r = 8, 16 have one segment
 WRAPPERS = ("pack_phases", "dilated_branch_fwd", "unpack_phases", "dilated_branch_bwd_dq",
             "dilated_branch_bwd_dkv", "pack_phases_direct", "unpack_phases_direct",
-            "fusion_epilogue_fwd", "fusion_epilogue_bwd")
+            "fusion_epilogue_fwd", "fusion_epilogue_bwd", "dilated_branch_fwd_pipe",
+            "dilated_branch_bwd_dq_pipe", "dilated_branch_bwd_dkv_pipe")
 
 
 @pytest.fixture(autouse=True)
@@ -172,28 +173,102 @@ def test_from_dict_matches_jax():
         assert tplan.resolve_plan("dilated_attention", (q, q, q)) == dk.PipelineFlags()
 
 
-def test_branch_variants_follow_env_precedence(monkeypatch):
+def _branch_calls(calls):
+    """The branch-kernel calls only (serial and pipelined)."""
+    return {name: n for name, n in calls.items() if name.startswith("dilated_branch_")}
+
+
+def _fwd_bwd(q, k, v, **kw):
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = dilated_attention(*leaves, *SCHEDULE, **kw)
+    out.backward(torch.ones_like(out))
+    return out
+
+
+# branch-kernel calls of one forward + backward of the 5-branch SCHEDULE
+SERIAL_CALLS = {"dilated_branch_fwd": 5, "dilated_branch_bwd_dq": 5, "dilated_branch_bwd_dkv": 5,
+                "dilated_branch_fwd_pipe": 0, "dilated_branch_bwd_dq_pipe": 0, "dilated_branch_bwd_dkv_pipe": 0}
+PIPE_FWD_CALLS = {**SERIAL_CALLS, "dilated_branch_fwd": 0, "dilated_branch_fwd_pipe": 5}
+PIPE_BWD_CALLS = {**SERIAL_CALLS, "dilated_branch_bwd_dq": 0, "dilated_branch_bwd_dkv": 0,
+                  "dilated_branch_bwd_dq_pipe": 5, "dilated_branch_bwd_dkv_pipe": 5}
+
+
+def test_branch_variants_follow_env_precedence(calls, monkeypatch):
+    """A blessed plan's "pipelined" variant pins its branch's forward to the
+    pipelined kernel (it raised NotImplementedError before the kernels were
+    ported); a present GIGAPATH_PIPELINED_ATTN strips the variant, and every
+    branch runs serial again."""
     q = _qkv()[0]
     _bless({_key(q): {"branches": [[32, 1, "pipelined", 0]]}})
     flags = tplan.resolve_plan("dilated_attention", (q, q, q))
     assert flags.branch_plans == ((32, 1, "pipelined", 0),)
-    with pytest.raises(NotImplementedError, match="rows 6 and 8"):
-        dilated_attention(*_qkv(), *SCHEDULE)
+    assert dk._branch_pipelined(flags, 32, 1) == (True, False)
+    assert _fwd_bwd(*_qkv()).shape == q.shape
+    assert _branch_calls(calls) == {**SERIAL_CALLS, "dilated_branch_fwd": 4, "dilated_branch_fwd_pipe": 1}
     monkeypatch.setenv("GIGAPATH_PIPELINED_ATTN", "0")  # present: the variant is stripped
     assert tplan.resolve_plan("dilated_attention", (q, q, q)).branch_plans == ((32, 1, "", 0),)
-    assert dilated_attention(*_qkv(), *SCHEDULE).shape == q.shape
+    calls.update(dict.fromkeys(calls, 0))
+    assert _fwd_bwd(*_qkv()).shape == q.shape
+    assert _branch_calls(calls) == SERIAL_CALLS
 
 
 @pytest.mark.parametrize("name", ["GIGAPATH_PIPELINED_ATTN", "GIGAPATH_PIPELINED_BWD"])
-def test_pipelined_flags_raise(name, monkeypatch):
+def test_pipelined_flags_raise(name, calls, monkeypatch):
+    """Named for the refusal it replaced: the pipelined flags raised
+    NotImplementedError until rows 6 and 8 were ported. Now each flag
+    routes exactly the pass the JAX package routes (the forward, or both
+    backward kernels) to the pipelined kernels, on the multi-branch op and
+    on one branch alone; a causal call stays serial."""
     monkeypatch.setenv(name, "1")
+    want = PIPE_FWD_CALLS if name == "GIGAPATH_PIPELINED_ATTN" else PIPE_BWD_CALLS
     q, k, v = _qkv()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue B, rows 6 and 8"):
-        dilated_attention(q, k, v, *SCHEDULE)
-    with pytest.raises(NotImplementedError, match="rows 6 and 8"):
-        dk.dilated_branch_attention(q.reshape(2, 300, -1), k.reshape(2, 300, -1), v.reshape(2, 300, -1), 64, 2, H)
+    assert _fwd_bwd(q, k, v).shape == q.shape
+    assert _branch_calls(calls) == want
+    calls.update(dict.fromkeys(calls, 0))
+    leaves = [t.reshape(2, 300, -1).clone().requires_grad_() for t in (q, k, v)]
+    out, _ = dk.dilated_branch_attention(*leaves, 64, 2, H)
+    out.backward(torch.ones_like(out))
+    assert _branch_calls(calls) == {n: c // 5 for n, c in want.items()}
     # the JAX package runs its serial kernels for a causal call whatever the flag
-    assert dilated_attention(q, k, v, *SCHEDULE, is_causal=True).shape == q.shape
+    calls.update(dict.fromkeys(calls, 0))
+    assert _fwd_bwd(q, k, v, is_causal=True).shape == q.shape
+    assert _branch_calls(calls) == SERIAL_CALLS
+
+
+# (environment, blessed branch plans, causal) -> branch-kernel calls of one
+# forward + backward, the JAX package's dispatch (_branch_pipelined)
+PIPE_ROUTING = {
+    "env_attn": ({"GIGAPATH_PIPELINED_ATTN": "1"}, None, False, PIPE_FWD_CALLS),
+    "env_bwd": ({"GIGAPATH_PIPELINED_BWD": "1"}, None, False, PIPE_BWD_CALLS),
+    "plan_pipelined": ({}, [[32, 1, "pipelined", 0]], False,
+                       {**SERIAL_CALLS, "dilated_branch_fwd": 4, "dilated_branch_fwd_pipe": 1}),
+    "plan_serial_env_bwd": ({"GIGAPATH_PIPELINED_BWD": "1"}, [[32, 1, "serial", 0]], False, PIPE_BWD_CALLS),
+    "plan_serial_global_fwd": ({}, [[32, 1, "serial", 0]], False,
+                               {**PIPE_FWD_CALLS, "dilated_branch_fwd": 1, "dilated_branch_fwd_pipe": 4}),
+    "causal": ({"GIGAPATH_PIPELINED_ATTN": "1", "GIGAPATH_PIPELINED_BWD": "1"}, None, True, SERIAL_CALLS),
+}
+
+
+@pytest.mark.parametrize("case", list(PIPE_ROUTING))
+def test_pipelined_routing(case, calls, monkeypatch):
+    """Environment flags, a blessed plan's per-branch variant (forward
+    only), the backward on the global flag, and causal calls serial: the
+    pipelined dispatch of the JAX package, counted in kernel calls."""
+    env, branches, causal, want = PIPE_ROUTING[case]
+    q = _qkv()[0]
+    if branches is not None:
+        doc = {"branches": branches}
+        if case == "plan_serial_global_fwd":
+            doc["pipelined_fwd"] = True  # the plan's own global opinion
+        _bless({_key(q): doc})
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    _fwd_bwd(*_qkv(), is_causal=causal)
+    assert _branch_calls(calls) == want
+    ours = tplan.resolve_plan("dilated_attention", (q, q, q))
+    ref = jep.resolve_plan("dilated_attention", tuple(jnp.asarray(q.numpy()) for _ in range(3)))
+    for sl, r in zip(*SCHEDULE):
+        assert dk._branch_pipelined(ours, sl, r) == jpd._branch_pipelined(ref, sl, r)
 
 
 # wrapper calls of one forward + backward at L = 300: 5 branches, of which
@@ -218,8 +293,8 @@ ROUTE_ENV = {"default": {}, "pack_direct": {"GIGAPATH_PACK_DIRECT": "1"},
 @pytest.mark.parametrize("route", list(ROUTE_CALLS))
 def test_route_kernel_calls(route, calls, monkeypatch):
     """With no flag set the dispatch is the dense route as before (its
-    calls, and none of the four new kernels); each flag swaps exactly the
-    kernels the JAX package swaps."""
+    calls, and none of the direct, epilogue or pipelined kernels); each flag
+    swaps exactly the kernels the JAX package swaps."""
     for name, value in ROUTE_ENV[route].items():
         monkeypatch.setenv(name, value)
     q, k, v = (t.requires_grad_() for t in _qkv())
