@@ -44,9 +44,14 @@ stdout:
 9. q_kernels: the quantized tile tier's kernels against their plain
    versions: ``q_matmul`` (int8 and fp8-e4m3) at the flagship tile
    encoder's four (K, N) with M = 128 tiles x 197 tokens, and at ragged
-   shapes; ``q_flash_attention`` at B = 128, H = 24, L = 197, D = 64 and
-   at L = 1 and 65; CUDA-event times beside the bound, the plain version
-   and a library call (cuBLAS bf16 ``torch.matmul``; SDPA).
+   shapes (K = 100 zero-padded), its fused epilogue (scale, bias, bf16
+   cast) bit-equal to the unfused three steps on the same product, and
+   ``tflops`` with the share of the bound; ``q_flash_attention`` at B =
+   128, H = 24, L = 197, D = 64 and at L = 1 and 65, bf16 v (tensor cores)
+   and fp32 v (FMA pipes); CUDA-event times beside the bound, the plain
+   version and a library call (cuBLAS bf16 ``torch.matmul``; SDPA); the
+   ``cuobjdump -sass`` counts of tensor-core instructions in both
+   libraries (HGMMA in q_matmul, IMMA and HMMA in q_flash_attention).
 10. tile_forward: the flagship ``gigapath_tile_enc`` (40 blocks, E =
     1536, bf16 compute) with seeded random weights, its LayerScales drawn
     at O(0.1-1), through ``run_inference_with_tile_encoder`` on 160
@@ -191,6 +196,8 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -350,10 +357,14 @@ TILE_E, TILE_H, TILE_L, TILE_DEPTH = 1536, 24, 197, 40
 TILE_BATCH, TILE_COUNT = 128, 160  # one full batch and one padded partial batch
 # (K, N) of each block's four quantized matmuls, at M = 128 tiles x 197 tokens
 Q_SHAPES = {"qkv": (1536, 4608), "proj": (1536, 1536), "fc1": (1536, 8192), "fc2": (4096, 1536)}
-# q_matmul vs its plain version: both sum exact fp32 products, in another
-# order at most, as max |err| / max |ref| (read 2.9e-7 at worst; 0 at the
-# flagship shapes)
-Q_MATMUL_REL_TOL = 3e-6
+# q_matmul vs its plain version: both sum the same exact fp32 products, the
+# kernel on the tensor cores in another order, so each output may differ
+# by c * K * 2^-24 * (|x| . |w|) * scale, elementwise: c = 2 bounds any two
+# orders of round-to-nearest sums (3 if the tensor cores truncate); read c =
+# 0.0036 at worst at the flagship shapes and 0.0175 at K = 96, and the limit
+# is about ten times that
+Q_MATMUL_C = 0.2
+Q_MATMUL_TOL = f"|y - ref| <= {Q_MATMUL_C} * K * 2^-24 * (|x| . |w|) * scale"
 # q_flash_attention vs its plain version: bf16 out within a few bf16 ulps
 # (the kernel rounds its unnormalized probabilities to bf16, the plain
 # version its normalized ones; read one ulp, 7.8e-3 at |out| in [1, 2)),
@@ -1254,35 +1265,61 @@ def all_launch_counts() -> dict:
 
 def _q_matmul_check(qm, qt_mod, x, N, mode, gen, timed: bool):
     """q_matmul vs its plain version on x [M, K] bf16 and a random [N, K]
-    weight quantized to ``mode``; returns errors, and times when asked."""
+    weight quantized to ``mode``, and its fused epilogue (scale, bias, bf16
+    cast) against the unfused three steps on the same product; returns
+    errors, and times when asked."""
     import torch
 
     M, K = x.shape
     w = torch.randn(N, K, device="cuda", generator=gen) * K**-0.5
+    bias = torch.randn(N, device="cuda", generator=gen)
     qt = qt_mod.quantize_per_channel(w, mode, axis=0)
     y = qm.q_matmul(x, qt)
     ref = qm.q_matmul_reference(x, qt)
+    fused = qm.q_matmul(x, qt, bias, torch.bfloat16)
+    unfused = (y + bias.float()).to(torch.bfloat16)
     torch.cuda.synchronize()
-    check(bool(torch.isfinite(y).all()) and y.shape == (M, N), f"q_matmul {mode} {M}x{K}x{N}: bad output")
+    name = f"q_matmul {mode} {M}x{K}x{N}"
+    check(bool(torch.isfinite(y).all()) and y.shape == (M, N), f"{name}: bad output")
+    check(torch.equal(fused, unfused), f"{name}: the fused epilogue != (q_matmul + bias).to(bf16)")
     err = max_err(y, ref)
     rel = err / max(float(ref.abs().max()), 1e-30)
-    check(rel <= Q_MATMUL_REL_TOL, f"q_matmul {mode} {M}x{K}x{N}: rel err {rel} > {Q_MATMUL_REL_TOL}")
-    out = {"M": M, "K": K, "N": N, "mode": mode, "max_abs_err": err, "max_rel_err": rel}
+    # the written bound (Q_MATMUL_C), read as c in c * K * 2^-24 * (|x| . |w|) * s
+    mag = (x.float().abs() @ qt.data.float().abs().t()) * qt.scale.reshape(-1)
+    c_read = float(((y - ref).abs() / (K * 2.0**-24 * mag).clamp_min(1e-30)).max())
+    check(c_read <= Q_MATMUL_C, f"{name}: |y - ref| reads {c_read} x K 2^-24 (|x|.|w|) s > {Q_MATMUL_C} x")
+    out = {"M": M, "K": K, "N": N, "mode": mode, "max_abs_err": err, "max_rel_err": rel, "c_read": c_read,
+           "epilogue_equal": True}
     if timed:
         # library yardstick: one cuBLAS bf16 product with the weight's
-        # int8 / e4m3 values in bf16 (exact), the scale left out
+        # int8 / e4m3 values in bf16 (exact), the scale and bias left out
         w_bf16 = qt.data.to(torch.bfloat16).t()
         flops = 2.0 * M * N * K
-        nbytes = M * K * 2 + N * K * 1 + N * 4 + M * N * 4
+        nbytes = M * K * 2 + N * K * 1 + N * 4 * 2 + M * N * 2
         out.update(
-            ms=time_ms(lambda: qm.q_matmul(x, qt)),
-            plain_ms=time_ms(lambda: qm.q_matmul_reference(x, qt), reps=5),
+            ms=time_ms(lambda: qm.q_matmul(x, qt, bias, torch.bfloat16)),
+            fp32_out_ms=time_ms(lambda: qm.q_matmul(x, qt)),
+            unfused_ms=time_ms(lambda: (qm.q_matmul(x, qt) + bias.float()).to(torch.bfloat16)),
+            plain_ms=time_ms(lambda: qm.q_matmul_reference(x, qt, bias, torch.bfloat16), reps=5),
             library_ms=time_ms(lambda: torch.matmul(x, w_bf16)),
             bound_ms=max(flops / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_PER_S) * 1e3,
             bound_by="operations" if flops / PEAK_FLOPS["bfloat16"] > nbytes / HBM_BYTES_PER_S else "bytes",
         )
         out["tflops"] = flops / (out["ms"] * 1e-3) / 1e12
+        out["bound_share"] = out["bound_ms"] / out["ms"]
     return out
+
+
+def _sass_counts(name: str, **defines) -> dict:
+    """Tensor-core instructions in the built library's SASS (``cuobjdump
+    -sass``): HGMMA (wgmma), HMMA (mma.sync, fp16/bf16), IMMA (int8)."""
+    from gigapath_tpu_torch.ops import _build
+
+    lib = _build._target(name, tuple(sorted(defines.items())))
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "HMMA", "IMMA")}
 
 
 def _q_flash_case(qf, qt_mod, B, L, dtype, gen, timed: bool):
@@ -1324,38 +1361,58 @@ def _q_flash_case(qf, qt_mod, B, L, dtype, gen, timed: bool):
             bound_ms=max(flops / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_PER_S) * 1e3,
             bound_by="operations" if flops / PEAK_FLOPS["bfloat16"] > nbytes / HBM_BYTES_PER_S else "bytes",
         )
+        res["wrapper_minus_kernel_ms"] = res["wrapper_ms"] - res["ms"]  # Q and K's int8 quantization in torch
         check(torch.equal(out_k, out), "q_flash_kernel alone != the wrapper's output")
     return res
 
 
 def phase_q_kernels():
     """q_matmul (int8 and fp8) at the flagship block's four (K, N) with M =
-    128 tiles x 197 tokens, plus ragged shapes; q_flash_attention at the
-    flagship's B = 128, H = 24, L = 197, D = 64, plus L = 1 and L = 65."""
+    128 tiles x 197 tokens, plus ragged shapes, with its fused epilogue;
+    q_flash_attention at the flagship's B = 128, H = 24, L = 197, D = 64,
+    plus L = 1 and L = 65 (bf16 and fp32 v); the tensor-core instructions
+    in both libraries."""
     import torch
 
     from gigapath_tpu_torch.quant import qflash as qf
     from gigapath_tpu_torch.quant import qmatmul as qm
     from gigapath_tpu_torch.quant import qtensor as qt_mod
 
+    sass = {"q_matmul": _sass_counts("q_matmul"),
+            "q_flash_attention": _sass_counts("q_flash_attention", GP_HEAD_DIM=TILE_E // TILE_H)}
+    emit("q_kernels", sass=sass)
+    check(sass["q_matmul"]["HGMMA"] > 0, f"q_matmul: no HGMMA in its SASS {sass['q_matmul']}")
+    check(sass["q_flash_attention"]["IMMA"] > 0 and sass["q_flash_attention"]["HMMA"] > 0,
+          f"q_flash_attention: no IMMA or HMMA in its SASS {sass['q_flash_attention']}")
+
     gen = torch.Generator(device="cuda").manual_seed(9)
     M = TILE_BATCH * TILE_L
     x_full = torch.randn(M, max(k for k, _ in Q_SHAPES.values()), device="cuda", generator=gen).bfloat16()
     summary = {"q_matmul": dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, err=0.0, by={})}
+    block = {}
     for mode in ("int8", "fp8_e4m3"):
         for name, (K, N) in Q_SHAPES.items():
             res = _q_matmul_check(qm, qt_mod, x_full[:, :K].contiguous(), N, mode, gen, timed=True)
-            emit("q_kernels", kernel="q_matmul", matmul=name, tolerance=Q_MATMUL_REL_TOL, **res)
+            emit("q_kernels", kernel="q_matmul", matmul=name, tolerance=Q_MATMUL_TOL, **res)
+            for key in ("ms", "fp32_out_ms", "unfused_ms", "library_ms", "bound_ms"):
+                block.setdefault(mode, {}).setdefault(key, 0.0)
+                block[mode][key] += res[key]
             if mode == "int8":  # the main path's tier; the block's four matmuls summed
                 tot = summary["q_matmul"]
                 for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
                     tot[key] += res[key]
                 tot["err"] = max(tot["err"], res["max_abs_err"])
                 tot["by"][res["bound_by"]] = tot["by"].get(res["bound_by"], 0.0) + res["bound_ms"]
-        for M_, K, N in ((197, 96, 80), (65, 100, 77), (1, 1536, 4608)):  # ragged and scalar-load paths
+        for M_, K, N in ((197, 96, 80), (65, 100, 77), (1, 1536, 4608)):  # ragged edges, K padded, one row
             x = torch.randn(M_, K, device="cuda", generator=gen).bfloat16()
-            emit("q_kernels", kernel="q_matmul", matmul="ragged", tolerance=Q_MATMUL_REL_TOL,
+            emit("q_kernels", kernel="q_matmul", matmul="ragged", tolerance=Q_MATMUL_TOL,
                  **_q_matmul_check(qm, qt_mod, x, N, mode, gen, timed=False))
+    for mode, tot in block.items():
+        emit("q_kernels", kernel="q_matmul", matmul="block", mode=mode,
+             note="the block's four matmuls summed: ms fused (bf16 out, bias), fp32_out_ms the product "
+                  "alone, unfused_ms the product then the bias add and the cast in torch",
+             tflops=2.0 * M * sum(k * n for k, n in Q_SHAPES.values()) / (tot["ms"] * 1e-3) / 1e12,
+             bound_share=tot["bound_ms"] / tot["ms"], **tot)
     tot = summary["q_matmul"]
     tot["bound_by"] = max(tot.pop("by").items(), key=lambda kv: kv[1])[0]
     del x_full
@@ -1367,7 +1424,7 @@ def phase_q_kernels():
     summary["q_flash_attention"] = {
         "ms": flag["ms"], "plain_ms": flag["plain_ms"], "bound_ms": flag["bound_ms"],
         "library_ms": flag["library_ms"], "err": flag["max_abs_err"]["out"], "bound_by": flag["bound_by"]}
-    for L, dtype in ((1, torch.bfloat16), (65, torch.bfloat16), (65, torch.float32)):
+    for L, dtype in ((1, torch.bfloat16), (65, torch.bfloat16), (65, torch.float32), (TILE_L, torch.float32)):
         emit("q_kernels", kernel="q_flash_attention", **_q_flash_case(qf, qt_mod, 2, L, dtype, gen, timed=False))
     return summary
 

@@ -112,7 +112,7 @@ _SIGNATURES = {
     "dilated_branch_bwd_dkv_pipe": (
         "gp_dilated_branch_bwd_dkv_pipe", [_P] * 9 + [_I] * 5 + [_F, _F, _P],
     ),
-    "q_matmul": ("gp_q_matmul", [_P] * 4 + [_I] * 5 + [_P]),
+    "q_matmul": ("gp_q_matmul", [_P] * 5 + [_I] * 5 + [_P]),
     "q_flash_attention": ("gp_q_flash_attention", [_P] * 6 + [_I] * 6 + [_LLP, _P]),
     "stream_pair_fwd": ("gp_stream_pair_fwd", [_P] * 5 + [_I] * 3 + [_IP, _I, _LLP, _F, _P]),
     "stream_pair_bwd_dq": (

@@ -11,7 +11,11 @@ its dtype, the softmax statistics stay fp32, and the op returns the
 :func:`q_flash_attention` quantizes Q and K in torch (the JAX package does
 so outside its ``pallas_call`` too) and launches
 ``csrc/q_flash_attention.cu`` on CUDA tensors; on CPU tensors it runs the
-plain version. It counts its launches in :data:`LAUNCHES`.
+plain version. It counts its launches in :data:`LAUNCHES`. Inside the
+source, bf16 v (the tile encoder's bf16 compute) runs on the tensor cores
+(int8 MMA for Q.K^T, bf16 MMA for P.V) at head widths that are multiples
+of 16, and fp32 v on the fp32 FMA pipes, since a tensor-core P.V in fp32
+would be TF32, another function.
 
 Dispatch differs from the JAX package's: its Pallas tier needs ``L % 128
 == 0``, so the tile encoder's 197-token sequence (1 cls + 196 patches)
@@ -89,8 +93,23 @@ def q_flash_attention(
     combined = (qq.scale * kq.scale * (scale * LOG2E)).reshape(B * H).contiguous()
     out = torch.empty((B, L, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
+    if _tensor_cores(v, D) and not _aligned16(v.transpose(1, 2)):
+        v = v.contiguous()
     q_flash_kernel(qq.data, kq.data, v.transpose(1, 2), combined, out.transpose(1, 2), lse)
     return out, lse
+
+
+def _tensor_cores(v: torch.Tensor, D: int) -> bool:
+    """Whether the source's tensor-core kernel serves this call (bf16 v,
+    a head width that is a multiple of 16)."""
+    return v.dtype == torch.bfloat16 and D % 16 == 0
+
+
+def _aligned16(t: torch.Tensor) -> bool:
+    """A [B, H, L, D] view the tensor-core kernel copies in 16-byte pieces:
+    the base and the batch, head and row strides on 16-byte boundaries."""
+    size = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(s * size % 16 == 0 for s in t.stride()[:3])
 
 
 def q_flash_kernel(
@@ -115,6 +134,12 @@ def q_flash_kernel(
     check_cuda("q_flash_attention lse", lse, (torch.float32,))
     if D % 4 or D > MAX_HEAD_DIM or combined.numel() != B * H or lse.shape != (B, H, L):
         raise ValueError(f"q_flash_attention: needs D % 4 == 0 and D <= {MAX_HEAD_DIM}; got D={D}")
+    if _tensor_cores(vh, D):
+        pair = 2 * out_h.element_size()
+        if not all(_aligned16(t) for t in (qq, kq, vh)) or out_h.data_ptr() % pair or any(
+                s % 2 for s in out_h.stride()[:3]):
+            raise ValueError("q_flash_attention: the tensor-core kernel needs q, k and v 16-byte aligned with "
+                             "strides of whole 16-byte pieces, and out aligned to pairs of elements")
     if B * H == 0 or L == 0:
         return
     strides = (ctypes.c_longlong * 12)(*_strides(qq), *_strides(kq), *_strides(vh), *_strides(out_h))

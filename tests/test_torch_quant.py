@@ -6,7 +6,8 @@ plain versions; the JAX Pallas kernels run in interpret mode.
 
 Tolerances: the quantized data and scales are bit-equal (both packages do
 the same IEEE fp32 operations); the matmul 1e-5 (both sum exact fp32
-products, in other orders); the attention against the Pallas kernel 5e-3
+products, in other orders), and bit-equal with QuantDense's scale, bias
+and cast where the sums are exact in any order; the attention against the Pallas kernel 5e-3
 on the output (the kernel rounds its unnormalized probabilities to bf16,
 the reference its normalized ones) and 1e-4 on the lse, as the JAX
 package's own tests; against the JAX reference 1e-5.
@@ -179,6 +180,107 @@ def test_quant_linear_requantizes_when_the_weight_changes():
     np.testing.assert_array_equal(second.scale.numpy(), 2.0 * first.scale.numpy())
     with pytest.raises(ValueError):
         pqmatmul.QuantLinear(16, 8, "")
+
+
+def _exact_sum_case(mode, K, N, rng):
+    """A JAX kernel [K, N] whose quantized values are chosen integers (int8
+    in [-127, 127]; fp8 the integers e4m3 holds, up to 448) times a random
+    per-channel step, and x of small integers: every product and every
+    partial sum of x . q is an integer below 2^24, exact in fp32 in any
+    order, so the two packages' matmuls agree bit for bit and only the
+    epilogue (scale, bias, cast) is left to compare."""
+    if mode == "int8":
+        q = rng.integers(-127, 128, size=(K, N)).astype(np.float32)
+        q[rng.integers(0, K, size=N), np.arange(N)] = 127.0  # each channel's absmax
+    else:
+        e4m3 = torch.arange(256, dtype=torch.uint8).view(torch.float8_e4m3fn).float().numpy()
+        ints = np.unique(e4m3[np.isfinite(e4m3) & (e4m3 == np.round(e4m3))])
+        q = rng.choice(ints, size=(K, N)).astype(np.float32)
+        q[rng.integers(0, K, size=N), np.arange(N)] = -448.0
+    step = rng.uniform(1e-3, 0.1, size=(1, N)).astype(np.float32)
+    return q, (q * step).astype(np.float32)
+
+
+@pytest.mark.parametrize("K", [1536, 4096, 100])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", MODES)
+def test_q_matmul_fused_reference_is_bit_equal_to_quant_dense(mode, dtype, K):
+    """q_matmul_reference(x, qt, bias, dtype) is QuantDense's output bit for
+    bit: the product times the scale, plus the fp32 bias, cast (K = 100 goes
+    through the zero-pad to 112). Sums exact in any order (see
+    _exact_sum_case), so the order of the sums cannot hide a difference in
+    the epilogue's roundings."""
+    rng = np.random.default_rng(10)
+    N = 48
+    q, kernel = _exact_sum_case(mode, K, N, rng)
+    x = rng.integers(-4, 5, size=(2, 5, K)).astype(np.float32)
+    bias = rng.standard_normal(N).astype(np.float32)
+    jdtype, tdtype = getattr(jnp, dtype), getattr(torch, dtype)
+    dense = jqmatmul.QuantDense(N, mode=mode, dtype=jdtype)
+    ref = np.asarray(dense.apply({"params": {"kernel": kernel, "bias": bias}}, jnp.asarray(x, jdtype)), np.float32)
+
+    qt = pqt.quantize_per_channel(torch.from_numpy(kernel.T.copy()), mode, axis=0)
+    np.testing.assert_array_equal(qt.data.float().numpy(), q.T)  # the chosen integers, exactly
+    ours = pqmatmul.q_matmul_reference(torch.from_numpy(x).to(tdtype), qt, torch.from_numpy(bias), tdtype)
+    assert ours.dtype == tdtype and ours.shape == (2, 5, N)
+    np.testing.assert_array_equal(ours.float().numpy(), ref)  # bit-equal
+
+
+@pytest.mark.parametrize("K", [96, 100])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", MODES)
+def test_q_matmul_fused_epilogue_is_the_three_step_sequence(mode, dtype, K):
+    """The fused call equals the unfused sequence QuantLinear ran before:
+    fp32 q_matmul, plus the fp32 bias, cast to the compute dtype."""
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal((3, 7, K)).astype(np.float32)).to(getattr(torch, dtype))
+    w = torch.from_numpy(rng.standard_normal((40, K)).astype(np.float32))
+    bias = torch.from_numpy(rng.standard_normal(40).astype(np.float32))
+    qt = pqt.quantize_per_channel(w, mode, axis=0)
+    fused = pqmatmul.q_matmul(x, qt, bias, x.dtype)
+    three_step = (pqmatmul.q_matmul(x, qt) + bias.float()).to(x.dtype)
+    assert fused.dtype == x.dtype
+    assert torch.equal(fused, three_step)
+    # the fp32 product alone is unchanged by the new arguments' defaults
+    assert torch.equal(pqmatmul.q_matmul(x, qt), pqmatmul.q_matmul(x, qt, None, torch.float32))
+
+
+def test_one_rounding_epilogue_differs_from_two_roundings():
+    """Why csrc/q_matmul.cu spells out __fmul_rn and __fadd_rn: one fused
+    multiply-add (acc * s + b rounded once, here computed in float64 and
+    rounded) differs from torch's and XLA's two fp32 roundings on some
+    elements, in fp32 and after the bf16 cast."""
+    rng = np.random.default_rng(12)
+    acc = (rng.standard_normal(100_000) * 50).astype(np.float32)
+    s = rng.uniform(1e-3, 1e-1, size=100_000).astype(np.float32)
+    b = rng.standard_normal(100_000).astype(np.float32)
+    two = (torch.from_numpy(acc) * torch.from_numpy(s)) + torch.from_numpy(b)
+    np.testing.assert_array_equal(two.numpy(), (acc * s).astype(np.float32) + b)  # torch rounds twice
+    one = torch.from_numpy((acc.astype(np.float64) * s + b).astype(np.float32))
+    assert int((one != two).sum()) > 0
+    assert int((one.bfloat16() != two.bfloat16()).sum()) > 0
+
+
+def test_quant_linear_keeps_a_k_padded_kernel_weight():
+    """in_features that is no multiple of 16: QuantLinear keeps the
+    quantized weight as it is and a zero-padded copy for the kernel; the
+    forward matches the unpadded product."""
+    rng = np.random.default_rng(13)
+    for in_features, width in ((100, 112), (96, 96)):
+        lin = pqmatmul.QuantLinear(in_features, 24, "fp8")
+        with torch.no_grad():
+            lin.weight.copy_(torch.from_numpy(rng.standard_normal((24, in_features)).astype(np.float32)))
+            lin.bias.copy_(torch.from_numpy(rng.standard_normal(24).astype(np.float32)))
+        qt, kt = lin.quantized_weight(), lin.kernel_weight()
+        assert qt.data.shape == (24, in_features) and kt.data.shape == (24, width)
+        assert (kt is qt) == (width == in_features)
+        np.testing.assert_array_equal(_bits(kt.data)[:, :in_features], _bits(qt.data))
+        assert not _bits(kt.data)[:, in_features:].any()
+        x = torch.from_numpy(rng.standard_normal((5, in_features)).astype(np.float32))
+        with torch.no_grad():
+            out = lin(x)
+        want = (pqmatmul.q_matmul_reference(x, qt) + lin.bias.detach()).numpy()
+        np.testing.assert_allclose(out.numpy(), want, atol=1e-5, rtol=1e-5)
 
 
 # ---------------------------------------------------------------------------
