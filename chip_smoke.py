@@ -121,17 +121,23 @@ stdout:
 18. ffn_gelu: the feed-forward GELU of a bf16 [10241, 3072] fc1 output in
     its own dtype against the explicit fp32 round trip, in bf16 ulps (at
     most one).
-19. flash_kernels: the segment-flash kernels (rows 11-14: flash_fwd,
+19. flash_kernels: the ``cuobjdump -sass`` counts of the backward
+    libraries at D = 48 (HMMA > 0: bf16 runs on the tensor cores, fp32 on
+    the FMA kernels); the segment-flash kernels (rows 11-14: flash_fwd,
     flash_bwd_dq, flash_bwd_dkv on the segmented layout, flat_fwd,
     flat_bwd_dq, flat_bwd_dkv on the flat one) against their plain versions
     at the five head-major branches of one flagship layer with ratios [1,
     2, 4, 6, 12] (L = 10241; the r = 1 branch flat), fp32 and bf16, full
-    length (timed: CUDA events beside the bound, the plain version and SDPA
-    with a boolean key mask and its backward) and with a ragged real
-    length; the B = 2 ragged batch's counts formed on the card (every
-    branch segmented); a causal case of each layout; flash_attention and
-    partial_attention on [1, 10241, 16, 48] with [B, H] valid counts
-    against attention_with_lse.
+    length (timed: each kernel's device time from a CUDA graph of 20 calls
+    and one call's CUDA-event time through its wrapper, beside the bound,
+    the exp2 floor of one exp2 per admitted pair on the MUFU pipes, the
+    plain version and SDPA with a boolean key mask and its backward) and
+    with a ragged real length; the B = 2 ragged batch's counts formed on
+    the card (every branch segmented); every masked key's dk and dv
+    exactly 0, and flat rows at or past real_len adding nothing to them
+    (bit-equal under noise); a causal case of each layout in fp32 and
+    bf16; flash_attention and partial_attention on [1, 10241, 16, 48] with
+    [B, H] valid counts against attention_with_lse.
 20. bhld_forward: the flagship with ``dilated_ratio="[1, 2, 4, 6, 12]"``
     (6 and 12 do not divide H = 16: the head-major route, warned once)
     through ``run_inference_with_slide_encoder`` on 10240 tiles, fp32 and
@@ -147,7 +153,8 @@ stdout:
 22. bhld_step: the fine-tune step at those ratios: fp32 gradients against
     the plain versions, the exact launches of one bf16 step (48/44/44 on
     the segmented kernels, 12/11/11 on the flat ones), ms per step and
-    peak memory.
+    peak memory, and a profiler breakdown of one bf16 step (device busy
+    and idle share, the kernels with the most device time).
 
 23. pipe_kernels: the pipelined branch kernels (rows 6 and 8:
     dilated_branch_fwd_pipe, dilated_branch_bwd_dq_pipe,
@@ -1110,7 +1117,7 @@ def phase_head_widths():
                 flat, fargs, _ = _flash_branch(fk, pda, qh, kh, vh, do, sl_, r_, L - 37, None)
                 flash_errs[f"{dname} r={r_}"] = _check_flash(
                     f"Dh={dh} r={r_}", dname, flat, _flash_fwd_bwd(fk, flat, fargs),
-                    _flash_fwd_bwd(fk, flat, fargs, plain=True), dq_rows=L - 37 if flat else None)
+                    _flash_fwd_bwd(fk, flat, fargs, plain=True), dq_rows=L - 37 if flat else None, args=fargs)
         emit("head_widths", Dh=dh, E=Eh, L=L, sl=sl, r=r, max_rel_err=errs, tolerance=BWD_REL_TOL,
              flash_max_err=flash_errs,
              spill_store_bytes={name: _spill_bytes(f"{name}-GP_HEAD_DIM={dh}")
@@ -2473,8 +2480,8 @@ def _flash_bounds(rows_per_cell, kv_per_cell, B, itemsize, dtype_name, flat: boo
     branch: the (query, key) pairs the masks admit (each cell's real query
     rows times its valid keys) times 4, 6 or 8 D operations over the
     dtype's peak, or each input read once and each output written once
-    over the HBM rate, whichever is larger. ``rows_per_cell`` /
-    ``kv_per_cell``: [H, S] (or [B, H, S]) counts."""
+    over the HBM rate, whichever is larger; and the admitted pairs.
+    ``rows_per_cell`` / ``kv_per_cell``: [H, S] (or [B, H, S]) counts."""
     import numpy as np
 
     D = E // H
@@ -2492,7 +2499,27 @@ def _flash_bounds(rows_per_cell, kv_per_cell, B, itemsize, dtype_name, flat: boo
     }
     return {name: max((per_pair * D * pairs / PEAK_FLOPS[dtype_name] * 1e3, "operations"),
                       (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
-            for name, (per_pair, nbytes) in work.items()}
+            for name, (per_pair, nbytes) in work.items()}, pairs
+
+
+_MUFU = {}
+
+
+def _exp2_floor_ms(pairs: float) -> float:
+    """Least time (ms) of one exp2 per admitted pair, which each
+    segment-flash kernel evaluates to recompute its probabilities, on the
+    MUFU pipes: 16 a clock per SM at the card's maximum SM clock
+    (``nvidia-smi`` clocks.max.sm). Reported beside the bound, not in it."""
+    import torch
+
+    if not _MUFU:
+        mhz = subprocess.run(
+            ["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, check=True, timeout=60,
+        ).stdout.split()[0]
+        _MUFU["per_s"] = 16 * torch.cuda.get_device_properties(0).multi_processor_count * float(mhz) * 1e6
+        _MUFU["sm_clock_mhz"] = float(mhz)
+    return pairs / _MUFU["per_s"] * 1e3
 
 
 def _flash_branch(fk, pda, qh, kh, vh, do, sl, r, real_len, valid):
@@ -2530,10 +2557,12 @@ def _flash_fwd_bwd(fk, flat, args, causal=False, plain=False):
     return (out, lse, fk.flash_bwd_dq(*a), *fk.flash_bwd_dkv(*a))
 
 
-def _check_flash(label, dname, flat, ours, ref, dq_rows=None):
+def _check_flash(label, dname, flat, ours, ref, dq_rows=None, args=None):
     """A branch's kernels against their plain versions: out and the covered
     lse by KERNEL_TOL / LSE_TOL, uncovered rows' lse at the sentinel, the
-    gradients by BWD_REL_TOL (dq on the rows where it is specified)."""
+    gradients by BWD_REL_TOL (dq on the rows where it is specified); with
+    the branch's ``args``, every masked key's dk and dv exactly 0 (keys at
+    or past a segment's count, or a flat layout's real_len)."""
     import torch
 
     out, lse, dq, dk, dv = ours
@@ -2545,6 +2574,13 @@ def _check_flash(label, dname, flat, ours, ref, dq_rows=None):
     covered = r_lse > -1e19
     torch.testing.assert_close(lse[covered], r_lse[covered], **LSE_TOL[dname])
     check(bool((lse[~covered] <= -1e19).all()), f"{label} {dname}: uncovered lse above -1e19")
+    if args is not None and (flat or args[4] is not None):
+        if flat:
+            masked = (torch.arange(dk.shape[2], device=dk.device) >= args[4][1])[None, None, :].expand(dk.shape[:3])
+        else:
+            masked = torch.arange(dk.shape[3], device=dk.device) >= args[4][..., None]
+        check(not bool(dk[masked].any()) and not bool(dv[masked].any()),
+              f"{label} {dname}: a masked key's dk or dv is not exactly 0")
     if dq_rows is not None:
         dq, r_dq = dq[:, :, :dq_rows], r_dq[:, :, :dq_rows]
     errs = {"out": max_err(out, r_out), "lse_covered": max_err(lse[covered], r_lse[covered])}
@@ -2552,6 +2588,24 @@ def _check_flash(label, dname, flat, ours, ref, dq_rows=None):
         errs[name] = _grad_rel_err(a, b)
         check(errs[name] <= BWD_REL_TOL[dname], f"{label} {dname} {name}: rel err {errs[name]} > {BWD_REL_TOL[dname]}")
     return errs
+
+
+def _flat_rows_add_nothing(fk, label, args, ours, causal=False):
+    """Flat query rows at or past real_len add nothing to dk/dv: with their
+    q, dO, lse and delta replaced by other values (3 sigma noise), dk and dv
+    stay bit-equal (the kernels use no atomics)."""
+    import torch
+
+    q, k, v, do, (g, rl) = args
+    delta = (do.float() * ours[0].float()).sum(-1)
+    moved = []
+    for t in (q, do, ours[1], delta):
+        t = t.clone()
+        t[:, :, rl:] = (3 * torch.randn(t[:, :, rl:].shape, device=t.device)).to(t.dtype)
+        moved.append(t)
+    dk, dv = fk.flat_bwd_dkv(moved[0], k, v, moved[1], moved[2], moved[3], g, rl, causal)
+    check(torch.equal(dk, ours[3]) and torch.equal(dv, ours[4]),
+          f"{label}: flat rows at or past real_len changed dk/dv")
 
 
 def _sdpa_yardstick(flat, args, pda, geom):
@@ -2588,7 +2642,8 @@ def _flash_layer(fk, pda, B, dtype, gen, real_len, valid, timed: bool):
     L = N_TILES + 1
     dname = str(dtype).replace("torch.", "")
     qh, kh, vh, do = (torch.randn(B, H, L, E // H, device="cuda", generator=gen).to(dtype) for _ in range(4))
-    totals = {name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, err=0.0, by={})
+    totals = {name: dict(ms=0.0, wrapper_ms=0.0, plain_ms=0.0, bound_ms=0.0, exp2_floor_ms=0.0, library_ms=0.0,
+                         err=0.0, by={})
               for name in FLASH_KERNELS}
     records = []
     for sl, r in zip(*BHLD_SCHEDULE):
@@ -2598,7 +2653,10 @@ def _flash_layer(fk, pda, B, dtype, gen, real_len, valid, timed: bool):
             check(args[4] is None or args[4].device.type == "cuda", "the count table is not on the card")
         ours = _flash_fwd_bwd(fk, flat, args)
         ref = _flash_fwd_bwd(fk, flat, args, plain=True)
-        errs = _check_flash(f"flash r={r}", dname, flat, ours, ref, dq_rows=real_len if flat else None)
+        errs = _check_flash(f"flash r={r}", dname, flat, ours, ref, dq_rows=real_len if flat else None,
+                            args=args)
+        if flat and real_len < L:
+            _flat_rows_add_nothing(fk, f"flash r={r} {dname}", args, ours)
         record = {"sl": sl, "r": r, "g": g, "S": n, "m": m, "kernel": "flat" if flat else "segmented",
                   "max_err": errs}
         if timed:
@@ -2625,10 +2683,12 @@ def _flash_layer(fk, pda, B, dtype, gen, real_len, valid, timed: bool):
                 full = pda._branch_kvlen_bhld(H, n, g, r, m, L)
                 rows = full if full is not None else [[m] * n] * H
                 kv_cells = extra.cpu().numpy() if extra is not None else rows
-            bounds = _flash_bounds(rows, kv_cells, B, q.element_size(), dname, flat)
+            bounds, pairs = _flash_bounds(rows, kv_cells, B, q.element_size(), dname, flat)
+            exp2_floor = _exp2_floor_ms(pairs)
             lib_fwd, lib_bwd = _sdpa_yardstick(flat, args, pda, geom)
-            t = {f"{prefix}_fwd": time_ms(fwd), f"{prefix}_bwd_dq": time_ms(dq_fn),
-                 f"{prefix}_bwd_dkv": time_ms(dkv_fn)}
+            fns = {f"{prefix}_fwd": fwd, f"{prefix}_bwd_dq": dq_fn, f"{prefix}_bwd_dkv": dkv_fn}
+            t = {name: graph_ms(fn) for name, fn in fns.items()}  # device time
+            wrapper = {name: time_ms(fn) for name, fn in fns.items()}  # one call, host work included
             plain = {f"{prefix}_fwd": time_ms(p_fwd, reps=2, warmup=1),
                      f"{prefix}_bwd_dq": time_ms(p_dq, reps=2, warmup=1),
                      f"{prefix}_bwd_dkv": time_ms(p_dkv, reps=2, warmup=1)}
@@ -2639,13 +2699,17 @@ def _flash_layer(fk, pda, B, dtype, gen, real_len, valid, timed: bool):
             for name in t:
                 tot = totals[name]
                 tot["ms"] += t[name]
+                tot["wrapper_ms"] += wrapper[name]
                 tot["plain_ms"] += plain[name]
                 tot["library_ms"] += lib[name]
                 tot["bound_ms"] += bounds[name][0]
+                tot["exp2_floor_ms"] += exp2_floor
                 tot["err"] = max(tot["err"], err_of[name])
                 tot["by"][bounds[name][1]] = tot["by"].get(bounds[name][1], 0.0) + bounds[name][0]
-            record.update(ms=t, plain_ms=plain, library_ms_sdpa={"fwd": lib_fwd, "bwd": lib_bwd},
-                          bound_ms={k_: b[0] for k_, b in bounds.items()},
+            record.update(ms=t, wrapper_ms=wrapper, plain_ms=plain,
+                          library_ms_sdpa={"fwd": lib_fwd, "bwd": lib_bwd},
+                          bound_ms={k_: b[0] for k_, b in bounds.items()}, admitted_pairs=pairs,
+                          exp2_floor_ms=exp2_floor,
                           bound_by={k_: b[1] for k_, b in bounds.items()})
         records.append(record)
         del ours, ref, args
@@ -2656,7 +2720,10 @@ def _flash_layer(fk, pda, B, dtype, gen, real_len, valid, timed: bool):
                                                                "grads_rel": BWD_REL_TOL[dname]},
          **({"per_layer": totals, "note": "sums over the layer's branches (flat: r = 1; segmented: r = 2, 4, 6, "
              "12); library_ms is one SDPA call with the boolean key mask per branch (its backward for dq and "
-             "dkv)"} if timed else {}))
+             "dkv, CUDA events); ms: the kernel's device time, from a CUDA graph of 20 calls; wrapper_ms: one "
+             "call's CUDA-event time, the wrapper's host work included; exp2_floor_ms: one exp2 per admitted "
+             "pair at 16 a clock per SM",
+             "sm_clock_mhz": _MUFU.get("sm_clock_mhz")} if timed else {}))
     return totals
 
 
@@ -2673,6 +2740,11 @@ def phase_flash_kernels():
     from gigapath_tpu_torch.ops import dilated_attention as pda
     from gigapath_tpu_torch.ops import flash_kernels as fk
 
+    # bf16 tensors take the backward's tensor-core kernels, fp32 the FMA ones
+    sass = {name: _sass_counts(name, GP_HEAD_DIM=E // H) for name in ("flash_bwd_dq", "flash_bwd_dkv")}
+    emit("flash_kernels", sass=sass, note="cuobjdump -sass at D = 48: HMMA is mma.sync (the bf16 backward)")
+    for name, counts in sass.items():
+        check(counts["HMMA"] > 0, f"{name}: no HMMA in its SASS {counts}")
     gen = torch.Generator(device="cuda").manual_seed(31)
     L = N_TILES + 1
     summary = {}
@@ -2682,19 +2754,26 @@ def phase_flash_kernels():
         _flash_layer(fk, pda, 1, dtype, gen, L - 37, None, timed=False)
         _flash_layer(fk, pda, 2, dtype, gen, L, torch.tensor([L, 7002], device="cuda"), timed=False)
 
-    # causal, both layouts, fp32, at flagship-width shapes
-    errs = {}
-    q5, k5, v5, d5 = (torch.randn(1, H, 2, 700, E // H, device="cuda", generator=gen) for _ in range(4))
-    kvlen = torch.tensor([[[700, 513]] * H], dtype=torch.int32, device="cuda")
-    args = (q5, k5, v5, d5, kvlen)
-    errs["segmented"] = _check_flash("causal segmented", "float32", False,
-                                     _flash_fwd_bwd(fk, False, args, causal=True),
-                                     _flash_fwd_bwd(fk, False, args, causal=True, plain=True))
-    qf, kf, vf, df = (torch.randn(1, H, 2500, E // H, device="cuda", generator=gen) for _ in range(4))
-    args = (qf, kf, vf, df, (1024, 2400))
-    errs["flat"] = _check_flash("causal flat", "float32", True, _flash_fwd_bwd(fk, True, args, causal=True),
-                                _flash_fwd_bwd(fk, True, args, causal=True, plain=True), dq_rows=2400)
-    emit("flash_causal", dtype="float32", max_err=errs, tolerance=BWD_REL_TOL["float32"])
+    # causal, both layouts, at flagship-width shapes: fp32 on the FMA
+    # kernels, bf16 on the backward's tensor-core kernels
+    causal_errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        errs = causal_errs[dname] = {}
+        q5, k5, v5, d5 = (torch.randn(1, H, 2, 700, E // H, device="cuda", generator=gen).to(dtype) for _ in range(4))
+        kvlen = torch.tensor([[[700, 513]] * H], dtype=torch.int32, device="cuda")
+        args = (q5, k5, v5, d5, kvlen)
+        errs["segmented"] = _check_flash("causal segmented", dname, False,
+                                         _flash_fwd_bwd(fk, False, args, causal=True),
+                                         _flash_fwd_bwd(fk, False, args, causal=True, plain=True), args=args)
+        qf, kf, vf, df = (torch.randn(1, H, 2500, E // H, device="cuda", generator=gen).to(dtype) for _ in range(4))
+        args = (qf, kf, vf, df, (1024, 2400))
+        ours = _flash_fwd_bwd(fk, True, args, causal=True)
+        errs["flat"] = _check_flash("causal flat", dname, True, ours,
+                                    _flash_fwd_bwd(fk, True, args, causal=True, plain=True), dq_rows=2400,
+                                    args=args)
+        _flat_rows_add_nothing(fk, f"causal flat {dname}", args, ours, causal=True)
+    emit("flash_causal", max_err=causal_errs, tolerance={d: BWD_REL_TOL[d] for d in causal_errs})
     _flash_entry_points(fk, gen)
     return summary
 
@@ -2933,6 +3012,10 @@ def phase_bhld_step():
         ms = statistics.median(secs) * 1e3
         timing[dname] = {"ms_per_step": ms, "runs_ms": [s_ * 1e3 for s_ in secs],
                          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+    # where a bf16 step's time goes: device busy against the window, the
+    # kernels with the most device time
+    timing["bfloat16"]["profile"] = _profile(
+        lambda: train_step(model, loss_fn, steps, *batch, multi_label=False, bf16=True), top=10)
     emit("bhld_step", tiles=N_TILES, ratios=BHLD_RATIOS, launches=counts,
          grads_fp32={"param": worst_name, "err": worst, "tolerance": GRAD_F32_REL_TOL,
                      "loss_kernels": loss_k, "loss_plain": loss_p}, **timing)

@@ -48,6 +48,7 @@
 
 #include <cstdint>
 
+#include "mma_common.cuh"  // mma_bf16, ldmatrix_x4_trans, pack_bf16, cp_async16_zfill
 #include "pipe_common.cuh"  // cp_async_commit, cp_async_wait
 
 #ifndef GP_HEAD_DIM
@@ -56,6 +57,11 @@
 static_assert(GP_HEAD_DIM % 4 == 0 && GP_HEAD_DIM <= 128, "head width: a multiple of 4, at most 128");
 
 namespace {
+
+using gp::cp_async16_zfill;
+using gp::ldmatrix_x4_trans;
+using gp::mma_bf16;
+using gp::pack_bf16;
 
 constexpr int BQ = 64;  // query rows per block, one per thread
 constexpr float M_FLOOR = -1e20f;
@@ -193,11 +199,6 @@ __global__ void __launch_bounds__(BQ)
 constexpr int MQ = 64;    // query rows per block: 4 warps x 16
 constexpr int MKEY = 64;  // keys per tile
 
-__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(ok ? 16 : 0) : "memory");
-}
-
 // D[16 x 8] += A[16 x 32] . B[32 x 8], int8 in, int32 sums
 __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -205,27 +206,6 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint
       "{%0, %1, %2, %3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// D[16 x 8] += A[16 x 16] . B[16 x 8], bf16 in, fp32 sums
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 b = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&b);
 }
 
 __device__ __forceinline__ void store_pair(float* p, float a, float b) { *reinterpret_cast<float2*>(p) = make_float2(a, b); }

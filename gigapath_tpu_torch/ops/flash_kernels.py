@@ -24,6 +24,14 @@ the flat layout the query rows at or past a segment's count add nothing to
 dK/dV (``flat=True`` in the Pallas kernels), at every ``g``; their dQ is
 unspecified, as there.
 
+The backward kernels take one of two paths by the tensors' dtype: bf16
+runs on the tensor cores (``mma.sync``; dK/dV's fp32 ``p`` and ``ds`` each
+split into two bf16 values, so the products keep the Pallas kernels' fp32
+operands to about 16 bits), fp32 on the fp32 FMA pipes, where a
+tensor-core product would be TF32. The bf16 path needs a head width that is
+a multiple of 8 and 16-byte aligned tensors. There is no switch between
+them.
+
 Each wrapper runs its ``*_reference`` plain PyTorch version when its tensor
 lies on the CPU, launches its kernel on a CUDA tensor (or raises), and
 counts its launches in :data:`LAUNCHES`, one counter per Pallas row and
@@ -306,6 +314,9 @@ def _launch_bwd(name, source, q, k, v, do, lse, delta, kv_ptr, outs, layout, is_
 
     n_bh, S, Mq, Mk, Lq, Lk, real_len = layout
     D = q.shape[-1]
+    if q.dtype == torch.bfloat16 and (D % 8 or any(t.data_ptr() % 16 for t in (q, k, v, do, *outs))):
+        raise ValueError(f"{name}: the bf16 (tensor-core) kernel needs a head width that is a multiple of 8 "
+                         f"and 16-byte aligned tensors; got D={D}")
     lib = _build.library(source, GP_HEAD_DIM=D)
     extra = () if flat is None else (int(flat),)
     with torch.cuda.device(q.device):

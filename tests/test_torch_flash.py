@@ -147,6 +147,53 @@ def test_flat_segment_flash_matches_jax(L, g, rl, causal):
     np.testing.assert_allclose(vt.grad.numpy(), np.asarray(dv_j), **GRAD_TOL)
 
 
+@pytest.mark.parametrize("D", [24, 48])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flat_autograd_matches_jax_bf16(D, causal):
+    """The flat op in bf16 (the dtype whose CUDA backward runs on the tensor
+    cores): a ragged last segment and keys past real_len masked; forward,
+    lse and gradients within a few bf16 ulps of the JAX kernels, dq on rows
+    [0, real_len), dk/dv everywhere."""
+    B, H, L, g, rl = 1, 2, 70, 24, 41
+    q, k, v, do = (_data(80 + i, B, H, L, D) for i in range(4))
+    qj, kj, vj, doj = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, do))
+    out_j, lse_j, grads_j = _jax_flat(qj, kj, vj, g, rl, causal, doj)
+    qt, kt, vt = (_t(x, torch.bfloat16).requires_grad_() for x in (q, k, v))
+    out, lse = fk.flat_segment_flash(qt, kt, vt, segment_len=g, real_len=rl, is_causal=causal)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    out.backward(_t(do, torch.bfloat16))
+    np.testing.assert_allclose(_np(out), _np(out_j), **BF16_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j), atol=2e-2, rtol=1e-3)
+    rows = (slice(None), slice(None), slice(0, rl))
+    for name, a, b in zip(("dq", "dk", "dv"), (qt.grad, kt.grad, vt.grad), grads_j):
+        a, b = _np(a), _np(b)
+        if name == "dq":
+            a, b = a[rows], b[rows]
+        np.testing.assert_allclose(a, b, atol=3e-2 * float(np.abs(b).max()), rtol=0, err_msg=name)
+    # keys past real_len are masked: no gradient reaches them
+    assert not _np(kt.grad)[:, :, rl:].any() and not _np(vt.grad)[:, :, rl:].any()
+
+
+@pytest.mark.parametrize("operand", ["p", "ds"])
+def test_dkv_split_operand_keeps_fp32_products(operand):
+    """Why the bf16 dK/dV kernel splits its fp32 operand: with hi = bf16(x)
+    and lo = bf16(x - hi), (hi + lo)^T . y stays within 2^-15 (relative to
+    the largest entry) of the fp32 operand's product, as the Pallas kernel
+    computes it; bf16(x)^T . y alone does not."""
+    rng = np.random.default_rng(90)
+    x = rng.uniform(0.0, 1.0, size=(64, 64)) if operand == "p" else rng.normal(size=(64, 64))
+    x = torch.from_numpy(x.astype(np.float32))  # [queries, keys]: p or ds of one tile
+    y = torch.from_numpy(rng.normal(size=(64, 48)).astype(np.float32)).to(torch.bfloat16)  # dO or q
+    ref = x.double().T @ y.double()
+    hi = x.to(torch.bfloat16)
+    lo = (x - hi.float()).to(torch.bfloat16)
+    split = hi.float().T @ y.float() + lo.float().T @ y.float()
+    alone = hi.float().T @ y.float()
+    scale = float(ref.abs().max())
+    assert float((split.double() - ref).abs().max()) / scale <= 2.0**-15
+    assert float((alone.double() - ref).abs().max()) / scale > 2.0**-15
+
+
 def test_flat_segment_flash_rejects_segments_the_flat_path_does_not_take():
     x = torch.zeros(1, 1, 64, 8)
     for g in (12, fk.FLAT_MAX_SEGMENT + 8):
