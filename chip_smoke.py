@@ -9,14 +9,22 @@ stdout:
 1. device: ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``.
 2. build: compile the CUDA kernels of ``gigapath_tpu_torch/csrc`` (one nvcc
    per library, all in parallel); ptxas' register report goes to stderr.
-3. kernels: for each branch of the flagship schedule at L = 10241 (10240
-   tiles + cls), E = 768, H = 16, in fp32 and bf16 with a ragged real
-   length, pack -> branch attention -> unpack against their plain PyTorch
-   versions on the card; CUDA-event times beside each kernel's bound and a
-   library call's time (SDPA for the attention, ``torch.take`` with a
-   precomputed index for the pack, ``index_copy_`` for the unpack). Then
-   the branch kernel once more at a batch of more than 65535 (batch,
-   segment, head) cells, bf16, with per-row valid lengths.
+3. kernels: the ``cuobjdump -sass`` HMMA counts of the branch forwards'
+   libraries (rows 1 and 6) at Dh = 48, checked non-zero (bf16 runs on
+   the tensor cores, fp32 on the FMA kernels), with ptxas' registers and
+   spills of their tensor-core kernels; for each branch of the flagship
+   schedule at L = 10241 (10240 tiles + cls), E = 768, H = 16, in fp32 and
+   bf16 with a ragged real length, pack -> branch attention -> unpack
+   against their plain PyTorch versions on the card; times beside each
+   kernel's bound and a library call's time (SDPA for the attention,
+   ``torch.take`` with a precomputed index for the pack, ``index_copy_``
+   for the unpack): the branch kernel's device time from a CUDA graph, its
+   wrapper's CUDA-event time and the exp2 floor of its admitted pairs, the
+   copies' CUDA-event times. Then the branch kernel once more at a batch of
+   more than 65535 (batch, segment, head) cells, bf16, with per-row valid
+   lengths and one row with none (out exactly 0, lse at most -1e19); and
+   bf16 inputs the tensor-core forwards cannot take (Dh = 20, a misaligned
+   q6) refused by both wrappers.
 4. slide_forward: the flagship ``gigapath_slide_enc12l768d`` with seeded
    random weights through ``create_model`` and
    ``run_inference_with_slide_encoder`` on 10240 tiles, in fp32 and bf16,
@@ -29,11 +37,12 @@ stdout:
    plain version's time and the backward of one library attention call;
    then bf16 past 65535 cells with per-row valid lengths, one row with none
    (its gradients exactly 0), and the causal forward and backward at one
-   branch shape.
+   branch shape, fp32 and bf16.
 7. head_widths: the forward, dq and dkv kernels (and the three
    segment-flash kernels) at the registry's other head widths (16, 24, 32,
-   64, 96) against their plain versions, with ptxas' spill stores of each
-   (the build phase builds every width).
+   64, 96) against their plain versions, fp32 and bf16, with ptxas' spill
+   stores of each and the registers and spills of the forwards' tensor-core
+   kernels (the build phase builds every width).
 8. finetune_step: the flagship ``ClassificationHead`` (``feat_layer`` 11, 6
    classes as PANDA) built by ``get_model`` and trained by
    ``finetune/training.py``'s ``train_step`` on a synthetic 10240-tile
@@ -160,8 +169,9 @@ stdout:
     dilated_branch_fwd_pipe, dilated_branch_bwd_dq_pipe,
     dilated_branch_bwd_dkv_pipe) against their plain versions at the five
     branches of one flagship layer (L = 10241), fp32 and bf16, at full
-    length (timed: CUDA events beside the bound, the plain version, the
-    serial twin and SDPA with the key mask and its backward), at a ragged
+    length (timed: device time from a CUDA graph and the wrapper's CUDA
+    events beside the bound, the exp2 floor, the plain version, the serial
+    twin's device time and SDPA with the key mask and its backward), at a ragged
     real length and in a B = 2 batch whose counts are formed on the card;
     each against its serial twin on the same inputs (fp32 within
     KERNEL_TOL; bf16 1 - cosine within the route limit, the roundings
@@ -179,6 +189,10 @@ stdout:
     GIGAPATH_PIPELINED_BWD=1``: fp32 gradients against the serial route,
     the exact launches of one bf16 step (60/55/55 pipelined, 0 serial), ms
     per step and peak memory beside the serial step.
+
+``default_route_times`` (not part of the run) times the default route's
+bf16 forward per slide and bf16 step alone, for comparing two trees of the
+port in turns in one call.
 
 Phase 16 also replays a ``torch.cuda.memory`` allocation history of one
 bf16 forward per route (10240 and 102400 tiles) to its peak and reports the
@@ -358,6 +372,8 @@ GRAD_BF16_MAX_ONE_MINUS_COS = 1e-2
 # kernels are built once per width
 OTHER_HEAD_DIMS = (16, 24, 32, 64, 96)
 BRANCH_SOURCES = ("dilated_branch_fwd", "dilated_branch_bwd_dq", "dilated_branch_bwd_dkv")
+# the branch forwards whose bf16 tensors run on the tensor cores (rows 1, 6)
+FWD_MMA_SOURCES = ("dilated_branch_fwd", "dilated_branch_fwd_pipe")
 # the flagship tile encoder gigapath_tile_enc: 224 px tiles in 16 px
 # patches (196 + cls = 197 tokens), E = 1536, 24 heads of 64, 40 blocks
 TILE_E, TILE_H, TILE_L, TILE_DEPTH = 1536, 24, 197, 40
@@ -622,7 +638,7 @@ def phase_build():
 def _branch_bounds(dk, B, L, sl, r, real_len, kvlen, itemsize, dtype_name):
     """Least card time (ms) of each kernel's work at this branch, and what
     bounds it: bytes each kernel must move over the HBM rate, operations over
-    the peak rate of the dtype."""
+    the peak rate of the dtype; and the (query, key) pairs the masks admit."""
     g, S, m, Mp = dk._branch_geometry(L, sl, r)
     Dh = E // H
     hb = H // r
@@ -640,7 +656,7 @@ def _branch_bounds(dk, B, L, sl, r, real_len, kvlen, itemsize, dtype_name):
             (flops / PEAK_FLOPS[dtype_name] * 1e3, "operations"),
             (fwd_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
         ),
-    }
+    }, flops / (4 * Dh)
 
 
 def phase_kernels():
@@ -650,6 +666,7 @@ def phase_kernels():
 
     from gigapath_tpu_torch.ops import dilated_kernels as dk
 
+    _fwd_sass()
     L, B = N_TILES + 1, 1
     real_len = L - 37  # a ragged tail: keys past it are masked
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -659,6 +676,7 @@ def phase_kernels():
         q, k, v = (torch.randn(B, L, E, device="cuda", generator=gen).to(dtype) for _ in range(3))
         totals = {name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None, err=0.0,
                              by={}) for name in FWD_KERNELS}
+        totals["dilated_branch_fwd"].update(wrapper_ms=0.0, exp2_floor_ms=0.0)
         for sl, r in zip(*SCHEDULE):
             g, S, m, Mp = dk._branch_geometry(L, sl, r)
             kvlen = dk._branch_kvlen(B, S, g, r, m, real_len, None, q.device)
@@ -691,12 +709,15 @@ def phase_kernels():
             uncovered = head_band[:, None] != phase[None, :]
             check(bool((lse_dense[0][uncovered] <= -1e19).all()), f"r={r}: uncovered lse above -1e19")
 
-            # times: kernels, plain versions, and one library call for the attention
+            # times: kernels (the branch kernel's device time from a CUDA
+            # graph, its wrapper's CUDA-event time beside it), plain versions,
+            # and one library call for the attention
             t = {
                 "pack_phases": time_ms(lambda: dk.pack_phases(q, g, S, r, Mp, H)),
-                "dilated_branch_fwd": time_ms(lambda: dk.dilated_branch_fwd(q6, k6, v6, kvlen)),
+                "dilated_branch_fwd": graph_ms(lambda: dk.dilated_branch_fwd(q6, k6, v6, kvlen)),
                 "unpack_phases": time_ms(lambda: dk.unpack_phases(out6, L, E, g, S, r)),
             }
+            wrapper = time_ms(lambda: dk.dilated_branch_fwd(q6, k6, v6, kvlen))
             plain = {
                 "pack_phases": time_ms(lambda: dk.pack_phases_reference(q, g, S, r, Mp, H), reps=5),
                 "dilated_branch_fwd": time_ms(
@@ -708,7 +729,10 @@ def phase_kernels():
             key_ok = (torch.arange(Mp, device="cuda")[None] < kvlen.reshape(-1, 1))[:, None, None, :]
             lib = time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=key_ok), reps=5)
             lib_pack, lib_unpack = _copy_yardsticks(dk, q, out6, q6, dense, g, S, r, Mp)
-            bounds = _branch_bounds(dk, B, L, sl, r, real_len, kvlen, q.element_size(), dname)
+            bounds, pairs = _branch_bounds(dk, B, L, sl, r, real_len, kvlen, q.element_size(), dname)
+            exp2_floor = _exp2_floor_ms(pairs)
+            totals["dilated_branch_fwd"]["wrapper_ms"] += wrapper
+            totals["dilated_branch_fwd"]["exp2_floor_ms"] += exp2_floor
             errs = {"pack_phases": err_pack, "dilated_branch_fwd": err_out, "unpack_phases": err_unpack}
             per_layer = {"pack_phases": 3, "dilated_branch_fwd": 1, "unpack_phases": 1}  # q, k, v packs
             for name in FWD_KERNELS:
@@ -724,18 +748,54 @@ def phase_kernels():
                 totals[name]["library_ms"] = (totals[name]["library_ms"] or 0.0) + ms
             emit("kernels", dtype=dname, sl=sl, r=r, g=g, S=S, m=m, Mp=Mp, real_len=real_len,
                  max_abs_err={"pack": err_pack, "out": err_out, "lse_covered": err_lse, "unpack": err_unpack},
-                 ms=t, plain_ms=plain, library_ms_sdpa=lib, library_ms_take=lib_pack,
-                 library_ms_index_copy=lib_unpack,
+                 ms=t, wrapper_ms_fwd=wrapper, plain_ms=plain, library_ms_sdpa=lib, library_ms_take=lib_pack,
+                 library_ms_index_copy=lib_unpack, admitted_pairs=pairs, exp2_floor_ms=exp2_floor,
                  bound_ms={n: b[0] for n, b in bounds.items()}, bound_by={n: b[1] for n, b in bounds.items()})
             del q6, k6, v6, out6, lse5, out_ref, lse_ref, dense, qs, ks, vs
         for tot in totals.values():
             tot["bound_by"] = max(tot.pop("by").items(), key=lambda kv: kv[1])[0]
         summary[dname] = totals
         emit("kernels_per_layer", dtype=dname,
-             note="sum over the 5 branches of one layer; pack counts its 3 launches (q, k, v)",
-             kernels=totals)
+             note="sum over the 5 branches of one layer; pack counts its 3 launches (q, k, v); "
+                  "dilated_branch_fwd's ms is its device time from a CUDA graph of 20 calls, wrapper_ms one "
+                  "call's CUDA-event time; exp2_floor_ms: one exp2 per admitted pair at 16 a clock per SM",
+             sm_clock_mhz=_MUFU.get("sm_clock_mhz"), kernels=totals)
     _many_cells(dk)
+    _refused_inputs(dk)
     return summary
+
+
+def _fwd_sass():
+    """The SASS of the branch forwards' libraries at Dh = 48: HMMA > 0 (bf16
+    tensors run on the tensor cores; fp32 on the FMA kernels)."""
+    sass = {name: _sass_counts(name, GP_HEAD_DIM=E // H) for name in FWD_MMA_SOURCES}
+    emit("kernels", sass=sass, note="cuobjdump -sass at Dh = 48: HMMA is mma.sync (the bf16 forwards)",
+         tensor_core_ptxas={name: _mma_ptxas(f"{name}-GP_HEAD_DIM={E // H}") for name in FWD_MMA_SOURCES})
+    for name, counts in sass.items():
+        check(counts["HMMA"] > 0, f"{name}: no HMMA in its SASS {counts}")
+
+
+def _refused_inputs(dk):
+    """bf16 tensors the tensor-core forwards cannot take raise in the
+    wrappers: a head width that is no multiple of 8, a q6 that is not
+    16-byte aligned; no plain version runs on the card."""
+    import torch
+
+    kvlen = torch.full((1, 1, 1), 64, dtype=torch.int32, device="cuda")
+    narrow = torch.zeros(1, 1, 1, 1, 64, 20, dtype=torch.bfloat16, device="cuda")
+    flat = torch.zeros(64 * 48 + 1, dtype=torch.bfloat16, device="cuda")
+    shifted = flat[1:].view(1, 1, 1, 1, 64, 48)
+    ok = shifted.clone()
+    refused = []
+    for fn in (dk.dilated_branch_fwd, dk.dilated_branch_fwd_pipe):
+        for label, args in (("Dh=20", (narrow, narrow, narrow)), ("misaligned q6", (shifted, ok, ok))):
+            try:
+                fn(*args, kvlen)
+            except ValueError:
+                refused.append(f"{fn.__name__} {label}")
+                continue
+            raise AssertionError(f"{fn.__name__} took bf16 tensors with {label}")
+    emit("kernels_refused_inputs", refused=refused)
 
 
 def _copy_yardsticks(dk, x, out6, packed, dense, g, S, r, Mp):
@@ -766,7 +826,8 @@ def _copy_yardsticks(dk, x, out6, packed, dense, g, S, r, Mp):
 def _many_cells(dk):
     """The branch kernel past the 65535 cells one grid dimension could hold:
     64 slides of 8192 tokens in 64-token segments, r = 1, each row with its
-    own valid length, bf16."""
+    own valid length and row 0 with none (every cell masked: out exactly 0,
+    lse at most -1e19), bf16 (the tensor-core kernel)."""
     import torch
 
     B, L, sl, r = 64, 8192, 64, 1
@@ -777,6 +838,7 @@ def _many_cells(dk):
     q6, k6, v6 = (torch.randn(B, S, r, H // r, Mp, E // H, device="cuda", generator=gen)
                   .to(torch.bfloat16) for _ in range(3))
     valid = torch.randint(1, L + 1, (B,), device="cuda", generator=gen)
+    valid[0] = 0
     kvlen = dk._branch_kvlen(B, S, g, r, m, L, valid, q6.device)
     out6, lse5 = dk.dilated_branch_fwd(q6, k6, v6, kvlen)
     out_ref, lse_ref = dk.dilated_branch_fwd_reference(q6, k6, v6, kvlen)
@@ -785,7 +847,8 @@ def _many_cells(dk):
     torch.testing.assert_close(lse5[covered], lse_ref[covered], **LSE_TOL["bfloat16"])
     check(bool((lse5[~covered] <= -1e19).all()), "many cells: uncovered lse above -1e19")
     check(not bool(out6[~covered].any()), "many cells: fully masked rows not 0")
-    emit("kernels_many_cells", dtype="bfloat16", B=B, L=L, sl=sl, r=r, cells=cells,
+    check(not bool(out6[0].any()) and bool((lse5[0] <= -1e19).all()), "many cells: the masked row's cells")
+    emit("kernels_many_cells", dtype="bfloat16", B=B, L=L, sl=sl, r=r, cells=cells, empty_rows=1,
          masked_rows=int((~covered).sum()), max_abs_err={
              "out": max_err(out6, out_ref), "lse_covered": max_err(lse5[covered], lse_ref[covered])})
 
@@ -1000,27 +1063,33 @@ def phase_bwd_kernels():
 
 def _causal_branch(dk):
     """The causal path of the forward and both backward kernels at one
-    flagship branch shape (sl = 5792, r = 2), fp32, against their plain
-    versions."""
+    flagship branch shape (sl = 5792, r = 2), fp32 and bf16 (the forward on
+    the tensor cores), against their plain versions: out and lse within
+    KERNEL_TOL / LSE_TOL, the gradients within BWD_REL_TOL."""
     import torch
 
     L, B, sl, r = N_TILES + 1, 1, 5792, 2
     gen = torch.Generator(device="cuda").manual_seed(7)
     g, S, m, Mp = dk._branch_geometry(L, sl, r)
-    q6, k6, v6, do6 = (torch.randn(B, S, r, H // r, Mp, E // H, device="cuda", generator=gen)
-                       for _ in range(4))
-    kvlen = dk._branch_kvlen(B, S, g, r, m, L - 37, None, q6.device)
-    out6, lse5 = dk.dilated_branch_fwd(q6, k6, v6, kvlen, True)
-    out_ref, lse_ref = dk.dilated_branch_fwd_reference(q6, k6, v6, kvlen, True)
-    errs = {"out": _grad_rel_err(out6, out_ref)}
-    delta = (do6 * out6).sum(-1)
-    args = (q6, k6, v6, do6, lse5, delta, kvlen, True)
-    grads = (dk.dilated_branch_bwd_dq(*args), *dk.dilated_branch_bwd_dkv(*args))
-    for gname, ours, want in zip(("dq", "dk", "dv"), grads, dk.dilated_branch_bwd_reference(*args)):
-        errs[gname] = _grad_rel_err(ours, want)
-    for name, err in errs.items():
-        check(err <= BWD_REL_TOL["float32"], f"causal {name} rel err {err} > {BWD_REL_TOL['float32']}")
-    emit("causal_branch", dtype="float32", sl=sl, r=r, max_rel_err=errs, tolerance=BWD_REL_TOL["float32"])
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        q6, k6, v6, do6 = (torch.randn(B, S, r, H // r, Mp, E // H, device="cuda", generator=gen).to(dtype)
+                           for _ in range(4))
+        kvlen = dk._branch_kvlen(B, S, g, r, m, L - 37, None, q6.device)
+        out6, lse5 = dk.dilated_branch_fwd(q6, k6, v6, kvlen, True)
+        out_ref, lse_ref = dk.dilated_branch_fwd_reference(q6, k6, v6, kvlen, True)
+        torch.testing.assert_close(out6, out_ref, **KERNEL_TOL[dname])
+        torch.testing.assert_close(lse5, lse_ref, **LSE_TOL[dname])
+        errs[dname] = {"out": _grad_rel_err(out6, out_ref), "lse": max_err(lse5, lse_ref)}
+        delta = (do6.float() * out6.float()).sum(-1)
+        args = (q6, k6, v6, do6, lse5, delta, kvlen, True)
+        grads = (dk.dilated_branch_bwd_dq(*args), *dk.dilated_branch_bwd_dkv(*args))
+        for gname, ours, want in zip(("dq", "dk", "dv"), grads, dk.dilated_branch_bwd_reference(*args)):
+            errs[dname][gname] = err = _grad_rel_err(ours, want)
+            check(err <= BWD_REL_TOL[dname], f"causal {dname} {gname} rel err {err} > {BWD_REL_TOL[dname]}")
+    emit("causal_branch", sl=sl, r=r, max_err=errs,
+         tolerance={"out": KERNEL_TOL, "lse": LSE_TOL, "grads_rel": BWD_REL_TOL})
 
 
 def _many_cells_bwd(dk):
@@ -1063,6 +1132,20 @@ def _spill_bytes(label: str) -> int:
 
     found = re.findall(r"(\d+) bytes spill stores", _build.build_log.get(label, ""))
     return max(map(int, found), default=0)
+
+
+def _mma_ptxas(label: str) -> dict:
+    """Most registers and spill-store bytes ptxas reported for the
+    tensor-core kernels (entry functions named ``*_mma_kernel``) of a
+    library this process built."""
+    from gigapath_tpu_torch.ops import _build
+
+    regs, spills = [], []
+    for chunk in _build.build_log.get(label, "").split("Compiling entry function")[1:]:
+        if "mma_kernel" in chunk.split("'")[1]:
+            regs += re.findall(r"Used (\d+) registers", chunk)
+            spills += re.findall(r"(\d+) bytes spill stores", chunk)
+    return {"registers": max(map(int, regs), default=None), "spill_store_bytes": max(map(int, spills), default=0)}
 
 
 def phase_head_widths():
@@ -1121,7 +1204,8 @@ def phase_head_widths():
         emit("head_widths", Dh=dh, E=Eh, L=L, sl=sl, r=r, max_rel_err=errs, tolerance=BWD_REL_TOL,
              flash_max_err=flash_errs,
              spill_store_bytes={name: _spill_bytes(f"{name}-GP_HEAD_DIM={dh}")
-                                for name in BRANCH_SOURCES + PIPE_KERNELS + FLASH_SOURCES})
+                                for name in BRANCH_SOURCES + PIPE_KERNELS + FLASH_SOURCES},
+             tensor_core_ptxas={name: _mma_ptxas(f"{name}-GP_HEAD_DIM={dh}") for name in FWD_MMA_SOURCES})
 
 
 def _head_and_steps(torch, lr=5e-5, scheduler="fixed", **slide_kwargs):
@@ -3111,16 +3195,16 @@ def _pipe_branch(dk, q, k, v, do, sl, r, real_len, valid, timed: bool):
     lib_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=key_ok)
     lib_do = do6.reshape(lib_out.shape)
     lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, (qs, ks, vs), lib_do, retain_graph=True), reps=5)
-    bounds = {"dilated_branch_fwd_pipe": _branch_bounds(dk, B, L, sl, r, real_len, kvlen, q.element_size(),
-                                                        dname)["dilated_branch_fwd"]}
+    fwd_bounds, pairs = _branch_bounds(dk, B, L, sl, r, real_len, kvlen, q.element_size(), dname)
+    bounds = {"dilated_branch_fwd_pipe": fwd_bounds["dilated_branch_fwd"]}
     bwd = _bwd_bounds(dk, B, L, sl, r, kvlen, q.element_size(), dname)
     bounds["dilated_branch_bwd_dq_pipe"] = bwd["dilated_branch_bwd_dq"]
     bounds["dilated_branch_bwd_dkv_pipe"] = bwd["dilated_branch_bwd_dkv"]
     numbers = {}
-    for name in PIPE_KERNELS:
+    for name in PIPE_KERNELS:  # device times from CUDA graphs, the wrapper's CUDA-event time beside
         numbers[name] = {
-            "ms": time_ms(fns[name]), "serial_ms": time_ms(twins[name]),
-            "plain_ms": time_ms(plains[name], reps=2, warmup=1),
+            "ms": graph_ms(fns[name]), "wrapper_ms": time_ms(fns[name]), "serial_ms": graph_ms(twins[name]),
+            "exp2_floor_ms": _exp2_floor_ms(pairs), "plain_ms": time_ms(plains[name], reps=2, warmup=1),
             "library_ms": lib_fwd if name == "dilated_branch_fwd_pipe" else lib_bwd,
             "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
             "err": errs["out"] if name == "dilated_branch_fwd_pipe" else (
@@ -3169,19 +3253,23 @@ def _many_cells_pipe(dk):
 def phase_pipe_kernels():
     """Rows 6 and 8 on the card: the five branches of one flagship layer
     (L = 10241), fp32 and bf16, at full length (timed: per-layer sums of the
-    kernel, its serial twin, its plain version and SDPA with the key mask,
-    and its backward, beside the bound) and at a ragged real length; a B = 2
-    batch with per-row valid counts formed on the card; past 65535 cells."""
+    kernel's device time, its wrapper's, its serial twin's, its plain
+    version and SDPA with the key mask, and its backward, beside the bound
+    and the exp2 floor) and at a ragged real length; a B = 2 batch with
+    per-row valid counts formed on the card; past 65535 cells."""
     import torch
 
     from gigapath_tpu_torch.ops import dilated_kernels as dk
+
+    _fwd_sass()
 
     L = N_TILES + 1
     gen = torch.Generator(device="cuda").manual_seed(41)
     summary = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
-        totals = {name: dict(ms=0.0, serial_ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, err=0.0, by={})
+        totals = {name: dict(ms=0.0, wrapper_ms=0.0, serial_ms=0.0, plain_ms=0.0, bound_ms=0.0, exp2_floor_ms=0.0,
+                             library_ms=0.0, err=0.0, by={})
                   for name in PIPE_KERNELS}
         for B, real_len, valid, timed in ((1, L, None, True), (1, L - 37, None, False),
                                           (2, L, torch.tensor([L, 7002], device="cuda"), False)):
@@ -3191,7 +3279,7 @@ def phase_pipe_kernels():
                 emit("pipe_kernels", **record)
                 for name, num in (numbers or {}).items():
                     tot = totals[name]
-                    for key in ("ms", "serial_ms", "plain_ms", "bound_ms", "library_ms"):
+                    for key in ("ms", "wrapper_ms", "serial_ms", "plain_ms", "bound_ms", "exp2_floor_ms", "library_ms"):
                         tot[key] += num[key]
                     tot["err"] = max(tot["err"], num["err"])
                     tot["by"][num["bound_by"]] = tot["by"].get(num["bound_by"], 0.0) + num["bound_ms"]
@@ -3201,9 +3289,11 @@ def phase_pipe_kernels():
             tot["vs_serial"] = tot["ms"] / tot["serial_ms"]
         summary[dname] = totals
         emit("pipe_kernels_per_layer", dtype=dname, kernels=totals,
-             note="sum over the 5 branches of one layer at full length; serial_ms is the serial twin "
-                  "(rows 1, 7a, 7b) on the same inputs; library_ms is SDPA with the key mask, and its "
-                  "backward (dq, dk, dv) for dq and dkv")
+             note="sum over the 5 branches of one layer at full length; ms is the kernel's device time from a "
+                  "CUDA graph of 20 calls, wrapper_ms one call's CUDA-event time; serial_ms is the serial twin "
+                  "(rows 1, 7a, 7b) on the same inputs, device time; exp2_floor_ms: one exp2 per admitted pair "
+                  "at 16 a clock per SM; library_ms is SDPA with the key mask, and its backward (dq, dk, dv) "
+                  "for dq and dkv")
     _many_cells_pipe(dk)
     return summary
 
@@ -3384,6 +3474,50 @@ def _peak_breakdown(fn, top: int = 6) -> dict:
     ranked = sorted(by_site.items(), key=lambda kv: -kv[1])[:top]
     return {"peak_gb_above_start": peak / 2**30,
             "live_at_peak_gb": [{"site": site, "gb": b / 2**30} for site, b in ranked]}
+
+
+def default_route_times(reps: int = 3):
+    """The default route's bf16 forward per 10240-tile slide and bf16
+    fine-tune step alone, as slide_forward and finetune_step time them
+    (median of ``reps`` host-clock runs, each ending in a synchronize), with
+    the card's name and power limit: a line for comparing two trees in turns
+    in one call. Not part of the smoke run; it uses only entry points every
+    tree of the port has, so it can time another tree's package from that
+    tree's root:
+
+        python3 -c "import runpy; runpy.run_path('<this file>')['default_route_times']()"
+    """
+    import torch
+
+    from gigapath_tpu_torch.finetune.training import train_step
+    from gigapath_tpu_torch.models.slide_encoder import create_model
+    from gigapath_tpu_torch.pipeline import run_inference_with_slide_encoder
+
+    def median_ms(fn):
+        fn()  # warm-up
+        secs = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        return statistics.median(secs) * 1e3, [x * 1e3 for x in secs]
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x, coords = _flagship_inputs(1, gen)
+    model = create_model("", "gigapath_slide_enc12l768d", dtype=torch.bfloat16, seed=0)
+    fwd_ms, fwd_runs = median_ms(lambda: run_inference_with_slide_encoder(x, coords, model))
+    del model
+    labels = torch.tensor([[3]], device="cuda")
+    pad_mask = torch.ones(1, N_TILES, dtype=torch.bool, device="cuda")
+    model, steps, loss_fn = _head_and_steps(torch)
+    step_ms, step_runs = median_ms(
+        lambda: train_step(model, loss_fn, steps, x, coords, labels, pad_mask, multi_label=False, bf16=True))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    emit("default_route_times", dtype="bfloat16", tiles=N_TILES, forward_ms_per_slide=fwd_ms,
+         forward_runs_ms=fwd_runs, step_ms=step_ms, step_runs_ms=step_runs, nvidia_smi=smi)
 
 
 def main() -> int:

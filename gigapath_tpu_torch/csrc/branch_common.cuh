@@ -1,15 +1,18 @@
 // Device helpers shared by the dilated-branch kernels (forward, dq, dkv).
 //
-// Every kernel computes in fp32 whatever its tensors' dtype: bf16 is widened
-// on load and rounded once at the store. Tiles are staged through shared
-// memory in 64-row blocks, one row per thread, and rows of a staged tile are
-// read with broadcast float4 loads (every thread of a warp reads the same
-// address), so each shared-memory load feeds four FMAs.
+// The FMA kernels compute in fp32 whatever their tensors' dtype: bf16 is
+// widened on load, and rounded at the store and where the Pallas kernel
+// casts to the input dtype before a matmul (round_to). Tiles are staged
+// through shared memory in 64-row blocks, one row per thread, and rows of a
+// staged tile are read with broadcast float4 loads (every thread of a warp
+// reads the same address), so each shared-memory load feeds four FMAs.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace gp {
 
@@ -24,6 +27,17 @@ __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
 __device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
+}
+
+// x rounded to T and widened back: the Pallas kernels' .astype(dtype)
+// before a matmul (a no-op in fp32)
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  if constexpr (std::is_same<T, float>::value) {
+    return x;
+  } else {
+    return __bfloat162float(__float2bfloat16(x));
+  }
 }
 
 // dot(r, s) of a register row and a staged shared-memory row

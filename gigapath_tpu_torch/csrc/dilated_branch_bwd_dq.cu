@@ -10,12 +10,13 @@
 // j <= i when causal), with the probabilities recomputed from the saved lse:
 //   p_ij  = exp2(q_i.k_j * scale*log2(e) - lse_i*log2(e))
 //   ds_ij = p_ij * (dout_i.v_j - delta_i)
-//   dq_i  = scale * sum_j ds_ij k_j
-// Key tiles at or past kvlen are never loaded (a cell with kvlen = 0 has lse
-// ~ -6.9e19, where exp2 would overflow): only the partial tile masks its
-// columns, by select. Padded rows (zero q and dout) come out exactly 0. All
-// arithmetic is fp32 for both input dtypes; a bf16 dq is rounded once, at
-// the store.
+//   dq_i  = scale * sum_j round(ds_ij) k_j
+// where round() is the Pallas kernel's cast of ds to k's dtype (bf16 for
+// bf16 tensors). Key tiles at or past kvlen are never loaded (a cell with
+// kvlen = 0 has lse ~ -6.9e19, where exp2 would overflow): only the partial
+// tile masks its columns, by select. Padded rows (zero q and dout) come out
+// exactly 0. Otherwise all arithmetic is fp32 for both input dtypes; a bf16
+// dq is rounded again at the store.
 //
 // Bound on the H100: operations, 6*Dh per valid (query, key) pair (q.k,
 // dout.v, ds*k), next to about 4*Dh elements moved per row. This first
@@ -99,7 +100,7 @@ __global__ void __launch_bounds__(BM)
       const int col = key0 + j;
       const bool ok = col < kv && (!causal || col <= row);
       const float p = ok ? exp2f(s - lse2) : 0.f;
-      axpy_smem<DH>(p * (dp - dlt), kj, acc);
+      axpy_smem<DH>(round_to<T>(p * (dp - dlt)), kj, acc);
     }
   }
 

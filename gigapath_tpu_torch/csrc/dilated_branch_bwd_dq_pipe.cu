@@ -15,7 +15,8 @@
 //   ds_ij = p_ij * (dout_i . v_j - delta_i)            (fp32)
 //   dq_i  = scale * sum_j round(ds_ij) k_j             (fp32 sum)
 // where round() is the rounding to the input dtype (a no-op in fp32). The
-// serial kernel instead keeps q*scale and ds unrounded. Key tiles past kvlen
+// serial kernel, as the serial Pallas one, keeps q*scale unrounded and
+// rounds ds alike. Key tiles past kvlen
 // are never loaded; inside the partial tile the keys past kvlen get p = 0
 // by select. Padded rows (zero q and dout) come out exactly 0.
 //

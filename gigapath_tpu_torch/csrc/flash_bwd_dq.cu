@@ -119,7 +119,7 @@ __global__ void __launch_bounds__(BM)
       const int col = key0 + j;
       const bool ok = col < kv && (!causal || col <= row);
       const float p = ok ? exp2f(s - lse2) : 0.f;
-      axpy_smem<DH>(round_as<T>(p * (dp - dlt)), kj, acc);
+      axpy_smem<DH>(round_to<T>(p * (dp - dlt)), kj, acc);
     }
   }
 

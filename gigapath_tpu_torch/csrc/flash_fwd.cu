@@ -74,7 +74,7 @@ __global__ void __launch_bounds__(BM)
   float qr[DH];
   row_from_smem<DH>(smem, qr, qscale);
 #pragma unroll
-  for (int d = 0; d < DH; ++d) qr[d] = round_as<T>(qr[d]);
+  for (int d = 0; d < DH; ++d) qr[d] = round_to<T>(qr[d]);
 
   float acc[DH];
 #pragma unroll
@@ -113,7 +113,7 @@ __global__ void __launch_bounds__(BM)
 #pragma unroll
     for (int d = 0; d < DH; ++d) acc[d] *= alpha;
 #pragma unroll
-    for (int j = 0; j < BN; ++j) axpy_smem<DH>(round_as<T>(s[j]), vs + j * DH, acc);
+    for (int j = 0; j < BN; ++j) axpy_smem<DH>(round_to<T>(s[j]), vs + j * DH, acc);
     m_run = m_new;
   }
 

@@ -1,8 +1,9 @@
 // Device helpers for the kernels that run on the tensor cores through
 // mma.sync (q_flash_attention's bf16 kernel, the segment-flash backward's
-// bf16 kernels): the bf16 MMA, ldmatrix fragment loads from shared memory,
-// bf16 pair packing, the MUFU exp2 and cp.async copies whose source may be
-// zero-filled.
+// and the dilated-branch forward's bf16 kernels): the bf16 MMA, ldmatrix
+// fragment loads from shared memory, bf16 pair packing, the MUFU exp2,
+// cp.async copies whose source may be zero-filled, and the padded 64-row
+// shared-memory tile (MmaTile).
 //
 // Fragments of mma.sync.m16n8k16 (lane = 4 * g + c, g = lane / 4, c =
 // lane % 4): the A fragment a[0..3] holds A[g][2c, 2c+1], A[g+8][2c, 2c+1],
@@ -74,5 +75,61 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 b = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&b);
 }
+
+// A 64-row bf16 tile of the tensor-core kernels in shared memory:
+// each row's DH elements padded with zeros to DK, a multiple of 16 (the
+// depth of one m16n8k16 step), at a pitch of 2*DK + 16 bytes, so the 8 rows
+// one ldmatrix reads start in 8 distinct 16-byte bank groups.
+template <int DH>
+struct MmaTile {
+  static_assert(DH % 8 == 0, "rows of whole 16-byte pieces");
+  static constexpr int ROWS = 64;
+  static constexpr int DK = (DH + 15) / 16 * 16;
+  static constexpr int PITCH = 2 * DK + 16;  // bytes
+  static constexpr int BYTES = ROWS * PITCH;
+  static constexpr int THREADS = 128;
+
+  // Start the copies of rows [0, n) of the tile at src (DH elements a row,
+  // 16-byte aligned) into dst; rows [n, 64) and columns [DH, DK) are
+  // zero-filled without a read. src must be a valid address even when n
+  // <= 0.
+  __device__ static void load(unsigned char* dst, const __nv_bfloat16* src, int n) {
+    constexpr int CHUNKS = DK / 8;  // 16-byte pieces of a padded row
+#pragma unroll
+    for (int e = threadIdx.x; e < ROWS * CHUNKS; e += THREADS) {
+      const int j = e / CHUNKS, d = 8 * (e - j * CHUNKS);
+      const bool ok = j < n && d < DH;
+      cp_async16_zfill(dst + j * PITCH + 2 * d, ok ? src + (long long)j * DH + d : src, ok);
+    }
+  }
+
+  // This thread's C fragments of a warp's 16 rows (rows g and g + 8 of
+  // 16 * warp, columns 8 t + 2 c of column tile t) times mul, rounded to
+  // bf16, into the tile at dst; only the DH real columns.
+  template <int NT>
+  __device__ static void put(unsigned char* dst, const float (&acc)[NT][4], float mul) {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int row = 16 * warp + (lane >> 2), col = 2 * (lane & 3);
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      if (8 * t >= DH) continue;
+      unsigned char* p = dst + row * PITCH + 2 * (8 * t + col);
+      *reinterpret_cast<uint32_t*>(p) = pack_bf16(acc[t][0] * mul, acc[t][1] * mul);
+      *reinterpret_cast<uint32_t*>(p + 8 * PITCH) = pack_bf16(acc[t][2] * mul, acc[t][3] * mul);
+    }
+  }
+
+  // Rows [0, n) of the tile at src to device memory at dst (DH elements a
+  // row, 16-byte aligned) as 16-byte stores; with zero, zeros instead.
+  __device__ static void store(__nv_bfloat16* dst, const unsigned char* src, int n, bool zero = false) {
+    constexpr int CHUNKS = DH / 8;
+    const int lim = max(0, min(n, ROWS)) * CHUNKS;
+    for (int e = threadIdx.x; e < lim; e += THREADS) {
+      const int j = e / CHUNKS, ch = e - j * CHUNKS;
+      const uint4 x = zero ? make_uint4(0, 0, 0, 0) : *reinterpret_cast<const uint4*>(src + j * PITCH + 16 * ch);
+      *reinterpret_cast<uint4*>(dst + (long long)j * DH + 8 * ch) = x;
+    }
+  }
+};
 
 }  // namespace gp

@@ -1,6 +1,5 @@
 // Device helpers shared by the pipelined dilated-branch kernels (forward,
-// dq, dkv): a two-stage shared-memory ring filled with cp.async, and the
-// Pallas kernels' rounding to the input dtype.
+// dq, dkv): a two-stage shared-memory ring filled with cp.async.
 //
 // A ring stage holds tiles in the input dtype, copied from device memory by
 // cp.async.cg 16-byte copies (one commit group per stage). A kernel issues
@@ -17,17 +16,6 @@
 #include "branch_common.cuh"
 
 namespace gp {
-
-// x rounded to T and widened back: the Pallas kernels' .astype(dtype)
-// before a matmul (a no-op in fp32)
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  if constexpr (std::is_same<T, float>::value) {
-    return x;
-  } else {
-    return __bfloat162float(__float2bfloat16(x));
-  }
-}
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));

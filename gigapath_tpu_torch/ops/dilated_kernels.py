@@ -9,8 +9,9 @@ activations runs three CUDA kernels (``csrc/``) forward:
    (p+1)*hb - 1``, ``hb = H/r``) of segment ``s`` holds the phase-``p``
    tokens ``s*g + p + r*j``, 1/r of the dense volume.
 2. :func:`dilated_branch_fwd` attends each (segment, phase, head) cell
-   with a fp32 online softmax, masking keys at or past the ``[B, S, r]``
-   valid-count table, and returns ``(out6, lse [B, S, r, hb, Mp])``.
+   with an fp32 online softmax (bf16 tensors on the tensor cores, with the
+   Pallas kernel's bf16 roundings), masking keys at or past the ``[B, S,
+   r]`` valid-count table, and returns ``(out6, lse [B, S, r, hb, Mp])``.
 3. :func:`unpack_phases` writes ``out6`` back to dense ``[B, L, E]`` with
    exact zeros on the lanes the branch does not cover.
 
@@ -47,9 +48,11 @@ JAX package takes them (:func:`_branch_pipelined`): the forward
 (``GIGAPATH_PIPELINED_ATTN``) or a plan's ``"pipelined"`` variant for the
 branch, the backward :func:`dilated_branch_bwd_dq_pipe` and
 :func:`dilated_branch_bwd_dkv_pipe` under ``pipelined_bwd``
-(``GIGAPATH_PIPELINED_BWD``). They compute the serial kernels' function
-with the pipelined Pallas kernels' bf16 roundings, staging the next tile
-with ``cp.async`` while the current one computes. A causal call runs the
+(``GIGAPATH_PIPELINED_BWD``). The pipelined forward computes the serial
+forward's function (the two Pallas forwards round alike in bf16), issuing
+the next key tile's scores before the current tile's softmax; the
+pipelined backward differs from the serial one in bf16 by rounding the
+logits' q*scale*log2(e), as the Pallas kernels do. A causal call runs the
 serial kernels whatever the flags say, as in the JAX package.
 
 The port's packed row count ``Mp`` is ``m`` rounded up to the kernel's
@@ -72,7 +75,8 @@ M_FLOOR = -1e20  # running-max floor: masked keys underflow to exactly 0
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 ROW_TILE = 64  # query/key rows per tile of the branch kernel
-MAX_HEAD_DIM = 128  # the branch kernel takes head widths that are multiples of 4 up to this
+KEY_TILE = 64  # keys per step of the bf16 forward kernels' online softmax
+MAX_HEAD_DIM = 128  # the branch kernels take head widths that are multiples of 4 (bf16: 8) up to this
 
 # Launches of each CUDA kernel in this process. A wrapper adds one where it
 # launches its kernel and nowhere else; callers reset and read it.
@@ -108,7 +112,7 @@ class PipelineFlags(NamedTuple):
     (:func:`_branch_pipelined`). The other fields are carried so that a
     plan or a caller can set them, and are unused here: ``pipe_block_k``,
     ``pipe_bwd_block_k`` (the pipelined kernels' TPU key blocks; the CUDA
-    kernels stage 64 keys, or 32 above a head width of 64), the branch
+    kernels stage 64 keys, the fp32 ones 32 above a head width of 64), the branch
     ``block`` of ``branch_plans`` and the fold blocks are TPU VMEM tiling;
     ``ring_attn`` belongs to sequence parallelism; the drivers read
     ``quant_tile`` and ``chunked_prefill`` from their own environment
@@ -321,36 +325,51 @@ def unpack_phases_direct_reference(
     return x6.reshape(B, Mp * r, E)[:, :L]
 
 
+def _round_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """fp32 ``x`` rounded to ``dtype`` and widened back (a no-op in fp32):
+    the Pallas kernels' ``.astype`` before a matmul."""
+    return x if dtype == torch.float32 else x.to(dtype).float()
+
+
 def dilated_branch_fwd_reference(
     q6: torch.Tensor, k6: torch.Tensor, v6: torch.Tensor, kvlen: torch.Tensor,
     is_causal: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Packed q/k/v [B, S, r, hb, Mp, Dh] + kvlen [B, S, r] ->
     ``(out6, lse [B, S, r, hb, Mp] fp32)``, the kernel's math in plain
-    PyTorch: fp32 base-2 softmax, masked keys by select, a row with no
-    valid key gives out = 0 and lse ~ -6.9e19. Chunked over (s, p, t), so
-    the largest temporary is one [B, Mp, Mp] score matrix."""
+    PyTorch: an fp32 base-2 online softmax over key tiles of
+    :data:`KEY_TILE`, masked keys by select, a row with no valid key gives
+    out = 0 and lse ~ -6.9e19. It rounds where the Pallas ``_fwd_kernel``
+    (and ``_fwd_kernel_pipe``) round in the input dtype: q*scale*log2(e)
+    before QK^T and the probabilities before PV, the denominator summing
+    them unrounded; in fp32 both roundings are no-ops. Since the rounding
+    of p depends on the running max, the tiles are the tensor-core kernels'
+    own, so a bf16 comparison on the card measures the kernel and not the
+    blocking. All cells at once: the largest temporary is one [B, S, r, hb,
+    Mp, KEY_TILE] fp32 score block."""
     B, S, r, hb, Mp, Dh = q6.shape
-    qscale = Dh**-0.5 * LOG2E
-    out = torch.empty_like(q6)
-    lse = torch.empty((B, S, r, hb, Mp), dtype=torch.float32, device=q6.device)
-    cols = torch.arange(Mp, device=q6.device)
-    causal_mask = cols[None, :] > cols[:, None] if is_causal else None
-    for s in range(S):
-        for p in range(r):
-            key_mask = cols[None, None, :] >= kvlen[:, s, p].to(torch.int64)[:, None, None]
-            if causal_mask is not None:
-                key_mask = key_mask | causal_mask[None]
-            for t in range(hb):
-                qf = q6[:, s, p, t].float() * qscale
-                sc = qf @ k6[:, s, p, t].float().transpose(1, 2)  # [B, Mp, Mp]
-                sc = sc.masked_fill(key_mask, NEG_INF)
-                m_row = sc.amax(dim=-1, keepdim=True).clamp_min(M_FLOOR)
-                pr = torch.exp2(sc - m_row)
-                l_row = pr.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-                out[:, s, p, t] = ((pr @ v6[:, s, p, t].float()) / l_row).to(q6.dtype)
-                lse[:, s, p, t] = ((m_row + torch.log2(l_row)) * LN2)[..., 0]
-    return out, lse
+    dev = q6.device
+    qh = _round_to(q6.float() * (Dh**-0.5 * LOG2E), q6.dtype)
+    kf, vf = k6.float(), v6.float()
+    rows = torch.arange(Mp, device=dev)[:, None]
+    kv = kvlen.to(device=dev, dtype=torch.int64)[:, :, :, None, None, None]  # [B, S, r, 1, 1, 1]
+    m_run = torch.full((B, S, r, hb, Mp, 1), M_FLOOR, dtype=torch.float32, device=dev)
+    l_run = torch.zeros_like(m_run)
+    acc = torch.zeros((B, S, r, hb, Mp, Dh), dtype=torch.float32, device=dev)
+    for j0 in range(0, Mp, KEY_TILE):
+        cols = torch.arange(j0, min(j0 + KEY_TILE, Mp), device=dev)[None, :]
+        mask = cols >= kv  # [B, S, r, 1, 1, width]
+        if is_causal:
+            mask = mask | (cols > rows)
+        sc = (qh @ kf[..., j0:j0 + KEY_TILE, :].transpose(-1, -2)).masked_fill(mask, NEG_INF)
+        m_new = torch.maximum(m_run, sc.amax(dim=-1, keepdim=True))
+        pr = torch.exp2(sc - m_new)
+        alpha = torch.exp2(m_run - m_new)
+        l_run = l_run * alpha + pr.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + _round_to(pr, q6.dtype) @ vf[..., j0:j0 + KEY_TILE, :]
+        m_run = m_new
+    safe_l = l_run.clamp_min(1e-30)
+    return (acc / safe_l).to(q6.dtype), ((m_run + torch.log2(safe_l)) * LN2)[..., 0]
 
 
 def dilated_branch_bwd_reference(
@@ -363,7 +382,8 @@ def dilated_branch_bwd_reference(
     hb, Mp]) -> ``(dq6, dk6, dv6)``, the kernels' math in plain PyTorch:
     fp32 probabilities recomputed in base 2 from the lse, masked keys by a
     select of -1e30 before the exponent (a cell with no valid key has lse ~
-    -6.9e19, and its gradients come out exactly 0). ``dq``/``dkv`` pick
+    -6.9e19, and its gradients come out exactly 0), ds rounded to the input
+    dtype before ``ds @ k`` (dQ), as the Pallas ``_dq_kernel``. ``dq``/``dkv`` pick
     which gradients to compute (the others are None). Chunked over (s, p,
     t), as :func:`dilated_branch_fwd_reference`."""
     B, S, r, hb, Mp, Dh = q6.shape
@@ -385,64 +405,21 @@ def dilated_branch_bwd_reference(
                 pr = torch.exp2(sc - lse5[:, s, p, t, :, None] * LOG2E)
                 ds = pr * (dof @ vf.transpose(1, 2) - delta[:, s, p, t, :, None])
                 if dq:
-                    dq6[:, s, p, t] = ((ds @ kf) * scale).to(q6.dtype)
+                    dq6[:, s, p, t] = ((_round_to(ds, q6.dtype) @ kf) * scale).to(q6.dtype)
                 if dkv:
                     dk6[:, s, p, t] = ((ds.transpose(1, 2) @ qf) * scale).to(k6.dtype)
                     dv6[:, s, p, t] = (pr.transpose(1, 2) @ dof).to(v6.dtype)
     return dq6, dk6, dv6
 
 
-def _pipe_key_stage(head_dim: int) -> int:
-    """Keys per ring stage of the pipelined kernels (and rows per query
-    stage of their dK/dV): 64, or 32 above a head width of 64."""
-    return 32 if head_dim > 64 else 64
-
-
-def _round_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """fp32 ``x`` rounded to ``dtype`` and widened back (a no-op in fp32):
-    the pipelined Pallas kernels' ``.astype`` before a matmul."""
-    return x if dtype == torch.float32 else x.to(dtype).float()
-
-
 def dilated_branch_fwd_pipe_reference(
     q6: torch.Tensor, k6: torch.Tensor, v6: torch.Tensor, kvlen: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The pipelined forward's math in plain PyTorch (non-causal):
-    ``(out6, lse [B, S, r, hb, Mp] fp32)`` as
-    :func:`dilated_branch_fwd_reference`, with the pipelined Pallas
-    kernel's roundings (q*scale*log2(e) and the probabilities rounded to the
-    input dtype before their products) and an fp32 online softmax over key
-    stages of the kernel's width (:func:`_pipe_key_stage`), so a comparison
-    on the card measures the kernel and not the blocking. Chunked over (s,
-    p, t): the largest temporary is one [B, Mp, stage] score block."""
-    B, S, r, hb, Mp, Dh = q6.shape
-    qscale = Dh**-0.5 * LOG2E
-    width = _pipe_key_stage(Dh)
-    out = torch.empty_like(q6)
-    lse = torch.empty((B, S, r, hb, Mp), dtype=torch.float32, device=q6.device)
-    cols = torch.arange(Mp, device=q6.device)
-    for s in range(S):
-        for p in range(r):
-            key_mask = cols[None, None, :] >= kvlen[:, s, p].to(torch.int64)[:, None, None]  # [B, 1, Mp]
-            for t in range(hb):
-                qh = _round_to(q6[:, s, p, t].float() * qscale, q6.dtype)
-                kf, vf = k6[:, s, p, t].float(), v6[:, s, p, t].float()
-                m_run = torch.full((B, Mp, 1), M_FLOOR, dtype=torch.float32, device=q6.device)
-                l_run = torch.zeros_like(m_run)
-                acc = torch.zeros((B, Mp, Dh), dtype=torch.float32, device=q6.device)
-                for j0 in range(0, Mp, width):
-                    sc = qh @ kf[:, j0:j0 + width].transpose(1, 2)  # [B, Mp, width]
-                    sc = sc.masked_fill(key_mask[..., j0:j0 + width], NEG_INF)
-                    m_new = torch.maximum(m_run, sc.amax(dim=-1, keepdim=True))
-                    pr = torch.exp2(sc - m_new)
-                    alpha = torch.exp2(m_run - m_new)
-                    l_run = l_run * alpha + pr.sum(dim=-1, keepdim=True)
-                    acc = acc * alpha + _round_to(pr, q6.dtype) @ vf[:, j0:j0 + width]
-                    m_run = m_new
-                safe_l = l_run.clamp_min(1e-30)
-                out[:, s, p, t] = (acc / safe_l).to(q6.dtype)
-                lse[:, s, p, t] = ((m_run + torch.log2(safe_l)) * LN2)[..., 0]
-    return out, lse
+    """The pipelined forward's math in plain PyTorch (non-causal): the
+    serial kernel's function, :func:`dilated_branch_fwd_reference`, since
+    the serial and the pipelined Pallas forwards round alike (their outputs
+    are bit-identical)."""
+    return dilated_branch_fwd_reference(q6, k6, v6, kvlen)
 
 
 def dilated_branch_bwd_pipe_reference(
@@ -574,12 +551,22 @@ def unpack_phases(p6: torch.Tensor, L: int, E: int, g: int, S: int, r: int) -> t
     return out
 
 
+def _check_tensor_core_inputs(name: str, Dh: int, *tensors: torch.Tensor) -> None:
+    """bf16 tensors go to the forward's tensor-core kernels, which take head
+    widths that are multiples of 8 and 16-byte aligned tensors (their
+    16-byte copies of 8 elements); fp32 tensors go to the FMA kernels."""
+    if tensors[0].dtype == torch.bfloat16 and (Dh % 8 or any(t.data_ptr() % 16 for t in tensors)):
+        raise ValueError(f"{name}: bf16 tensors need a head width that is a multiple of 8 and 16-byte "
+                         f"aligned q6, k6, v6 (the tensor-core kernel's copies); got Dh={Dh}")
+
+
 def dilated_branch_fwd(
     q6: torch.Tensor, k6: torch.Tensor, v6: torch.Tensor, kvlen: torch.Tensor,
     is_causal: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Packed branch attention -> ``(out6, lse [B, S, r, hb, Mp] fp32)``
-    (``csrc/dilated_branch_fwd.cu``)."""
+    (``csrc/dilated_branch_fwd.cu``: bf16 on the tensor cores, fp32 on the
+    FMA pipes)."""
     if q6.device.type == "cpu":
         return dilated_branch_fwd_reference(q6, k6, v6, kvlen, is_causal)
     from gigapath_tpu_torch.ops import _build
@@ -598,6 +585,7 @@ def dilated_branch_fwd(
             f"dilated_branch_fwd: needs Dh % 4 == 0, Dh <= {MAX_HEAD_DIM}, Mp a positive multiple "
             f"of {ROW_TILE} and fewer than 2^31 query tiles; got Dh={Dh}, Mp={Mp}, tiles={blocks}"
         )
+    _check_tensor_core_inputs("dilated_branch_fwd", Dh, q6, k6, v6)
     out = torch.empty_like(q6)
     lse = torch.empty((B, S, r, hb, Mp), dtype=torch.float32, device=q6.device)
     with torch.cuda.device(q6.device):
@@ -699,8 +687,9 @@ def dilated_branch_fwd_pipe(
     is_causal: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pipelined packed branch attention -> ``(out6, lse [B, S, r, hb, Mp]
-    fp32)`` (``csrc/dilated_branch_fwd_pipe.cu``); arguments as
-    :func:`dilated_branch_fwd`, non-causal only."""
+    fp32)`` (``csrc/dilated_branch_fwd_pipe.cu``: bf16 on the tensor cores,
+    fp32 on the FMA pipes); arguments as :func:`dilated_branch_fwd`,
+    non-causal only."""
     _check_pipe("dilated_branch_fwd_pipe", is_causal, q6, k6, v6)
     if q6.device.type == "cpu":
         return dilated_branch_fwd_pipe_reference(q6, k6, v6, kvlen)
@@ -720,6 +709,7 @@ def dilated_branch_fwd_pipe(
             f"dilated_branch_fwd_pipe: needs Dh % 4 == 0, Dh <= {MAX_HEAD_DIM}, Mp a positive multiple "
             f"of {ROW_TILE} and fewer than 2^31 query tiles; got Dh={Dh}, Mp={Mp}, tiles={blocks}"
         )
+    _check_tensor_core_inputs("dilated_branch_fwd_pipe", Dh, q6, k6, v6)
     out = torch.empty_like(q6)
     lse = torch.empty((B, S, r, hb, Mp), dtype=torch.float32, device=q6.device)
     with torch.cuda.device(q6.device):

@@ -129,6 +129,75 @@ def test_branch_attention_causal_matches_jax():
     _assert_branch_close(ours, ref)
 
 
+@pytest.mark.parametrize("L,sl,r,causal,rl", [(64, 64, 1, False, None), (120, 128, 2, False, None),
+                                              (300, 128, 2, True, 280)], ids=["r1", "r2", "causal"])
+def test_serial_bf16_roundings_match_jax(L, sl, r, causal, rl):
+    """In bf16 the serial Pallas kernels round q*scale*log2(e) and the
+    forward's probabilities (before PV), and dQ's ds (before ds.K), to the
+    input dtype; the port's serial route rounds at the same places. With
+    one key tile on both sides (m <= 64) out, dq, dk and dv agree with
+    JAX's serial route to 2e-3 of their max, half a bf16 ulp there (read:
+    at most 8.6e-4; without the roundings up to 1.9e-2)."""
+    h = 8
+    q, k, v, do = (2 * _data(s, 2, L, h * 16) for s in (63, 64, 65, 66))
+    kw = {} if rl is None else {"real_len": rl}
+
+    def run(a, b, c, d):
+        (o, l), vjp = jax.vjp(lambda a_, b_, c_: jpd.dilated_branch_attention(
+            a_, b_, c_, sl, r, h, interpret=True, flags=FLAGS, is_causal=causal, **kw), a, b, c)
+        return o, vjp((d, jnp.zeros_like(l)))
+
+    ref_o, ref_g = jax.jit(run)(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, do)))
+    refs = [np.asarray(x.astype(jnp.float32)) for x in (ref_o, *ref_g)]
+    qt, kt, vt = (torch.from_numpy(x).to(torch.bfloat16).requires_grad_() for x in (q, k, v))
+    o, _ = dk.dilated_branch_attention(qt, kt, vt, sl, r, h, is_causal=causal, flags=dk.PipelineFlags(), **kw)
+    o.backward(torch.from_numpy(do).to(torch.bfloat16))
+    errs = {name: float(np.abs(a.float().numpy() - b).max() / np.abs(b).max())
+            for name, a, b in zip(("out", "dq", "dk", "dv"), (o.detach(), qt.grad, kt.grad, vt.grad), refs)}
+    assert max(errs.values()) <= 2e-3, errs
+
+
+def _one_shot_fwd(q6, k6, v6, kvlen, is_causal):
+    """The branch forward as one fp32 softmax over all of a cell's keys,
+    one cell at a time (no rounding, no key tiles)."""
+    B, S, r, hb, Mp, Dh = q6.shape
+    out = torch.empty(q6.shape)
+    lse = torch.empty((B, S, r, hb, Mp))
+    cols = torch.arange(Mp)
+    for s in range(S):
+        for p in range(r):
+            mask = cols[None, None, :] >= kvlen[:, s, p].to(torch.int64)[:, None, None]
+            if is_causal:
+                mask = mask | (cols[None, :] > cols[:, None])[None]
+            for t in range(hb):
+                sc = (q6[:, s, p, t].float() * (Dh**-0.5 * dk.LOG2E)) @ k6[:, s, p, t].float().transpose(1, 2)
+                sc = sc.masked_fill(mask, dk.NEG_INF)
+                m_row = sc.amax(dim=-1, keepdim=True).clamp_min(dk.M_FLOOR)
+                pr = torch.exp2(sc - m_row)
+                l_row = pr.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+                out[:, s, p, t] = (pr @ v6[:, s, p, t].float()) / l_row
+                lse[:, s, p, t] = ((m_row + torch.log2(l_row)) * dk.LN2)[..., 0]
+    return out, lse
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_fp32_online_forward_matches_one_shot_softmax(causal):
+    """In fp32 the plain forward's online softmax over 64-key tiles (its
+    roundings no-ops) is the one-shot softmax up to the order of sums:
+    within the fp32 tolerances held against the JAX package (atol 2e-5,
+    rtol 1e-5), over cells of 192 keys (three tiles) with ragged and empty
+    counts."""
+    B, S, r, hb, Mp, Dh = 2, 2, 2, 3, 192, 8
+    q6, k6, v6 = (torch.from_numpy(3 * _data(s, B, S, r, hb, Mp, Dh)) for s in (27, 28, 29))
+    kvlen = torch.tensor([[[192, 150], [70, 0]], [[1, 129], [192, 64]]], dtype=torch.int32)
+    out, lse = dk.dilated_branch_fwd_reference(q6, k6, v6, kvlen, causal)
+    ref_out, ref_lse = _one_shot_fwd(q6, k6, v6, kvlen, causal)
+    torch.testing.assert_close(out, ref_out, atol=2e-5, rtol=1e-5)
+    covered = ref_lse > -1e19
+    torch.testing.assert_close(lse[covered], ref_lse[covered], atol=2e-5, rtol=1e-5)
+    assert (lse[~covered] <= -1e19).all() and not out[0, 1, 1].any()
+
+
 def test_fully_masked_rows_give_zero_out_and_sentinel_lse():
     """A cell with no valid key: out exactly 0, lse at or below -1e19."""
     B, S, r, hb, Mp, Dh = 1, 2, 2, 8, 64, 4
@@ -138,6 +207,22 @@ def test_fully_masked_rows_give_zero_out_and_sentinel_lse():
     assert not out[:, 0, 0].any() and not out[:, 1, 1].any()
     assert (lse[:, 0, 0] <= -1e19).all() and (lse[:, 1, 1] <= -1e19).all()
     assert torch.isfinite(out).all() and (lse[:, 0, 1] > -1e19).all()
+
+
+def test_tensor_core_forward_inputs_are_checked():
+    """The check the branch forwards' wrappers make before a CUDA launch:
+    bf16 tensors go to the tensor-core kernels, which need a head width
+    that is a multiple of 8 and 16-byte aligned q6, k6, v6; fp32 tensors
+    (the FMA kernels) take any width the kernels are built for."""
+    fits = torch.zeros(1, 1, 1, 1, 64, 48, dtype=torch.bfloat16)
+    dk._check_tensor_core_inputs("fwd", 48, fits, fits, fits)
+    narrow = torch.zeros(1, 1, 1, 1, 64, 20)
+    dk._check_tensor_core_inputs("fwd", 20, narrow, narrow, narrow)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        dk._check_tensor_core_inputs("fwd", 20, *(narrow.to(torch.bfloat16),) * 3)
+    shifted = torch.zeros(64 * 48 + 1, dtype=torch.bfloat16)[1:].view(fits.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        dk._check_tensor_core_inputs("fwd", 48, fits, shifted, fits)
 
 
 def test_dyn_sparse_counts_match_jax():
