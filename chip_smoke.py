@@ -31,18 +31,24 @@ stdout:
    each layer's embedding against the port's plain path on the card, and
    the kernels' launch counts of one forward.
 5. ragged_batch: B = 2 with a pad mask; each row against its slide alone.
-6. bwd_kernels: the backward's dq and dkv kernels against their plain
-   version at each flagship branch shape (L = 10241, ragged real length),
-   fp32 and bf16, with CUDA-event times beside each kernel's bound, the
+6. bwd_kernels: the ``cuobjdump -sass`` HMMA counts of the dq and dkv
+   libraries (row 7) at Dh = 48, checked non-zero (bf16 runs on the tensor
+   cores, fp32 on the FMA kernels), with ptxas' registers and spills of
+   their tensor-core kernels; the two kernels against their plain version
+   at each flagship branch shape (L = 10241, ragged real length), fp32 and
+   bf16: each kernel's device time from a CUDA graph, its wrapper's
+   CUDA-event time, the exp2 floor of its admitted pairs, its bound, the
    plain version's time and the backward of one library attention call;
    then bf16 past 65535 cells with per-row valid lengths, one row with none
-   (its gradients exactly 0), and the causal forward and backward at one
-   branch shape, fp32 and bf16.
+   (kvlen = 0: its gradients exactly 0), the causal forward and backward at
+   one branch shape, fp32 and bf16, and bf16 inputs the tensor-core dq and
+   dkv cannot take (Dh = 20, a misaligned dO) refused by both wrappers.
 7. head_widths: the forward, dq and dkv kernels (and the three
    segment-flash kernels) at the registry's other head widths (16, 24, 32,
    64, 96) against their plain versions, fp32 and bf16, with ptxas' spill
-   stores of each and the registers and spills of the forwards' tensor-core
-   kernels (the build phase builds every width).
+   stores of each and the registers and spills of the serial branch
+   kernels' and the pipelined forward's tensor-core kernels (the build
+   phase builds every width).
 8. finetune_step: the flagship ``ClassificationHead`` (``feat_layer`` 11, 6
    classes as PANDA) built by ``get_model`` and trained by
    ``finetune/training.py``'s ``train_step`` on a synthetic 10240-tile
@@ -191,8 +197,9 @@ stdout:
     per step and peak memory beside the serial step.
 
 ``default_route_times`` (not part of the run) times the default route's
-bf16 forward per slide and bf16 step alone, for comparing two trees of the
-port in turns in one call.
+bf16 forward per slide and bf16 step alone, and profiles one step (device
+busy, idle share), for comparing two trees of the port in turns in one
+call.
 
 Phase 16 also replays a ``torch.cuda.memory`` allocation history of one
 bf16 forward per route (10240 and 102400 tiles) to its peak and reports the
@@ -955,8 +962,9 @@ def _bwd_bounds(dk, B, L, sl, r, kvlen, itemsize, dtype_name):
     """Least card time (ms) of the dq and the dkv kernel's work at this
     branch: operations over the dtype's peak (6*Dh per valid (query, key)
     pair for dq: q.k, dout.v, ds*k; 8*Dh for dkv: q.k, dout.v, p*dout,
-    ds*q) or bytes over the HBM rate, whichever is larger. Query rows are
-    the sequence's tokens in the cell, keys its valid keys."""
+    ds*q) or bytes over the HBM rate, whichever is larger; and the (query,
+    key) pairs the masks admit. Query rows are the sequence's tokens in the
+    cell, keys its valid keys."""
     g, S, m, Mp = dk._branch_geometry(L, sl, r)
     Dh, hb = E // H, H // r
     q_rows = dk._phase_kvlen(S, g, r, m, L).astype("int64")  # [S, r]
@@ -973,7 +981,7 @@ def _bwd_bounds(dk, B, L, sl, r, kvlen, itemsize, dtype_name):
                                    ("dilated_branch_bwd_dkv", 8, dkv_bytes)):
         out[name] = max((per_pair * Dh * pairs / PEAK_FLOPS[dtype_name] * 1e3, "operations"),
                         (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
-    return out
+    return out, pairs
 
 
 def _grad_rel_err(a, b) -> float:
@@ -987,6 +995,7 @@ def phase_bwd_kernels():
 
     from gigapath_tpu_torch.ops import dilated_kernels as dk
 
+    _bwd_sass()
     L, B = N_TILES + 1, 1
     real_len = L - 37
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -994,8 +1003,8 @@ def phase_bwd_kernels():
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
         q, k, v, do = (torch.randn(B, L, E, device="cuda", generator=gen).to(dtype) for _ in range(4))
-        totals = {name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, err=0.0, by={})
-                  for name in BWD_KERNELS}
+        totals = {name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, err=0.0, by={},
+                             wrapper_ms=0.0, exp2_floor_ms=0.0) for name in BWD_KERNELS}
         for sl, r in zip(*SCHEDULE):
             g, S, m, Mp = dk._branch_geometry(L, sl, r)
             kvlen = dk._branch_kvlen(B, S, g, r, m, real_len, None, q.device)
@@ -1019,8 +1028,12 @@ def phase_bwd_kernels():
             check(not bool(dk6[key_pad.expand_as(dk6[..., 0])].any()), f"bwd r={r}: dk past kvlen not 0")
             check(not bool(dv6[key_pad.expand_as(dv6[..., 0])].any()), f"bwd r={r}: dv past kvlen not 0")
 
-            t = {"dilated_branch_bwd_dq": time_ms(lambda: dk.dilated_branch_bwd_dq(*args)),
-                 "dilated_branch_bwd_dkv": time_ms(lambda: dk.dilated_branch_bwd_dkv(*args))}
+            # times: each kernel's device time from a CUDA graph, its
+            # wrapper's CUDA-event time beside it
+            t = {"dilated_branch_bwd_dq": graph_ms(lambda: dk.dilated_branch_bwd_dq(*args)),
+                 "dilated_branch_bwd_dkv": graph_ms(lambda: dk.dilated_branch_bwd_dkv(*args))}
+            wrapper = {"dilated_branch_bwd_dq": time_ms(lambda: dk.dilated_branch_bwd_dq(*args)),
+                       "dilated_branch_bwd_dkv": time_ms(lambda: dk.dilated_branch_bwd_dkv(*args))}
             plain = {
                 "dilated_branch_bwd_dq": time_ms(
                     lambda: dk.dilated_branch_bwd_reference(*args, dkv=False), reps=3, warmup=1),
@@ -1035,10 +1048,13 @@ def phase_bwd_kernels():
             lib_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=key_ok)
             lib_do = do6.reshape(lib_out.shape)
             lib = time_ms(lambda: torch.autograd.grad(lib_out, (qs, ks, vs), lib_do, retain_graph=True), reps=5)
-            bounds = _bwd_bounds(dk, B, L, sl, r, kvlen, q.element_size(), dname)
+            bounds, pairs = _bwd_bounds(dk, B, L, sl, r, kvlen, q.element_size(), dname)
+            exp2_floor = _exp2_floor_ms(pairs)
             for name in BWD_KERNELS:
                 tot = totals[name]
                 tot["ms"] += t[name]
+                tot["wrapper_ms"] += wrapper[name]
+                tot["exp2_floor_ms"] += exp2_floor
                 tot["plain_ms"] += plain[name]
                 tot["bound_ms"] += bounds[name][0]
                 tot["library_ms"] += lib  # one library call covers dq, dk and dv
@@ -1046,19 +1062,56 @@ def phase_bwd_kernels():
                 tot["err"] = max(tot["err"], *(abs_errs[x] for x in grads))
                 tot["by"][bounds[name][1]] = tot["by"].get(bounds[name][1], 0.0) + bounds[name][0]
             emit("bwd_kernels", dtype=dname, sl=sl, r=r, S=S, m=m, Mp=Mp, real_len=real_len,
-                 max_rel_err=errs, max_abs_err=abs_errs, tolerance=BWD_REL_TOL[dname], ms=t, plain_ms=plain,
-                 library_ms_sdpa_bwd=lib, bound_ms={n: b[0] for n, b in bounds.items()},
-                 bound_by={n: b[1] for n, b in bounds.items()})
+                 max_rel_err=errs, max_abs_err=abs_errs, tolerance=BWD_REL_TOL[dname], ms=t, wrapper_ms=wrapper,
+                 plain_ms=plain, library_ms_sdpa_bwd=lib, admitted_pairs=pairs, exp2_floor_ms=exp2_floor,
+                 bound_ms={n: b[0] for n, b in bounds.items()}, bound_by={n: b[1] for n, b in bounds.items()})
             del q6, k6, v6, do6, out6, lse5, delta, args, dq6, dk6, dv6, ref, qs, ks, vs, lib_out, lib_do
         for tot in totals.values():
             tot["bound_by"] = max(tot.pop("by").items(), key=lambda kv: kv[1])[0]
         summary[dname] = totals
         emit("bwd_kernels_per_layer", dtype=dname,
-             note="sum over the 5 branches of one layer; library_ms is one SDPA backward (dq, dk, dv) per branch",
-             kernels=totals)
+             note="sum over the 5 branches of one layer; ms is each kernel's device time from a CUDA graph of 20 "
+                  "calls, wrapper_ms one call's CUDA-event time; library_ms is one SDPA backward (dq, dk, dv) "
+                  "per branch; exp2_floor_ms: one exp2 per admitted pair at 16 a clock per SM",
+             sm_clock_mhz=_MUFU.get("sm_clock_mhz"), kernels=totals)
     _many_cells_bwd(dk)
     _causal_branch(dk)
+    _refused_bwd_inputs(dk)
     return summary
+
+
+def _bwd_sass():
+    """The SASS of the branch backward's libraries at Dh = 48: HMMA > 0
+    (bf16 tensors run on the tensor cores; fp32 on the FMA kernels), with
+    ptxas' registers and spills of their tensor-core kernels."""
+    sass = {name: _sass_counts(name, GP_HEAD_DIM=E // H) for name in BWD_KERNELS}
+    emit("bwd_kernels", sass=sass, note="cuobjdump -sass at Dh = 48: HMMA is mma.sync (the bf16 dq and dkv)",
+         tensor_core_ptxas={name: _mma_ptxas(f"{name}-GP_HEAD_DIM={E // H}") for name in BWD_KERNELS})
+    for name, counts in sass.items():
+        check(counts["HMMA"] > 0, f"{name}: no HMMA in its SASS {counts}")
+
+
+def _refused_bwd_inputs(dk):
+    """bf16 tensors the tensor-core dq and dkv cannot take raise in the
+    wrappers: a head width that is no multiple of 8, a dO that is not
+    16-byte aligned; no plain version runs on the card."""
+    import torch
+
+    kvlen = torch.full((1, 1, 1), 64, dtype=torch.int32, device="cuda")
+    rows = torch.zeros(1, 1, 1, 1, 64, dtype=torch.float32, device="cuda")
+    narrow = torch.zeros(1, 1, 1, 1, 64, 20, dtype=torch.bfloat16, device="cuda")
+    shifted = torch.zeros(64 * 48 + 1, dtype=torch.bfloat16, device="cuda")[1:].view(1, 1, 1, 1, 64, 48)
+    ok = shifted.clone()
+    refused = []
+    for fn in (dk.dilated_branch_bwd_dq, dk.dilated_branch_bwd_dkv):
+        for label, args in (("Dh=20", (narrow,) * 4), ("misaligned do6", (ok, ok, ok, shifted))):
+            try:
+                fn(*args, rows, rows, kvlen)
+            except ValueError:
+                refused.append(f"{fn.__name__} {label}")
+                continue
+            raise AssertionError(f"{fn.__name__} took bf16 tensors with {label}")
+    emit("bwd_kernels_refused_inputs", refused=refused)
 
 
 def _causal_branch(dk):
@@ -1120,7 +1173,8 @@ def _many_cells_bwd(dk):
         check(bool(torch.isfinite(ours).all()), f"bwd many cells: non-finite {gname}")
         check(not bool(ours[0].any()), f"bwd many cells: {gname} of the row with no valid key not 0")
     emit("bwd_kernels_many_cells", dtype="bfloat16", B=B, L=L, sl=sl, r=r, cells=cells,
-         empty_rows=1, max_rel_err=errs, tolerance=BWD_REL_TOL["bfloat16"])
+         empty_rows=1, empty_row_grads="exactly 0 (kvlen = 0 in every cell of row 0)",
+         max_rel_err=errs, tolerance=BWD_REL_TOL["bfloat16"])
 
 
 def _spill_bytes(label: str) -> int:
@@ -1205,7 +1259,8 @@ def phase_head_widths():
              flash_max_err=flash_errs,
              spill_store_bytes={name: _spill_bytes(f"{name}-GP_HEAD_DIM={dh}")
                                 for name in BRANCH_SOURCES + PIPE_KERNELS + FLASH_SOURCES},
-             tensor_core_ptxas={name: _mma_ptxas(f"{name}-GP_HEAD_DIM={dh}") for name in FWD_MMA_SOURCES})
+             tensor_core_ptxas={name: _mma_ptxas(f"{name}-GP_HEAD_DIM={dh}")
+                                for name in FWD_MMA_SOURCES + BWD_KERNELS})
 
 
 def _head_and_steps(torch, lr=5e-5, scheduler="fixed", **slide_kwargs):
@@ -1765,7 +1820,7 @@ def phase_stream_kernels():
 
     D = E // H
     gen = torch.Generator(device="cuda").manual_seed(12)
-    summary = {name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, err=0.0, by={})
+    summary = {name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, err=0.0, by={}, exp2_floor_ms=0.0)
                for name in STREAM_KERNELS}
     timed_branches = set()
     for g, r, qi, ki, valid, note in STREAM_CASES:
@@ -1828,6 +1883,7 @@ def phase_stream_kernels():
                 bounds = _stream_bounds(pairs, cq, ck, q.element_size(), dname)
                 record["bound_ms"] = {n: b[0] for n, b in bounds.items()}
                 record["bound_by"] = {n: b[1] for n, b in bounds.items()}
+                record["exp2_floor_ms"] = _exp2_floor_ms(pairs)  # one exp2 per visible pair, each kernel
             if timed and dname == "bfloat16":
                 plain = {
                     "stream_pair_fwd": time_ms(lambda: sk.stream_pair_fwd_reference(q, k, v, *geo), reps=3, warmup=1),
@@ -1851,6 +1907,7 @@ def phase_stream_kernels():
                     tot["plain_ms"] += plain[name]
                     tot["library_ms"] += library[name]
                     tot["bound_ms"] += bounds[name][0]
+                    tot["exp2_floor_ms"] += record["exp2_floor_ms"]
                     tot["by"][bounds[name][1]] = tot["by"].get(bounds[name][1], 0.0) + bounds[name][0]
                 del qh, kh, vh, lib_out
             for name, keys in (("stream_pair_fwd", ("out",)), ("stream_pair_bwd_dq", ("dq",)),
@@ -1865,7 +1922,7 @@ def phase_stream_kernels():
     emit("stream_kernels_per_branch", dtype="bfloat16",
          note="sum over one chunk pair per branch (the timed pairs); ms is the kernel's device time (torch.profiler), "
               "plain_ms and library_ms CUDA events around one call; library_ms of dq and dkv is one SDPA backward "
-              "(dq, dk and dv) per pair",
+              "(dq, dk and dv) per pair; exp2_floor_ms: one exp2 per visible pair at 16 a clock per SM",
          kernels=summary,
          ptxas={name: _ptxas(f"{name}-GP_HEAD_DIM={E // H}") for name in STREAM_KERNELS},
          tolerance={"out": KERNEL_TOL, "lse_covered": STREAM_LSE_TOL, "grads_rel": BWD_REL_TOL})
@@ -3197,7 +3254,7 @@ def _pipe_branch(dk, q, k, v, do, sl, r, real_len, valid, timed: bool):
     lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, (qs, ks, vs), lib_do, retain_graph=True), reps=5)
     fwd_bounds, pairs = _branch_bounds(dk, B, L, sl, r, real_len, kvlen, q.element_size(), dname)
     bounds = {"dilated_branch_fwd_pipe": fwd_bounds["dilated_branch_fwd"]}
-    bwd = _bwd_bounds(dk, B, L, sl, r, kvlen, q.element_size(), dname)
+    bwd, _ = _bwd_bounds(dk, B, L, sl, r, kvlen, q.element_size(), dname)
     bounds["dilated_branch_bwd_dq_pipe"] = bwd["dilated_branch_bwd_dq"]
     bounds["dilated_branch_bwd_dkv_pipe"] = bwd["dilated_branch_bwd_dkv"]
     numbers = {}
@@ -3479,8 +3536,9 @@ def _peak_breakdown(fn, top: int = 6) -> dict:
 def default_route_times(reps: int = 3):
     """The default route's bf16 forward per 10240-tile slide and bf16
     fine-tune step alone, as slide_forward and finetune_step time them
-    (median of ``reps`` host-clock runs, each ending in a synchronize), with
-    the card's name and power limit: a line for comparing two trees in turns
+    (median of ``reps`` host-clock runs, each ending in a synchronize), a
+    profile of one step (device busy time, idle share), with the card's
+    name and power limit: a line for comparing two trees in turns
     in one call. Not part of the smoke run; it uses only entry points every
     tree of the port has, so it can time another tree's package from that
     tree's root:
@@ -3512,12 +3570,15 @@ def default_route_times(reps: int = 3):
     labels = torch.tensor([[3]], device="cuda")
     pad_mask = torch.ones(1, N_TILES, dtype=torch.bool, device="cuda")
     model, steps, loss_fn = _head_and_steps(torch)
-    step_ms, step_runs = median_ms(
-        lambda: train_step(model, loss_fn, steps, x, coords, labels, pad_mask, multi_label=False, bf16=True))
+    step = lambda: train_step(model, loss_fn, steps, x, coords, labels, pad_mask,  # noqa: E731
+                              multi_label=False, bf16=True)
+    step_ms, step_runs = median_ms(step)
+    step_profile = _profile(step)  # device busy and idle share of one step, its costliest kernels
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     emit("default_route_times", dtype="bfloat16", tiles=N_TILES, forward_ms_per_slide=fwd_ms,
-         forward_runs_ms=fwd_runs, step_ms=step_ms, step_runs_ms=step_runs, nvidia_smi=smi)
+         forward_runs_ms=fwd_runs, step_ms=step_ms, step_runs_ms=step_runs, step_profile=step_profile,
+         nvidia_smi=smi)
 
 
 def main() -> int:

@@ -24,6 +24,16 @@
 // once before the key loop (load_q), p before P.V; the products sum in
 // fp32. The epilogue (finish) writes O / l and lse = (m + log2 l) ln2; a
 // row with no valid key gives O = 0 and lse ~ -6.9e19.
+//
+// Which function this is in bf16: p is rounded relative to the running
+// max, so where the max is taken decides the rounding. Here it is taken
+// per 64-key tile, as in the plain version (ops/dilated_kernels.py:
+// dilated_branch_fwd_reference). The Pallas kernels take it per block (one
+// block per cell up to m = 1024 in the serial forward, 512 keys in the
+// pipelined one); matching them would need each row's max over a whole
+// block before any P.V, a second Q.K^T pass. Past one key tile the two
+// differ by a few bf16 roundings of p (tests/test_torch_dilated.py::
+// test_serial_bf16_multi_tile_matches_jax); in fp32 they are one function.
 
 #pragma once
 

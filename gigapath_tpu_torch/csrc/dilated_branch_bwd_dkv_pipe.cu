@@ -34,8 +34,8 @@
 // Bound on the H100: operations, 8*Dh per valid (query, key) pair (q.k,
 // dout.v, p*dout, ds*q); fp32 FMA pipes here, one thread per key row with k,
 // v and the dk/dv accumulators in registers (4*Dh values: 242 registers and
-// no spill at Dh = 48, where the serial kernel, which stages each tile with
-// plain loads, spills; at Dh = 96 both spill). Later work: warp-specialised
+// no spill at Dh = 48, where the serial FMA kernel (fp32), which stages each
+// tile with plain loads, spills; at Dh = 96 both spill). Later work: warp-specialised
 // TMA + mbarrier + wgmma.
 
 #include <cstdint>

@@ -26,23 +26,13 @@
 // as much time as the bf16 tensor cores' bound at D = 48.
 //
 // Two kernels, chosen by the tensors' dtype:
-// - bf16 tensors (head widths that are multiples of 8): the tensor cores.
-//   A block of 4 warps owns 64 query rows of one cell, 16 per warp, and
-//   loops over the cell's valid key tiles of 64 (no atomics: the same
-//   result from run to run). The Q and dO tiles arrive once by cp.async and
-//   stay in registers as A fragments (ldmatrix); K and V tiles stream
-//   through a two-stage cp.async ring, the next tile in flight while the
-//   current one computes, key rows at or past kv zero-filled without a
-//   read and tiles past kv never loaded. S = Q.K^T and dP = dO.V^T come
-//   from mma.sync.m16n8k16 (bf16 products, fp32 sums, as the Pallas
-//   kernel's dots with preferred_element_type fp32; D zero-padded to a
-//   multiple of 16 in shared memory); the scale and the lse go on in one
-//   FMA, p is one ex2.approx (MUFU), the mask is one select; dS is rounded
-//   to bf16 (the Pallas kernel's cast to k's dtype) and packed straight
-//   from the C fragments into the A fragments of dQ += dS.K, K's B
-//   fragments by ldmatrix.trans. The epilogue multiplies by the scale and
-//   stores through a padded shared tile as 16-byte stores. Registers are
-//   capped for 4 blocks an SM up to D = 64 (16 warps to hide latency).
+// - bf16 tensors (head widths that are multiples of 8): the tensor cores,
+//   through the tile steps of bwd_mma.cuh (BwdMma::dq, which the dilated
+//   branch's dq shares): 4 warps own 64 query rows of one cell as A
+//   fragments, K and V stream through a two-stage cp.async ring, S and dP
+//   on mma.sync, p by ex2.approx, bf16(dS) packed from C into A fragments
+//   for dQ += dS.K. Registers are capped for 4 blocks an SM up to D = 64
+//   (16 warps to hide latency).
 // - fp32 tensors (a tensor-core product in fp32 would be TF32, another
 //   function): the fp32 FMA pipes. One block owns a 64-row query tile and
 //   loops over the key tiles itself; one thread per query row keeps q,
@@ -52,8 +42,7 @@
 
 #include <cstdint>
 
-#include "flash_common.cuh"
-#include "pipe_common.cuh"  // cp_async_commit, cp_async_wait
+#include "bwd_mma.cuh"  // BwdMma, flash_cell, the FMA helpers of flash_common.cuh
 
 // The head width is a compile-time constant (q, dout and the accumulator
 // live in registers): one library per head width, -DGP_HEAD_DIM=<D>.
@@ -152,137 +141,11 @@ __global__ void __launch_bounds__(128, DH > 64 ? 2 : 4)
                             const int* __restrict__ kvlen, __nv_bfloat16* __restrict__ dq, int S, int Mq,
                             int Mk, int Lq, int Lk, int real_len, int causal, float qscale, float scale,
                             int n_qtiles) {
-  using Tile = MmaTile<DH>;
-  constexpr int PITCH = Tile::PITCH;
-  constexpr int KS = Tile::DK / 16;  // steps of the D contractions
-  constexpr int NT = 64 / 8;         // score tiles of 8 keys
-  constexpr int DT = Tile::DK / 8;   // dq tiles of 8 columns (even)
   extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* qs = smem;                      // Q tile, then the dq tile
-  unsigned char* dos = smem + Tile::BYTES;       // dO tile
-  unsigned char* ring = smem + 2 * Tile::BYTES;  // stage s: K, then V
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, c = lane & 3;
-  const int lr = lane & 7, lm = lane >> 3;  // ldmatrix: row and matrix of this lane's address
   const int cell = blockIdx.x / n_qtiles;
   const int row0 = (blockIdx.x - cell * n_qtiles) * 64;
-  const FlashCell fc = flash_cell(cell, S, Mq, Mk, Lq, Lk, kvlen, real_len);
-  if (row0 >= fc.nq) return;  // past a flat layout's ragged last segment
-  int kv = fc.kv;
-  if (causal && kv > row0 + 64) kv = row0 + 64;
-  const int n_tiles = (kv + 63) / 64;
-  const __nv_bfloat16* kc = k + fc.k0 * DH;
-  const __nv_bfloat16* vc = v + fc.k0 * DH;
-
-  Tile::load(qs, q + (fc.q0 + row0) * DH, fc.nq - row0);
-  Tile::load(dos, dout + (fc.q0 + row0) * DH, fc.nq - row0);
-  if (n_tiles > 0) {
-    Tile::load(ring, kc, kv);
-    Tile::load(ring + Tile::BYTES, vc, kv);
-  }
-  cp_async_commit();
-
-  // this thread's rows: g and g + 8 of the warp's 16
-  int row[2];
-  float lse2[2], dlt[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    row[h] = row0 + 16 * warp + g + 8 * h;
-    const bool ok = row[h] < fc.nq;
-    lse2[h] = ok ? lse[fc.q0 + row[h]] * LOG2E : 0.f;
-    dlt[h] = ok ? delta[fc.q0 + row[h]] : 0.f;
-  }
-  uint32_t qa[KS][4], da[KS][4];
-  float acc[DT][4];
-#pragma unroll
-  for (int t = 0; t < DT; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int stage = kt & 1;
-    if (kt + 1 < n_tiles) {
-      unsigned char* next = ring + (stage ^ 1) * 2 * Tile::BYTES;
-      Tile::load(next, kc + (long long)(kt + 1) * 64 * DH, kv - (kt + 1) * 64);
-      Tile::load(next + Tile::BYTES, vc + (long long)(kt + 1) * 64 * DH, kv - (kt + 1) * 64);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    if (kt == 0) {  // A fragments: rows 0-7 / 8-15 of the warp's 16, columns lo / hi of each step
-      const int off = (16 * warp + lr + 8 * (lm & 1)) * PITCH + 16 * (lm >> 1);
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        ldmatrix_x4(qa[kk], qs + off + 32 * kk);
-        ldmatrix_x4(da[kk], dos + off + 32 * kk);
-      }
-    }
-    const unsigned char* ks = ring + stage * 2 * Tile::BYTES;
-    const unsigned char* vs = ks + Tile::BYTES;
-
-    // S and dP of the warp's 16 rows against the tile's 64 keys; B
-    // fragments of key tiles (t, t + 1), columns lo / hi of each step
-    float sc[NT][4], dp[NT][4];
-#pragma unroll
-    for (int t = 0; t < NT; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[t][e] = dp[t][e] = 0.f;
-    const int boff = (lr + 8 * (lm >> 1)) * PITCH + 16 * (lm & 1);
-#pragma unroll
-    for (int tp = 0; tp < NT / 2; ++tp) {
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        uint32_t b[4];
-        ldmatrix_x4(b, ks + boff + 16 * tp * PITCH + 32 * kk);
-        mma_bf16(sc[2 * tp], qa[kk], b[0], b[1]);
-        mma_bf16(sc[2 * tp + 1], qa[kk], b[2], b[3]);
-        ldmatrix_x4(b, vs + boff + 16 * tp * PITCH + 32 * kk);
-        mma_bf16(dp[2 * tp], da[kk], b[0], b[1]);
-        mma_bf16(dp[2 * tp + 1], da[kk], b[2], b[3]);
-      }
-    }
-
-    // ds = p (dp - delta), p recomputed from the lse, masked keys 0; bf16
-    // pairs in the A-fragment order of the keys-deep product
-    const int key0 = kt * 64;
-    uint32_t pa[NT][2];
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float ds[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = key0 + 8 * t + 2 * c + e;
-          const bool ok = col < kv && (!causal || col <= row[h]);
-          const float p = ok ? exp2_approx(fmaf(sc[t][2 * h + e], qscale, -lse2[h])) : 0.f;
-          ds[e] = p * (dp[t][2 * h + e] - dlt[h]);
-        }
-        pa[t][h] = pack_bf16(ds[0], ds[1]);
-      }
-    }
-
-    // dq += ds . K: 16 keys a step; K's 8 x 8 blocks transposed into B
-    // fragments of column tiles (2 j, 2 j + 1)
-    const int toff = (lr + 8 * (lm & 1)) * PITCH + 16 * (lm >> 1);
-#pragma unroll
-    for (int s16 = 0; s16 < 4; ++s16) {
-      const uint32_t a[4] = {pa[2 * s16][0], pa[2 * s16][1], pa[2 * s16 + 1][0], pa[2 * s16 + 1][1]};
-#pragma unroll
-      for (int j = 0; j < DT / 2; ++j) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, ks + toff + 16 * s16 * PITCH + 32 * j);
-        mma_bf16(acc[2 * j], a, b[0], b[1]);
-        mma_bf16(acc[2 * j + 1], a, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // the stage is consumed before the next loads overwrite it
-  }
-
-  cp_async_wait<0>();  // no copy may land in the Q tile once it holds dq
-  __syncthreads();
-  Tile::put(qs, acc, scale);
-  __syncthreads();
-  Tile::store(dq + (fc.q0 + row0) * DH, qs, fc.nq - row0);
+  BwdMma<DH>::dq(q, k, v, dout, lse, delta, dq, flash_cell(cell, S, Mq, Mk, Lq, Lk, kvlen, real_len), row0,
+                 causal, qscale, scale, smem);
 }
 
 template <int DH>
@@ -292,7 +155,7 @@ int launch_mma(const void* q, const void* k, const void* v, const void* dout, co
   if constexpr (DH % 8 != 0) {
     return (int)cudaErrorInvalidValue;
   } else {
-    constexpr int SMEM = 6 * MmaTile<DH>::BYTES;  // Q, dO, two stages of K and V
+    constexpr int SMEM = BwdMma<DH>::DQ_SMEM;
     const cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<DH>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (err != cudaSuccess) return (int)err;

@@ -17,8 +17,8 @@
 // dout.v, p*dout, ds*q). fp32 FMA pipes in this first version. What the
 // design does about the bound: the forward's lattice and segment skip; one
 // block per 32 lattice keys of one head looping over the query tiles itself
-// (no atomics: the same result from run to run). The phase-major dkv kernel
-// (csrc/dilated_branch_bwd_dkv.cu) keeps a key's k, v and both accumulators
+// (no atomics: the same result from run to run). The phase-major dkv's FMA
+// kernel (csrc/dilated_branch_bwd_dkv.cu, fp32) keeps a key's k, v and both accumulators
 // in one thread, 4*Dh registers, and spills at Dh = 48; here two threads
 // share a key, each holding half of the head width (2*Dh registers), and
 // add their halves of q.k and dout.v with one warp shuffle each. Each query

@@ -17,8 +17,10 @@ activations runs three CUDA kernels (``csrc/``) forward:
 
 and, backward, two more: :func:`dilated_branch_bwd_dq` and
 :func:`dilated_branch_bwd_dkv` recompute the probabilities from the saved
-lse and return the packed dq and (dk, dv), between a pack of the output
-cotangent and q/k/v and an unpack of the three gradients.
+lse and return the packed dq and (dk, dv) (bf16 tensors on the tensor
+cores, sharing ``csrc/bwd_mma.cuh`` with the segment-flash backward),
+between a pack of the output cotangent and q/k/v and an unpack of the
+three gradients.
 
 Each wrapper runs its ``*_reference`` plain PyTorch version when its tensor
 lies on the CPU, launches its kernel on a CUDA tensor (or raises), and
@@ -342,11 +344,23 @@ def dilated_branch_fwd_reference(
     out = 0 and lse ~ -6.9e19. It rounds where the Pallas ``_fwd_kernel``
     (and ``_fwd_kernel_pipe``) round in the input dtype: q*scale*log2(e)
     before QK^T and the probabilities before PV, the denominator summing
-    them unrounded; in fp32 both roundings are no-ops. Since the rounding
-    of p depends on the running max, the tiles are the tensor-core kernels'
-    own, so a bf16 comparison on the card measures the kernel and not the
-    blocking. All cells at once: the largest temporary is one [B, S, r, hb,
-    Mp, KEY_TILE] fp32 score block."""
+    them unrounded; in fp32 both roundings are no-ops. All cells at once:
+    the largest temporary is one [B, S, r, hb, Mp, KEY_TILE] fp32 score
+    block.
+
+    Which function this is in bf16: p is rounded relative to the running
+    max, so where the max sits decides the rounding. The port computes the
+    running max over its kernels' 64-key tiles (this function and the
+    tensor-core kernels alike, so a bf16 comparison on the card measures
+    the kernel and not the blocking). The JAX kernels take it over their
+    own blocks: one block per cell up to m = 1024 in the serial forward,
+    512-key blocks in the pipelined one. Their placement would need each
+    row's max over a whole JAX block before any PV, a second Q.K^T pass; so
+    past one key tile the two packages differ by a few bf16 roundings of p
+    (read up to 4.7e-3 of out's max at m = 512, and a mean error against
+    the fp32 answer no larger than JAX's:
+    ``tests/test_torch_dilated.py::test_serial_bf16_multi_tile_matches_jax``).
+    In fp32 the two are one function."""
     B, S, r, hb, Mp, Dh = q6.shape
     dev = q6.device
     qh = _round_to(q6.float() * (Dh**-0.5 * LOG2E), q6.dtype)
@@ -418,7 +432,10 @@ def dilated_branch_fwd_pipe_reference(
     """The pipelined forward's math in plain PyTorch (non-causal): the
     serial kernel's function, :func:`dilated_branch_fwd_reference`, since
     the serial and the pipelined Pallas forwards round alike (their outputs
-    are bit-identical)."""
+    are bit-identical). In bf16 that is the port's 64-key running max, not
+    the JAX pipelined kernel's 512-key blocks (see
+    :func:`dilated_branch_fwd_reference`; held against JAX past one block
+    by ``tests/test_torch_pipelined.py::test_pipelined_bf16_multi_block_matches_jax``)."""
     return dilated_branch_fwd_reference(q6, k6, v6, kvlen)
 
 
@@ -552,12 +569,13 @@ def unpack_phases(p6: torch.Tensor, L: int, E: int, g: int, S: int, r: int) -> t
 
 
 def _check_tensor_core_inputs(name: str, Dh: int, *tensors: torch.Tensor) -> None:
-    """bf16 tensors go to the forward's tensor-core kernels, which take head
-    widths that are multiples of 8 and 16-byte aligned tensors (their
-    16-byte copies of 8 elements); fp32 tensors go to the FMA kernels."""
+    """bf16 tensors go to the serial branch kernels' tensor-core versions
+    (forward, dq, dkv) and the pipelined forward's, which take head widths
+    that are multiples of 8 and 16-byte aligned tensors (their 16-byte
+    copies and stores of 8 elements); fp32 tensors go to the FMA kernels."""
     if tensors[0].dtype == torch.bfloat16 and (Dh % 8 or any(t.data_ptr() % 16 for t in tensors)):
         raise ValueError(f"{name}: bf16 tensors need a head width that is a multiple of 8 and 16-byte "
-                         f"aligned q6, k6, v6 (the tensor-core kernel's copies); got Dh={Dh}")
+                         f"aligned tensors (the tensor-core kernel's copies); got Dh={Dh}")
 
 
 def dilated_branch_fwd(
@@ -625,8 +643,9 @@ def dilated_branch_bwd_dq(
     q6: torch.Tensor, k6: torch.Tensor, v6: torch.Tensor, do6: torch.Tensor,
     lse5: torch.Tensor, delta: torch.Tensor, kvlen: torch.Tensor, is_causal: bool = False,
 ) -> torch.Tensor:
-    """Packed dq of the branch attention (``csrc/dilated_branch_bwd_dq.cu``);
-    arguments as :func:`dilated_branch_bwd_reference`."""
+    """Packed dq of the branch attention (``csrc/dilated_branch_bwd_dq.cu``:
+    bf16 on the tensor cores, fp32 on the FMA pipes); arguments as
+    :func:`dilated_branch_bwd_reference`."""
     if q6.device.type == "cpu":
         return dilated_branch_bwd_reference(q6, k6, v6, do6, lse5, delta, kvlen, is_causal, dkv=False)[0]
     from gigapath_tpu_torch.ops import _build
@@ -634,6 +653,7 @@ def dilated_branch_bwd_dq(
     _check_bwd_inputs("dilated_branch_bwd_dq", q6, k6, v6, do6, lse5, delta, kvlen)
     B, S, r, hb, Mp, Dh = q6.shape
     dq6 = torch.empty_like(q6)
+    _check_tensor_core_inputs("dilated_branch_bwd_dq", Dh, q6, k6, v6, do6, dq6)
     with torch.cuda.device(q6.device):
         rc = _build.library("dilated_branch_bwd_dq", GP_HEAD_DIM=Dh).gp_dilated_branch_bwd_dq(
             q6.data_ptr(), k6.data_ptr(), v6.data_ptr(), do6.data_ptr(), lse5.data_ptr(),
@@ -651,8 +671,8 @@ def dilated_branch_bwd_dkv(
     lse5: torch.Tensor, delta: torch.Tensor, kvlen: torch.Tensor, is_causal: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Packed ``(dk, dv)`` of the branch attention
-    (``csrc/dilated_branch_bwd_dkv.cu``); arguments as
-    :func:`dilated_branch_bwd_reference`."""
+    (``csrc/dilated_branch_bwd_dkv.cu``: bf16 on the tensor cores, fp32 on
+    the FMA pipes); arguments as :func:`dilated_branch_bwd_reference`."""
     if q6.device.type == "cpu":
         return dilated_branch_bwd_reference(q6, k6, v6, do6, lse5, delta, kvlen, is_causal, dq=False)[1:]
     from gigapath_tpu_torch.ops import _build
@@ -660,6 +680,7 @@ def dilated_branch_bwd_dkv(
     _check_bwd_inputs("dilated_branch_bwd_dkv", q6, k6, v6, do6, lse5, delta, kvlen)
     B, S, r, hb, Mp, Dh = q6.shape
     dk6, dv6 = torch.empty_like(k6), torch.empty_like(v6)
+    _check_tensor_core_inputs("dilated_branch_bwd_dkv", Dh, q6, k6, v6, do6, dk6, dv6)
     with torch.cuda.device(q6.device):
         rc = _build.library("dilated_branch_bwd_dkv", GP_HEAD_DIM=Dh).gp_dilated_branch_bwd_dkv(
             q6.data_ptr(), k6.data_ptr(), v6.data_ptr(), do6.data_ptr(), lse5.data_ptr(),

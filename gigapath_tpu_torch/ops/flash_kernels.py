@@ -87,32 +87,48 @@ def flash_fwd_reference(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Segmented q [B, H, S, Mq, D], k/v [B, H, S, Mk, D] and the valid-key
     counts ``kvlen`` [B, H, S] (None: every key) -> ``(out [B, H, S, Mq, D]
-    in q's dtype, lse [B, H, S, Mq] fp32)``: the kernel's arithmetic in one
-    pass per (segment, head). Causal masks key ``j > i`` within a segment."""
+    in q's dtype, lse [B, H, S, Mq] fp32)``: the kernel's arithmetic, all
+    segments and heads at once (the largest temporary is one [B, H, S, Mq,
+    tile] fp32 score block). Causal masks key ``j > i`` within a segment.
+
+    The kernel's function: an fp32 online softmax in base 2 over the
+    kernel's key tiles (64 keys, 32 above a head width of 64), the running
+    max floored at ``M_FLOOR``, with
+    ``q * scale * log2(e)`` and the probabilities rounded to the input dtype
+    before their products and ``l`` summing the unrounded probabilities. In
+    fp32 the roundings are no-ops and this is the one-shot softmax up to the
+    order of sums. In bf16 p's rounding depends on the running max, so past
+    one key tile this is the kernel's function and not the JAX kernel's,
+    whose running max moves per key block (1024 keys; a whole segment in
+    the flat layout): rounding as it does would take each row's max over a
+    whole block before any P.V, a second Q.K^T pass. The two differ by a
+    few bf16 roundings of p
+    (``tests/test_torch_flash.py::test_segmented_autograd_matches_jax_bf16_past_one_key_tile``)."""
     B, H, S, Mq, D = q.shape
     Mk = k.shape[3]
+    tile = 64 if D <= 64 else 32  # csrc/flash_fwd.cu's key tile
+    dev = q.device
     qs = (q.float() * (D**-0.5 * LOG2E)).to(q.dtype).float()
-    out = torch.empty_like(q)
-    lse = torch.empty((B, H, S, Mq), dtype=torch.float32, device=q.device)
-    cols = torch.arange(Mk, device=q.device)
-    rows = torch.arange(Mq, device=q.device)
-    causal_mask = cols[None, :] > rows[:, None] if is_causal else None
-    for s in range(S):
-        for h in range(H):
-            sc = qs[:, h, s] @ k[:, h, s].float().transpose(1, 2)  # [B, Mq, Mk], base-2 units
-            mask = torch.zeros((B, 1, Mk), dtype=torch.bool, device=q.device)
-            if kvlen is not None:
-                mask = cols[None, None, :] >= kvlen[:, h, s].to(torch.int64)[:, None, None]
-            if causal_mask is not None:
-                mask = mask | causal_mask[None]
-            sc = sc.masked_fill(mask, NEG_INF)
-            m_row = sc.amax(dim=-1, keepdim=True).clamp_min(M_FLOOR)
-            p = torch.exp2(sc - m_row)
-            l_row = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-            acc = p.to(v.dtype).float() @ v[:, h, s].float()
-            out[:, h, s] = (acc / l_row).to(q.dtype)
-            lse[:, h, s] = ((m_row + torch.log2(l_row)) * LN2)[..., 0]
-    return out, lse
+    kf, vf = k.float(), v.float()
+    rows = torch.arange(Mq, device=dev)[:, None]
+    kv = Mk if kvlen is None else kvlen.to(device=dev, dtype=torch.int64)[..., None, None]  # [B, H, S, 1, 1]
+    m_run = torch.full((B, H, S, Mq, 1), M_FLOOR, dtype=torch.float32, device=dev)
+    l_run = torch.zeros_like(m_run)
+    acc = torch.zeros((B, H, S, Mq, D), dtype=torch.float32, device=dev)
+    for j0 in range(0, Mk, tile):
+        cols = torch.arange(j0, min(j0 + tile, Mk), device=dev)[None, :]
+        mask = cols >= kv
+        if is_causal:
+            mask = mask | (cols > rows)
+        sc = (qs @ kf[..., j0:j0 + tile, :].transpose(-1, -2)).masked_fill(mask, NEG_INF)  # base-2 units
+        m_new = torch.maximum(m_run, sc.amax(dim=-1, keepdim=True))
+        p = torch.exp2(sc - m_new)
+        alpha = torch.exp2(m_run - m_new)
+        l_run = l_run * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + p.to(v.dtype).float() @ vf[..., j0:j0 + tile, :]
+        m_run = m_new
+    l_row = l_run.clamp_min(1e-30)
+    return (acc / l_row).to(q.dtype), ((m_run + torch.log2(l_row)) * LN2)[..., 0]
 
 
 def flash_bwd_reference(

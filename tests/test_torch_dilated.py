@@ -157,6 +157,52 @@ def test_serial_bf16_roundings_match_jax(L, sl, r, causal, rl):
     assert max(errs.values()) <= 2e-3, errs
 
 
+def _bf16_branch_vs_jax(L, sl, r, h, jax_flags, port_flags, seeds=(63, 64, 65, 66)):
+    """One branch in bf16 through JAX's branch op (interpret mode, the
+    given dispatch flags) and the port's, and the port's in fp32 on the
+    same inputs: (max error of out, dq, dk, dv against JAX over JAX's max;
+    mean error of out against the fp32 answer over its mean magnitude, for
+    the port and for JAX)."""
+    q, k, v, do = (2 * _data(s, 2, L, h * 16) for s in seeds)
+
+    def run(a, b, c, d):
+        (o, l), vjp = jax.vjp(lambda a_, b_, c_: jpd.dilated_branch_attention(
+            a_, b_, c_, sl, r, h, interpret=True, flags=jax_flags), a, b, c)
+        return o, vjp((d, jnp.zeros_like(l)))
+
+    ref_o, ref_g = jax.jit(run)(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, do)))
+    refs = [np.asarray(x.astype(jnp.float32)) for x in (ref_o, *ref_g)]
+    qt, kt, vt = (torch.from_numpy(x).to(torch.bfloat16).requires_grad_() for x in (q, k, v))
+    o, _ = dk.dilated_branch_attention(qt, kt, vt, sl, r, h, flags=port_flags)
+    o.backward(torch.from_numpy(do).to(torch.bfloat16))
+    errs = {name: float(np.abs(a.float().numpy() - b).max() / np.abs(b).max())
+            for name, a, b in zip(("out", "dq", "dk", "dv"), (o.detach(), qt.grad, kt.grad, vt.grad), refs)}
+    exact, _ = dk.dilated_branch_attention(
+        *(torch.from_numpy(x).to(torch.bfloat16).float() for x in (q, k, v)), sl, r, h, flags=port_flags)
+    exact = exact.numpy()
+
+    def mean_rel(x):
+        return float(np.abs(x - exact).mean() / np.abs(exact).mean())
+
+    return errs, mean_rel(o.detach().float().numpy()), mean_rel(refs[0])
+
+
+@pytest.mark.parametrize("L,sl,r", [(512, 512, 1), (1024, 1024, 2)], ids=["r1", "r2"])
+def test_serial_bf16_multi_tile_matches_jax(L, sl, r):
+    """Past one key tile (m = 512: eight of the port's 64-key tiles, one
+    JAX block) the two packages place the bf16 forward's running max
+    differently (the port per 64-key tile, JAX per block; the plain
+    forward's docstring says why), so p rounds against another max on some
+    rows. out, dq, dk and dv still agree with JAX's serial route to 1e-2 of
+    their max, about two bf16 ulps there (read: at most 4.6e-3 at r1,
+    4.7e-3 at r2), and the port's out is no further from the fp32 answer on
+    average than JAX's (mean error within 1.05 times JAX's; read 3.507e-3
+    against 3.524e-3 at r1, 3.525e-3 against 3.541e-3 at r2)."""
+    errs, port_mean, jax_mean = _bf16_branch_vs_jax(L, sl, r, 8, FLAGS, dk.PipelineFlags())
+    assert max(errs.values()) <= 1e-2, errs
+    assert port_mean <= 1.05 * jax_mean, (port_mean, jax_mean)
+
+
 def _one_shot_fwd(q6, k6, v6, kvlen, is_causal):
     """The branch forward as one fp32 softmax over all of a cell's keys,
     one cell at a time (no rounding, no key tiles)."""

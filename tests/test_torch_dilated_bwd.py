@@ -7,6 +7,8 @@ fp32 tolerance 1e-4: both sides compute in fp32 and differ in the order of
 sums.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -151,3 +153,43 @@ def test_attention_dropout_is_refused():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         DilatedAttention(E, H, [32], [1], dropout=0.1)
 
+
+@functools.partial(jax.jit, static_argnums=(7, 8, 9))
+def _jax_bwd_impl(q6, k6, v6, do6, lse, delta, kvlen, causal, hb, block):
+    Dh = q6.shape[-1]
+    return jpd._bwd_impl(q6, k6, v6, do6, lse, delta, kvlen, causal, Dh**-0.5, hb, Dh, block, block, True)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_serial_bwd_bf16_matches_jax_bwd_impl(causal):
+    """Row 7's function past one key tile, the one the tensor-core dq and
+    dkv are held to on the card: ``dilated_branch_bwd_reference`` and JAX's
+    serial ``_bwd_impl`` (interpret mode, 128-row blocks) on the same packed
+    bf16 q, k, v, dO and the same lse and delta (from one forward; JAX's
+    lse and delta are [B, S, r, M, LANES] with band head t in lane t), at m
+    = 256 (four 64-key tiles) with ragged counts and an empty cell. Both
+    recompute p in fp32 from the lse with unrounded q, round ds to bf16
+    before ds.K and keep p and ds fp32 for dK and dV, so they differ only in
+    the order of fp32 sums and the last bf16 rounding: dq, dk and dv agree
+    to 5e-3 of their max (read: at most 1.5e-3 full, 1.7e-3 causal, under
+    one bf16 ulp at the max). The forward's key-tile placement is kept out
+    of the comparison."""
+    B, S, r, hb, M, Dh = 2, 1, 2, 4, 256, 16
+    q6, k6, v6, do6 = (torch.from_numpy(2 * _data(s, B, S, r, hb, M, Dh)).to(torch.bfloat16)
+                       for s in (90, 91, 92, 93))
+    kvlen = torch.tensor([[[256, 200]], [[131, 0]]], dtype=torch.int32)
+    out6, lse5 = dk.dilated_branch_fwd_reference(q6, k6, v6, kvlen, causal)
+    delta = (do6.float() * out6.float()).sum(-1)
+    ours = dk.dilated_branch_bwd_reference(q6, k6, v6, do6, lse5, delta, kvlen, causal)
+
+    def lanes(x):  # [B, S, r, hb, M] -> [B, S, r, M, LANES], band head t in lane t
+        x = x.permute(0, 1, 2, 4, 3).numpy()
+        return jnp.asarray(np.pad(x, ((0, 0),) * 4 + ((0, jpd.LANES - hb),)))
+
+    bf = [jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (q6, k6, v6, do6)]
+    ref = _jax_bwd_impl(*bf, lanes(lse5), lanes(delta), jnp.asarray(kvlen.numpy()), causal, hb, 128)
+    for name, a, b in zip(("dq", "dk", "dv"), ours, ref):
+        b = np.asarray(b.astype(jnp.float32))
+        err = float(np.abs(a.float().numpy() - b).max() / np.abs(b).max())
+        assert err <= 5e-3, (name, err)
+    assert not any(g[1, 0, 1].any() for g in ours)  # the cell with no valid key

@@ -31,7 +31,7 @@ from gigapath_tpu_torch.models.classification_head import get_model
 from gigapath_tpu_torch.ops import dilated_kernels as dk
 from gigapath_tpu_torch.ops.dilated_attention import dilated_attention
 
-from test_torch_dilated import _data
+from test_torch_dilated import _bf16_branch_vs_jax, _data
 from test_torch_finetune import HEAD_KW, SLIDE_KW
 from test_torch_slide_encoder import SMALL, _port, inputs, weights  # noqa: F401  (fixtures)
 
@@ -148,6 +148,23 @@ def test_pipelined_bf16_roundings_match_jax(L, sl, r):
     assert max(errs["pipe"]["max"]) <= 2e-3, errs  # half a bf16 ulp at the max
     assert errs["serial"]["max"][0] <= 2e-3, errs  # the serial forward rounds as the pipelined one
     assert all(p * 100 <= s for p, s in zip(errs["pipe"]["mean"][1:], errs["serial"]["mean"][1:])), errs
+
+
+def test_pipelined_bf16_multi_block_matches_jax():
+    """Past one JAX key block (m = 1024: two of the JAX pipelined forward's
+    512-key blocks, sixteen of the port's 64-key tiles) the two packages
+    place the bf16 forward's running max differently (see
+    ``dilated_branch_fwd_reference``). The port's pipelined route still
+    agrees with JAX's pipelined kernels to 1e-2 of each output's max (read:
+    out 4.3e-3, dq 5.2e-3, dk 6.7e-3, dv 7.7e-4; the gradients see out's
+    roundings through delta), and its out is no further from the fp32
+    answer on average than JAX's (within 1.05 times; read 3.697e-3 against
+    3.709e-3)."""
+    flags = dict(pipelined_fwd=True, pipelined_bwd=True)
+    errs, port_mean, jax_mean = _bf16_branch_vs_jax(1024, 1024, 1, H, jpd.PipelineFlags(**flags),
+                                                    dk.PipelineFlags(**flags))
+    assert max(errs.values()) <= 1e-2, errs
+    assert port_mean <= 1.05 * jax_mean, (port_mean, jax_mean)
 
 
 def _online_fwd_per_cell(q6, k6, v6, kvlen):
