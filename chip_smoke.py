@@ -32,9 +32,9 @@ stdout:
    the kernels' launch counts of one forward.
 5. ragged_batch: B = 2 with a pad mask; each row against its slide alone.
 6. bwd_kernels: the ``cuobjdump -sass`` HMMA counts of the dq and dkv
-   libraries (row 7) at Dh = 48, checked non-zero (bf16 runs on the tensor
-   cores, fp32 on the FMA kernels), with ptxas' registers and spills of
-   their tensor-core kernels; the two kernels against their plain version
+   libraries, serial and pipelined (rows 7 and 8), at Dh = 48, checked
+   non-zero (bf16 runs on the tensor cores, fp32 on the FMA kernels), with
+   ptxas' registers and spills of their tensor-core kernels; the two kernels against their plain version
    at each flagship branch shape (L = 10241, ragged real length), fp32 and
    bf16: each kernel's device time from a CUDA graph, its wrapper's
    CUDA-event time, the exp2 floor of its admitted pairs, its bound, the
@@ -42,13 +42,14 @@ stdout:
    then bf16 past 65535 cells with per-row valid lengths, one row with none
    (kvlen = 0: its gradients exactly 0), the causal forward and backward at
    one branch shape, fp32 and bf16, and bf16 inputs the tensor-core dq and
-   dkv cannot take (Dh = 20, a misaligned dO) refused by both wrappers.
+   dkv cannot take (Dh = 20, a misaligned dO) refused by the four
+   wrappers, serial and pipelined.
 7. head_widths: the forward, dq and dkv kernels (and the three
    segment-flash kernels) at the registry's other head widths (16, 24, 32,
    64, 96) against their plain versions, fp32 and bf16, with ptxas' spill
-   stores of each and the registers and spills of the serial branch
-   kernels' and the pipelined forward's tensor-core kernels (the build
-   phase builds every width).
+   stores of each and the registers and spills of the branch kernels'
+   tensor-core kernels, serial and pipelined (the build phase builds every
+   width).
 8. finetune_step: the flagship ``ClassificationHead`` (``feat_layer`` 11, 6
    classes as PANDA) built by ``get_model`` and trained by
    ``finetune/training.py``'s ``train_step`` on a synthetic 10240-tile
@@ -181,7 +182,9 @@ stdout:
     real length and in a B = 2 batch whose counts are formed on the card;
     each against its serial twin on the same inputs (fp32 within
     KERNEL_TOL; bf16 1 - cosine within the route limit, the roundings
-    differing on purpose); past 65535 cells. The build phase builds them at
+    differing on purpose); dk's relative error against the plain version
+    beside its limit (dK takes the plain q, the logits the rounded one);
+    past 65535 cells. The build phase builds them at
     every head width, and head_widths checks them there.
 24. pipe_forward: the flagship with ``GIGAPATH_PIPELINED_ATTN=1`` on 10240
     tiles, fp32 and bf16, on the default route (60 pipelined forwards, 0
@@ -381,6 +384,8 @@ OTHER_HEAD_DIMS = (16, 24, 32, 64, 96)
 BRANCH_SOURCES = ("dilated_branch_fwd", "dilated_branch_bwd_dq", "dilated_branch_bwd_dkv")
 # the branch forwards whose bf16 tensors run on the tensor cores (rows 1, 6)
 FWD_MMA_SOURCES = ("dilated_branch_fwd", "dilated_branch_fwd_pipe")
+# the branch backwards whose bf16 tensors run on the tensor cores (rows 7, 8)
+BWD_MMA_SOURCES = BWD_KERNELS + ("dilated_branch_bwd_dq_pipe", "dilated_branch_bwd_dkv_pipe")
 # the flagship tile encoder gigapath_tile_enc: 224 px tiles in 16 px
 # patches (196 + cls = 197 tokens), E = 1536, 24 heads of 64, 40 blocks
 TILE_E, TILE_H, TILE_L, TILE_DEPTH = 1536, 24, 197, 40
@@ -1081,20 +1086,21 @@ def phase_bwd_kernels():
 
 
 def _bwd_sass():
-    """The SASS of the branch backward's libraries at Dh = 48: HMMA > 0
-    (bf16 tensors run on the tensor cores; fp32 on the FMA kernels), with
-    ptxas' registers and spills of their tensor-core kernels."""
-    sass = {name: _sass_counts(name, GP_HEAD_DIM=E // H) for name in BWD_KERNELS}
+    """The SASS of the branch backward's four libraries (rows 7 and 8,
+    serial and pipelined) at Dh = 48: HMMA > 0 (bf16 tensors run on the
+    tensor cores; fp32 on the FMA kernels), with ptxas' registers and
+    spills of their tensor-core kernels."""
+    sass = {name: _sass_counts(name, GP_HEAD_DIM=E // H) for name in BWD_MMA_SOURCES}
     emit("bwd_kernels", sass=sass, note="cuobjdump -sass at Dh = 48: HMMA is mma.sync (the bf16 dq and dkv)",
-         tensor_core_ptxas={name: _mma_ptxas(f"{name}-GP_HEAD_DIM={E // H}") for name in BWD_KERNELS})
+         tensor_core_ptxas={name: _mma_ptxas(f"{name}-GP_HEAD_DIM={E // H}") for name in BWD_MMA_SOURCES})
     for name, counts in sass.items():
         check(counts["HMMA"] > 0, f"{name}: no HMMA in its SASS {counts}")
 
 
 def _refused_bwd_inputs(dk):
-    """bf16 tensors the tensor-core dq and dkv cannot take raise in the
-    wrappers: a head width that is no multiple of 8, a dO that is not
-    16-byte aligned; no plain version runs on the card."""
+    """bf16 tensors the tensor-core dq and dkv, serial and pipelined, cannot
+    take raise in the wrappers: a head width that is no multiple of 8, a dO
+    that is not 16-byte aligned; no plain version runs on the card."""
     import torch
 
     kvlen = torch.full((1, 1, 1), 64, dtype=torch.int32, device="cuda")
@@ -1103,7 +1109,8 @@ def _refused_bwd_inputs(dk):
     shifted = torch.zeros(64 * 48 + 1, dtype=torch.bfloat16, device="cuda")[1:].view(1, 1, 1, 1, 64, 48)
     ok = shifted.clone()
     refused = []
-    for fn in (dk.dilated_branch_bwd_dq, dk.dilated_branch_bwd_dkv):
+    for fn in (dk.dilated_branch_bwd_dq, dk.dilated_branch_bwd_dkv, dk.dilated_branch_bwd_dq_pipe,
+               dk.dilated_branch_bwd_dkv_pipe):
         for label, args in (("Dh=20", (narrow,) * 4), ("misaligned do6", (ok, ok, ok, shifted))):
             try:
                 fn(*args, rows, rows, kvlen)
@@ -1260,7 +1267,7 @@ def phase_head_widths():
              spill_store_bytes={name: _spill_bytes(f"{name}-GP_HEAD_DIM={dh}")
                                 for name in BRANCH_SOURCES + PIPE_KERNELS + FLASH_SOURCES},
              tensor_core_ptxas={name: _mma_ptxas(f"{name}-GP_HEAD_DIM={dh}")
-                                for name in FWD_MMA_SOURCES + BWD_KERNELS})
+                                for name in FWD_MMA_SOURCES + BWD_MMA_SOURCES})
 
 
 def _head_and_steps(torch, lr=5e-5, scheduler="fixed", **slide_kwargs):
@@ -3233,6 +3240,9 @@ def _pipe_branch(dk, q, k, v, do, sl, r, real_len, valid, timed: bool):
         torch.testing.assert_close(lse5[covered], lse_s[covered], **LSE_TOL[dname])
     record = {"dtype": dname, "B": B, "sl": sl, "r": r, "S": S, "m": m, "Mp": Mp, "real_len": real_len,
               "valid": None if valid is None else valid.tolist(), "max_err_vs_plain": errs,
+              # dK takes the plain q and S^T the rounded one: a wrong q in
+              # either shows first in dk's error against the plain version
+              "dk_rel_vs_plain": {"value": errs["dk_rel"], "limit": BWD_REL_TOL[dname]},
               "vs_serial": vs_serial, "vs_serial_metric": "max |err|" if dname == "float32" else "1 - cosine"}
     if not timed:
         return record, None
@@ -3328,12 +3338,14 @@ def phase_pipe_kernels():
         totals = {name: dict(ms=0.0, wrapper_ms=0.0, serial_ms=0.0, plain_ms=0.0, bound_ms=0.0, exp2_floor_ms=0.0,
                              library_ms=0.0, err=0.0, by={})
                   for name in PIPE_KERNELS}
+        dk_rel = 0.0  # dk's largest relative error against the plain version, every case
         for B, real_len, valid, timed in ((1, L, None, True), (1, L - 37, None, False),
                                           (2, L, torch.tensor([L, 7002], device="cuda"), False)):
             q, k, v, do = (torch.randn(B, L, E, device="cuda", generator=gen).to(dtype) for _ in range(4))
             for sl, r in zip(*SCHEDULE):
                 record, numbers = _pipe_branch(dk, q, k, v, do, sl, r, real_len, valid, timed)
                 emit("pipe_kernels", **record)
+                dk_rel = max(dk_rel, record["dk_rel_vs_plain"]["value"])
                 for name, num in (numbers or {}).items():
                     tot = totals[name]
                     for key in ("ms", "wrapper_ms", "serial_ms", "plain_ms", "bound_ms", "exp2_floor_ms", "library_ms"):
@@ -3346,6 +3358,7 @@ def phase_pipe_kernels():
             tot["vs_serial"] = tot["ms"] / tot["serial_ms"]
         summary[dname] = totals
         emit("pipe_kernels_per_layer", dtype=dname, kernels=totals,
+             dk_rel_vs_plain={"max": dk_rel, "limit": BWD_REL_TOL[dname]},
              note="sum over the 5 branches of one layer at full length; ms is the kernel's device time from a "
                   "CUDA graph of 20 calls, wrapper_ms one call's CUDA-event time; serial_ms is the serial twin "
                   "(rows 1, 7a, 7b) on the same inputs, device time; exp2_floor_ms: one exp2 per admitted pair "

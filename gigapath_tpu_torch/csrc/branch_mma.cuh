@@ -61,11 +61,7 @@ struct BranchFwdMma {
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
       ldmatrix_x4(qa[kk], qs + off + 32 * kk);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&qa[kk][i]));
-        qa[kk][i] = pack_bf16(x.x * qscale, x.y * qscale);
-      }
+      scale_bf16(qa[kk], qscale);
     }
   }
 

@@ -1,11 +1,14 @@
 // The tile steps of the bf16 tensor-core attention backward, dq and dkv,
 // shared by the segment-flash kernels (flash_bwd_dq.cu, flash_bwd_dkv.cu;
 // PERF.md rows 12 and 14) and the dilated-branch kernels on the phase-major
-// packed layout (dilated_branch_bwd_dq.cu, dilated_branch_bwd_dkv.cu; row
-// 7). The Pallas kernels of the two families (pallas_flash.py:_dq_kernel /
-// _dkv_kernel and pallas_dilated.py:_dq_kernel / _dkv_kernel) compute one
-// function and differ only in their index maps, so each file supplies its
-// cell map and these steps do the rest.
+// packed layout, serial (dilated_branch_bwd_dq.cu, dilated_branch_bwd_dkv.cu;
+// row 7) and pipelined (dilated_branch_bwd_dq_pipe.cu,
+// dilated_branch_bwd_dkv_pipe.cu; row 8). The Pallas pairs
+// pallas_flash.py:_dq_kernel / _dkv_kernel, pallas_dilated.py:_dq_kernel /
+// _dkv_kernel and pallas_dilated.py:_dq_kernel_pipe / _dkv_kernel_pipe
+// differ in their index maps and, the pipelined pair, in one rounding of
+// the logits (the Logits parameter below), so each file supplies its cell
+// map and that parameter and these steps do the rest.
 //
 // A cell's geometry is a FlashCell (flash_common.cuh): its first query and
 // key row q0, k0 (rows of DH elements; lse and delta rows are q0 + i), the
@@ -18,7 +21,8 @@
 // For query row i and each valid key j (j < kv, and j <= i when causal),
 // with the probabilities recomputed from the saved lse as the Pallas
 // kernels do:
-//   p_ij  = exp2((q_i.k_j) * scale*log2(e) - lse_i*log2(e))    (q not rounded)
+//   p_ij  = exp2((q_i.k_j) * scale*log2(e) - lse_i*log2(e))    (UNROUNDED_Q)
+//   p_ij  = exp2(bf16(q_i * scale*log2(e)).k_j - lse_i*log2(e)) (ROUNDED_Q)
 //   ds_ij = p_ij * (dout_i.v_j - delta_i)
 //   dq_i  = scale * sum_j bf16(ds_ij) k_j
 //   dv_j  = sum_i p_ij dout_i,  dk_j = scale * sum_i ds_ij q_i  (p, ds fp32)
@@ -33,8 +37,10 @@
 // and no exp2). S = Q.K^T and dP = dO.V^T come from mma.sync.m16n8k16
 // (bf16 products, fp32 sums, as the Pallas dots with preferred_element_type
 // fp32; D zero-padded to a multiple of 16 in shared memory); the scale and
-// the lse go on in one FMA, p is one ex2.approx (MUFU), the mask is one
-// select; dS is rounded to bf16 (the Pallas cast to k's dtype) and packed
+// the lse go on in one FMA (ROUNDED_Q: Q's A fragments are scaled and
+// rounded in registers once, as the forward's load_q, and the lse is one
+// subtraction), p is one ex2.approx (MUFU), the mask is one select; dS is
+// rounded to bf16 (the Pallas cast to k's dtype) and packed
 // straight from the C fragments into the A fragments of dQ += dS.K, K's B
 // fragments by ldmatrix.trans. Causal: keys stop at the query tile's
 // diagonal tile. The epilogue multiplies by the scale and stores through a
@@ -57,6 +63,18 @@
 // tiles start at the key tile's diagonal. Above a head width of 64 a query
 // tile is taken in two passes of 32 columns (registers). The epilogue
 // multiplies dk by the scale and stores both through padded shared tiles.
+// ROUNDED_Q: only S^T = K.Q^T takes the rounded q; dK += dS^T.Q keeps the
+// plain one. After each query tile lands, the block writes Q times
+// scale*log2(e), rounded to bf16, into one more shared tile (one 16-byte
+// piece of 8 elements a thread per pass over the tile, then a barrier), and
+// S^T's B fragments are read from that copy, dK's ldmatrix.trans from the
+// ring stage. Scaling each B fragment in registers after its ldmatrix would
+// need no shared memory, but every one of the 4 warps reads the whole Q
+// tile for S^T, so it would scale each element four times: by a count of
+// the source's operations, 20 more ALU instructions a thread per B
+// fragment (12 fragments a tile at Dh = 48), about a third more than the
+// rest of a tile's non-MMA work, against 3 pieces a thread and one barrier
+// a tile for the copy.
 //
 // Pad rows of a packed cell (zero q and dout, delta 0, a finite lse) add
 // exactly 0: their ds is p * 0, and their p meets a zero dout row.
@@ -78,6 +96,11 @@ __device__ __forceinline__ FlashCell branch_cell(int cell, int HB, int Mp, const
   return c;
 }
 
+// How a backward forms its base-2 logits (compile time, see the top):
+// UNROUNDED_Q for the Pallas _dq_kernel / _dkv_kernel of both families,
+// ROUNDED_Q for pallas_dilated.py:_dq_kernel_pipe / _dkv_kernel_pipe.
+enum class Logits { UNROUNDED_Q, ROUNDED_Q };
+
 // x0, x1 as bf16 pairs hi = bf16(x) and lo = bf16(x - hi): hi + lo carries
 // about 16 bits of x's mantissa
 __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
@@ -95,12 +118,15 @@ struct BwdMma {
   static constexpr int KS = Tile::DK / 16;  // steps of the D contractions
   static constexpr int DT = Tile::DK / 8;   // dq / dk / dv tiles of 8 columns (even)
   // dynamic shared memory: Q, dO and two stages of K and V (dq); K, V and
-  // two stages of Q, dO, lse and delta (dkv)
+  // two stages of Q, dO, lse and delta (dkv), and for ROUNDED_Q the scaled
+  // copy of the landed Q tile
   static constexpr int DQ_SMEM = 6 * Tile::BYTES;
   static constexpr int DKV_STAGE = 2 * Tile::BYTES + 2 * 64 * 4;
   static constexpr int DKV_SMEM = 2 * Tile::BYTES + 2 * DKV_STAGE;
+  static constexpr int DKV_SMEM_ROUNDED_Q = DKV_SMEM + Tile::BYTES;
 
   // dq of query rows [row0, row0 + 64) of cell fc
+  template <Logits LG = Logits::UNROUNDED_Q>
   __device__ __forceinline__ static void dq(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                                             const __nv_bfloat16* __restrict__ v,
                                             const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
@@ -161,6 +187,7 @@ struct BwdMma {
         for (int kk = 0; kk < KS; ++kk) {
           ldmatrix_x4(qa[kk], qs + off + 32 * kk);
           ldmatrix_x4(da[kk], dos + off + 32 * kk);
+          if constexpr (LG == Logits::ROUNDED_Q) scale_bf16(qa[kk], qscale);
         }
       }
       const unsigned char* ks = ring + stage * 2 * Tile::BYTES;
@@ -201,7 +228,9 @@ struct BwdMma {
           for (int e = 0; e < 2; ++e) {
             const int col = key0 + 8 * t + 2 * c + e;
             const bool ok = col < kv && (!causal || col <= row[h]);
-            const float p = ok ? exp2_approx(fmaf(sc[t][2 * h + e], qscale, -lse2[h])) : 0.f;
+            const float p = ok ? exp2_approx(LG == Logits::ROUNDED_Q ? sc[t][2 * h + e] - lse2[h]
+                                                                     : fmaf(sc[t][2 * h + e], qscale, -lse2[h]))
+                               : 0.f;
             ds[e] = p * (dp[t][2 * h + e] - dlt[h]);
           }
           pa[t][h] = pack_bf16(ds[0], ds[1]);
@@ -232,7 +261,9 @@ struct BwdMma {
     Tile::store(dq + (fc.q0 + row0) * DH, qs, fc.nq - row0);
   }
 
-  // dk and dv of keys [key0, key0 + 64) of cell fc
+  // dk and dv of keys [key0, key0 + 64) of cell fc (smem: DKV_SMEM bytes,
+  // DKV_SMEM_ROUNDED_Q for ROUNDED_Q)
+  template <Logits LG = Logits::UNROUNDED_Q>
   __device__ __forceinline__ static void dkv(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                                              const __nv_bfloat16* __restrict__ v,
                                              const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
@@ -311,6 +342,13 @@ struct BwdMma {
       const unsigned char* dos = qs + Tile::BYTES;
       const float* ls = reinterpret_cast<const float*>(qs + 2 * Tile::BYTES);
       const float* dls = ls + 64;
+      // ROUNDED_Q: the Q operand of S^T is the landed tile times qscale in
+      // bf16, written after the previous tile's closing barrier; dK +=
+      // dS^T.Q reads the stage
+      if constexpr (LG == Logits::ROUNDED_Q) {
+        Tile::scaled_copy(smem + DKV_SMEM, qs, qscale);
+        __syncthreads();
+      }
 
 #pragma unroll 1
       for (int pass = 0; pass < 64 / QN; ++pass) {
@@ -326,7 +364,7 @@ struct BwdMma {
 #pragma unroll
           for (int kk = 0; kk < KS; ++kk) {
             uint32_t b[4];
-            ldmatrix_x4(b, qs + boff + (c0 + 16 * tp) * PITCH + 32 * kk);
+            ldmatrix_x4(b, (LG == Logits::ROUNDED_Q ? smem + DKV_SMEM : qs) + boff + (c0 + 16 * tp) * PITCH + 32 * kk);
             mma_bf16(sc[2 * tp], ka[kk], b[0], b[1]);
             mma_bf16(sc[2 * tp + 1], ka[kk], b[2], b[3]);
             ldmatrix_x4(b, dos + boff + (c0 + 16 * tp) * PITCH + 32 * kk);
@@ -345,7 +383,10 @@ struct BwdMma {
             const int qi = i0 + col + (e & 1);
             const int kj = key[e >> 1];
             const bool ok = kj < kv && qi < q_end && (!causal || kj <= qi);
-            const float p = ok ? exp2_approx(fmaf(sc[t][e], qscale, -((e & 1) ? l2.y : l2.x) * LOG2E)) : 0.f;
+            const float p = ok ? exp2_approx(LG == Logits::ROUNDED_Q
+                                                 ? sc[t][e] - ((e & 1) ? l2.y : l2.x) * LOG2E
+                                                 : fmaf(sc[t][e], qscale, -((e & 1) ? l2.y : l2.x) * LOG2E))
+                               : 0.f;
             sc[t][e] = p;
             dp[t][e] = p * (dp[t][e] - ((e & 1) ? d2.y : d2.x));
           }

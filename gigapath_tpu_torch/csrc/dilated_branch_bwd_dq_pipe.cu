@@ -1,12 +1,11 @@
-// dQ of one dilated branch on the phase-major packed layout, pipelined: the
-// next key tile's loads overlap the current tile's math.
+// dQ of one dilated branch on the phase-major packed layout, pipelined.
 //
 // Replaces the Pallas kernel gigapath_tpu/ops/pallas_dilated.py:_dq_kernel_pipe
-// (called by _bwd_impl_pipe). The contract is csrc/dilated_branch_bwd_dq.cu's,
-// non-causal only: q, k, v and the output cotangent dout packed
-// [B, S, r, hb, Mp, Dh] (fp32 or bf16), lse (the forward's) and delta =
-// rowsum(dout * out) fp32 [B, S, r, hb, Mp], kvlen int32 [B, S, r]; dq in the
-// packed layout and input dtype.
+// (called by _bwd_impl_pipe; PERF.md row 8a). The contract is
+// csrc/dilated_branch_bwd_dq.cu's, non-causal only: q, k, v and the output
+// cotangent dout packed [B, S, r, hb, Mp, Dh] (fp32 or bf16), lse (the
+// forward's) and delta = rowsum(dout * out) fp32 [B, S, r, hb, Mp], kvlen
+// int32 [B, S, r]; dq in the packed layout and input dtype.
 //
 // Numerics follow the pipelined Pallas kernel, for query row i and valid key
 // j (j < kvlen):
@@ -16,23 +15,45 @@
 //   dq_i  = scale * sum_j round(ds_ij) k_j             (fp32 sum)
 // where round() is the rounding to the input dtype (a no-op in fp32). The
 // serial kernel, as the serial Pallas one, keeps q*scale unrounded and
-// rounds ds alike. Key tiles past kvlen
-// are never loaded; inside the partial tile the keys past kvlen get p = 0
-// by select. Padded rows (zero q and dout) come out exactly 0.
-//
-// Pipelining as csrc/dilated_branch_fwd_pipe.cu: one block per (cell,
-// 64-row query tile), the cell's K and V tiles streamed through a two-stage
-// cp.async ring (pipe_common.cuh), tile j+1 in flight while tile j's math
-// runs. Key-stage width BN = 64 (32 above a head width of 64); dynamic
-// shared memory 48 KiB at Dh = 48 in both dtypes, as the forward.
+// rounds ds alike; that one rounding is all that tells the two functions
+// apart. Key tiles past kvlen are never loaded (a cell with kvlen = 0 has
+// lse ~ -6.9e19 and takes no exp2); inside the partial tile the keys past
+// kvlen get p = 0 by select. Padded rows (zero q and dout) come out exactly
+// 0.
 //
 // Bound on the H100: operations, 6*Dh per valid (query, key) pair (q.k,
-// dout.v, ds*k); fp32 FMA pipes here, one thread per query row with q, dout
-// and the dq accumulator in registers. Later work: warp-specialised TMA +
-// mbarrier + wgmma.
+// dout.v, ds*k) at the dtype's peak, next to about 4*Dh elements moved per
+// row; and one exp2 per valid pair on the MUFU pipes (16 a clock per SM).
+//
+// Two kernels, chosen by the tensors' dtype:
+// - bf16 tensors (head widths that are multiples of 8): the tensor cores,
+//   through the tile steps of bwd_mma.cuh (BwdMma::dq with
+//   Logits::ROUNDED_Q, shared with the serial dq, row 7, and the
+//   segment-flash dq) on the cell map branch_cell, with row 7's grid,
+//   launch bounds and shared memory. 4 warps own one (cell, 64-row query
+//   tile); Q's A fragments are loaded once, multiplied by scale*log2(e) and
+//   rounded to bf16 in registers (the forward's load_q rounding), dO's as
+//   they are; K and V tiles of 64 keys stream through a two-stage cp.async
+//   ring, the next tile in flight while the current one computes, so the
+//   Pallas kernel's flattened (head, key block) grid, a TPU device to
+//   overlap the MXU with the VPU, has no counterpart here. S = Q.K^T and dP
+//   = dO.V^T on mma.sync.m16n8k16, p = ex2.approx(s - lse*log2(e)), the
+//   mask by select, ds rounded to bf16 and packed from the C into the A
+//   fragments of dq += ds.K.
+// - fp32 tensors (a tensor-core product in fp32 would be TF32, another
+//   function): the fp32 FMA pipes, one block per (cell, 64-row query tile),
+//   one thread per query row with q, dout and the dq accumulator in
+//   registers; the cell's K and V tiles streamed through the two-stage
+//   cp.async ring of pipe_common.cuh, tile j+1 in flight while tile j's
+//   math runs. Key-stage width BN = 64 (32 above a head width of 64);
+//   dynamic shared memory 48 KiB at Dh = 48.
+//
+// Both keep one flat grid on blockIdx.x, the query tiles of a cell
+// adjacent, so more than 65535 cells take no second grid dimension.
 
 #include <cstdint>
 
+#include "bwd_mma.cuh"  // BwdMma, branch_cell
 #include "pipe_common.cuh"
 
 #ifndef GP_HEAD_DIM
@@ -44,17 +65,17 @@ namespace {
 
 using namespace gp;
 
-template <typename T, int DH, int BN>
+template <int DH, int BN>
 __global__ void __launch_bounds__(BM)
-    dilated_branch_bwd_dq_pipe_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                                      const T* __restrict__ v,
-                                      const T* __restrict__ dout,
+    dilated_branch_bwd_dq_pipe_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                      const float* __restrict__ v,
+                                      const float* __restrict__ dout,
                                       const float* __restrict__ lse,
                                       const float* __restrict__ delta,
                                       const int* __restrict__ kvlen,
-                                      T* __restrict__ dq, int HB, int Mp,
+                                      float* __restrict__ dq, int HB, int Mp,
                                       float qscale, float scale) {
-  using Ring = KVRing<T, DH, BN>;
+  using Ring = KVRing<float, DH, BN>;
   extern __shared__ __align__(16) unsigned char smem[];
   float* smem_f = reinterpret_cast<float*>(smem);
 
@@ -70,10 +91,8 @@ __global__ void __launch_bounds__(BM)
   kv = kv < Mp ? kv : Mp;
 
   float qr[DH], dor[DH], acc[DH];
-  load_row<T, DH>(q + tile, smem_f, qr, qscale);
-#pragma unroll
-  for (int d = 0; d < DH; ++d) qr[d] = round_to<T>(qr[d]);
-  load_row<T, DH>(dout + tile, smem_f, dor, 1.f);
+  load_row<float, DH>(q + tile, smem_f, qr, qscale);
+  load_row<float, DH>(dout + tile, smem_f, dor, 1.f);
 #pragma unroll
   for (int d = 0; d < DH; ++d) acc[d] = 0.f;
   const float lse2 = lse[(long long)cell * Mp + row] * LOG2E;
@@ -102,27 +121,63 @@ __global__ void __launch_bounds__(BM)
       const float s = dot_smem<DH>(qr, kj);
       const float dp = dot_smem<DH>(dor, vs + j * DH);
       const float p = key0 + j < kv ? exp2f(s - lse2) : 0.f;
-      axpy_smem<DH>(round_to<T>(p * (dp - dlt)), kj, acc);
+      axpy_smem<DH>(p * (dp - dlt), kj, acc);
     }
   }
   cp_async_wait<0>();
 
-  store_row<T, DH>(acc, scale, smem_f, dq + tile);
+  store_row<float, DH>(acc, scale, smem_f, dq + tile);
 }
 
-template <typename T, int DH, int BN>
+template <int DH, int BN>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, const int* kvlen, void* dq,
            int n_cells, int HB, int Mp, float qscale, float scale, cudaStream_t stream) {
-  constexpr int bytes = KVRing<T, DH, BN>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(dilated_branch_bwd_dq_pipe_kernel<T, DH, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  constexpr int bytes = KVRing<float, DH, BN>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(dilated_branch_bwd_dq_pipe_kernel<DH, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          bytes);
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)n_cells * (unsigned)(Mp / BM);
-  dilated_branch_bwd_dq_pipe_kernel<T, DH, BN><<<blocks, BM, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, kvlen, static_cast<T*>(dq), HB, Mp, qscale, scale);
+  dilated_branch_bwd_dq_pipe_kernel<DH, BN><<<blocks, BM, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, delta, kvlen, static_cast<float*>(dq), HB, Mp, qscale, scale);
   return (int)cudaGetLastError();
+}
+
+template <int DH>
+__global__ void __launch_bounds__(128, DH > 64 ? 2 : 4)
+    dilated_branch_bwd_dq_pipe_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                                          const __nv_bfloat16* __restrict__ v,
+                                          const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                                          const float* __restrict__ delta, const int* __restrict__ kvlen,
+                                          __nv_bfloat16* __restrict__ dq, int HB, int Mp, float qscale,
+                                          float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n_qtiles = Mp / 64;
+  const int cell = blockIdx.x / n_qtiles;  // ((b*S + s)*r + p)*hb + t
+  const int row0 = (blockIdx.x - cell * n_qtiles) * 64;
+  BwdMma<DH>::template dq<Logits::ROUNDED_Q>(q, k, v, dout, lse, delta, dq, branch_cell(cell, HB, Mp, kvlen), row0,
+                                             0, qscale, scale, smem);
+}
+
+template <int DH>
+int launch_mma(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+               const float* delta, const int* kvlen, void* dq, int n_cells, int HB, int Mp, float qscale,
+               float scale, cudaStream_t stream) {
+  if constexpr (DH % 8 != 0) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    constexpr int SMEM = BwdMma<DH>::DQ_SMEM;
+    const cudaError_t err = cudaFuncSetAttribute(dilated_branch_bwd_dq_pipe_mma_kernel<DH>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (err != cudaSuccess) return (int)err;
+    const unsigned blocks = (unsigned)n_cells * (unsigned)(Mp / 64);
+    dilated_branch_bwd_dq_pipe_mma_kernel<DH><<<blocks, 128, SMEM, stream>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), lse, delta, kvlen,
+        static_cast<__nv_bfloat16*>(dq), HB, Mp, qscale, scale);
+    return (int)cudaGetLastError();
+  }
 }
 
 }  // namespace
@@ -130,7 +185,9 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 // is_bf16: 0 = fp32 tensors, 1 = bf16 tensors. n_cells = B*S*r*hb, Mp a
 // positive multiple of 64, n_cells * Mp/64 blocks below 2^31, Dh ==
 // GP_HEAD_DIM, k/v 16-byte aligned (the ring's cp.async copies); qscale =
-// Dh^-0.5 * log2(e), scale = Dh^-0.5.
+// Dh^-0.5 * log2(e), scale = Dh^-0.5. bf16 tensors take the tensor-core
+// kernel, which needs a head width that is a multiple of 8 and q, k, v,
+// dout and dq 16-byte aligned; fp32 tensors the FMA kernel.
 extern "C" int gp_dilated_branch_bwd_dq_pipe(const void* q, const void* k,
                                              const void* v, const void* dout,
                                              const float* lse, const float* delta,
@@ -144,8 +201,6 @@ extern "C" int gp_dilated_branch_bwd_dq_pipe(const void* q, const void* k,
   if (!gp::aligned16({k, v})) return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch<__nv_bfloat16, GP_HEAD_DIM, BN>(q, k, v, dout, lse, delta, kvlen, dq, n_cells,
-                                                  HB, Mp, qscale, scale, st);
-  return launch<float, GP_HEAD_DIM, BN>(q, k, v, dout, lse, delta, kvlen, dq, n_cells, HB, Mp,
-                                        qscale, scale, st);
+    return launch_mma<GP_HEAD_DIM>(q, k, v, dout, lse, delta, kvlen, dq, n_cells, HB, Mp, qscale, scale, st);
+  return launch<GP_HEAD_DIM, BN>(q, k, v, dout, lse, delta, kvlen, dq, n_cells, HB, Mp, qscale, scale, st);
 }

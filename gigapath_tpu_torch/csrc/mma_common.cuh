@@ -1,9 +1,9 @@
 // Device helpers for the kernels that run on the tensor cores through
 // mma.sync (q_flash_attention's bf16 kernel, the segment-flash backward's
-// and the dilated-branch forward's bf16 kernels): the bf16 MMA, ldmatrix
-// fragment loads from shared memory, bf16 pair packing, the MUFU exp2,
-// cp.async copies whose source may be zero-filled, and the padded 64-row
-// shared-memory tile (MmaTile).
+// and the dilated-branch forward's and backward's bf16 kernels): the bf16
+// MMA, ldmatrix fragment loads from shared memory, bf16 pair packing and
+// scaling, the MUFU exp2, cp.async copies whose source may be zero-filled,
+// and the padded 64-row shared-memory tile (MmaTile).
 //
 // Fragments of mma.sync.m16n8k16 (lane = 4 * g + c, g = lane / 4, c =
 // lane % 4): the A fragment a[0..3] holds A[g][2c, 2c+1], A[g+8][2c, 2c+1],
@@ -76,6 +76,17 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&b);
 }
 
+// four bf16 pairs (an A or B fragment, or 16 bytes of a tile), each element
+// times mul in fp32 and rounded to bf16 again: the Pallas kernels'
+// (q * scale * log2(e)).astype(bf16) of a bf16 q
+__device__ __forceinline__ void scale_bf16(uint32_t (&x)[4], float mul) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x[i]));
+    x[i] = pack_bf16(f.x * mul, f.y * mul);
+  }
+}
+
 // A 64-row bf16 tile of the tensor-core kernels in shared memory:
 // each row's DH elements padded with zeros to DK, a multiple of 16 (the
 // depth of one m16n8k16 step), at a pitch of 2*DK + 16 bytes, so the 8 rows
@@ -116,6 +127,21 @@ struct MmaTile {
       unsigned char* p = dst + row * PITCH + 2 * (8 * t + col);
       *reinterpret_cast<uint32_t*>(p) = pack_bf16(acc[t][0] * mul, acc[t][1] * mul);
       *reinterpret_cast<uint32_t*>(p + 8 * PITCH) = pack_bf16(acc[t][2] * mul, acc[t][3] * mul);
+    }
+  }
+
+  // The whole tile at src (padding included), each element times mul and
+  // rounded to bf16, into the tile at dst, by the block's threads.
+  __device__ static void scaled_copy(unsigned char* dst, const unsigned char* src, float mul) {
+    constexpr int CHUNKS = DK / 8;  // 16-byte pieces of a padded row (even)
+#pragma unroll
+    for (int i = 0; i < ROWS * CHUNKS / THREADS; ++i) {
+      const int e = threadIdx.x + i * THREADS;
+      const int j = e / CHUNKS, off = j * PITCH + 16 * (e - j * CHUNKS);
+      const uint4 x = *reinterpret_cast<const uint4*>(src + off);
+      uint32_t w[4] = {x.x, x.y, x.z, x.w};
+      scale_bf16(w, mul);
+      *reinterpret_cast<uint4*>(dst + off) = make_uint4(w[0], w[1], w[2], w[3]);
     }
   }
 

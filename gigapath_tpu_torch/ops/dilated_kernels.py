@@ -569,8 +569,8 @@ def unpack_phases(p6: torch.Tensor, L: int, E: int, g: int, S: int, r: int) -> t
 
 
 def _check_tensor_core_inputs(name: str, Dh: int, *tensors: torch.Tensor) -> None:
-    """bf16 tensors go to the serial branch kernels' tensor-core versions
-    (forward, dq, dkv) and the pipelined forward's, which take head widths
+    """bf16 tensors go to the branch kernels' tensor-core versions (the
+    serial and the pipelined forward, dq and dkv), which take head widths
     that are multiples of 8 and 16-byte aligned tensors (their 16-byte
     copies and stores of 8 elements); fp32 tensors go to the FMA kernels."""
     if tensors[0].dtype == torch.bfloat16 and (Dh % 8 or any(t.data_ptr() % 16 for t in tensors)):
@@ -749,7 +749,8 @@ def dilated_branch_bwd_dq_pipe(
     lse5: torch.Tensor, delta: torch.Tensor, kvlen: torch.Tensor, is_causal: bool = False,
 ) -> torch.Tensor:
     """Pipelined packed dq of the branch attention
-    (``csrc/dilated_branch_bwd_dq_pipe.cu``); arguments as
+    (``csrc/dilated_branch_bwd_dq_pipe.cu``: bf16 on the tensor cores, fp32
+    on the FMA pipes); arguments as
     :func:`dilated_branch_bwd_pipe_reference`, non-causal only."""
     _check_pipe("dilated_branch_bwd_dq_pipe", is_causal, k6, v6)
     if q6.device.type == "cpu":
@@ -759,6 +760,7 @@ def dilated_branch_bwd_dq_pipe(
     _check_bwd_inputs("dilated_branch_bwd_dq_pipe", q6, k6, v6, do6, lse5, delta, kvlen)
     B, S, r, hb, Mp, Dh = q6.shape
     dq6 = torch.empty_like(q6)
+    _check_tensor_core_inputs("dilated_branch_bwd_dq_pipe", Dh, q6, k6, v6, do6, dq6)
     with torch.cuda.device(q6.device):
         rc = _build.library("dilated_branch_bwd_dq_pipe", GP_HEAD_DIM=Dh).gp_dilated_branch_bwd_dq_pipe(
             q6.data_ptr(), k6.data_ptr(), v6.data_ptr(), do6.data_ptr(), lse5.data_ptr(),
@@ -775,7 +777,8 @@ def dilated_branch_bwd_dkv_pipe(
     lse5: torch.Tensor, delta: torch.Tensor, kvlen: torch.Tensor, is_causal: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pipelined packed ``(dk, dv)`` of the branch attention
-    (``csrc/dilated_branch_bwd_dkv_pipe.cu``); arguments as
+    (``csrc/dilated_branch_bwd_dkv_pipe.cu``: bf16 on the tensor cores,
+    fp32 on the FMA pipes); arguments as
     :func:`dilated_branch_bwd_pipe_reference`, non-causal only."""
     _check_pipe("dilated_branch_bwd_dkv_pipe", is_causal, q6, do6, lse5, delta)
     if q6.device.type == "cpu":
@@ -785,6 +788,7 @@ def dilated_branch_bwd_dkv_pipe(
     _check_bwd_inputs("dilated_branch_bwd_dkv_pipe", q6, k6, v6, do6, lse5, delta, kvlen)
     B, S, r, hb, Mp, Dh = q6.shape
     dk6, dv6 = torch.empty_like(k6), torch.empty_like(v6)
+    _check_tensor_core_inputs("dilated_branch_bwd_dkv_pipe", Dh, q6, k6, v6, do6, dk6, dv6)
     with torch.cuda.device(q6.device):
         rc = _build.library("dilated_branch_bwd_dkv_pipe", GP_HEAD_DIM=Dh).gp_dilated_branch_bwd_dkv_pipe(
             q6.data_ptr(), k6.data_ptr(), v6.data_ptr(), do6.data_ptr(), lse5.data_ptr(),

@@ -154,6 +154,13 @@ def test_attention_dropout_is_refused():
         DilatedAttention(E, H, [32], [1], dropout=0.1)
 
 
+def _lanes(x: torch.Tensor):
+    """[B, S, r, hb, M] -> JAX's [B, S, r, M, LANES], band head t in lane t."""
+    hb = x.shape[3]
+    x = x.permute(0, 1, 2, 4, 3).numpy()
+    return jnp.asarray(np.pad(x, ((0, 0),) * 4 + ((0, jpd.LANES - hb),)))
+
+
 @functools.partial(jax.jit, static_argnums=(7, 8, 9))
 def _jax_bwd_impl(q6, k6, v6, do6, lse, delta, kvlen, causal, hb, block):
     Dh = q6.shape[-1]
@@ -182,14 +189,62 @@ def test_serial_bwd_bf16_matches_jax_bwd_impl(causal):
     delta = (do6.float() * out6.float()).sum(-1)
     ours = dk.dilated_branch_bwd_reference(q6, k6, v6, do6, lse5, delta, kvlen, causal)
 
-    def lanes(x):  # [B, S, r, hb, M] -> [B, S, r, M, LANES], band head t in lane t
-        x = x.permute(0, 1, 2, 4, 3).numpy()
-        return jnp.asarray(np.pad(x, ((0, 0),) * 4 + ((0, jpd.LANES - hb),)))
-
     bf = [jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (q6, k6, v6, do6)]
-    ref = _jax_bwd_impl(*bf, lanes(lse5), lanes(delta), jnp.asarray(kvlen.numpy()), causal, hb, 128)
+    ref = _jax_bwd_impl(*bf, _lanes(lse5), _lanes(delta), jnp.asarray(kvlen.numpy()), causal, hb, 128)
     for name, a, b in zip(("dq", "dk", "dv"), ours, ref):
         b = np.asarray(b.astype(jnp.float32))
         err = float(np.abs(a.float().numpy() - b).max() / np.abs(b).max())
         assert err <= 5e-3, (name, err)
     assert not any(g[1, 0, 1].any() for g in ours)  # the cell with no valid key
+
+
+@functools.partial(jax.jit, static_argnums=(7, 8))
+def _jax_bwd_impl_pipe(q6, k6, v6, do6, lse, delta, kvlen, hb, block):
+    Dh = q6.shape[-1]
+    return jpd._bwd_impl_pipe(q6, k6, v6, do6, lse, delta, kvlen, Dh**-0.5, hb, Dh, block, block, True)
+
+
+def _max_rel(a, b) -> float:
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def test_pipe_bwd_bf16_matches_jax_bwd_impl_pipe():
+    """Row 8's function past one key tile, the one the pipelined tensor-core
+    dq and dkv are held to on the card: ``dilated_branch_bwd_pipe_reference``
+    and JAX's ``_bwd_impl_pipe`` (interpret mode, 128-row blocks) on the same
+    packed bf16 q, k, v, dO and the same lse and delta (from one forward, in
+    JAX's [B, S, r, M, LANES] lane layout), at m = 256 (four 64-key tiles)
+    with ragged counts and an empty cell, non-causal. Both form the logits
+    from bf16(q*scale*log2(e)), round ds to bf16 before ds.K and keep p and
+    ds fp32 against unscaled q and fp32 dO for dK and dV, so they differ
+    only in the order of fp32 sums and the last bf16 rounding: dq, dk and dv
+    agree to 3e-3 of their max (read: 2.7e-4, 7.3e-5 and 1.1e-6). The
+    forward's key-tile placement is kept out of the comparison. The serial
+    plain backward, whose logits take q unrounded, differs from it on these
+    inputs by a few bf16 ulps at the max (read: 1.5e-2, 1.6e-2 and 2.6e-2 of
+    the max), where on fp32 copies of the same inputs, on which the rounding
+    is a no-op, the two agree to the order of fp32 sums (read: bit-equal)."""
+    B, S, r, hb, M, Dh = 2, 1, 2, 4, 256, 16
+    q6, k6, v6, do6 = (torch.from_numpy(2 * _data(s, B, S, r, hb, M, Dh)).to(torch.bfloat16)
+                       for s in (94, 95, 96, 97))
+    kvlen = torch.tensor([[[256, 200]], [[131, 0]]], dtype=torch.int32)
+    out6, lse5 = dk.dilated_branch_fwd_pipe_reference(q6, k6, v6, kvlen)
+    delta = (do6.float() * out6.float()).sum(-1)
+    ours = dk.dilated_branch_bwd_pipe_reference(q6, k6, v6, do6, lse5, delta, kvlen)
+
+    bf = [jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (q6, k6, v6, do6)]
+    ref = _jax_bwd_impl_pipe(*bf, _lanes(lse5), _lanes(delta), jnp.asarray(kvlen.numpy()), hb, 128)
+    errs = {name: _max_rel(a.float(), b.astype(jnp.float32)) for name, a, b in zip(("dq", "dk", "dv"), ours, ref)}
+    assert max(errs.values()) <= 3e-3, errs
+    assert not any(g[1, 0, 1].any() for g in ours)  # the cell with no valid key
+
+    # the rounded-q logits are exercised: pipelined vs serial plain backward
+    # in bf16, against the same pair on fp32 copies of the inputs
+    serial = dk.dilated_branch_bwd_reference(q6, k6, v6, do6, lse5, delta, kvlen)
+    f32 = [x.float() for x in (q6, k6, v6, do6)]
+    f32_pair = (dk.dilated_branch_bwd_pipe_reference(*f32, lse5, delta, kvlen),
+                dk.dilated_branch_bwd_reference(*f32, lse5, delta, kvlen))
+    bf16_diff = min(_max_rel(a.float(), b.float()) for a, b in zip(ours, serial))
+    f32_diff = max(_max_rel(a, b) for a, b in zip(*f32_pair))
+    assert f32_diff <= 1e-6 and bf16_diff >= 1e-3, (bf16_diff, f32_diff)
