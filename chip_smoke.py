@@ -9,8 +9,9 @@ stdout:
 1. device: ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``.
 2. build: compile the CUDA kernels of ``gigapath_tpu_torch/csrc`` (one nvcc
    per library, all in parallel); ptxas' register report goes to stderr.
-3. kernels: the ``cuobjdump -sass`` HMMA counts of the branch forwards'
-   libraries (rows 1 and 6) at Dh = 48, checked non-zero (bf16 runs on
+3. kernels: the ``cuobjdump -sass`` HMMA counts of the forwards'
+   libraries on the shared tile steps (rows 1 and 6, and the segment-flash
+   forward of rows 11 and 13) at Dh = 48, checked non-zero (bf16 runs on
    the tensor cores, fp32 on the FMA kernels), with ptxas' registers and
    spills of their tensor-core kernels; for each branch of the flagship
    schedule at L = 10241 (10240 tiles + cls), E = 768, H = 16, in fp32 and
@@ -137,9 +138,16 @@ stdout:
 18. ffn_gelu: the feed-forward GELU of a bf16 [10241, 3072] fc1 output in
     its own dtype against the explicit fp32 round trip, in bf16 ulps (at
     most one).
-19. flash_kernels: the ``cuobjdump -sass`` counts of the backward
-    libraries at D = 48 (HMMA > 0: bf16 runs on the tensor cores, fp32 on
-    the FMA kernels); the segment-flash kernels (rows 11-14: flash_fwd,
+19. flash_kernels: the ``cuobjdump -sass`` counts of the three
+    segment-flash libraries at D = 48 (HMMA > 0: bf16 runs on the tensor
+    cores, fp32 on the FMA kernels) with their tensor-core kernels' ptxas
+    registers and spills; a row-bound canary (``gp_flash_fwd`` called
+    directly in bf16 on the flat r = 1 branch, whose last segment holds one
+    row, and the segmented r = 12 one, m = 854, into NaN-filled out and lse
+    buffers one tile longer than the tensor: nothing written past it, the
+    rows inside bit-equal to the wrapper's); bf16 inputs the tensor-core
+    forward cannot take (D = 20, a misaligned q) refused by flash_fwd and
+    flat_fwd; the segment-flash kernels (rows 11-14: flash_fwd,
     flash_bwd_dq, flash_bwd_dkv on the segmented layout, flat_fwd,
     flat_bwd_dq, flat_bwd_dkv on the flat one) against their plain versions
     at the five head-major branches of one flagship layer with ratios [1,
@@ -200,9 +208,13 @@ stdout:
     per step and peak memory beside the serial step.
 
 ``default_route_times`` (not part of the run) times the default route's
-bf16 forward per slide and bf16 step alone, and profiles one step (device
+bf16 forward per slide and bf16 step alone (or, with ``dilated_ratio``,
+the head-major route's), and profiles one forward and one step (device
 busy, idle share), for comparing two trees of the port in turns in one
-call.
+call; ``sass_digests`` (not part of the run either) digests each kernel
+function's SASS of the forwards' and the segment-flash libraries at Dh =
+48 and 64, for showing that a change left a kernel's instructions as
+they were.
 
 Phase 16 also replays a ``torch.cuda.memory`` allocation history of one
 bf16 forward per route (10240 and 102400 tiles) to its peak and reports the
@@ -382,8 +394,10 @@ GRAD_BF16_MAX_ONE_MINUS_COS = 1e-2
 # kernels are built once per width
 OTHER_HEAD_DIMS = (16, 24, 32, 64, 96)
 BRANCH_SOURCES = ("dilated_branch_fwd", "dilated_branch_bwd_dq", "dilated_branch_bwd_dkv")
-# the branch forwards whose bf16 tensors run on the tensor cores (rows 1, 6)
-FWD_MMA_SOURCES = ("dilated_branch_fwd", "dilated_branch_fwd_pipe")
+# the forwards whose bf16 tensors run on the tensor cores, on the tile steps
+# of csrc/branch_mma.cuh: the branch forwards (rows 1, 6) and the
+# segment-flash forward (rows 11, 13)
+FWD_MMA_SOURCES = ("dilated_branch_fwd", "dilated_branch_fwd_pipe", "flash_fwd")
 # the branch backwards whose bf16 tensors run on the tensor cores (rows 7, 8)
 BWD_MMA_SOURCES = BWD_KERNELS + ("dilated_branch_bwd_dq_pipe", "dilated_branch_bwd_dkv_pipe")
 # the flagship tile encoder gigapath_tile_enc: 224 px tiles in 16 px
@@ -778,8 +792,9 @@ def phase_kernels():
 
 
 def _fwd_sass():
-    """The SASS of the branch forwards' libraries at Dh = 48: HMMA > 0 (bf16
-    tensors run on the tensor cores; fp32 on the FMA kernels)."""
+    """The SASS of the forwards' libraries at Dh = 48 (rows 1, 6, and 11/13):
+    HMMA > 0 (bf16 tensors run on the tensor cores; fp32 on the FMA
+    kernels)."""
     sass = {name: _sass_counts(name, GP_HEAD_DIM=E // H) for name in FWD_MMA_SOURCES}
     emit("kernels", sass=sass, note="cuobjdump -sass at Dh = 48: HMMA is mma.sync (the bf16 forwards)",
          tensor_core_ptxas={name: _mma_ptxas(f"{name}-GP_HEAD_DIM={E // H}") for name in FWD_MMA_SOURCES})
@@ -1463,15 +1478,19 @@ def _q_matmul_check(qm, qt_mod, x, N, mode, gen, timed: bool):
     return out
 
 
-def _sass_counts(name: str, **defines) -> dict:
-    """Tensor-core instructions in the built library's SASS (``cuobjdump
-    -sass``): HGMMA (wgmma), HMMA (mma.sync, fp16/bf16), IMMA (int8)."""
+def _sass(name: str, defines) -> str:
+    """The built library's SASS (``cuobjdump -sass``)."""
     from gigapath_tpu_torch.ops import _build
 
-    lib = _build._target(name, tuple(sorted(defines.items())))
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, check=True,
-                          timeout=120).stdout
+    return subprocess.run([tool, "-sass", str(_build._target(name, defines))], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+
+
+def _sass_counts(name: str, **defines) -> dict:
+    """Tensor-core instructions in the built library's SASS: HGMMA (wgmma),
+    HMMA (mma.sync, fp16/bf16), IMMA (int8)."""
+    sass = _sass(name, tuple(sorted(defines.items())))
     return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "HMMA", "IMMA")}
 
 
@@ -2888,12 +2907,15 @@ def phase_flash_kernels():
     from gigapath_tpu_torch.ops import dilated_attention as pda
     from gigapath_tpu_torch.ops import flash_kernels as fk
 
-    # bf16 tensors take the backward's tensor-core kernels, fp32 the FMA ones
-    sass = {name: _sass_counts(name, GP_HEAD_DIM=E // H) for name in ("flash_bwd_dq", "flash_bwd_dkv")}
-    emit("flash_kernels", sass=sass, note="cuobjdump -sass at D = 48: HMMA is mma.sync (the bf16 backward)")
+    # bf16 tensors take the tensor-core kernels, fp32 the FMA ones
+    sass = {name: _sass_counts(name, GP_HEAD_DIM=E // H) for name in FLASH_SOURCES}
+    emit("flash_kernels", sass=sass, note="cuobjdump -sass at D = 48: HMMA is mma.sync (the bf16 kernels)",
+         tensor_core_ptxas={name: _mma_ptxas(f"{name}-GP_HEAD_DIM={E // H}") for name in FLASH_SOURCES})
     for name, counts in sass.items():
         check(counts["HMMA"] > 0, f"{name}: no HMMA in its SASS {counts}")
     gen = torch.Generator(device="cuda").manual_seed(31)
+    _row_bound_canary(fk, pda, gen)
+    _refused_flash_inputs(fk)
     L = N_TILES + 1
     summary = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -2924,6 +2946,73 @@ def phase_flash_kernels():
     emit("flash_causal", max_err=causal_errs, tolerance={d: BWD_REL_TOL[d] for d in causal_errs})
     _flash_entry_points(fk, gen)
     return summary
+
+
+def _row_bound_canary(fk, pda, gen):
+    """The bf16 forward writes its segments' own rows and no others:
+    ``gp_flash_fwd`` called directly on the flagship layer's flat r = 1
+    branch (L = 10241 in segments of 1024, the last one of one row) and
+    segmented r = 12 branch (segments of m = 854 rows, 13 query tiles and
+    22 rows), into out and lse buffers one 64-row tile longer than the
+    tensor and filled with NaN: every element past the tensor stays NaN,
+    and the rows inside equal the wrapper's output bit for bit."""
+    import torch
+
+    from gigapath_tpu_torch.ops import _build
+
+    L, D = N_TILES + 1, E // H
+    qh, kh, vh = (torch.randn(1, H, L, D, device="cuda", generator=gen).to(torch.bfloat16) for _ in range(3))
+    lib = _build.library("flash_fwd", GP_HEAD_DIM=D)
+    results = {}
+    for sl, r in ((1024, 1), (1048576, 12)):
+        flat, (q, k, v, _, extra), geom = _flash_branch(fk, pda, qh, kh, vh, qh, sl, r, L, None)
+        if flat:
+            want_out, want_lse = fk.flat_fwd(q, k, v, *extra)
+            layout, kv_ptr = fk._flat_layout("canary", q, *extra), 0
+        else:
+            want_out, want_lse = fk.flash_fwd(q, k, v, extra)
+            layout, kv_ptr = fk._segmented_layout(q, k), 0 if extra is None else extra.data_ptr()
+        n_out, n_rows = q.numel(), q.numel() // D
+        out = torch.full((n_out + 64 * D,), float("nan"), dtype=torch.bfloat16, device="cuda")
+        lse = torch.full((n_rows + 64,), float("nan"), dtype=torch.float32, device="cuda")
+        with torch.cuda.device(q.device):
+            rc = lib.gp_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_ptr, out.data_ptr(), lse.data_ptr(),
+                                  1, *layout, 0, D**-0.5 * fk.LOG2E, fk.cuda_stream(q))
+        check(rc == 0, f"canary r={r}: gp_flash_fwd returned {rc}")
+        torch.cuda.synchronize()
+        label = "flat" if flat else "segmented"
+        check(bool(torch.isnan(out[n_out:]).all()) and bool(torch.isnan(lse[n_rows:]).all()),
+              f"canary {label} r={r}: the bf16 forward wrote past the tensor's last row")
+        check(torch.equal(out[:n_out].view_as(want_out), want_out) and
+              torch.equal(lse[:n_rows].view_as(want_lse), want_lse),
+              f"canary {label} r={r}: the rows inside differ from the wrapper's")
+        last_segment = L - (layout[1] - 1) * geom[0] if flat else geom[4]  # rows
+        results[f"{label} r={r}"] = {"shape": list(q.shape), "rows_in_last_query_tile": last_segment % 64}
+    emit("flash_row_bound_canary", dtype="bfloat16", tail_rows=64, branches=results,
+         note="out/lse one 64-row tile past the tensor, NaN-filled, stayed NaN; rows inside bit-equal to the wrapper")
+
+
+def _refused_flash_inputs(fk):
+    """bf16 tensors the tensor-core segment-flash forward cannot take raise
+    in both wrappers: a head width that is no multiple of 8, a q that is
+    not 16-byte aligned; no plain version runs on the card."""
+    import torch
+
+    narrow = torch.zeros(1, 1, 1, 64, 20, dtype=torch.bfloat16, device="cuda")
+    shifted = torch.zeros(64 * 48 + 1, dtype=torch.bfloat16, device="cuda")[1:].view(1, 1, 1, 64, 48)
+    ok = shifted.clone()
+    flat = lambda x: x.view(1, 1, 64, x.shape[-1])  # noqa: E731
+    refused = []
+    for label, q, kv in (("D=20", narrow, narrow), ("misaligned q", shifted, ok)):
+        for name, call in (("flash_fwd", lambda: fk.flash_fwd(q, kv, kv)),
+                           ("flat_fwd", lambda: fk.flat_fwd(flat(q), flat(kv), flat(kv), 64, 64))):
+            try:
+                call()
+            except ValueError:
+                refused.append(f"{name} {label}")
+                continue
+            raise AssertionError(f"{name} took bf16 tensors with {label}")
+    emit("flash_kernels_refused_inputs", refused=refused)
 
 
 def _flash_entry_points(fk, gen):
@@ -3546,15 +3635,16 @@ def _peak_breakdown(fn, top: int = 6) -> dict:
             "live_at_peak_gb": [{"site": site, "gb": b / 2**30} for site, b in ranked]}
 
 
-def default_route_times(reps: int = 3):
+def default_route_times(reps: int = 3, dilated_ratio=None):
     """The default route's bf16 forward per 10240-tile slide and bf16
     fine-tune step alone, as slide_forward and finetune_step time them
     (median of ``reps`` host-clock runs, each ending in a synchronize), a
-    profile of one step (device busy time, idle share), with the card's
-    name and power limit: a line for comparing two trees in turns
-    in one call. Not part of the smoke run; it uses only entry points every
-    tree of the port has, so it can time another tree's package from that
-    tree's root:
+    profile of one forward and one step (device busy time, idle share),
+    with the card's name and power limit: a line for comparing two trees in
+    turns in one call. With ``dilated_ratio`` (e.g. ``BHLD_RATIOS``) the
+    same model and head at those ratios, so the head-major route. Not part
+    of the smoke run; it uses only entry points every tree of the port has,
+    so it can time another tree's package from that tree's root:
 
         python3 -c "import runpy; runpy.run_path('<this file>')['default_route_times']()"
     """
@@ -3577,21 +3667,57 @@ def default_route_times(reps: int = 3):
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     x, coords = _flagship_inputs(1, gen)
-    model = create_model("", "gigapath_slide_enc12l768d", dtype=torch.bfloat16, seed=0)
-    fwd_ms, fwd_runs = median_ms(lambda: run_inference_with_slide_encoder(x, coords, model))
-    del model
+    ratio = {} if dilated_ratio is None else {"dilated_ratio": dilated_ratio}
+    model = create_model("", "gigapath_slide_enc12l768d", dtype=torch.bfloat16, seed=0, **ratio)
+    forward = lambda: run_inference_with_slide_encoder(x, coords, model)  # noqa: E731
+    fwd_ms, fwd_runs = median_ms(forward)
+    with torch.inference_mode():
+        fwd_profile = _profile(forward)
+    del model, forward
     labels = torch.tensor([[3]], device="cuda")
     pad_mask = torch.ones(1, N_TILES, dtype=torch.bool, device="cuda")
-    model, steps, loss_fn = _head_and_steps(torch)
+    model, steps, loss_fn = _head_and_steps(torch, **ratio)
     step = lambda: train_step(model, loss_fn, steps, x, coords, labels, pad_mask,  # noqa: E731
                               multi_label=False, bf16=True)
     step_ms, step_runs = median_ms(step)
     step_profile = _profile(step)  # device busy and idle share of one step, its costliest kernels
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    emit("default_route_times", dtype="bfloat16", tiles=N_TILES, forward_ms_per_slide=fwd_ms,
-         forward_runs_ms=fwd_runs, step_ms=step_ms, step_runs_ms=step_runs, step_profile=step_profile,
-         nvidia_smi=smi)
+    emit("default_route_times", dtype="bfloat16", tiles=N_TILES, dilated_ratio=dilated_ratio,
+         forward_ms_per_slide=fwd_ms, forward_runs_ms=fwd_runs, forward_profile=fwd_profile, step_ms=step_ms,
+         step_runs_ms=step_runs, step_profile=step_profile, nvidia_smi=smi)
+
+
+def sass_digests(names=FWD_MMA_SOURCES + FLASH_SOURCES[1:], head_dims=(48, 64)):
+    """Each kernel function's SASS in the libraries of ``names`` at
+    ``head_dims`` (``cuobjdump -sass``), as an instruction count and a
+    digest of its text: two trees' lines agree on a function exactly when
+    its instructions do. Not part of the smoke run; it builds with the
+    package of the directory it runs from, so it reads another tree's
+    kernels from that tree's root:
+
+        python3 -c "import runpy; runpy.run_path('<this file>')['sass_digests']()"
+    """
+    import hashlib
+
+    from gigapath_tpu_torch.ops import _build
+
+    specs = tuple((name, (("GP_HEAD_DIM", dh),)) for name in names for dh in head_dims)
+    _build.build_all(specs)
+    libraries = {}
+    for name, defines in specs:
+        # an anonymous namespace's mangled name carries a hash of its file,
+        # which differs between trees: keep the name, drop the hash
+        sass = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "_GLOBAL__N_", _sass(name, defines))
+        functions = {}
+        for block in re.split(r"\n\s*Function : ", sass)[1:]:
+            function, _, body = block.partition("\n")
+            lines = [" ".join(line.split()) for line in body.splitlines() if line.strip()]
+            functions[function.strip()] = {
+                "instructions": sum(bool(re.match(r"/\*[0-9a-f]{4,}\*/", line)) for line in lines),
+                "sha256": hashlib.sha256("\n".join(lines).encode()).hexdigest()[:16]}
+        libraries[_build._label(name, defines)] = functions
+    emit("sass_digests", libraries=libraries)
 
 
 def main() -> int:

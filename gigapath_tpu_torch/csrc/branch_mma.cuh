@@ -2,7 +2,9 @@
 // the phase-major packed layout, shared by the serial kernel
 // (dilated_branch_fwd.cu, PERF.md row 1) and the pipelined one
 // (dilated_branch_fwd_pipe.cu, row 6), which compute the same function and
-// differ only in how they order the steps.
+// differ only in how they order the steps, and by the segment-flash
+// forward (flash_fwd.cu, rows 11 and 13), which runs them on a FlashCell
+// and stores a ragged last query tile's rows only (finish<true>).
 //
 // A block of 4 warps owns 64 query rows of one cell, 16 a warp; thread
 // (warp, lane = 4 g + c) holds rows g and g + 8 of its warp's 16 (index h =
@@ -162,9 +164,16 @@ struct BranchFwdMma {
 
   // The epilogue, after every copy into shared memory has landed and a
   // barrier: O / l of the 64 rows through the tile at os (16-byte stores
-  // to out), lse = (m + log2 l) ln2 of each row to lse_rows.
+  // to out), lse = (m + log2 l) ln2 of each row to lse_rows. With RAGGED,
+  // only rows [0, rows) reach out and lse_rows (the segment-flash forward,
+  // whose last query tile of a segment may hold fewer than 64 rows); the
+  // packed branch kernels store all 64. The branch without RAGGED keeps
+  // the statements of the epilogue before the parameter: computing the row
+  // index ahead of the lane test there changed row 6's SASS at Dh = 48.
+  template <bool RAGGED = false>
   __device__ __forceinline__ static void finish(float (&acc)[DT][4], const float (&m)[2], float (&l)[2],
-                                                unsigned char* os, __nv_bfloat16* out, float* lse_rows) {
+                                                unsigned char* os, __nv_bfloat16* out, float* lse_rows,
+                                                int rows = 64) {
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     float safe[2];
 #pragma unroll
@@ -172,7 +181,12 @@ struct BranchFwdMma {
       l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
       l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
       safe[h] = fmaxf(l[h], 1e-30f);
-      if ((lane & 3) == 0) lse_rows[16 * warp + (lane >> 2) + 8 * h] = (m[h] + log2f(safe[h])) * LN2;
+      if constexpr (RAGGED) {
+        const int row = 16 * warp + (lane >> 2) + 8 * h;
+        if ((lane & 3) == 0 && row < rows) lse_rows[row] = (m[h] + log2f(safe[h])) * LN2;
+      } else {
+        if ((lane & 3) == 0) lse_rows[16 * warp + (lane >> 2) + 8 * h] = (m[h] + log2f(safe[h])) * LN2;
+      }
     }
 #pragma unroll
     for (int t = 0; t < DT; ++t) {
@@ -183,7 +197,11 @@ struct BranchFwdMma {
     }
     Tile::put(os, acc, 1.f);
     __syncthreads();
-    Tile::store(out, os, 64);
+    if constexpr (RAGGED) {
+      Tile::store(out, os, rows);
+    } else {
+      Tile::store(out, os, 64);
+    }
   }
 };
 

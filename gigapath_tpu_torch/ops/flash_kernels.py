@@ -24,12 +24,14 @@ the flat layout the query rows at or past a segment's count add nothing to
 dK/dV (``flat=True`` in the Pallas kernels), at every ``g``; their dQ is
 unspecified, as there.
 
-The backward kernels take one of two paths by the tensors' dtype: bf16
-runs on the tensor cores (``mma.sync``; dK/dV's fp32 ``p`` and ``ds`` each
-split into two bf16 values, so the products keep the Pallas kernels' fp32
-operands to about 16 bits), fp32 on the fp32 FMA pipes, where a
-tensor-core product would be TF32. The bf16 path needs a head width that is
-a multiple of 8 and 16-byte aligned tensors. There is no switch between
+Every kernel takes one of two paths by the tensors' dtype: bf16 runs on
+the tensor cores (``mma.sync``; the forward on the dilated branch forward's
+tile steps, ``csrc/branch_mma.cuh``, with its running max per 64-key tile;
+dK/dV's fp32 ``p`` and ``ds`` each split into two bf16 values, so the
+products keep the Pallas kernels' fp32 operands to about 16 bits), fp32 on
+the fp32 FMA pipes, where a tensor-core product would be TF32. The bf16
+path needs a head width that is a multiple of 8 and 16-byte aligned
+tensors, and the wrappers raise otherwise. There is no switch between
 them.
 
 Each wrapper runs its ``*_reference`` plain PyTorch version when its tensor
@@ -92,12 +94,14 @@ def flash_fwd_reference(
     tile] fp32 score block). Causal masks key ``j > i`` within a segment.
 
     The kernel's function: an fp32 online softmax in base 2 over the
-    kernel's key tiles (64 keys, 32 above a head width of 64), the running
-    max floored at ``M_FLOOR``, with
+    kernel's key tiles, the running max floored at ``M_FLOOR``, with
     ``q * scale * log2(e)`` and the probabilities rounded to the input dtype
     before their products and ``l`` summing the unrounded probabilities. In
-    fp32 the roundings are no-ops and this is the one-shot softmax up to the
-    order of sums. In bf16 p's rounding depends on the running max, so past
+    bf16 the tiles are the tensor-core kernel's 64 keys at every head width,
+    so this is ``dilated_branch_fwd_reference``'s function on each segment.
+    In fp32 (the FMA kernel's 64 keys, 32 above a head width of 64) the
+    roundings are no-ops and this is the one-shot softmax up to the order of
+    sums. In bf16 p's rounding depends on the running max, so past
     one key tile this is the kernel's function and not the JAX kernel's,
     whose running max moves per key block (1024 keys; a whole segment in
     the flat layout): rounding as it does would take each row's max over a
@@ -106,7 +110,7 @@ def flash_fwd_reference(
     (``tests/test_torch_flash.py::test_segmented_autograd_matches_jax_bf16_past_one_key_tile``)."""
     B, H, S, Mq, D = q.shape
     Mk = k.shape[3]
-    tile = 64 if D <= 64 else 32  # csrc/flash_fwd.cu's key tile
+    tile = 32 if D > 64 and q.dtype == torch.float32 else 64  # csrc/flash_fwd.cu's key tile
     dev = q.device
     qs = (q.float() * (D**-0.5 * LOG2E)).to(q.dtype).float()
     kf, vf = k.float(), v.float()
@@ -310,11 +314,22 @@ def flat_fwd(
     return out, lse
 
 
+def _check_tensor_cores(name, q, tensors) -> None:
+    """bf16 tensors run on the tensor-core kernels, which need a head width
+    that is a multiple of 8 and 16-byte aligned tensors: raise otherwise
+    (no fall-back to another kernel or to the plain version)."""
+    D = q.shape[-1]
+    if q.dtype == torch.bfloat16 and (D % 8 or any(t.data_ptr() % 16 for t in tensors)):
+        raise ValueError(f"{name}: the bf16 (tensor-core) kernel needs a head width that is a multiple of 8 "
+                         f"and 16-byte aligned tensors; got D={D}")
+
+
 def _launch_fwd(name, q, k, v, kv_ptr, out, lse, layout, is_causal) -> None:
     from gigapath_tpu_torch.ops import _build
 
     n_bh, S, Mq, Mk, Lq, Lk, real_len = layout
     D = q.shape[-1]
+    _check_tensor_cores(name, q, (q, k, v, out))
     with torch.cuda.device(q.device):
         rc = _build.library("flash_fwd", GP_HEAD_DIM=D).gp_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_ptr, out.data_ptr(), lse.data_ptr(),
@@ -330,9 +345,7 @@ def _launch_bwd(name, source, q, k, v, do, lse, delta, kv_ptr, outs, layout, is_
 
     n_bh, S, Mq, Mk, Lq, Lk, real_len = layout
     D = q.shape[-1]
-    if q.dtype == torch.bfloat16 and (D % 8 or any(t.data_ptr() % 16 for t in (q, k, v, do, *outs))):
-        raise ValueError(f"{name}: the bf16 (tensor-core) kernel needs a head width that is a multiple of 8 "
-                         f"and 16-byte aligned tensors; got D={D}")
+    _check_tensor_cores(name, q, (q, k, v, do, *outs))
     lib = _build.library(source, GP_HEAD_DIM=D)
     extra = () if flat is None else (int(flat),)
     with torch.cuda.device(q.device):

@@ -121,12 +121,12 @@ def test_segmented_autograd_matches_jax_bf16():
 
 @pytest.mark.parametrize("D", [16, 96])
 def test_segmented_autograd_matches_jax_bf16_past_one_key_tile(D):
-    """Segments of 200 keys: four of the forward kernel's 64-key tiles at D
-    = 16, seven of its 32-key tiles at D = 96, one JAX block. The port's
-    bf16 forward takes its running max per tile and JAX per block, so p
-    rounds against another max on some rows (``flash_fwd_reference``'s
-    docstring says why the port keeps its tiles); out, lse and the
-    gradients stay within the tolerances of
+    """Segments of 200 keys: four of the bf16 forward kernel's 64-key tiles
+    at both widths (the tensor-core kernel's tile at every D), one JAX
+    block. The port's bf16 forward takes its running max per tile and JAX
+    per block, so p rounds against another max on some rows
+    (``flash_fwd_reference``'s docstring says why the port keeps its
+    tiles); out, lse and the gradients stay within the tolerances of
     ``test_segmented_autograd_matches_jax_bf16`` (read: out 1.6e-3 / 2.3e-3
     of its max, lse 9.5e-7, gradients at most 2.5e-3 / 1.4e-3 of their max
     at D = 16 / 96)."""
@@ -143,6 +143,27 @@ def test_segmented_autograd_matches_jax_bf16_past_one_key_tile(D):
     for name, a, b in zip(("dq", "dk", "dv"), (qt.grad, kt.grad, vt.grad), grads_j):
         scale = float(np.abs(_np(b)).max())
         np.testing.assert_allclose(_np(a), _np(b), atol=3e-2 * scale, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("D,causal", [(16, False), (96, False), (96, True)], ids=["d16", "d96", "d96_causal"])
+def test_flash_fwd_reference_bf16_is_the_64_key_online_softmax(D, causal):
+    """In bf16 the plain forward is the tensor-core kernel's function at
+    every head width: the online softmax over 64-key tiles that the
+    dilated branch forward's plain version computes (the two kernels share
+    their tile steps), bit for bit on the same cells, above D = 64 too,
+    where the fp32 FMA kernel takes 32-key tiles (with 32-key tiles p
+    rounds against another running max and out moves by a bf16 ulp)."""
+    from gigapath_tpu_torch.ops import dilated_kernels as dk
+
+    B, H, S, M = 1, 3, 2, 150
+    q, k, v = (torch.from_numpy(_data(30 + i, B, H, S, M, D, scale=3.0)).to(torch.bfloat16) for i in range(3))
+    kvlen = torch.from_numpy(_kvlen("ragged", B, H, S, M, seed=12))
+    out, lse = fk.flash_fwd_reference(q, k, v, kvlen, causal)
+    packed = lambda x: x.permute(0, 2, 1, 3, 4).unsqueeze(3)  # noqa: E731  [B, S, r = H, hb = 1, M, D]
+    out6, lse5 = dk.dilated_branch_fwd_reference(packed(q), packed(k), packed(v), kvlen.permute(0, 2, 1), causal)
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, out6[:, :, :, 0].permute(0, 2, 1, 3, 4))
+    assert torch.equal(lse, lse5[:, :, :, 0].permute(0, 2, 1, 3))
 
 
 def _one_shot_flash_fwd(q, k, v, kvlen, causal):
@@ -234,6 +255,32 @@ def test_flat_autograd_matches_jax_bf16(D, causal):
     assert not _np(kt.grad)[:, :, rl:].any() and not _np(vt.grad)[:, :, rl:].any()
 
 
+@pytest.mark.parametrize("causal", [False, True])
+def test_flat_bf16_ragged_query_tile_matches_jax(causal):
+    """Flat segments of g = 80 rows (one whole 64-row query tile and a
+    ragged one of 16) over L = 170 (a ragged last segment of 10 rows) with
+    keys at or past real_len = 150 masked, D = 48, bf16: forward, lse and
+    gradients against ``pf.flat_segment_flash`` (interpret mode) within the
+    tolerances of ``test_flat_autograd_matches_jax_bf16``, dq on rows [0,
+    real_len), dk/dv everywhere."""
+    B, H, L, g, rl, D = 1, 2, 170, 80, 150, 48
+    q, k, v, do = (_data(100 + i, B, H, L, D) for i in range(4))
+    qj, kj, vj, doj = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, do))
+    out_j, lse_j, grads_j = _jax_flat(qj, kj, vj, g, rl, causal, doj)
+    qt, kt, vt = (_t(x, torch.bfloat16).requires_grad_() for x in (q, k, v))
+    out, lse = fk.flat_segment_flash(qt, kt, vt, segment_len=g, real_len=rl, is_causal=causal)
+    assert out.shape == (B, H, L, D) and lse.shape == (B, H, L)
+    out.backward(_t(do, torch.bfloat16))
+    np.testing.assert_allclose(_np(out), _np(out_j), **BF16_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j), atol=2e-2, rtol=1e-3)
+    for name, a, b in zip(("dq", "dk", "dv"), (qt.grad, kt.grad, vt.grad), grads_j):
+        a, b = _np(a), _np(b)
+        if name == "dq":
+            a, b = a[:, :, :rl], b[:, :, :rl]
+        np.testing.assert_allclose(a, b, atol=3e-2 * float(np.abs(b).max()), rtol=0, err_msg=name)
+    assert not _np(kt.grad)[:, :, rl:].any() and not _np(vt.grad)[:, :, rl:].any()
+
+
 @pytest.mark.parametrize("operand", ["p", "ds"])
 def test_dkv_split_operand_keeps_fp32_products(operand):
     """Why the bf16 dK/dV kernel splits its fp32 operand: with hi = bf16(x)
@@ -252,6 +299,22 @@ def test_dkv_split_operand_keeps_fp32_products(operand):
     scale = float(ref.abs().max())
     assert float((split.double() - ref).abs().max()) / scale <= 2.0**-15
     assert float((alone.double() - ref).abs().max()) / scale > 2.0**-15
+
+
+def test_tensor_core_flash_inputs_are_checked():
+    """The check every segment-flash wrapper (forward, dq, dkv) makes before
+    a CUDA launch: bf16 tensors go to the tensor-core kernels, which need a
+    head width that is a multiple of 8 and 16-byte aligned tensors; fp32
+    tensors (the FMA kernels) take any width the kernels are built for."""
+    fits = torch.zeros(1, 1, 1, 64, 48, dtype=torch.bfloat16)
+    fk._check_tensor_cores("flash_fwd", fits, (fits, fits, fits, fits))
+    narrow = torch.zeros(1, 1, 1, 64, 20)
+    fk._check_tensor_cores("flash_fwd", narrow, (narrow,) * 4)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fk._check_tensor_cores("flat_fwd", narrow.to(torch.bfloat16), (narrow.to(torch.bfloat16),) * 4)
+    shifted = torch.zeros(64 * 48 + 1, dtype=torch.bfloat16)[1:].view(fits.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        fk._check_tensor_cores("flash_fwd", shifted, (shifted, fits, fits, fits))
 
 
 def test_flat_segment_flash_rejects_segments_the_flat_path_does_not_take():
