@@ -13,19 +13,27 @@ stdout:
    libraries on the shared tile steps (rows 1 and 6, and the segment-flash
    forward of rows 11 and 13) at Dh = 48, checked non-zero (bf16 runs on
    the tensor cores, fp32 on the FMA kernels), with ptxas' registers and
-   spills of their tensor-core kernels; for each branch of the flagship
-   schedule at L = 10241 (10240 tiles + cls), E = 768, H = 16, in fp32 and
-   bf16 with a ragged real length, pack -> branch attention -> unpack
-   against their plain PyTorch versions on the card; times beside each
-   kernel's bound and a library call's time (SDPA for the attention,
+   spills of their tensor-core kernels, and the 128-bit global loads and
+   stores (``LDG.E.128``, ``STG.E.128``) of the pack and unpack (rows 2,
+   3), checked non-zero; for each branch of the flagship schedule at L =
+   10241 (10240 tiles + cls), E = 768, H = 16, in fp32 and bf16 with a
+   ragged real length, pack -> branch attention -> unpack against their
+   plain PyTorch versions on the card (the copies bit-exact); times beside
+   each kernel's bound and a library call's time (SDPA for the attention,
    ``torch.take`` with a precomputed index for the pack, ``index_copy_``
-   for the unpack): the branch kernel's device time from a CUDA graph, its
-   wrapper's CUDA-event time and the exp2 floor of its admitted pairs, the
-   copies' CUDA-event times. Then the branch kernel once more at a batch of
-   more than 65535 (batch, segment, head) cells, bf16, with per-row valid
-   lengths and one row with none (out exactly 0, lse at most -1e19); and
-   bf16 inputs the tensor-core forwards cannot take (Dh = 20, a misaligned
-   q6) refused by both wrappers.
+   for the unpack): each kernel's device time from a CUDA graph beside its
+   wrapper's CUDA-event time, the exp2 floor of the branch kernel's
+   admitted pairs, the copies' library calls by both clocks. Then the
+   branch kernel once more at a batch of more than 65535 (batch, segment,
+   head) cells, bf16, with per-row valid lengths and one row with none (out
+   exactly 0, lse at most -1e19); bf16 inputs the tensor-core forwards
+   cannot take (Dh = 20, a misaligned q6) refused by both wrappers; and
+   the pack and unpack on their tilings' edges (``COPY_EDGES``: g % r != 0,
+   a ragged last segment, B = 2, Dh = 20, a one-element shift, two
+   flagship branches), fp32 and bf16, bit-exact through the wrappers and
+   as a canary (the C entries into NaN-filled outputs one tile past the
+   tensor: every slot inside written, the tail still NaN), and a shape
+   their entries refuse (Mp * r < g) raising in both wrappers.
 4. slide_forward: the flagship ``gigapath_slide_enc12l768d`` with seeded
    random weights through ``create_model`` and
    ``run_inference_with_slide_encoder`` on 10240 tiles, in fp32 and bf16,
@@ -122,9 +130,9 @@ stdout:
     extent; each kernel's device time (from a CUDA graph of 20 calls; one
     call's CUDA-event time, mostly the wrapper's host work, beside it)
     against the bound, the plain version and a library call
-    (``torch.take``, ``index_copy_``; none for the epilogue, whose line
-    carries the device time of the default route's fusion of the same
-    packed results instead).
+    (``torch.take``, ``index_copy_``, by the same two clocks; none for the
+    epilogue, whose line carries the device time of the default route's
+    fusion of the same packed results instead).
 16. fusion_forward: the flagship forward with ``GIGAPATH_STREAM_FUSION=1
     GIGAPATH_PACK_DIRECT=1`` against the default route, fp32 (rel) and
     bf16 (cosine), with its exact launches; ms per slide and peak memory
@@ -211,10 +219,12 @@ stdout:
 bf16 forward per slide and bf16 step alone (or, with ``dilated_ratio``,
 the head-major route's), and profiles one forward and one step (device
 busy, idle share), for comparing two trees of the port in turns in one
-call; ``sass_digests`` (not part of the run either) digests each kernel
-function's SASS of the forwards' and the segment-flash libraries at Dh =
-48 and 64, for showing that a change left a kernel's instructions as
-they were.
+call; ``copy_kernel_times`` (not part of the run) times the pack and
+unpack per flagship layer by device time beside their library calls,
+for the same use; ``sass_digests`` (not part of the run either) digests
+each kernel function's SASS of the forwards' and the segment-flash
+libraries at Dh = 48 and 64 and of the pack and unpack, for showing that
+a change left a kernel's instructions as they were.
 
 Phase 16 also replays a ``torch.cuda.memory`` allocation history of one
 bf16 forward per route (10240 and 102400 tiles) to its peak and reports the
@@ -369,6 +379,20 @@ KERNELS = {
     ),
 }
 FWD_KERNELS = ("pack_phases", "dilated_branch_fwd", "unpack_phases")
+# the phase pack and unpack (rows 2, 3): tiled copies in 16-byte units
+COPY_SOURCES = ("pack_phases", "unpack_phases")
+COPY_KERNEL_NAMES = ("::pack_phases_kernel<", "::unpack_phases_kernel<")  # their names in a trace
+# their tilings' edges, each in fp32 and bf16 at H = 16: (B, L, sl, r, Dh,
+# elements the tensors are shifted by, what the case covers)
+COPY_EDGES = [
+    (1, 100, 30, 4, 48, 0, "a segment not divisible by r"),
+    (1, 300, 64, 2, 48, 0, "S > 1, a ragged last segment"),
+    (2, 300, 128, 4, 48, 0, "B = 2"),
+    (2, 300, 64, 2, 20, 0, "Dh = 20: 40 bytes in bf16 deny 16-byte units"),
+    (1, 300, 64, 2, 48, 1, "tensors shifted by one element: a narrower unit"),
+    (1, N_TILES + 1, 5792, 2, 48, 0, "flagship r = 2: S = 2, the last segment 4449 rows"),
+    (1, N_TILES + 1, 1048576, 16, 48, 0, "flagship r = 16: m = 641 rows of Mp = 704"),
+]
 BWD_KERNELS = ("dilated_branch_bwd_dq", "dilated_branch_bwd_dkv")
 # the pipelined twins of the branch kernels (rows 6 and 8) of rows 1, 7a, 7b
 PIPE_KERNELS = ("dilated_branch_fwd_pipe", "dilated_branch_bwd_dq_pipe", "dilated_branch_bwd_dkv_pipe")
@@ -693,6 +717,7 @@ def phase_kernels():
     from gigapath_tpu_torch.ops import dilated_kernels as dk
 
     _fwd_sass()
+    _copy_sass()
     L, B = N_TILES + 1, 1
     real_len = L - 37  # a ragged tail: keys past it are masked
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -703,14 +728,18 @@ def phase_kernels():
         totals = {name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None, err=0.0,
                              by={}) for name in FWD_KERNELS}
         totals["dilated_branch_fwd"].update(wrapper_ms=0.0, exp2_floor_ms=0.0)
+        for name in ("pack_phases", "unpack_phases"):
+            totals[name].update(wrapper_ms=0.0, library_event_ms=0.0)
         for sl, r in zip(*SCHEDULE):
             g, S, m, Mp = dk._branch_geometry(L, sl, r)
             kvlen = dk._branch_kvlen(B, S, g, r, m, real_len, None, q.device)
             # pack: exact copy of the plain version (pad slots exact 0)
             q6, k6, v6 = (dk.pack_phases(x, g, S, r, Mp, H) for x in (q, k, v))
-            q6_ref = dk.pack_phases_reference(q, g, S, r, Mp, H)
-            err_pack = max_err(q6, q6_ref)
-            check(err_pack == 0.0, f"pack_phases {dname} sl={sl} r={r}: max err {err_pack}")
+            refs6 = [dk.pack_phases_reference(x, g, S, r, Mp, H) for x in (q, k, v)]
+            err_pack = max_err(q6, refs6[0])
+            for x6, ref6 in zip((q6, k6, v6), refs6):
+                check(torch.equal(_bits(x6), _bits(ref6)),
+                      f"pack_phases {dname} sl={sl} r={r}: not bit-equal to its plain version")
             # branch attention against the plain version on the same packed inputs
             out6, lse5 = dk.dilated_branch_fwd(q6, k6, v6, kvlen)
             out_ref, lse_ref = dk.dilated_branch_fwd_reference(q6, k6, v6, kvlen)
@@ -724,8 +753,10 @@ def phase_kernels():
             check(bool((lse5[~covered] <= -1e19).all()), f"dilated_branch_fwd r={r}: uncovered lse above -1e19")
             # unpack: exact copy, off-band lanes exact 0
             dense = dk.unpack_phases(out6, L, E, g, S, r)
-            err_unpack = max_err(dense, dk.unpack_phases_reference(out6, L, E, g, S, r))
-            check(err_unpack == 0.0, f"unpack_phases {dname} r={r}: max err {err_unpack}")
+            dense_ref = dk.unpack_phases_reference(out6, L, E, g, S, r)
+            err_unpack = max_err(dense, dense_ref)
+            check(torch.equal(_bits(dense), _bits(dense_ref)),
+                  f"unpack_phases {dname} r={r}: not bit-equal to its plain version")
             phase = (torch.arange(L, device="cuda") % g) % r
             band = torch.arange(E, device="cuda") // (E // H) // (H // r)
             off_band = phase[:, None] != band[None, :]
@@ -735,13 +766,15 @@ def phase_kernels():
             uncovered = head_band[:, None] != phase[None, :]
             check(bool((lse_dense[0][uncovered] <= -1e19).all()), f"r={r}: uncovered lse above -1e19")
 
-            # times: kernels (the branch kernel's device time from a CUDA
-            # graph, its wrapper's CUDA-event time beside it), plain versions,
-            # and one library call for the attention
+            # times: each kernel's device time from a CUDA graph, its
+            # wrapper's CUDA-event time beside it; plain versions; one library
+            # call for each kernel's function (SDPA; torch.take and
+            # index_copy_ by device time too, their event times beside)
+            copies = _copy_times(dk, q, out6, q6, dense, g, S, r, Mp)
             t = {
-                "pack_phases": time_ms(lambda: dk.pack_phases(q, g, S, r, Mp, H)),
+                "pack_phases": copies["pack_ms"],
                 "dilated_branch_fwd": graph_ms(lambda: dk.dilated_branch_fwd(q6, k6, v6, kvlen)),
-                "unpack_phases": time_ms(lambda: dk.unpack_phases(out6, L, E, g, S, r)),
+                "unpack_phases": copies["unpack_ms"],
             }
             wrapper = time_ms(lambda: dk.dilated_branch_fwd(q6, k6, v6, kvlen))
             plain = {
@@ -754,11 +787,15 @@ def phase_kernels():
             qs, ks, vs = (x.reshape(B * S * r, hb, Mp, E // H) for x in (q6, k6, v6))
             key_ok = (torch.arange(Mp, device="cuda")[None] < kvlen.reshape(-1, 1))[:, None, None, :]
             lib = time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=key_ok), reps=5)
-            lib_pack, lib_unpack = _copy_yardsticks(dk, q, out6, q6, dense, g, S, r, Mp)
+            lib_pack, lib_unpack = copies["take_ms"], copies["index_copy_ms"]
             bounds, pairs = _branch_bounds(dk, B, L, sl, r, real_len, kvlen, q.element_size(), dname)
             exp2_floor = _exp2_floor_ms(pairs)
             totals["dilated_branch_fwd"]["wrapper_ms"] += wrapper
             totals["dilated_branch_fwd"]["exp2_floor_ms"] += exp2_floor
+            for name, n, key, lib_key in (("pack_phases", 3, "wrapper_ms_pack", "take_event_ms"),
+                                          ("unpack_phases", 1, "wrapper_ms_unpack", "index_copy_event_ms")):
+                totals[name]["wrapper_ms"] += n * copies[key]
+                totals[name]["library_event_ms"] += n * copies[lib_key]
             errs = {"pack_phases": err_pack, "dilated_branch_fwd": err_out, "unpack_phases": err_unpack}
             per_layer = {"pack_phases": 3, "dilated_branch_fwd": 1, "unpack_phases": 1}  # q, k, v packs
             for name in FWD_KERNELS:
@@ -774,20 +811,26 @@ def phase_kernels():
                 totals[name]["library_ms"] = (totals[name]["library_ms"] or 0.0) + ms
             emit("kernels", dtype=dname, sl=sl, r=r, g=g, S=S, m=m, Mp=Mp, real_len=real_len,
                  max_abs_err={"pack": err_pack, "out": err_out, "lse_covered": err_lse, "unpack": err_unpack},
-                 ms=t, wrapper_ms_fwd=wrapper, plain_ms=plain, library_ms_sdpa=lib, library_ms_take=lib_pack,
-                 library_ms_index_copy=lib_unpack, admitted_pairs=pairs, exp2_floor_ms=exp2_floor,
+                 ms=t, wrapper_ms_fwd=wrapper, wrapper_ms_pack=copies["wrapper_ms_pack"],
+                 wrapper_ms_unpack=copies["wrapper_ms_unpack"], plain_ms=plain, library_ms_sdpa=lib,
+                 library_ms_take=lib_pack, library_ms_index_copy=lib_unpack,
+                 library_event_ms={"take": copies["take_event_ms"], "index_copy": copies["index_copy_event_ms"]},
+                 admitted_pairs=pairs, exp2_floor_ms=exp2_floor,
                  bound_ms={n: b[0] for n, b in bounds.items()}, bound_by={n: b[1] for n, b in bounds.items()})
-            del q6, k6, v6, out6, lse5, out_ref, lse_ref, dense, qs, ks, vs
+            del q6, k6, v6, refs6, out6, lse5, out_ref, lse_ref, dense, dense_ref, qs, ks, vs
         for tot in totals.values():
             tot["bound_by"] = max(tot.pop("by").items(), key=lambda kv: kv[1])[0]
         summary[dname] = totals
         emit("kernels_per_layer", dtype=dname,
-             note="sum over the 5 branches of one layer; pack counts its 3 launches (q, k, v); "
-                  "dilated_branch_fwd's ms is its device time from a CUDA graph of 20 calls, wrapper_ms one "
-                  "call's CUDA-event time; exp2_floor_ms: one exp2 per admitted pair at 16 a clock per SM",
+             note="sum over the 5 branches of one layer; pack counts its 3 launches (q, k, v); each "
+                  "kernel's ms is its device time from a CUDA graph of 20 calls, wrapper_ms one call's "
+                  "CUDA-event time; library_ms: SDPA's CUDA-event time, torch.take's and index_copy_'s "
+                  "device time from a CUDA graph (library_event_ms their event time); exp2_floor_ms: one "
+                  "exp2 per admitted pair at 16 a clock per SM",
              sm_clock_mhz=_MUFU.get("sm_clock_mhz"), kernels=totals)
     _many_cells(dk)
     _refused_inputs(dk)
+    _copy_edges(dk)
     return summary
 
 
@@ -800,6 +843,16 @@ def _fwd_sass():
          tensor_core_ptxas={name: _mma_ptxas(f"{name}-GP_HEAD_DIM={E // H}") for name in FWD_MMA_SOURCES})
     for name, counts in sass.items():
         check(counts["HMMA"] > 0, f"{name}: no HMMA in its SASS {counts}")
+
+
+def _copy_sass():
+    """The SASS of the pack and unpack (rows 2, 3): 128-bit global loads
+    and stores > 0, the 16-byte unit the flagship's Dh = 48 takes."""
+    sass = {name: _sass_vector_counts(name) for name in COPY_SOURCES}
+    emit("kernels", sass=sass, note="cuobjdump -sass of the pack and unpack (rows 2, 3): 128-bit global "
+                                    "loads and stores, the 16-byte unit the flagship's Dh = 48 takes")
+    for name, counts in sass.items():
+        check(counts["LDG.E.128"] > 0 and counts["STG.E.128"] > 0, f"{name}: no 128-bit global copy {counts}")
 
 
 def _refused_inputs(dk):
@@ -825,12 +878,14 @@ def _refused_inputs(dk):
     emit("kernels_refused_inputs", refused=refused)
 
 
-def _copy_yardsticks(dk, x, out6, packed, dense, g, S, r, Mp):
-    """CUDA-event ms of one PyTorch indexing call computing the same copy
-    as the pack kernel (``torch.take`` with a precomputed index into the
-    dense input with one zero appended, for the pad slots) and of the
-    unpack's inverse scatter (``index_copy_`` of the packed elements into
-    zeros, pad slots to one spare element). Both are checked exact."""
+def _copy_yardsticks(dk, x, out6, packed, dense, g, S, r, Mp) -> dict:
+    """One PyTorch indexing call for the pack's function and one for the
+    unpack's, each by device time (``graph_ms``) and one call's CUDA-event
+    time: ``torch.take`` with a precomputed index into the dense input
+    with one zero appended (the pad slots), and the inverse scatter,
+    ``index_copy_`` of the packed elements into zeros (pad slots to one
+    spare element). Both are checked exact against ``packed`` and
+    ``dense``."""
     import torch
 
     B, L, E = x.shape
@@ -845,9 +900,108 @@ def _copy_yardsticks(dk, x, out6, packed, dense, g, S, r, Mp):
     flat6 = out6.reshape(-1)
     check(torch.equal(torch.zeros(n + 1, dtype=out6.dtype, device=x.device).index_copy_(0, src, flat6)[:n]
                       .reshape(B, L, E), dense), "index_copy yardstick != unpack")
-    lib_pack = time_ms(lambda: torch.take(x_pad, src))
-    lib_unpack = time_ms(lambda: torch.zeros(n + 1, dtype=out6.dtype, device=x.device).index_copy_(0, src, flat6))
-    return lib_pack, lib_unpack
+    take = lambda: torch.take(x_pad, src)  # noqa: E731
+    index_copy = lambda: torch.zeros(n + 1, dtype=out6.dtype, device=x.device).index_copy_(0, src, flat6)  # noqa: E731
+    return {"take_ms": graph_ms(take), "take_event_ms": time_ms(take),
+            "index_copy_ms": graph_ms(index_copy), "index_copy_event_ms": time_ms(index_copy)}
+
+
+def _copy_times(dk, x, out6, packed, dense, g, S, r, Mp) -> dict:
+    """The pack of ``x`` and the unpack of ``out6`` (rows 2, 3) by device
+    time (``graph_ms``) and one wrapper call's CUDA-event time, beside
+    their yardsticks (:func:`_copy_yardsticks`). Only entry points every
+    tree of the port has, so it times another tree's kernels too
+    (:func:`copy_kernel_times`)."""
+    L, E = x.shape[1:]
+    pack = lambda: dk.pack_phases(x, g, S, r, Mp, H)  # noqa: E731
+    unpack = lambda: dk.unpack_phases(out6, L, E, g, S, r)  # noqa: E731
+    return {"pack_ms": graph_ms(pack), "wrapper_ms_pack": time_ms(pack),
+            "unpack_ms": graph_ms(unpack), "wrapper_ms_unpack": time_ms(unpack),
+            **_copy_yardsticks(dk, x, out6, packed, dense, g, S, r, Mp)}
+
+
+def _bits(t):
+    """``t``'s elements as integers of their width: equal bits, not equal
+    values (a NaN equals itself, -0 differs from 0)."""
+    import torch
+
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _unit_bytes(es: int, Dh: int, *ptrs: int) -> int:
+    """The copy unit rows 2-5 take: the widest of 16, 8, 4 bytes that
+    divides a head's Dh run and every pointer, else the element."""
+    return next((u for u in (16, 8, 4) if u > es and (Dh * es) % u == 0 and all(p % u == 0 for p in ptrs)), es)
+
+
+def _copy_edges(dk):
+    """The pack and unpack (rows 2, 3) on the tilings' edges, fp32 and
+    bf16, bit-exact against their plain versions through the wrappers and
+    as a canary: ``gp_pack_phases`` / ``gp_unpack_phases`` called directly
+    into NaN-filled outputs one tile longer than the tensor (16 packed rows
+    of every phase; 16·r dense rows) must write every slot inside, pads and
+    off-band lanes exact 0 (+0 bits), and leave the tail NaN. Then a shape
+    the entries cannot take (Mp·r < g) returns cudaErrorInvalidValue and
+    the wrapper raises."""
+    import torch
+
+    from gigapath_tpu_torch.ops import _build
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    cases = []
+    for B, L, sl, r, Dh, shift, what in COPY_EDGES:
+        E_ = H * Dh
+        g, S, m, Mp = dk._branch_geometry(L, sl, r)
+        hb = H // r
+        for dtype in (torch.float32, torch.bfloat16):
+            es = torch.tensor([], dtype=dtype).element_size()
+            flat = torch.empty(B * L * E_ + shift, dtype=dtype, device="cuda")
+            x = flat[shift:].view(B, L, E_)
+            x.copy_(torch.randn(B, L, E_, device="cuda", generator=gen))
+            want6 = dk.pack_phases_reference(x, g, S, r, Mp, H)
+            flat6 = torch.empty(want6.numel() + shift, dtype=dtype, device="cuda")
+            p6 = flat6[shift:].view(want6.shape)
+            p6.copy_(want6)
+            want = dk.unpack_phases_reference(p6, L, E_, g, S, r)
+            check(torch.equal(_bits(dk.pack_phases(x, g, S, r, Mp, H)), _bits(want6)),
+                  f"pack_phases {what} {dtype}: differs from its plain version")
+            check(torch.equal(_bits(dk.unpack_phases(p6, L, E_, g, S, r)), _bits(want)),
+                  f"unpack_phases {what} {dtype}: differs from its plain version")
+            # the canary: the C entries into NaN-filled outputs with a tail
+            args = (es, B, L, E_, g, S, r, hb, Dh, Mp, torch.cuda.current_stream().cuda_stream)
+            out6 = torch.full((want6.numel() + 16 * E_,), float("nan"), dtype=dtype, device="cuda")
+            dense = torch.full((want.numel() + 16 * r * E_,), float("nan"), dtype=dtype, device="cuda")
+            rc_pack = _build.library("pack_phases").gp_pack_phases(x.data_ptr(), out6.data_ptr(), *args)
+            rc_unpack = _build.library("unpack_phases").gp_unpack_phases(p6.data_ptr(), dense.data_ptr(), *args)
+            torch.cuda.synchronize()
+            check(rc_pack == 0 and rc_unpack == 0, f"canary {what} {dtype}: rc {rc_pack}, {rc_unpack}")
+            for label, buf, ref in (("pack", out6, want6), ("unpack", dense, want)):
+                inside, tail = buf[:ref.numel()], buf[ref.numel():]
+                check(torch.equal(_bits(inside), _bits(ref.reshape(-1))),
+                      f"canary {label} {what} {dtype}: a slot inside unwritten or wrong")
+                check(bool(torch.isnan(tail).all()), f"canary {label} {what} {dtype}: wrote past the tensor")
+            zeros = int((_bits(want6) == 0).sum()) + int((_bits(want) == 0).sum())
+            cases.append({"what": what, "dtype": str(dtype).replace("torch.", ""), "B": B, "L": L, "g": g,
+                          "S": S, "r": r, "Dh": Dh, "Mp": Mp, "last_segment": L - (S - 1) * g,
+                          "unit_bytes": {"pack": _unit_bytes(es, Dh, x.data_ptr(), out6.data_ptr()),
+                                         "unpack": _unit_bytes(es, Dh, p6.data_ptr(), dense.data_ptr())},
+                          "exact_zero_slots": zeros})
+    # a shape the entries cannot take: too few packed rows for the segment
+    x = torch.zeros(1, 300, E, device="cuda")
+    g, S, m, Mp = dk._branch_geometry(300, 64, 2)
+    refused = []
+    for label, fn in (("pack_phases", lambda: dk.pack_phases(x, g, S, 2, 16, H)),
+                      ("unpack_phases", lambda: dk.unpack_phases(
+                          torch.zeros(1, S, 2, H // 2, 16, E // H, device="cuda"), 300, E, g, S, 2))):
+        try:
+            fn()
+        except RuntimeError:
+            refused.append(f"{label} Mp*r < g")
+            continue
+        raise AssertionError(f"{label} took Mp = 16 for g = {g}, r = 2")
+    emit("copy_edges", cases=cases, refused=refused, tail={"pack": "16 packed rows of every phase",
+                                                           "unpack": "16*r dense rows"},
+         note="wrapper and direct C entry bit-exact to the plain versions; canary tails stayed NaN")
 
 
 def _many_cells(dk):
@@ -1494,6 +1648,13 @@ def _sass_counts(name: str, **defines) -> dict:
     return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "HMMA", "IMMA")}
 
 
+def _sass_vector_counts(name: str, **defines) -> dict:
+    """128-bit global loads and stores in the built library's SASS
+    (``LDG.E.128``, also as ``LDG.E.128.CONSTANT``; ``STG.E.128``)."""
+    sass = _sass(name, tuple(sorted(defines.items())))
+    return {op: len(re.findall(rf"\b{re.escape(op)}\b", sass)) for op in ("LDG.E.128", "STG.E.128")}
+
+
 def _q_flash_case(qf, qt_mod, B, L, dtype, gen, timed: bool):
     """q_flash_attention vs its plain version on strided q/k/v views of one
     packed [B, L, 3, H, D] qkv, as the tile encoder hands them over."""
@@ -1638,11 +1799,12 @@ def _tile_encoder(tier: str):
     return model
 
 
-def _profile(fn, top: int = 8) -> dict:
+def _profile(fn, top: int = 8, watch=()) -> dict:
     """One ``fn()`` under ``torch.profiler``: the device's busy time (the
     union of the device activities' intervals) against the profiled window
-    (first to last event), its idle share, and the kernels with the most
-    device time."""
+    (first to last event), its idle share, the kernels with the most
+    device time, and the device time and calls of the kernels whose names
+    contain one of ``watch``, ranked or not."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1665,9 +1827,14 @@ def _profile(fn, top: int = 8) -> dict:
         ms, n = by_name.get(name, (0.0, 0))
         by_name[name] = (ms + (end - start) / 1e3, n + 1)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
-    return {"window_ms": window_us / 1e3, "device_busy_ms": busy_us / 1e3,
-            "device_idle_share": 1.0 - busy_us / window_us,
-            "top_device_ms": [{"kernel": k[:120], "ms": ms, "calls": n} for k, (ms, n) in ranked]}
+    out = {"window_ms": window_us / 1e3, "device_busy_ms": busy_us / 1e3,
+           "device_idle_share": 1.0 - busy_us / window_us,
+           "top_device_ms": [{"kernel": k[:120], "ms": ms, "calls": n} for k, (ms, n) in ranked]}
+    if watch:
+        out["watched_device_ms"] = {
+            w: {"ms": sum(ms for k, (ms, n) in by_name.items() if w in k),
+                "calls": sum(n for k, (ms, n) in by_name.items() if w in k)} for w in watch}
+    return out
 
 
 def _cosines(a, b):
@@ -2324,17 +2491,18 @@ def _fusion_case(dk, B, dtype, gen, real_len, valid, timed: bool):
         if timed:
             pack = lambda: dk.pack_phases_direct(q, g, S, r, Mp, H)  # noqa: E731
             unpack = lambda: dk.unpack_phases_direct(out6, L, E, g, S, r)  # noqa: E731
-            lib_pack, lib_unpack = _copy_yardsticks(dk, q, out6, q6, dense, g, S, r, Mp)
-            for name, fn, plain, n, lib in (
-                ("pack_phases_direct", pack, lambda: dk.pack_phases_direct_reference(q, g, S, r, Mp, H), 3, lib_pack),
+            lib = _copy_yardsticks(dk, q, out6, q6, dense, g, S, r, Mp)
+            for name, fn, plain, n, key in (
+                ("pack_phases_direct", pack, lambda: dk.pack_phases_direct_reference(q, g, S, r, Mp, H), 3, "take"),
                 ("unpack_phases_direct", unpack, lambda: dk.unpack_phases_direct_reference(out6, L, E, g, S, r),
-                 1, lib_unpack),
+                 1, "index_copy"),
             ):
                 t = tot[name]
                 t["ms"] += n * graph_ms(fn)
                 t["event_ms"] = t.get("event_ms", 0.0) + n * time_ms(fn)
                 t["plain_ms"] += n * time_ms(plain, reps=5)
-                t["library_ms"] = (t["library_ms"] or 0.0) + n * lib
+                t["library_ms"] = (t["library_ms"] or 0.0) + n * lib[f"{key}_ms"]
+                t["library_event_ms"] = t.get("library_event_ms", 0.0) + n * lib[f"{key}_event_ms"]
         del q6, k6, v6, dense
 
     # the epilogue forward against its plain version
@@ -3672,7 +3840,7 @@ def default_route_times(reps: int = 3, dilated_ratio=None):
     forward = lambda: run_inference_with_slide_encoder(x, coords, model)  # noqa: E731
     fwd_ms, fwd_runs = median_ms(forward)
     with torch.inference_mode():
-        fwd_profile = _profile(forward)
+        fwd_profile = _profile(forward, watch=COPY_KERNEL_NAMES)
     del model, forward
     labels = torch.tensor([[3]], device="cuda")
     pad_mask = torch.ones(1, N_TILES, dtype=torch.bool, device="cuda")
@@ -3680,7 +3848,7 @@ def default_route_times(reps: int = 3, dilated_ratio=None):
     step = lambda: train_step(model, loss_fn, steps, x, coords, labels, pad_mask,  # noqa: E731
                               multi_label=False, bf16=True)
     step_ms, step_runs = median_ms(step)
-    step_profile = _profile(step)  # device busy and idle share of one step, its costliest kernels
+    step_profile = _profile(step, watch=COPY_KERNEL_NAMES)  # device busy, idle share, costliest kernels
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     emit("default_route_times", dtype="bfloat16", tiles=N_TILES, dilated_ratio=dilated_ratio,
@@ -3688,13 +3856,53 @@ def default_route_times(reps: int = 3, dilated_ratio=None):
          step_runs_ms=step_runs, step_profile=step_profile, nvidia_smi=smi)
 
 
-def sass_digests(names=FWD_MMA_SOURCES + FLASH_SOURCES[1:], head_dims=(48, 64)):
+def copy_kernel_times():
+    """The pack and unpack (rows 2, 3) per flagship layer (the five
+    branches at L = 10241; the pack counts its q, k, v launches), fp32 and
+    bf16: each kernel's device time (``graph_ms``) and one wrapper call's
+    CUDA-event time, beside ``torch.take`` and ``index_copy_`` by the same
+    two clocks, with the card's name and power limit. Not part of the
+    smoke run; it uses only entry points every tree of the port has, so it
+    times another tree's kernels from that tree's root, in turns with this
+    one in one call:
+
+        python3 -c "import runpy; runpy.run_path('<this file>')['copy_kernel_times']()"
+    """
+    import torch
+
+    from gigapath_tpu_torch.ops import dilated_kernels as dk
+
+    L = N_TILES + 1
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    per_layer = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(1, L, E, device="cuda", generator=gen).to(dtype)
+        tot, branches = {}, []
+        for sl, r in zip(*SCHEDULE):
+            g, S, m, Mp = dk._branch_geometry(L, sl, r)
+            x6 = dk.pack_phases(x, g, S, r, Mp, H)
+            dense = dk.unpack_phases(x6, L, E, g, S, r)
+            times = _copy_times(dk, x, x6, x6, dense, g, S, r, Mp)
+            branches.append({"r": r, **times})
+            for key, ms in times.items():
+                n = 3 if key in ("pack_ms", "wrapper_ms_pack", "take_ms", "take_event_ms") else 1
+                tot[key] = tot.get(key, 0.0) + n * ms
+        per_layer[str(dtype).replace("torch.", "")] = {"per_layer": tot, "branches": branches}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    emit("copy_kernel_times", tiles=N_TILES, times=per_layer, nvidia_smi=smi,
+         note="ms per flagship layer: pack x3 (q, k, v) + unpack x1; *_ms device time from a CUDA graph of "
+              "20 calls, wrapper_ms_* and *_event_ms one call's CUDA-event time")
+
+
+def sass_digests(names=FWD_MMA_SOURCES + FLASH_SOURCES[1:], head_dims=(48, 64), plain=COPY_SOURCES):
     """Each kernel function's SASS in the libraries of ``names`` at
-    ``head_dims`` (``cuobjdump -sass``), as an instruction count and a
-    digest of its text: two trees' lines agree on a function exactly when
-    its instructions do. Not part of the smoke run; it builds with the
-    package of the directory it runs from, so it reads another tree's
-    kernels from that tree's root:
+    ``head_dims`` and of ``plain`` (built without defines: the pack and
+    unpack) (``cuobjdump -sass``), as an instruction count and a digest of
+    its text: two trees' lines agree on a function exactly when its
+    instructions do. Not part of the smoke run; it builds with the package
+    of the directory it runs from, so it reads another tree's kernels from
+    that tree's root:
 
         python3 -c "import runpy; runpy.run_path('<this file>')['sass_digests']()"
     """
@@ -3703,6 +3911,7 @@ def sass_digests(names=FWD_MMA_SOURCES + FLASH_SOURCES[1:], head_dims=(48, 64)):
     from gigapath_tpu_torch.ops import _build
 
     specs = tuple((name, (("GP_HEAD_DIM", dh),)) for name in names for dh in head_dims)
+    specs += tuple((name, ()) for name in plain)
     _build.build_all(specs)
     libraries = {}
     for name, defines in specs:

@@ -4,60 +4,103 @@
 // Replaces the Pallas kernel gigapath_tpu/ops/pallas_dilated.py:_pack_kernel
 // (called by _pack_phases). Packed element (b, s, p, t, j, d) holds
 //   x[b, s*g + p + r*j, (p*hb + t)*Dh + d]
-// when that token lies inside its segment (p + r*j < g) and the sequence
+// when that token lies inside its segment (w = p + r*j < g) and the sequence
 // (token < L), and an exact 0 otherwise: packed K/V pads must be zeros, or a
 // masked probability of 0 times a NaN would poison the PV product.
 //
-// Bound on the H100: bytes. The kernel moves about 2*L*E/r elements (the
-// band it reads, the packed tensor it writes) and does no arithmetic. The
-// design is one thread per packed element in output order, so the stores
-// and, within a head's Dh run, the loads are contiguous; elements are copied
-// as raw 2- or 4-byte words, so one kernel serves fp32 and bf16.
+// Bound on the H100: bytes. The kernel must read the L*E/r band elements and
+// write the whole packed tensor, and does no arithmetic. It is the
+// single-segment direct pack's design (pack_phases_direct.cu) with a segment
+// index: the grid is (Mp / BT, S, B), and block (i, s, b) takes packed rows
+// j0 = i*BT .. j0+BT-1 of every phase of segment s, i.e. the BT*r
+// consecutive in-segment positions w = j0*r .. (j0+BT)*r - 1. It loads only
+// row w's band p = w % r into shared memory, in the widest unit (16, 8, 4
+// or 2 bytes) that Dh's run and both pointers allow; rows past the segment
+// (w >= g) or the sequence are zero-filled without a read. It then writes
+// each (phase, head)'s packed [BT, Dh] strip, which is contiguous, with
+// vector stores from shared memory. Index math per unit is 32-bit over the
+// block's own ranges; 64-bit arithmetic appears only in the base offsets.
+// Elements are copied as raw units, so one kernel serves fp32 and bf16.
 
 #include <cuda_runtime.h>
 #include <cstdint>
 
 namespace {
 
-template <typename W>
-__global__ void pack_phases_kernel(const W* __restrict__ x, W* __restrict__ out,
-                                   int L, int E, int g, int S, int R, int HB,
-                                   int Dh, int Mp, long long total) {
-  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       idx < total; idx += (long long)gridDim.x * blockDim.x) {
-    long long rest = idx;
-    const int d = (int)(rest % Dh);
-    rest /= Dh;
-    const int j = (int)(rest % Mp);
-    rest /= Mp;
-    const int t = (int)(rest % HB);
-    rest /= HB;
-    const int p = (int)(rest % R);
-    rest /= R;
-    const int s = (int)(rest % S);
-    const long long b = rest / S;
-    const long long w = (long long)j * R + p;  // position inside the segment
-    const long long tok = (long long)s * g + w;
-    W val = 0;
-    if (w < g && tok < L) {
-      val = x[(b * L + tok) * E + (long long)(p * HB + t) * Dh + d];
-    }
-    out[idx] = val;
+constexpr int kThreads = 256;
+constexpr int kSmemBytes = 48 * 1024;  // no opt-in above the static limit
+constexpr int kSMs = 132;
+
+template <typename U>
+__global__ void pack_phases_kernel(const unsigned char* __restrict__ x,
+                                   unsigned char* __restrict__ out, int L,
+                                   int g, int uE, int R, int HB, int uD, int Mp,
+                                   int BT) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  U* tile = reinterpret_cast<U*>(smem);  // [BT*R rows][uW]: each row's band
+  const int uW = HB * uD;
+  const int s = blockIdx.y;
+  const long long b = blockIdx.z;
+  const int j0 = blockIdx.x * BT;
+  const int w0 = j0 * R;                 // first in-segment position
+  const long long tok0 = (long long)s * g + w0;
+  // rows of this block that hold a real token: inside the segment and < L
+  long long inside = g - w0 < L - tok0 ? g - w0 : L - tok0;
+  if (inside > BT * R) inside = BT * R;
+  const int valid = inside > 0 ? (int)inside : 0;
+  const U* xs = reinterpret_cast<const U*>(x) + (b * L + tok0) * (long long)uE;
+  U* os = reinterpret_cast<U*>(out) +
+          ((b * gridDim.y + s) * (long long)R * HB * Mp + j0) * uD;
+
+  // 1. the band lanes of the block's rows; rows past the segment or L are 0
+  const int rows = BT * R;
+  for (int i = threadIdx.x; i < rows * uW; i += kThreads) {
+    const int lr = i / uW;
+    const int c = i - lr * uW;
+    U v{};
+    if (lr < valid) v = xs[(long long)lr * uE + (lr % R) * uW + c];
+    tile[i] = v;
+  }
+  __syncthreads();
+
+  // 2. each (phase, head): packed rows j0 .. j0+BT-1, one [BT, Dh] strip
+  const int strip = BT * uD;
+  for (int i = threadIdx.x; i < R * HB * strip; i += kThreads) {
+    const int ph = i / strip;  // p*HB + t
+    const int rest = i - ph * strip;
+    const int jj = rest / uD;
+    const int c = rest - jj * uD;
+    const int p = ph / HB;
+    const int t = ph - p * HB;
+    os[(long long)ph * Mp * uD + rest] = tile[(jj * R + p) * uW + t * uD + c];
   }
 }
 
-template <typename W>
+template <typename U>
 int launch(const void* x, void* out, int B, int L, int E, int g, int S, int R,
-           int HB, int Dh, int Mp, cudaStream_t stream) {
-  const long long total = (long long)B * S * R * HB * Mp * Dh;
-  if (total == 0) return 0;
-  const int threads = 256;
-  long long blocks = (total + threads - 1) / threads;
-  if (blocks > 132 * 64) blocks = 132 * 64;  // grid-stride beyond ~64 blocks/SM
-  pack_phases_kernel<W><<<(unsigned)blocks, threads, 0, stream>>>(
-      static_cast<const W*>(x), static_cast<W*>(out), L, E, g, S, R, HB, Dh,
-      Mp, total);
+           int HB, int Dh, int Mp, int es, cudaStream_t stream) {
+  const int u = (int)sizeof(U);
+  // packed rows per block: the largest power of two <= 16 that divides Mp,
+  // fits the shared memory, and leaves about two blocks per SM
+  int BT = 16;
+  while (BT > 1 && (Mp % BT || (long long)BT * E * es > kSmemBytes ||
+                    (long long)B * S * (Mp / BT) < 2 * kSMs))
+    BT /= 2;
+  if ((long long)BT * E * es > kSmemBytes) return (int)cudaErrorInvalidValue;
+  dim3 grid(Mp / BT, S, B);
+  pack_phases_kernel<U><<<grid, kThreads, (size_t)BT * E * es, stream>>>(
+      static_cast<const unsigned char*>(x), static_cast<unsigned char*>(out),
+      L, g, E * es / u, R, HB, Dh * es / u, Mp, BT);
   return (int)cudaGetLastError();
+}
+
+// The widest copy unit that divides a head's Dh run (so a band, a row and a
+// packed strip too) and both pointers' alignment.
+int unit_bytes(int es, int Dh, const void* a, const void* b) {
+  for (int u = 16; u > es; u /= 2)
+    if ((Dh * es) % u == 0 && (uintptr_t)a % u == 0 && (uintptr_t)b % u == 0)
+      return u;
+  return es;
 }
 
 }  // namespace
@@ -66,9 +109,17 @@ extern "C" int gp_pack_phases(const void* x, void* out, int elem_bytes, int B,
                               int L, int E, int g, int S, int R, int HB,
                               int Dh, int Mp, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (elem_bytes == 4)
-    return launch<uint32_t>(x, out, B, L, E, g, S, R, HB, Dh, Mp, st);
-  if (elem_bytes == 2)
-    return launch<uint16_t>(x, out, B, L, E, g, S, R, HB, Dh, Mp, st);
-  return (int)cudaErrorInvalidValue;
+  // every token needs its slot: S segments of g cover L, Mp*r covers g
+  if ((elem_bytes != 2 && elem_bytes != 4) || B < 0 || L < 0 || g <= 0 ||
+      S <= 0 || R <= 0 || HB <= 0 || Dh <= 0 || Mp <= 0 ||
+      (long long)R * HB * Dh != E || (long long)S * g < L ||
+      (long long)Mp * R < g || S > 65535 || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  switch (unit_bytes(elem_bytes, Dh, x, out)) {
+    case 16: return launch<uint4>(x, out, B, L, E, g, S, R, HB, Dh, Mp, elem_bytes, st);
+    case 8: return launch<uint2>(x, out, B, L, E, g, S, R, HB, Dh, Mp, elem_bytes, st);
+    case 4: return launch<uint32_t>(x, out, B, L, E, g, S, R, HB, Dh, Mp, elem_bytes, st);
+    default: return launch<uint16_t>(x, out, B, L, E, g, S, R, HB, Dh, Mp, elem_bytes, st);
+  }
 }

@@ -527,7 +527,10 @@ def fusion_epilogue_bwd_reference(
 def pack_phases(
     x: torch.Tensor, g: int, S: int, r: int, Mp: int, num_heads: int
 ) -> torch.Tensor:
-    """Dense [B, L, E] -> packed [B, S, r, hb, Mp, Dh] (``csrc/pack_phases.cu``)."""
+    """Dense [B, L, E] -> packed [B, S, r, hb, Mp, Dh] (``csrc/pack_phases.cu``:
+    a block per 16 or fewer packed rows of every phase of one segment, each
+    row's band loaded into shared memory and each (phase, head)'s strip
+    written whole, in 16-byte units where Dh and both pointers allow)."""
     if x.device.type == "cpu":
         return pack_phases_reference(x, g, S, r, Mp, num_heads)
     from gigapath_tpu_torch.ops import _build
@@ -548,7 +551,9 @@ def pack_phases(
 
 def unpack_phases(p6: torch.Tensor, L: int, E: int, g: int, S: int, r: int) -> torch.Tensor:
     """Packed [B, S, r, hb, Mp, Dh] -> dense [B, L, E], off-band lanes exact
-    0 (``csrc/unpack_phases.cu``)."""
+    0 (``csrc/unpack_phases.cu``: the pack's blocks in reverse, the real
+    rows' strips into shared memory, then each dense row written whole, in
+    16-byte units where Dh and both pointers allow)."""
     if p6.device.type == "cpu":
         return unpack_phases_reference(p6, L, E, g, S, r)
     from gigapath_tpu_torch.ops import _build

@@ -53,33 +53,74 @@ def _jax_branch(q, k, v, sl, r, valid_len_dyn=None, **kw):
     return fn(*(jnp.asarray(x) for x in (q, k, v)), valid_len_dyn=valid_len_dyn)
 
 
-@pytest.mark.parametrize("L,sl,r,rl", BRANCH_CASES)
-def test_pack_phases_matches_jax(L, sl, r, rl):
-    x = _data(0, 2, L, E)
+def _dtype_cases(cases):
+    """Each case in fp32 under its old id, then in bf16 (ids ending -bf16)."""
+    ids = ["-".join(map(str, c)) for c in cases]
+    return ([pytest.param(*c, torch.float32, id=i) for c, i in zip(cases, ids)]
+            + [pytest.param(*c, torch.bfloat16, id=f"{i}-bf16") for c, i in zip(cases, ids)])
+
+
+def _both(x: np.ndarray, dtype: torch.dtype):
+    """The same values in the port's and JAX's ``dtype`` (one rounding of
+    the fp32 draw each, to nearest even on both sides)."""
+    jdtype = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    return torch.from_numpy(x).to(dtype), jnp.asarray(x, dtype=jdtype)
+
+
+def _f32(a) -> np.ndarray:
+    return a.float().numpy() if isinstance(a, torch.Tensor) else np.asarray(a.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("L,sl,r,rl,dtype", _dtype_cases(BRANCH_CASES))
+def test_pack_phases_matches_jax(L, sl, r, rl, dtype):
+    x, jx = _both(_data(0, 2, L, E), dtype)
     g, S, m, Mp = dk._branch_geometry(L, sl, r)
     jg, jS, _, jm, jMp, _ = jpd._branch_geometry(L, E, sl, r)
     assert (g, S, m) == (jg, jS, jm)
-    ours = dk.pack_phases(torch.from_numpy(x), g, S, r, Mp, H).numpy()
-    ref = np.asarray(jpd._pack_phases(jnp.asarray(x), g, S, r, jMp, H, True))
+    packed = dk.pack_phases(x, g, S, r, Mp, H)
+    assert packed.dtype == dtype
+    ours = _f32(packed)
+    ref = _f32(jpd._pack_phases(jx, g, S, r, jMp, H, True))
     assert ours.shape == (2, S, r, H // r, Mp, DH)
     np.testing.assert_array_equal(ours[:, :, :, :, :m], ref[:, :, :, :, :m])
     assert not ours[:, :, :, :, m:].any()  # row padding is exact zeros
 
 
-@pytest.mark.parametrize("L,sl,r,rl", BRANCH_CASES)
-def test_unpack_phases_matches_jax(L, sl, r, rl):
+@pytest.mark.parametrize("L,sl,r,rl,dtype", _dtype_cases(BRANCH_CASES))
+def test_unpack_phases_matches_jax(L, sl, r, rl, dtype):
     g, S, m, Mp = dk._branch_geometry(L, sl, r)
     jMp = jpd._branch_geometry(L, E, sl, r)[4]
     p6 = np.zeros((2, S, r, H // r, max(Mp, jMp), DH), np.float32)
     p6[:, :, :, :, :m] = _data(1, 2, S, r, H // r, m, DH)
-    ours = dk.unpack_phases(torch.from_numpy(p6[:, :, :, :, :Mp]), L, E, g, S, r).numpy()
-    ref = np.asarray(jpd._unpack_phases(jnp.asarray(p6[:, :, :, :, :jMp]), L, E, g, S, r, True))
+    tp6, jp6 = _both(p6, dtype)
+    dense = dk.unpack_phases(tp6[:, :, :, :, :Mp].contiguous(), L, E, g, S, r)
+    assert dense.dtype == dtype
+    ours = _f32(dense)
+    ref = _f32(jpd._unpack_phases(jp6[:, :, :, :, :jMp], L, E, g, S, r, True))
     np.testing.assert_array_equal(ours, ref)
     # the cover pattern: token l (phase (l % g) % r) keeps only its band's lanes
     phase = (np.arange(L) % g) % r
     band = np.arange(E) // DH // (H // r)
     off_band = phase[:, None] != band[None, :]
     assert not ours[:, off_band].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_pack_then_unpack_round_trip_matches_jax(dtype):
+    """B = 2, S = 4 segments of g = 30 (30 % 4 != 0), the last one ragged
+    (10 tokens): the round trip gives back x on each row's band and exact 0
+    elsewhere, equal to JAX's ``_unpack_phases(_pack_phases(x))``."""
+    L, sl, r = 100, 30, 4
+    x, jx = _both(_data(2, 2, L, E), dtype)
+    g, S, m, Mp = dk._branch_geometry(L, sl, r)
+    jMp = jpd._branch_geometry(L, E, sl, r)[4]
+    assert (g, S, L - (S - 1) * g) == (30, 4, 10)
+    ours = _f32(dk.unpack_phases(dk.pack_phases(x, g, S, r, Mp, H), L, E, g, S, r))
+    ref = _f32(jpd._unpack_phases(jpd._pack_phases(jx, g, S, r, jMp, H, True), L, E, g, S, r, True))
+    np.testing.assert_array_equal(ours, ref)
+    phase = (np.arange(L) % g) % r
+    on_band = phase[:, None] == np.arange(E)[None, :] // DH // (H // r)
+    np.testing.assert_array_equal(ours, np.where(on_band[None], _f32(x), 0.0))
 
 
 def _assert_branch_close(ours, ref):
