@@ -54,8 +54,9 @@ stdout:
    dkv cannot take (Dh = 20, a misaligned dO) refused by the four
    wrappers, serial and pipelined.
 7. head_widths: the forward, dq and dkv kernels (and the three
-   segment-flash kernels) at the registry's other head widths (16, 24, 32,
-   64, 96) against their plain versions, fp32 and bf16, with ptxas' spill
+   segment-flash kernels, and the streaming pair's dq and dkv) at the
+   registry's other head widths (16, 24, 32, 64, 96) against their plain
+   versions, fp32 and bf16, with ptxas' spill
    stores of each and the registers and spills of the branch kernels'
    tensor-core kernels, serial and pipelined (the build phase builds every
    width).
@@ -91,17 +92,30 @@ stdout:
 11. two_stage: the 160 ``int8+attn`` tile embeddings and their coords
     through ``run_inference_with_slide_encoder`` on the flagship slide
     encoder (bf16), against the plain path.
-12. stream_kernels: the streaming chunk-pair kernels (forward, dq, dkv)
-    against their plain versions at flagship chunk pairs (2048-row blocks
-    at the token offsets of a 10240-tile slide, H = 16, Dh = 48) for each
-    of the 5 branch geometries (g = 1024, 5792 and three clamped to L =
-    10241), fp32 and bf16: pairs across segment boundaries, the 1-row cls
-    block as queries and as keys, a ragged valid bound, a pair whose rows
-    are all masked (out and gradients exactly 0), a nonzero lse cotangent;
-    the kernels' device times (``torch.profiler``; a small pair's CUDA-event
-    time is the wrapper's host work) beside the bound, the plain version
-    and one SDPA call with the boolean mask (and its backward); ptxas'
-    registers and spills.
+12. stream_kernels: the ``cuobjdump -sass`` HMMA counts of the dq and dkv
+    libraries at Dh = 48 (row 16: bf16 on the tensor cores, fp32 on the
+    FMA kernels), checked non-zero, with their tensor-core kernels' ptxas
+    registers and spills (no spill store); the streaming chunk-pair
+    kernels (forward, dq, dkv) against their plain versions at flagship
+    chunk pairs (2048-row blocks at the token offsets of a 10240-tile
+    slide, H = 16, Dh = 48) for each of the 5 branch geometries (g = 1024,
+    5792 and three clamped to L = 10241), fp32 and bf16: pairs across
+    segment boundaries, the 1-row cls block as queries and as keys, a
+    ragged valid bound, a pair whose rows are all masked (out and gradients
+    exactly 0), a nonzero lse cotangent, q, k, v strided views of packed
+    [B, c, 3, H, Dh] blocks; the kernels' device times (a CUDA graph of 20
+    calls) and one wrapper call's CUDA-event time beside the bound, the
+    plain version and one SDPA call with the boolean mask (and its
+    backward) by device time (``queued_ms``: calls queued behind a spin
+    kernel) and by CUDA events around one call; ptxas' registers and
+    spills. Then a stray-write canary (the bf16
+    dq and dkv C entries called directly into NaN-filled dq, dk, dv one row
+    past the tensor at ``STREAM_CANARY``: a step-8 lattice with a ragged
+    valid bound and a g % r != 0 pair across segment boundaries, lattice
+    step 1; rows off the lattice, keys past valid and the extra row stay
+    NaN, the rows written bit-equal to the wrappers') and bf16 blocks the
+    tensor-core dq and dkv cannot take (a misaligned q, a k head stride of
+    104 bytes) refused by both wrappers.
 13. stream_forward: ``create_streaming_session`` and
     ``run_inference_with_slide_encoder_streaming`` on one 10240-tile slide
     (chunks of 2048): fp32 against the dense kernel path (two independent
@@ -112,7 +126,9 @@ stdout:
     ms per slide, tiles/s and peak memory beside the dense entry's, and a
     profiler breakdown of one bf16 forward. Then the gradients of one
     layer's streaming attention (``streaming_dilated_attention``) against
-    the dense kernel path's, with the backward kernels' launches.
+    the dense kernel path's, fp32 (rel) and bf16 (1 - cosine, also against
+    the streaming plain path), with the backward kernels' launches (148 dq
+    and 148 dkv each).
 14. stream_serve: ``StreamingSubmitter.stream_slide`` answers 3 requests
     (10240, 4097 and 2048 tiles, chunks in reverse order), each against the
     dense entry; ``head_streaming_submitter`` and ``streaming_head_logits``
@@ -221,10 +237,14 @@ the head-major route's), and profiles one forward and one step (device
 busy, idle share), for comparing two trees of the port in turns in one
 call; ``copy_kernel_times`` (not part of the run) times the pack and
 unpack per flagship layer by device time beside their library calls,
-for the same use; ``sass_digests`` (not part of the run either) digests
-each kernel function's SASS of the forwards' and the segment-flash
-libraries at Dh = 48 and 64 and of the pack and unpack, for showing that
-a change left a kernel's instructions as they were.
+for the same use; ``stream_backward_times`` (not part of the run) times
+one flagship layer's bf16 streaming attention backward (host clock,
+device busy, idle share, the two kernels' device time), for the same use;
+``sass_digests`` (not part of the run either) digests each kernel
+function's SASS of the tensor-core libraries (the forwards', the
+segment-flash, the branch and the stream backward's) at Dh = 48 and 64
+and of the pack and unpack, for showing that a change left a kernel's
+instructions as they were.
 
 Phase 16 also replays a ``torch.cuda.memory`` allocation history of one
 bf16 forward per route (10240 and 102400 tiles) to its peak and reports the
@@ -262,7 +282,6 @@ E, H = 768, 16
 SCHEDULE = ([1024, 5792, 32768, 185363, 1048576], [1, 2, 4, 8, 16])
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # fp32 FMA pipes; bf16 tensor cores
-PROFILE_PAUSE_S = 0.02  # idle host time at each edge of a device_ms profiler window
 # Kernel vs plain version on the card. Both compute in fp32 from the same
 # inputs and differ only in the order of sums (fp32 out error read 7.7e-7),
 # so a bf16 output differs by at most about one bf16 ulp of its value (read
@@ -469,6 +488,11 @@ STREAM_CASES = [
     (STREAM_L, 16, 5, 0, STREAM_L, "the 1-row cls block as keys"),
 ]
 STREAM_KERNELS = ("stream_pair_fwd", "stream_pair_bwd_dq", "stream_pair_bwd_dkv")
+STREAM_BWD_SOURCES = STREAM_KERNELS[1:]  # bf16 on the tensor cores (row 16)
+# the stray-write canary's pairs (g, r, query block, key block, valid): a
+# lattice of step 8 with a ragged valid bound, and a g % r != 0 branch
+# whose blocks cross segment boundaries (lattice step 1, every row)
+STREAM_CANARY = [(STREAM_L, 8, 5, 5, STREAM_L - 37), (1000, 3, 1, 1, STREAM_L)]
 STREAM_REQUESTS = (N_TILES, 4097, 2048)  # tiles of the three served slides; the head takes the second
 # a stream kernel vs its plain version on the card: out as the branch
 # kernels (the plain version rounds its probabilities to bf16 before PV,
@@ -541,8 +565,11 @@ PANDA = {"name": "panda", "setting": "multi_class", "label_dict": {i: i for i in
          "max_tiles": 1000000, "shuffle_tiles": True, "add_metrics": ["qwk"]}  # panda.yaml
 
 
+_T0 = time.perf_counter()  # t_s of every line: seconds since the script started
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields, "t_s": round(time.perf_counter() - _T0, 1)}), flush=True)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -569,39 +596,6 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, kernel: str, reps: int = 10, attempts: int = 3) -> float:
-    """Median device time (ms) of the CUDA kernel whose name contains
-    ``kernel`` over ``reps`` calls of ``fn``, from ``torch.profiler``'s
-    device activity. Unlike :func:`time_ms` it leaves out the wrapper's host
-    work, which is most of one call's time on a small chunk pair.
-
-    The profiler can drop device records near the edges of its window (a
-    card run saw 3 of 10 launches), so the launches sit between two idle
-    pauses, and a window that records fewer than half of them is measured
-    again, at most ``attempts`` times."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    seen = []
-    for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            time.sleep(PROFILE_PAUSE_S)
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            time.sleep(PROFILE_PAUSE_S)
-        durations = [e.time_range.end - e.time_range.start for e in prof.events()
-                     if e.device_type == DeviceType.CUDA and kernel in e.name]
-        check(len(durations) <= reps, f"the profiler saw {len(durations)} launches of {kernel} in {reps}")
-        if len(durations) >= reps // 2:
-            return statistics.median(durations) / 1e3
-        seen.append(len(durations))
-    raise AssertionError(f"the profiler saw {seen} launches of {kernel} in {attempts} windows of {reps}")
-
-
 def graph_ms(fn, reps: int = 20) -> float:
     """Device time (ms) of one ``fn()``: ``reps`` calls captured in one CUDA
     graph, its replay timed with CUDA events (median of 5) over ``reps``.
@@ -621,6 +615,33 @@ def graph_ms(fn, reps: int = 20) -> float:
     ms = time_ms(graph.replay, reps=5, warmup=1) / reps
     del graph
     return ms
+
+
+def queued_ms(fn, reps: int = 20, spin_cycles: int = 100_000_000) -> float:
+    """Device time (ms) of one ``fn()`` for calls a CUDA graph cannot
+    capture (an autograd backward, whose engine touches the legacy stream):
+    ``reps`` calls queued behind a spin kernel (``torch.cuda._sleep``, about
+    50 ms) that outlasts their enqueue, so the CUDA events around them time
+    the device running them back to back, not the host's launches. Median of
+    3; fails if a start event had completed before the last call was
+    queued (the device would have waited on the host)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin_cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        check(not start.query(), "queued_ms: the spin ended before the calls were queued")
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
 
 
 @contextlib.contextmanager
@@ -674,14 +695,21 @@ def phase_build():
 
     specs = _build.FLAGSHIP + _build.TILE_FLAGSHIP + _build.STREAM_FLAGSHIP + _build.FLASH_FLAGSHIP + tuple(
         (name, (("GP_HEAD_DIM", dh),)) for dh in OTHER_HEAD_DIMS
-        for name in BRANCH_SOURCES + PIPE_KERNELS + FLASH_SOURCES
+        for name in BRANCH_SOURCES + PIPE_KERNELS + FLASH_SOURCES + STREAM_BWD_SOURCES
     )
     t0 = time.perf_counter()
     _build.build_all(specs)
     seconds = time.perf_counter() - t0
     for name, log in _build.build_log.items():
         print(f"--- ptxas {name} ---\n{log}", file=sys.stderr)
-    emit("build", seconds=seconds, built=sorted(_build.build_log),
+    # the SASS the phases count, read here all at once (one cuobjdump a
+    # library, ~2 s each when run one after another)
+    t0 = time.perf_counter()
+    flagship = (("GP_HEAD_DIM", E // H),)
+    _read_sass([(name, flagship) for name in FWD_MMA_SOURCES + BWD_MMA_SOURCES + STREAM_BWD_SOURCES + FLASH_SOURCES]
+               + [(name, ()) for name in COPY_SOURCES + ("q_matmul",)]
+               + [("q_flash_attention", (("GP_HEAD_DIM", TILE_E // TILE_H),))])
+    emit("build", seconds=seconds, sass_seconds=time.perf_counter() - t0, built=sorted(_build.build_log),
          libraries=[_build._label(name, defines) for name, defines in specs])
 
 
@@ -1383,13 +1411,15 @@ def phase_head_widths():
     registry's other head widths (H = 16, E = 16 * Dh, one r = 2 branch on
     2049 tokens with a ragged real length), and the three segment-flash
     kernels there (a head-major r = 3 branch and
-    a flat r = 1 one), fp32 and bf16, against their plain versions; ptxas'
-    spill stores of each."""
+    a flat r = 1 one), and the streaming pair's dq and dkv (a 300-row pair
+    across a segment boundary, r = 2, a ragged valid bound), fp32 and bf16,
+    against their plain versions; ptxas' spill stores of each."""
     import torch
 
     from gigapath_tpu_torch.ops import dilated_attention as pda
     from gigapath_tpu_torch.ops import dilated_kernels as dk
     from gigapath_tpu_torch.ops import flash_kernels as fk
+    from gigapath_tpu_torch.ops import streaming_kernels as sk
 
     L, B, sl, r = 2049, 1, 1024, 2
     gen = torch.Generator(device="cuda").manual_seed(8)
@@ -1431,12 +1461,31 @@ def phase_head_widths():
                 flash_errs[f"{dname} r={r_}"] = _check_flash(
                     f"Dh={dh} r={r_}", dname, flat, _flash_fwd_bwd(fk, flat, fargs),
                     _flash_fwd_bwd(fk, flat, fargs, plain=True), dq_rows=L - 37 if flat else None, args=fargs)
+        # the streaming pair's backward at this width: 300-row blocks, the
+        # query block across the g = 256 boundary (lattice step 2, 150 rows
+        # a head: three 64-row tiles), keys past valid; lse and delta from
+        # the plain forward
+        stream_errs = {}
+        g_s, r_s, q0_s, k0_s, c_s, valid_s = 256, 2, 100, 0, 300, 290
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).replace("torch.", "")
+            q, k, v, do = (torch.randn(1, c_s, H, dh, device="cuda", generator=gen).to(dtype) for _ in range(4))
+            geo = (q0_s, k0_s, g_s, r_s, valid_s)
+            out, lse = sk.stream_pair_fwd_reference(q, k, v, *geo)
+            delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+            args = (q, k, v, do, lse, delta, *geo)
+            ours = (sk.stream_pair_bwd_dq(*args), *sk.stream_pair_bwd_dkv(*args))
+            for name, a, b in zip(("dq", "dk", "dv"), ours, sk.stream_pair_bwd_reference(*args)):
+                err = _grad_rel_err(a, b)
+                check(err <= BWD_REL_TOL[dname], f"Dh={dh} {dname} stream {name} rel err {err} > {BWD_REL_TOL[dname]}")
+                stream_errs[f"{dname} {name}"] = err
         emit("head_widths", Dh=dh, E=Eh, L=L, sl=sl, r=r, max_rel_err=errs, tolerance=BWD_REL_TOL,
-             flash_max_err=flash_errs,
+             flash_max_err=flash_errs, stream_max_rel_err=stream_errs,
+             stream_geometry=dict(g=g_s, r=r_s, q0=q0_s, k0=k0_s, c=c_s, valid=valid_s),
              spill_store_bytes={name: _spill_bytes(f"{name}-GP_HEAD_DIM={dh}")
-                                for name in BRANCH_SOURCES + PIPE_KERNELS + FLASH_SOURCES},
+                                for name in BRANCH_SOURCES + PIPE_KERNELS + FLASH_SOURCES + STREAM_BWD_SOURCES},
              tensor_core_ptxas={name: _mma_ptxas(f"{name}-GP_HEAD_DIM={dh}")
-                                for name in FWD_MMA_SOURCES + BWD_MMA_SOURCES})
+                                for name in FWD_MMA_SOURCES + BWD_MMA_SOURCES + STREAM_BWD_SOURCES})
 
 
 def _head_and_steps(torch, lr=5e-5, scheduler="fixed", **slide_kwargs):
@@ -1632,13 +1681,31 @@ def _q_matmul_check(qm, qt_mod, x, N, mode, gen, timed: bool):
     return out
 
 
-def _sass(name: str, defines) -> str:
-    """The built library's SASS (``cuobjdump -sass``)."""
+_SASS_TEXT: dict = {}  # (name, defines) -> the library's SASS, read once a process
+
+
+def _read_sass(specs) -> None:
+    """The SASS (``cuobjdump -sass``) of every built library of ``specs``
+    (``(name, defines)`` pairs) not read yet, one ``cuobjdump`` each, all
+    running at once."""
     from gigapath_tpu_torch.ops import _build
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    return subprocess.run([tool, "-sass", str(_build._target(name, defines))], capture_output=True, text=True,
-                          check=True, timeout=120).stdout
+    procs = {spec: subprocess.Popen([tool, "-sass", str(_build._target(*spec))], stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+             for spec in dict.fromkeys(specs) if spec not in _SASS_TEXT}
+    for spec, proc in procs.items():
+        out, err = proc.communicate(timeout=120)
+        if proc.returncode != 0:
+            raise subprocess.CalledProcessError(proc.returncode, proc.args, out, err)
+        _SASS_TEXT[spec] = out
+
+
+def _sass(name: str, defines) -> str:
+    """The built library's SASS (``cuobjdump -sass``)."""
+    spec = (name, tuple(defines))
+    _read_sass((spec,))
+    return _SASS_TEXT[spec]
 
 
 def _sass_counts(name: str, **defines) -> dict:
@@ -2012,9 +2079,10 @@ def phase_stream_kernels():
     from gigapath_tpu_torch.ops import streaming_kernels as sk
 
     D = E // H
+    _stream_sass()
     gen = torch.Generator(device="cuda").manual_seed(12)
-    summary = {name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, err=0.0, by={}, exp2_floor_ms=0.0)
-               for name in STREAM_KERNELS}
+    summary = {name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, library_event_ms=0.0, err=0.0, by={},
+                          exp2_floor_ms=0.0) for name in STREAM_KERNELS}
     timed_branches = set()
     for g, r, qi, ki, valid, note in STREAM_CASES:
         (q0, q1), (k0, k1) = STREAM_BLOCKS[qi], STREAM_BLOCKS[ki]
@@ -2068,9 +2136,10 @@ def phase_stream_kernels():
                 calls = {"stream_pair_fwd": lambda: sk.stream_pair_fwd(q, k, v, *geo),
                          "stream_pair_bwd_dq": lambda: sk.stream_pair_bwd_dq(*args),
                          "stream_pair_bwd_dkv": lambda: sk.stream_pair_bwd_dkv(*args)}
-                # the kernel's device time, and one wrapper call's (its host
-                # work, the output fills and the launch) by CUDA events
-                t = {name: device_ms(fn, f"{name}_kernel") for name, fn in calls.items()}
+                # the kernel's device time (a CUDA graph of 20 calls), and one
+                # wrapper call's (its host work, the output fills and the
+                # launch) by CUDA events
+                t = {name: graph_ms(fn) for name, fn in calls.items()}
                 record["ms"] = t
                 record["wrapper_ms"] = {name: time_ms(fn) for name, fn in calls.items()}
                 bounds = _stream_bounds(pairs, cq, ck, q.element_size(), dname)
@@ -2086,19 +2155,28 @@ def phase_stream_kernels():
                                                    warmup=1),
                 }
                 # library yardstick: one SDPA call with the boolean [H, cq, ck]
-                # mask (and the backward of one, for dq, dk and dv at once)
+                # mask (and the backward of one, for dq, dk and dv at once), by
+                # device time (queued_ms: the profiler's busy time of one call
+                # dropped most of the backward's device records in a card run,
+                # 0.0047 ms against 0.34 by events, and a captured backward
+                # fails) and by CUDA events around one call
                 qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-                lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask[None]), reps=5)
-                lib_out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask[None])
+                lib_fwd_fn = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask[None])  # noqa: E731
+                lib_out = lib_fwd_fn()
                 do_h = do.transpose(1, 2)
-                lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, (qh, kh, vh), do_h, retain_graph=True), reps=5)
+                lib_bwd_fn = lambda: torch.autograd.grad(lib_out, (qh, kh, vh), do_h, retain_graph=True)  # noqa: E731
+                lib_fwd, lib_bwd = queued_ms(lib_fwd_fn), queued_ms(lib_bwd_fn)
                 library = {"stream_pair_fwd": lib_fwd, "stream_pair_bwd_dq": lib_bwd, "stream_pair_bwd_dkv": lib_bwd}
-                record.update(plain_ms=plain, library_ms=library)
+                lib_fwd_ev, lib_bwd_ev = time_ms(lib_fwd_fn, reps=5), time_ms(lib_bwd_fn, reps=5)
+                library_event = {"stream_pair_fwd": lib_fwd_ev, "stream_pair_bwd_dq": lib_bwd_ev,
+                                 "stream_pair_bwd_dkv": lib_bwd_ev}
+                record.update(plain_ms=plain, library_ms=library, library_event_ms=library_event)
                 for name in STREAM_KERNELS:
                     tot = summary[name]
                     tot["ms"] += t[name]
                     tot["plain_ms"] += plain[name]
                     tot["library_ms"] += library[name]
+                    tot["library_event_ms"] += library_event[name]
                     tot["bound_ms"] += bounds[name][0]
                     tot["exp2_floor_ms"] += record["exp2_floor_ms"]
                     tot["by"][bounds[name][1]] = tot["by"].get(bounds[name][1], 0.0) + bounds[name][0]
@@ -2112,14 +2190,133 @@ def phase_stream_kernels():
         del mask
     for tot in summary.values():
         tot["bound_by"] = max(tot.pop("by").items(), key=lambda kv: kv[1])[0]
+    _stream_canary(sk, gen)
+    _refused_stream_inputs(sk)
     emit("stream_kernels_per_branch", dtype="bfloat16",
-         note="sum over one chunk pair per branch (the timed pairs); ms is the kernel's device time (torch.profiler), "
-              "plain_ms and library_ms CUDA events around one call; library_ms of dq and dkv is one SDPA backward "
-              "(dq, dk and dv) per pair; exp2_floor_ms: one exp2 per visible pair at 16 a clock per SM",
+         note="sum over one chunk pair per branch (the timed pairs); ms is the kernel's device time (a CUDA graph "
+              "of 20 calls), library_ms one SDPA call's device time (20 calls queued behind a spin kernel, CUDA "
+              "events around them), library_event_ms its CUDA-event time alone, plain_ms CUDA events around one "
+              "call; the library of dq and dkv is one SDPA backward (dq, dk and dv) per pair; exp2_floor_ms: one "
+              "exp2 per visible pair at 16 a clock per SM",
          kernels=summary,
          ptxas={name: _ptxas(f"{name}-GP_HEAD_DIM={E // H}") for name in STREAM_KERNELS},
          tolerance={"out": KERNEL_TOL, "lse_covered": STREAM_LSE_TOL, "grads_rel": BWD_REL_TOL})
     return summary
+
+
+def _stream_sass():
+    """The SASS of the two stream backward libraries at Dh = 48: HMMA > 0
+    (bf16 tensors run on the tensor cores; fp32 on the FMA kernels), and
+    no spill store in their tensor-core kernels."""
+    sass = {name: _sass_counts(name, GP_HEAD_DIM=E // H) for name in STREAM_BWD_SOURCES}
+    ptxas = {name: _mma_ptxas(f"{name}-GP_HEAD_DIM={E // H}") for name in STREAM_BWD_SOURCES}
+    emit("stream_kernels_sass", sass=sass, tensor_core_ptxas=ptxas,
+         note="cuobjdump -sass at Dh = 48: HMMA is mma.sync (the bf16 dq and dkv)")
+    for name in STREAM_BWD_SOURCES:
+        check(sass[name]["HMMA"] > 0, f"{name}: no HMMA in its SASS {sass[name]}")
+        check(ptxas[name]["registers"] is not None and ptxas[name]["spill_store_bytes"] == 0,
+              f"{name}: the tensor-core kernel spills or was not built here: {ptxas[name]}")
+
+
+def _stream_lattice_rows(off: int, c: int, g: int, r: int, H: int, valid=None):
+    """[c, H] bool: the rows (or keys, cut at ``valid``) of a c-row block at
+    global offset ``off`` on each head's phase lattice, the rows a kernel
+    enumerates and writes."""
+    import torch
+
+    from gigapath_tpu_torch.ops import streaming_kernels as sk
+
+    step, shift = sk.lattice(off, c, g, r)
+    rows = torch.arange(c)
+    phases = torch.arange(H) // -(-H // r)
+    on = ((off + rows[:, None] - phases[None, :] - shift) % step) == 0
+    if valid is not None:
+        on &= (off + rows < valid)[:, None]
+    return on.cuda()
+
+
+def _stream_canary(sk, gen):
+    """The bf16 dq and dkv write the lattice rows and keys below valid and
+    nothing else: the C entries called directly into NaN-filled dq, dk and
+    dv one row longer than the tensor, at the STREAM_CANARY pairs. The rows
+    off the lattice, the keys past valid and the extra row stay NaN, and
+    the rows written equal the wrappers' output bit for bit."""
+    import torch
+
+    from gigapath_tpu_torch.ops import _build
+
+    D = E // H
+    lib_dq = _build.library("stream_pair_bwd_dq", GP_HEAD_DIM=D)
+    lib_dkv = _build.library("stream_pair_bwd_dkv", GP_HEAD_DIM=D)
+    results = []
+    for g, r, qi, ki, valid in STREAM_CANARY:
+        (q0, q1), (k0, k1) = STREAM_BLOCKS[qi], STREAM_BLOCKS[ki]
+        cq, ck = q1 - q0, k1 - k0
+        q, k, v, do = (torch.randn(1, c, H, D, device="cuda", generator=gen).to(torch.bfloat16)
+                       for c in (cq, ck, ck, cq))
+        out, lse = sk.stream_pair_fwd(q, k, v, q0, k0, g, r, valid)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, do, lse, delta, q0, k0, g, r, valid)
+        want_dq = sk.stream_pair_bwd_dq(*args)
+        want_dk, want_dv = sk.stream_pair_bwd_dkv(*args)
+        rel = {name: _grad_rel_err(a, b) for name, a, b in zip(
+            ("dq", "dk", "dv"), (want_dq, want_dk, want_dv), sk.stream_pair_bwd_reference(*args))}
+        check(max(rel.values()) <= BWD_REL_TOL["bfloat16"], f"canary g={g} r={r}: vs the plain version {rel}")
+        geo, q_rows, k_rows = sk._geometry(H, q0, cq, k0, ck, g, r, valid)
+        bufs = {name: torch.full(((c + 1) * H * D,), float("nan"), dtype=torch.bfloat16, device="cuda")
+                for name, c in (("dq", cq), ("dk", ck), ("dv", ck))}
+        views = {name: buf[:-H * D].view(1, -1, H, D) for name, buf in bufs.items()}
+        scales = (D**-0.5 * sk.LOG2E, D**-0.5)
+        with torch.cuda.device(q.device):
+            rc_dq = lib_dq.gp_stream_pair_bwd_dq(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                views["dq"].data_ptr(), 1, 1, D, geo, -(-q_rows // sk.ROW_TILE),
+                sk._strides(q, k, v, do, views["dq"]), *scales, sk.cuda_stream(q))
+            rc_dkv = lib_dkv.gp_stream_pair_bwd_dkv(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                views["dk"].data_ptr(), views["dv"].data_ptr(), 1, 1, D, geo, -(-k_rows // sk.KEY_ROWS_DKV_BF16),
+                sk._strides(q, k, v, do, views["dk"], views["dv"]), *scales, sk.cuda_stream(q))
+        check(rc_dq == 0 and rc_dkv == 0, f"canary g={g} r={r}: the entries returned {rc_dq}, {rc_dkv}")
+        torch.cuda.synchronize()
+        written = {"dq": _stream_lattice_rows(q0, cq, g, r, H),
+                   "dk": _stream_lattice_rows(k0, ck, g, r, H, valid)}
+        written["dv"] = written["dk"]
+        counts = {}
+        for name, want in (("dq", want_dq), ("dk", want_dk), ("dv", want_dv)):
+            got, on = views[name][0], written[name]  # [c, H, D], [c, H]
+            check(bool(torch.isnan(bufs[name][-H * D:]).all()), f"canary g={g} r={r}: {name} wrote past the tensor")
+            check(bool(torch.isnan(got[~on]).all()), f"canary g={g} r={r}: {name} wrote a row off the lattice")
+            check(torch.equal(got[on], want[0][on]), f"canary g={g} r={r}: {name}'s rows differ from the wrapper's")
+            counts[name] = {"written_rows": int(on.sum()), "untouched_rows": int((~on).sum())}
+        results.append({"g": g, "r": r, "q_block": [q0, q1], "k_block": [k0, k1], "valid": valid,
+                        "lattice_steps": [int(geo[6]), int(geo[10])], "rows": counts, "max_rel_err_vs_plain": rel})
+    emit("stream_kernels_canary", dtype="bfloat16", pairs=results, tolerance=BWD_REL_TOL["bfloat16"],
+         note="dq/dk/dv one row past the tensor, NaN-filled: the rows off the lattice, the keys past valid and the "
+              "extra row stayed NaN; the rows written bit-equal to the wrappers', which are held to the plain "
+              "version")
+
+
+def _refused_stream_inputs(sk):
+    """bf16 blocks the tensor-core dq and dkv cannot take raise in both
+    wrappers: a q that is not 16-byte aligned, and a k whose head stride
+    is no whole number of 16 bytes; no plain version runs on the card."""
+    import torch
+
+    D, c = E // H, 64
+    shifted = torch.zeros(c * H * D + 1, dtype=torch.bfloat16, device="cuda")[1:].view(1, c, H, D)
+    wide = torch.zeros(1, c, H, D + 4, dtype=torch.bfloat16, device="cuda")[..., :D]
+    ok = torch.zeros(1, c, H, D, dtype=torch.bfloat16, device="cuda")
+    vec = torch.zeros(1, H, c, device="cuda")
+    refused = []
+    for fn in (sk.stream_pair_bwd_dq, sk.stream_pair_bwd_dkv):
+        for label, (q, k) in (("misaligned q", (shifted, ok)), ("k head stride of 104 bytes", (ok, wide))):
+            try:
+                fn(q, k, ok, ok, vec, vec, 0, 0, 64, 1)
+            except ValueError:
+                refused.append(f"{fn.__name__} {label}")
+                continue
+            raise AssertionError(f"{fn.__name__} took bf16 blocks with {label}")
+    emit("stream_kernels_refused_inputs", refused=refused)
 
 
 def _slide_chunks(x, coords, order):
@@ -2278,8 +2475,11 @@ def _stream_session_checks(model, rounded, stream):
 def _stream_backward():
     """Gradients of one flagship layer's streaming attention
     (``streaming_dilated_attention`` over the slide's token blocks) against
-    the dense kernel path's (``dilated_attention``), fp32, with the launches
-    of the streaming backward."""
+    the dense kernel path's (``dilated_attention``): fp32 within
+    GRAD_F32_REL_TOL; bf16 (the tensor-core dq and dkv) within
+    GRAD_BF16_MAX_ONE_MINUS_COS of the dense kernel path's and of the
+    streaming plain path's; the launches of each streaming backward
+    (148 dq, 148 dkv). Returns the bf16 launches."""
     import torch
 
     from gigapath_tpu_torch.ops.dilated_attention import dilated_attention
@@ -2287,33 +2487,51 @@ def _stream_backward():
 
     gen = torch.Generator(device="cuda").manual_seed(14)
     D = E // H
-    q, k, v = (torch.randn(1, STREAM_L, H, D, device="cuda", generator=gen) for _ in range(3))
-    w = torch.randn(1, STREAM_L, H, D, device="cuda", generator=gen)
-    grads = {}
-    for name in ("stream", "dense"):
-        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-        if name == "stream":
-            blocks = streaming_dilated_attention(
-                *([t[:, a:b] for a, b in STREAM_BLOCKS] for t in leaves), STREAM_BLOCKS, *SCHEDULE)
-            loss = sum((blk * w[:, a:b]).sum() for blk, (a, b) in zip(blocks, STREAM_BLOCKS))
-            torch.cuda.synchronize()
-            reset_all_launch_counts()
-            loss.backward()
-            torch.cuda.synchronize()
-            launches = all_launch_counts()
-        else:
-            (dilated_attention(*leaves, *SCHEDULE).float() * w).sum().backward()
-        grads[name] = [t.grad for t in leaves]
-    want = dict.fromkeys(launches, 0)
-    want.update(stream_pair_bwd_dq=STREAM_FOLDS // 12, stream_pair_bwd_dkv=STREAM_FOLDS // 12)
-    check(launches == want, f"streaming backward launches {launches} != {want}")
-    rel = {}
-    for gname, a, b in zip(("dq", "dk", "dv"), grads["stream"], grads["dense"]):
-        rel[gname] = _grad_rel_err(a, b)
-        check(rel[gname] <= GRAD_F32_REL_TOL, f"streaming backward {gname} rel err vs dense {rel[gname]}")
-    emit("stream_backward", dtype="float32", L=STREAM_L, launches=launches, max_rel_err_vs_dense=rel,
-         tolerance=GRAD_F32_REL_TOL)
-    return launches
+    base = [torch.randn(1, STREAM_L, H, D, device="cuda", generator=gen) for _ in range(4)]  # q, k, v, w
+    launches = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        q, k, v, w = (t.to(dtype) for t in base)
+        grads = {}
+        for name in ("stream", "dense") if dname == "float32" else ("stream", "stream_plain", "dense"):
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            if name == "dense":
+                (dilated_attention(*leaves, *SCHEDULE).float() * w.float()).sum().backward()
+            else:
+                with plain_stream_kernels() if name == "stream_plain" else contextlib.nullcontext():
+                    blocks = streaming_dilated_attention(
+                        *([t[:, a:b] for a, b in STREAM_BLOCKS] for t in leaves), STREAM_BLOCKS, *SCHEDULE)
+                    loss = sum((blk.float() * w[:, a:b].float()).sum() for blk, (a, b) in zip(blocks, STREAM_BLOCKS))
+                    torch.cuda.synchronize()
+                    reset_all_launch_counts()
+                    loss.backward()
+                    torch.cuda.synchronize()
+                    counts = all_launch_counts()
+                if name == "stream":
+                    launches[dname] = counts
+            grads[name] = [t.grad for t in leaves]
+        want = dict.fromkeys(launches[dname], 0)
+        want.update(stream_pair_bwd_dq=STREAM_FOLDS // 12, stream_pair_bwd_dkv=STREAM_FOLDS // 12)
+        check(launches[dname] == want, f"{dname} streaming backward launches {launches[dname]} != {want}")
+        errs = {}
+        for vs in grads:
+            if vs == "stream":
+                continue
+            for gname, a, b in zip(("dq", "dk", "dv"), grads["stream"], grads[vs]):
+                check(bool(torch.isfinite(a).all()), f"{dname} streaming backward: non-finite {gname}")
+                if dname == "float32":
+                    err = _grad_rel_err(a, b)
+                    check(err <= GRAD_F32_REL_TOL, f"streaming backward {gname} rel err vs {vs} {err}")
+                else:
+                    err = _one_minus_cos(a, b)
+                    check(err <= GRAD_BF16_MAX_ONE_MINUS_COS,
+                          f"bf16 streaming backward {gname} 1 - cos vs {vs} {err} > {GRAD_BF16_MAX_ONE_MINUS_COS}")
+                errs[f"{gname} vs {vs}"] = err
+        emit("stream_backward", dtype=dname, L=STREAM_L, launches=launches[dname],
+             **({"max_rel_err": errs, "tolerance": GRAD_F32_REL_TOL} if dname == "float32"
+                else {"one_minus_cos": errs, "tolerance": GRAD_BF16_MAX_ONE_MINUS_COS}))
+        del q, k, v, w, grads
+    return launches["bfloat16"]
 
 
 def phase_stream_serve():
@@ -3895,7 +4113,55 @@ def copy_kernel_times():
               "20 calls, wrapper_ms_* and *_event_ms one call's CUDA-event time")
 
 
-def sass_digests(names=FWD_MMA_SOURCES + FLASH_SOURCES[1:], head_dims=(48, 64), plain=COPY_SOURCES):
+def stream_backward_times(reps: int = 5):
+    """One flagship layer's bf16 streaming attention backward alone (the
+    gradients of ``streaming_dilated_attention`` over the slide's token
+    blocks: 148 dq and 148 dkv launches and the folds' own work): the host
+    clock of ``loss.backward()`` (median of ``reps`` runs, each after a
+    fresh forward, ending in a synchronize), and the device busy time and
+    idle share of one backward under ``torch.profiler`` with the device
+    time of the two kernels, with the card's name and power limit. Not part
+    of the smoke run; it uses only entry points every tree of the port has,
+    so it times another tree's kernels from that tree's root, in turns with
+    this one in one call:
+
+        python3 -c "import runpy; runpy.run_path('<this file>')['stream_backward_times']()"
+    """
+    import torch
+
+    from gigapath_tpu_torch.ops.streaming_prefill import streaming_dilated_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    D = E // H
+    q, k, v, w = (torch.randn(1, STREAM_L, H, D, device="cuda", generator=gen).to(torch.bfloat16)
+                  for _ in range(4))
+
+    def forward():
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        blocks = streaming_dilated_attention(
+            *([t[:, a:b] for a, b in STREAM_BLOCKS] for t in leaves), STREAM_BLOCKS, *SCHEDULE)
+        loss = sum((blk.float() * w[:, a:b].float()).sum() for blk, (a, b) in zip(blocks, STREAM_BLOCKS))
+        torch.cuda.synchronize()
+        return loss
+
+    forward().backward()  # warm-up
+    secs = []
+    for _ in range(reps):
+        loss = forward()
+        t0 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    profile = _profile(forward().backward, watch=STREAM_BWD_SOURCES)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    emit("stream_backward_times", dtype="bfloat16", L=STREAM_L, chunk=STREAM_CHUNK,
+         backward_ms=statistics.median(secs) * 1e3, runs_ms=[x * 1e3 for x in secs], profile=profile,
+         nvidia_smi=smi)
+
+
+def sass_digests(names=FWD_MMA_SOURCES + FLASH_SOURCES[1:] + BWD_MMA_SOURCES + STREAM_BWD_SOURCES,
+                 head_dims=(48, 64), plain=COPY_SOURCES):
     """Each kernel function's SASS in the libraries of ``names`` at
     ``head_dims`` and of ``plain`` (built without defines: the pack and
     unpack) (``cuobjdump -sass``), as an instruction count and a digest of

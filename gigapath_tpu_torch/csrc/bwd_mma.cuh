@@ -1,22 +1,34 @@
 // The tile steps of the bf16 tensor-core attention backward, dq and dkv,
 // shared by the segment-flash kernels (flash_bwd_dq.cu, flash_bwd_dkv.cu;
-// PERF.md rows 12 and 14) and the dilated-branch kernels on the phase-major
+// PERF.md rows 12 and 14), the dilated-branch kernels on the phase-major
 // packed layout, serial (dilated_branch_bwd_dq.cu, dilated_branch_bwd_dkv.cu;
 // row 7) and pipelined (dilated_branch_bwd_dq_pipe.cu,
-// dilated_branch_bwd_dkv_pipe.cu; row 8). The Pallas pairs
-// pallas_flash.py:_dq_kernel / _dkv_kernel, pallas_dilated.py:_dq_kernel /
-// _dkv_kernel and pallas_dilated.py:_dq_kernel_pipe / _dkv_kernel_pipe
-// differ in their index maps and, the pipelined pair, in one rounding of
-// the logits (the Logits parameter below), so each file supplies its cell
-// map and that parameter and these steps do the rest.
+// dilated_branch_bwd_dkv_pipe.cu; row 8), and the streaming chunk-pair
+// kernels (stream_pair_bwd_dq.cu, stream_pair_bwd_dkv.cu; row 16). The
+// Pallas pairs pallas_flash.py:_dq_kernel / _dkv_kernel,
+// pallas_dilated.py:_dq_kernel / _dkv_kernel, pallas_dilated.py:_dq_kernel_pipe
+// / _dkv_kernel_pipe and pallas_streaming.py:_dq_kernel / _dkv_kernel
+// differ in their index maps and masks and, the pipelined pair, in one
+// rounding of the logits (the Logits parameter below), so each file
+// supplies its cell map and that parameter and these steps do the rest.
 //
-// A cell's geometry is a FlashCell (flash_common.cuh): its first query and
-// key row q0, k0 (rows of DH elements; lse and delta rows are q0 + i), the
-// rows it holds in memory nq, nk, and its valid keys [0, kv). flash_cell
-// maps a segment of either flash layout; branch_cell a packed dilated cell
+// The cell map is a compile-time parameter, the type of the cell. A
+// FlashCell (flash_common.cuh, the default) gives its first query and key
+// row q0, k0 (rows of DH elements; lse and delta rows are q0 + i), the rows
+// it holds in memory nq, nk, and its valid keys [0, kv). flash_cell maps a
+// segment of either flash layout; branch_cell a packed dilated cell
 // ((b*S + s)*r + p)*hb + t, a contiguous [Mp, Dh] block: q0 = k0 =
 // cell*Mp, nq = nk = Mp, kv = min(kvlen[cell / hb], Mp). `flat` (the flash
-// flat layout's rule) drops the query rows at or past kv from dK/dV.
+// flat layout's rule) drops the query rows at or past kv from dK/dV. A
+// StreamCell (stream_common.cuh) is one (batch, head) of a chunk pair:
+// tile rows are indices on the head's phase lattices, at rows start +
+// step*n of strided [c, Dh] views (MmaTile::load_rows / store_rows), lse
+// and delta at the lattice row, and the mask is the segment equality
+// q_seg(i) == k_seg(j) (-2 and -1 for masked rows and keys) from per-stage
+// int arrays of the streamed tile's segments beside the ring, in place of
+// `col < kv`; a block visits only the tiles whose segments can meet its
+// own, and writes nothing past the lattice or valid. Each arm is chosen at
+// compile time, so a FlashCell's kernels compile as they did without it.
 //
 // For query row i and each valid key j (j < kv, and j <= i when causal),
 // with the probabilities recomputed from the saved lse as the Pallas
@@ -77,9 +89,13 @@
 // a tile for the copy.
 //
 // Pad rows of a packed cell (zero q and dout, delta 0, a finite lse) add
-// exactly 0: their ds is p * 0, and their p meets a zero dout row.
+// exactly 0: their ds is p * 0, and their p meets a zero dout row. A
+// StreamCell's masked pair has p = 0 by the select, whatever its row's lse
+// (a row with no visible key has lse ~ -6.9e19).
 
 #pragma once
+
+#include <type_traits>
 
 #include "flash_common.cuh"
 #include "pipe_common.cuh"  // cp_async_commit, cp_async_wait
@@ -124,19 +140,28 @@ struct BwdMma {
   static constexpr int DKV_STAGE = 2 * Tile::BYTES + 2 * 64 * 4;
   static constexpr int DKV_SMEM = 2 * Tile::BYTES + 2 * DKV_STAGE;
   static constexpr int DKV_SMEM_ROUNDED_Q = DKV_SMEM + Tile::BYTES;
+  // a StreamCell adds a per-stage int array of the tile's key (dq) or
+  // query (dkv) segments: after the six tiles (dq), or at the end of each
+  // stage (dkv)
+  static constexpr int DQ_SMEM_STREAM = DQ_SMEM + 2 * 64 * 4;
+  static constexpr int DKV_STAGE_STREAM = DKV_STAGE + 64 * 4;
+  static constexpr int DKV_SMEM_STREAM = 2 * Tile::BYTES + 2 * DKV_STAGE_STREAM;
 
-  // dq of query rows [row0, row0 + 64) of cell fc
-  template <Logits LG = Logits::UNROUNDED_Q>
+  // dq of query rows [row0, row0 + 64) of cell fc (smem: DQ_SMEM bytes,
+  // DQ_SMEM_STREAM for a StreamCell, whose rows are lattice indices)
+  template <Logits LG = Logits::UNROUNDED_Q, class Cell = FlashCell>
   __device__ __forceinline__ static void dq(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                                             const __nv_bfloat16* __restrict__ v,
                                             const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
                                             const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
-                                            const FlashCell& fc, int row0, int causal, float qscale, float scale,
+                                            const Cell& fc, int row0, int causal, float qscale, float scale,
                                             unsigned char* smem) {
+    constexpr bool FLASH = std::is_same<Cell, FlashCell>::value;
     constexpr int NT = 64 / 8;  // score tiles of 8 keys
     unsigned char* qs = smem;                      // Q tile, then the dq tile
     unsigned char* dos = smem + Tile::BYTES;       // dO tile
     unsigned char* ring = smem + 2 * Tile::BYTES;  // stage s: K, then V
+    int* kseg = reinterpret_cast<int*>(smem + DQ_SMEM);  // StreamCell: stage s's key segments at 64 s
 
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     const int g = lane >> 2, c = lane & 3;
@@ -144,27 +169,42 @@ struct BwdMma {
     if (row0 >= fc.nq) return;  // past a flat layout's ragged last segment
     int kv = fc.kv;
     if (causal && kv > row0 + 64) kv = row0 + 64;
-    const int n_tiles = (kv + 63) / 64;
-    const __nv_bfloat16* kc = k + fc.k0 * DH;
-    const __nv_bfloat16* vc = v + fc.k0 * DH;
-
-    Tile::load(qs, q + (fc.q0 + row0) * DH, fc.nq - row0);
-    Tile::load(dos, dout + (fc.q0 + row0) * DH, fc.nq - row0);
-    if (n_tiles > 0) {
-      Tile::load(ring, kc, kv);
-      Tile::load(ring + Tile::BYTES, vc, kv);
+    int kt0 = 0, n_tiles = (kv + 63) / 64;  // the key tiles [kt0, kt0 + n_tiles) this block visits
+    const __nv_bfloat16* kc = k;
+    const __nv_bfloat16* vc = v;
+    if constexpr (FLASH) {
+      kc = k + fc.k0 * DH;
+      vc = v + fc.k0 * DH;
+      Tile::load(qs, q + (fc.q0 + row0) * DH, fc.nq - row0);
+      Tile::load(dos, dout + (fc.q0 + row0) * DH, fc.nq - row0);
+      if (n_tiles > 0) {
+        Tile::load(ring, kc, kv);
+        Tile::load(ring + Tile::BYTES, vc, kv);
+      }
+    } else {
+      fc.key_tiles(row0, kt0, n_tiles);
+      Tile::load_rows(qs, q + fc.ql.row(row0) * fc.ld_q, fc.ql.step * fc.ld_q, fc.nq - row0);
+      Tile::load_rows(dos, dout + fc.ql.row(row0) * fc.ld_do, fc.ql.step * fc.ld_do, fc.nq - row0);
+      if (n_tiles > 0) stream_kv(fc, k, v, 64 * kt0, ring, kseg);
     }
     cp_async_commit();
 
     // this thread's rows: g and g + 8 of the warp's 16
-    int row[2];
+    int row[2], tseg[2];  // tseg: a StreamCell's row segments
     float lse2[2], dlt[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       row[h] = row0 + 16 * warp + g + 8 * h;
       const bool ok = row[h] < fc.nq;
-      lse2[h] = ok ? lse[fc.q0 + row[h]] * LOG2E : 0.f;
-      dlt[h] = ok ? delta[fc.q0 + row[h]] : 0.f;
+      if constexpr (FLASH) {
+        lse2[h] = ok ? lse[fc.q0 + row[h]] * LOG2E : 0.f;
+        dlt[h] = ok ? delta[fc.q0 + row[h]] : 0.f;
+      } else {
+        const int i = fc.ql.row(row[h]);
+        lse2[h] = ok ? lse[i] * LOG2E : 0.f;
+        dlt[h] = ok ? delta[i] : 0.f;
+        tseg[h] = fc.q_seg(row[h]);
+      }
     }
     uint32_t qa[KS][4], da[KS][4];
     float acc[DT][4];
@@ -175,8 +215,12 @@ struct BwdMma {
       const int stage = kt & 1;
       if (kt + 1 < n_tiles) {
         unsigned char* next = ring + (stage ^ 1) * 2 * Tile::BYTES;
-        Tile::load(next, kc + (long long)(kt + 1) * 64 * DH, kv - (kt + 1) * 64);
-        Tile::load(next + Tile::BYTES, vc + (long long)(kt + 1) * 64 * DH, kv - (kt + 1) * 64);
+        if constexpr (FLASH) {
+          Tile::load(next, kc + (long long)(kt + 1) * 64 * DH, kv - (kt + 1) * 64);
+          Tile::load(next + Tile::BYTES, vc + (long long)(kt + 1) * 64 * DH, kv - (kt + 1) * 64);
+        } else {
+          stream_kv(fc, k, v, 64 * (kt0 + kt + 1), next, kseg + 64 * (stage ^ 1));
+        }
       }
       cp_async_commit();
       cp_async_wait<1>();
@@ -221,13 +265,20 @@ struct BwdMma {
       uint32_t pa[NT][2];
 #pragma unroll
       for (int t = 0; t < NT; ++t) {
+        int2 useg = make_int2(0, 0);  // a StreamCell's segments of keys 8 t + 2 c, + 1
+        if constexpr (!FLASH) useg = *reinterpret_cast<const int2*>(kseg + 64 * stage + 8 * t + 2 * c);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           float ds[2];
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int col = key0 + 8 * t + 2 * c + e;
-            const bool ok = col < kv && (!causal || col <= row[h]);
+            bool ok;
+            if constexpr (FLASH) {
+              ok = col < kv && (!causal || col <= row[h]);
+            } else {
+              ok = (e ? useg.y : useg.x) == tseg[h];
+            }
             const float p = ok ? exp2_approx(LG == Logits::ROUNDED_Q ? sc[t][2 * h + e] - lse2[h]
                                                                      : fmaf(sc[t][2 * h + e], qscale, -lse2[h]))
                                : 0.f;
@@ -258,18 +309,36 @@ struct BwdMma {
     __syncthreads();
     Tile::put(qs, acc, scale);
     __syncthreads();
-    Tile::store(dq + (fc.q0 + row0) * DH, qs, fc.nq - row0);
+    if constexpr (FLASH) {
+      Tile::store(dq + (fc.q0 + row0) * DH, qs, fc.nq - row0);
+    } else {
+      Tile::store_rows(dq + fc.ql.row(row0) * fc.ld_o1, fc.ql.step * fc.ld_o1, qs, fc.nq - row0);
+    }
+  }
+
+  // A StreamCell's key tile of lattice keys [m0, m0 + 64) into a dq ring
+  // stage (K, then V), and its keys' segments into seg, by the block
+  template <class Cell>
+  __device__ __forceinline__ static void stream_kv(const Cell& fc, const __nv_bfloat16* k, const __nv_bfloat16* v,
+                                                   int m0, unsigned char* st, int* seg) {
+    Tile::load_rows(st, k + fc.kl.row(m0) * fc.ld_k, fc.kl.step * fc.ld_k, fc.kv - m0);
+    Tile::load_rows(st + Tile::BYTES, v + fc.kl.row(m0) * fc.ld_v, fc.kl.step * fc.ld_v, fc.kv - m0);
+    if (threadIdx.x < 64) seg[threadIdx.x] = fc.k_seg(m0 + threadIdx.x);
   }
 
   // dk and dv of keys [key0, key0 + 64) of cell fc (smem: DKV_SMEM bytes,
-  // DKV_SMEM_ROUNDED_Q for ROUNDED_Q)
-  template <Logits LG = Logits::UNROUNDED_Q>
+  // DKV_SMEM_ROUNDED_Q for ROUNDED_Q, DKV_SMEM_STREAM for a StreamCell,
+  // whose keys are lattice indices and whose keys past kv are not written)
+  template <Logits LG = Logits::UNROUNDED_Q, class Cell = FlashCell>
   __device__ __forceinline__ static void dkv(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                                              const __nv_bfloat16* __restrict__ v,
                                              const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
                                              const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-                                             __nv_bfloat16* __restrict__ dv, const FlashCell& fc, int key0, int causal,
+                                             __nv_bfloat16* __restrict__ dv, const Cell& fc, int key0, int causal,
                                              int flat, float qscale, float scale, unsigned char* smem) {
+    constexpr bool FLASH = std::is_same<Cell, FlashCell>::value;
+    constexpr int STAGE = FLASH ? DKV_STAGE : DKV_STAGE_STREAM;  // bytes of a ring stage
+    static_assert(FLASH || LG == Logits::UNROUNDED_Q, "a StreamCell's logits take the unrounded q");
     constexpr int QN = DH > 64 ? 32 : 64;  // query columns of one pass (registers)
     constexpr int NT = QN / 8;             // score tiles of 8 queries in a pass
     unsigned char* ks = smem;                      // K tile, then the dk tile
@@ -280,40 +349,76 @@ struct BwdMma {
     const int c = lane & 3;
     const int lr = lane & 7, lm = lane >> 3;  // ldmatrix: row and matrix of this lane's address
     if (key0 >= fc.nk) return;  // past a flat layout's ragged last segment
-    __nv_bfloat16* dkt = dk + (fc.k0 + key0) * DH;
-    __nv_bfloat16* dvt = dv + (fc.k0 + key0) * DH;
+    __nv_bfloat16* dkt = dk;  // a StreamCell's rows are placed at the store
+    __nv_bfloat16* dvt = dv;
+    if constexpr (FLASH) {
+      dkt = dk + (fc.k0 + key0) * DH;
+      dvt = dv + (fc.k0 + key0) * DH;
+    }
     const int kv = fc.kv;
-    if (key0 >= kv) {  // no valid key in this tile: exact zeros, no work
-      Tile::store(dkt, nullptr, fc.nk - key0, true);
-      Tile::store(dvt, nullptr, fc.nk - key0, true);
-      return;
+    if constexpr (FLASH) {
+      if (key0 >= kv) {  // no valid key in this tile: exact zeros, no work
+        Tile::store(dkt, nullptr, fc.nk - key0, true);
+        Tile::store(dvt, nullptr, fc.nk - key0, true);
+        return;
+      }
     }
     const int q_end = flat ? kv : fc.nq;  // query rows that contribute
-    // causal: query rows below the key tile see none of its keys
-    const int q_start = causal ? key0 : 0;
-    const int n_tiles = q_end > q_start ? (q_end - q_start + 63) / 64 : 0;
-    const __nv_bfloat16* qc = q + fc.q0 * DH;
-    const __nv_bfloat16* dc = dout + fc.q0 * DH;
-    const float* lc = lse + fc.q0;
-    const float* tc = delta + fc.q0;
+    // causal: query rows below the key tile see none of its keys; a
+    // StreamCell's query tiles start at the first that can meet the keys
+    int q_start = causal ? key0 : 0;
+    int n_tiles = q_end > q_start ? (q_end - q_start + 63) / 64 : 0;
+    if constexpr (!FLASH) {
+      fc.query_tiles(key0, q_start, n_tiles);
+      q_start *= 64;
+    }
+    const __nv_bfloat16* qc = q;
+    const __nv_bfloat16* dc = dout;
+    const float* lc = lse;
+    const float* tc = delta;
+    if constexpr (FLASH) {
+      qc = q + fc.q0 * DH;
+      dc = dout + fc.q0 * DH;
+      lc = lse + fc.q0;
+      tc = delta + fc.q0;
+    }
 
     // query tile at row i0 of the cell into a ring stage
     auto load_query_tile = [&](int i0, unsigned char* st) {
-      Tile::load(st, qc + (long long)i0 * DH, q_end - i0);
-      Tile::load(st + Tile::BYTES, dc + (long long)i0 * DH, q_end - i0);
-      const int e = tid & 63;
-      const bool ok = i0 + e < q_end;
-      const float* src = tid < 64 ? lc : tc;
-      cp_async4_zfill(st + 2 * Tile::BYTES + 4 * tid, ok ? src + i0 + e : src, ok);
+      if constexpr (FLASH) {
+        Tile::load(st, qc + (long long)i0 * DH, q_end - i0);
+        Tile::load(st + Tile::BYTES, dc + (long long)i0 * DH, q_end - i0);
+        const int e = tid & 63;
+        const bool ok = i0 + e < q_end;
+        const float* src = tid < 64 ? lc : tc;
+        cp_async4_zfill(st + 2 * Tile::BYTES + 4 * tid, ok ? src + i0 + e : src, ok);
+      } else {
+        Tile::load_rows(st, qc + fc.ql.row(i0) * fc.ld_q, fc.ql.step * fc.ld_q, q_end - i0);
+        Tile::load_rows(st + Tile::BYTES, dc + fc.ql.row(i0) * fc.ld_do, fc.ql.step * fc.ld_do, q_end - i0);
+        const int e = tid & 63;
+        const bool ok = i0 + e < q_end;
+        const float* src = tid < 64 ? lc : tc;
+        cp_async4_zfill(st + 2 * Tile::BYTES + 4 * tid, ok ? src + fc.ql.row(i0 + e) : src, ok);
+        if (tid < 64) reinterpret_cast<int*>(st + DKV_STAGE)[tid] = fc.q_seg(i0 + tid);
+      }
     };
-    Tile::load(ks, k + (fc.k0 + key0) * DH, kv - key0);
-    Tile::load(vs, v + (fc.k0 + key0) * DH, kv - key0);
+    if constexpr (FLASH) {
+      Tile::load(ks, k + (fc.k0 + key0) * DH, kv - key0);
+      Tile::load(vs, v + (fc.k0 + key0) * DH, kv - key0);
+    } else {
+      Tile::load_rows(ks, k + fc.kl.row(key0) * fc.ld_k, fc.kl.step * fc.ld_k, kv - key0);
+      Tile::load_rows(vs, v + fc.kl.row(key0) * fc.ld_v, fc.kl.step * fc.ld_v, kv - key0);
+    }
     if (n_tiles > 0) load_query_tile(q_start, ring);
     cp_async_commit();
 
-    int key[2];  // this thread's keys: rows g and g + 8 of the warp's 16
+    int key[2], kseg[2];  // this thread's keys: rows g and g + 8 of the warp's 16; a StreamCell's key segments
     key[0] = key0 + 16 * warp + (lane >> 2);
     key[1] = key[0] + 8;
+    if constexpr (!FLASH) {
+      kseg[0] = fc.k_seg(key[0]);
+      kseg[1] = fc.k_seg(key[1]);
+    }
     uint32_t ka[KS][4], va[KS][4];
     float dka[DT][4], dva[DT][4];
 #pragma unroll
@@ -327,7 +432,7 @@ struct BwdMma {
     for (int it = 0; it < n_tiles; ++it) {
       const int stage = it & 1;
       const int i0 = q_start + 64 * it;
-      if (it + 1 < n_tiles) load_query_tile(i0 + 64, ring + (stage ^ 1) * DKV_STAGE);
+      if (it + 1 < n_tiles) load_query_tile(i0 + 64, ring + (stage ^ 1) * STAGE);
       cp_async_commit();
       cp_async_wait<1>();
       __syncthreads();
@@ -338,7 +443,7 @@ struct BwdMma {
           ldmatrix_x4(va[kk], vs + aoff + 32 * kk);
         }
       }
-      const unsigned char* qs = ring + stage * DKV_STAGE;
+      const unsigned char* qs = ring + stage * STAGE;
       const unsigned char* dos = qs + Tile::BYTES;
       const float* ls = reinterpret_cast<const float*>(qs + 2 * Tile::BYTES);
       const float* dls = ls + 64;
@@ -378,11 +483,18 @@ struct BwdMma {
           const int col = c0 + 8 * t + 2 * c;  // query column in the tile
           const float2 l2 = *reinterpret_cast<const float2*>(ls + col);
           const float2 d2 = *reinterpret_cast<const float2*>(dls + col);
+          int2 qseg = make_int2(0, 0);  // a StreamCell's segments of query columns col, col + 1
+          if constexpr (!FLASH) qseg = *reinterpret_cast<const int2*>(qs + DKV_STAGE + 4 * col);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int qi = i0 + col + (e & 1);
             const int kj = key[e >> 1];
-            const bool ok = kj < kv && qi < q_end && (!causal || kj <= qi);
+            bool ok;
+            if constexpr (FLASH) {
+              ok = kj < kv && qi < q_end && (!causal || kj <= qi);
+            } else {
+              ok = ((e & 1) ? qseg.y : qseg.x) == kseg[e >> 1];
+            }
             const float p = ok ? exp2_approx(LG == Logits::ROUNDED_Q
                                                  ? sc[t][e] - ((e & 1) ? l2.y : l2.x) * LOG2E
                                                  : fmaf(sc[t][e], qscale, -((e & 1) ? l2.y : l2.x) * LOG2E))
@@ -430,8 +542,13 @@ struct BwdMma {
     Tile::put(ks, dka, scale);
     Tile::put(vs, dva, 1.f);
     __syncthreads();
-    Tile::store(dkt, ks, fc.nk - key0);
-    Tile::store(dvt, vs, fc.nk - key0);
+    if constexpr (FLASH) {
+      Tile::store(dkt, ks, fc.nk - key0);
+      Tile::store(dvt, vs, fc.nk - key0);
+    } else {
+      Tile::store_rows(dk + fc.kl.row(key0) * fc.ld_o1, fc.kl.step * fc.ld_o1, ks, fc.nk - key0);
+      Tile::store_rows(dv + fc.kl.row(key0) * fc.ld_o2, fc.kl.step * fc.ld_o2, vs, fc.nk - key0);
+    }
   }
 };
 

@@ -1,9 +1,11 @@
 // Device helpers for the kernels that run on the tensor cores through
-// mma.sync (q_flash_attention's bf16 kernel, the segment-flash backward's
-// and the dilated-branch forward's and backward's bf16 kernels): the bf16
-// MMA, ldmatrix fragment loads from shared memory, bf16 pair packing and
-// scaling, the MUFU exp2, cp.async copies whose source may be zero-filled,
-// and the padded 64-row shared-memory tile (MmaTile).
+// mma.sync (q_flash_attention's bf16 kernel, the segment-flash backward's,
+// the dilated-branch forward's and backward's and the streaming pair
+// backward's bf16 kernels): the bf16 MMA, ldmatrix fragment loads from
+// shared memory, bf16 pair packing and scaling, the MUFU exp2, cp.async
+// copies whose source may be zero-filled, and the padded 64-row
+// shared-memory tile (MmaTile), loaded and stored with contiguous rows or
+// rows a pitch apart.
 //
 // Fragments of mma.sync.m16n8k16 (lane = 4 * g + c, g = lane / 4, c =
 // lane % 4): the A fragment a[0..3] holds A[g][2c, 2c+1], A[g+8][2c, 2c+1],
@@ -114,6 +116,19 @@ struct MmaTile {
     }
   }
 
+  // load with the rows `pitch` elements apart: rows [0, n) of the tile are
+  // src + j * pitch (each 16-byte aligned, so pitch % 8 == 0), the rest
+  // zero-filled without a read as load's
+  __device__ static void load_rows(unsigned char* dst, const __nv_bfloat16* src, long long pitch, int n) {
+    constexpr int CHUNKS = DK / 8;  // 16-byte pieces of a padded row
+#pragma unroll
+    for (int e = threadIdx.x; e < ROWS * CHUNKS; e += THREADS) {
+      const int j = e / CHUNKS, d = 8 * (e - j * CHUNKS);
+      const bool ok = j < n && d < DH;
+      cp_async16_zfill(dst + j * PITCH + 2 * d, ok ? src + j * pitch + d : src, ok);
+    }
+  }
+
   // This thread's C fragments of a warp's 16 rows (rows g and g + 8 of
   // 16 * warp, columns 8 t + 2 c of column tile t) times mul, rounded to
   // bf16, into the tile at dst; only the DH real columns.
@@ -154,6 +169,17 @@ struct MmaTile {
       const int j = e / CHUNKS, ch = e - j * CHUNKS;
       const uint4 x = zero ? make_uint4(0, 0, 0, 0) : *reinterpret_cast<const uint4*>(src + j * PITCH + 16 * ch);
       *reinterpret_cast<uint4*>(dst + (long long)j * DH + 8 * ch) = x;
+    }
+  }
+
+  // store with the rows `pitch` elements apart: rows [0, n) of the tile at
+  // src to dst + j * pitch (16-byte aligned) as 16-byte stores
+  __device__ static void store_rows(__nv_bfloat16* dst, long long pitch, const unsigned char* src, int n) {
+    constexpr int CHUNKS = DH / 8;
+    const int lim = max(0, min(n, ROWS)) * CHUNKS;
+    for (int e = threadIdx.x; e < lim; e += THREADS) {
+      const int j = e / CHUNKS, ch = e - j * CHUNKS;
+      *reinterpret_cast<uint4*>(dst + j * pitch + 8 * ch) = *reinterpret_cast<const uint4*>(src + j * PITCH + 16 * ch);
     }
   }
 };

@@ -93,6 +93,71 @@ __device__ __forceinline__ bool segments_meet(const Lattice& a, int off_a, int n
   return !(b_hi < a_lo || b_lo > a_hi);
 }
 
+// One (batch, head) of a chunk pair as the bf16 backward tile steps of
+// bwd_mma.cuh see it (the cell map of row 16): the head's query and key
+// lattices, the pair's geometry for the segment mask, and the row strides
+// (elements) of the tensors, whose pointers the kernel has moved to the
+// (batch, head). Tile rows are lattice indices: row n of the query block
+// is ql.row(n), at q + ql.row(n) * ld_q, with its lse and delta at
+// ql.row(n) of the head's [cq] vectors. nq, nk and kv take FlashCell's
+// names: the lattice rows, and the lattice keys below valid (nk = kv, so
+// no key tile is all past valid). The mask is q_seg(n) == k_seg(m), each
+// -2 or -1 where the row or key is masked (row_segment, key_segment).
+struct StreamCell {
+  Lattice ql, kl;  // kl cut at valid (key_lattice)
+  int nq, nk, kv;
+  int phase;
+  PairGeom geo;
+  long long ld_q, ld_k, ld_v, ld_do, ld_o1, ld_o2;  // q, k, v, dout, then dq (or dk and dv)
+
+  __device__ __forceinline__ int q_seg(int n) const { return row_segment(n < nq, geo.q0 + ql.row(n), phase, geo); }
+  __device__ __forceinline__ int k_seg(int m) const { return key_segment(m < kv, geo.k0 + kl.row(m), phase, geo); }
+
+  // The 64-row tiles [t0, t0 + n) of lattice b (nb rows) whose segments
+  // can meet rows [n0, min(n0 + 64, na)) of lattice a: a contiguous range,
+  // since both lattices ascend (a tile's first and last segments do).
+  __device__ static void meeting(const Lattice& a, int off_a, int n0, int na, const Lattice& b, int off_b, int nb,
+                                 int g, int& t0, int& n) {
+    const int n1 = min(n0 + 64, na);
+    int lo = -1, hi = -1;
+    for (int m0 = 0; m0 < nb; m0 += 64)
+      if (segments_meet(a, off_a, n0, n1, b, off_b, m0, min(m0 + 64, nb), g)) {
+        if (lo < 0) lo = m0 / 64;
+        hi = m0 / 64 + 1;
+      }
+    t0 = max(lo, 0);
+    n = lo < 0 ? 0 : hi - lo;
+  }
+  // the key tiles that query rows [row0, row0 + 64) can see
+  __device__ __forceinline__ void key_tiles(int row0, int& t0, int& n) const {
+    meeting(ql, geo.q0, row0, nq, kl, geo.k0, kv, geo.g, t0, n);
+  }
+  // the query tiles that can see keys [key0, key0 + 64)
+  __device__ __forceinline__ void query_tiles(int key0, int& t0, int& n) const {
+    meeting(kl, geo.k0, key0, kv, ql, geo.q0, nq, geo.g, t0, n);
+  }
+};
+
+// The cell map of head h's phase of one (batch, head); strides as StreamCell.
+__device__ __forceinline__ StreamCell stream_cell(const PairGeom& geo, int h, long long ld_q, long long ld_k,
+                                                  long long ld_v, long long ld_do, long long ld_o1,
+                                                  long long ld_o2) {
+  StreamCell c;
+  c.phase = h / geo.hpg;
+  c.geo = geo;
+  c.ql = lattice(c.phase, geo.q0, geo.cq, geo.qstep, geo.qshift);
+  c.kl = key_lattice(c.phase, geo);
+  c.nq = c.ql.count;
+  c.nk = c.kv = c.kl.count;
+  c.ld_q = ld_q;
+  c.ld_k = ld_k;
+  c.ld_v = ld_v;
+  c.ld_do = ld_do;
+  c.ld_o1 = ld_o1;
+  c.ld_o2 = ld_o2;
+  return c;
+}
+
 // Stage rows [n0, n0 + rows) of lattice `lat` (fewer past lat.count: zeros)
 // of one head's [c, DH] slice `base` (row stride `ld`) into shared memory
 // as fp32, with coalesced reads of each row's DH contiguous elements.

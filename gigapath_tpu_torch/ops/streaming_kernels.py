@@ -12,7 +12,9 @@ segment (``t // g == u // g``) and ``u < valid_len``. Three CUDA kernels
   cq] fp32)``, the pair's chunk-normalized partial;
 - :func:`stream_pair_bwd_dq` and :func:`stream_pair_bwd_dkv`, its backward
   from the stored lse, with the lse cotangent folded into the delta term
-  (``delta' = rowsum(dout * out) - dlse``).
+  (``delta' = rowsum(dout * out) - dlse``): bf16 blocks on the tensor
+  cores (16-byte aligned pointers and strides, else the wrappers raise),
+  fp32 on the FMA pipes.
 
 Each wrapper runs its ``*_reference`` plain PyTorch version when its tensor
 lies on the CPU, launches its kernel on a CUDA tensor (or raises), and counts
@@ -22,7 +24,8 @@ package's jnp tier (``streaming_prefill.pair_partial_attention``): a dense
 ``ops/attention.py:NEG_INF`` (-1e8), so a fully masked row's lse is ~-1e8 +
 log(ck) there and ~-6.9e19 in the kernels (the ``M_FLOOR`` discipline of
 ``ops/dilated_kernels.py``); either weighs 0 in every downstream combine, so
-compare lse on covered rows only.
+compare lse on covered rows only. The backward's plain version rounds ds to
+the inputs' dtype before ``ds @ k``, as the Pallas ``_dq_kernel`` does.
 
 :func:`pair_partial` is the differentiable op (``_PairPartial``, the
 counterpart of ``_pair_with_lse``'s custom VJP) with
@@ -51,7 +54,8 @@ M_FLOOR = -1e20  # the kernels' running-max floor
 # phase lattice, which the wrapper fills)
 KERNEL_LSE_SENTINEL = (M_FLOOR + math.log2(1e-30)) * LN2
 ROW_TILE = 64  # lattice rows per block of the forward and dq kernels
-KEY_ROWS_DKV = 32  # lattice keys per block of the dkv kernel
+KEY_ROWS_DKV = 32  # lattice keys per block of the fp32 dkv kernel (FMA pipes)
+KEY_ROWS_DKV_BF16 = 64  # lattice keys per block of the bf16 dkv kernel (tensor cores)
 MAX_HEAD_DIM = 128  # the kernels take head widths that are multiples of 8 up to this
 
 # Launches of each CUDA kernel in this process. A wrapper adds one where it
@@ -107,6 +111,12 @@ def lattice(off: int, c: int, segment_len: int, ratio: int) -> Tuple[int, int]:
 # ---------------------------------------------------------------------------
 
 
+def _round_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """fp32 ``x`` rounded to ``dtype`` and widened back (a no-op in fp32):
+    the Pallas kernels' ``.astype`` before a matmul."""
+    return x if dtype == torch.float32 else x.to(dtype).float()
+
+
 def stream_pair_fwd_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q0: int, k0: int,
     segment_len: int, ratio: int, valid_len: Optional[int] = None,
@@ -135,7 +145,10 @@ def stream_pair_bwd_reference(
     cotangent ``dout`` [B, c, H, D], the forward's ``lse`` and ``delta' =
     rowsum(dout * out) - dlse`` (fp32 [B, H, cq]) -> ``(dq, dk, dv)`` in
     the inputs' dtype. The probabilities are recomputed from the lse and
-    selected to 0 where the pair is masked, whatever the row's lse.
+    selected to 0 where the pair is masked, whatever the row's lse. ds is
+    rounded to q's dtype before ``ds @ k`` (dQ), as the Pallas
+    ``_dq_kernel`` casts it to k's dtype; dK and dV keep p and ds in fp32,
+    as its ``_dkv_kernel`` (in fp32 both are the same function).
     ``dq``/``dkv`` pick which gradients to compute (the others are None)."""
     B, cq, H, D = q.shape
     ck = k.shape[1]
@@ -147,7 +160,7 @@ def stream_pair_bwd_reference(
     ds = p * (torch.einsum("bqhd,bkhd->bhqk", dof, vf) - delta[..., None])
     dq_ = dk_ = dv_ = None
     if dq:
-        dq_ = (torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale).to(q.dtype)
+        dq_ = (torch.einsum("bhqk,bkhd->bqhd", _round_to(ds, q.dtype), kf) * scale).to(q.dtype)
     if dkv:
         dk_ = (torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale).to(k.dtype)
         dv_ = torch.einsum("bhqk,bqhd->bkhd", p, dof).to(v.dtype)
@@ -228,6 +241,19 @@ def stream_pair_fwd(
     return out, lse
 
 
+def _check_tensor_cores(name: str, **tensors: torch.Tensor) -> None:
+    """The bf16 backward kernels load and store 16-byte pieces: raise unless
+    every pointer and every (batch, row, head) stride in bytes is a
+    multiple of 16."""
+    for arg, t in tensors.items():
+        if t.dtype != torch.bfloat16:
+            continue
+        es = t.element_size()
+        if t.data_ptr() % 16 or any(t.stride(i) * es % 16 for i in range(3)):
+            raise ValueError(f"{name} {arg}: the bf16 kernel needs a 16-byte aligned pointer and (batch, row, "
+                             f"head) strides of whole 16 bytes, got strides {tuple(t.stride())}")
+
+
 def _check_vectors(name: str, q: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor) -> None:
     B, cq, H, _ = q.shape
     for arg, t in (("lse", lse), ("delta", delta)):
@@ -251,6 +277,7 @@ def stream_pair_bwd_dq(
     valid = NO_VALID if valid_len is None else int(valid_len)
     _check("stream_pair_bwd_dq", q, k, v, q0, k0, segment_len, ratio, valid, dout)
     _check_vectors("stream_pair_bwd_dq", q, lse, delta)
+    _check_tensor_cores("stream_pair_bwd_dq", q=q, k=k, v=v, dout=dout)
     B, cq, H, D = q.shape
     geo, q_rows, _ = _geometry(H, q0, cq, k0, k.shape[1], segment_len, ratio, valid)
     n_qtiles = -(-q_rows // ROW_TILE)
@@ -283,10 +310,11 @@ def stream_pair_bwd_dkv(
     valid = NO_VALID if valid_len is None else int(valid_len)
     _check("stream_pair_bwd_dkv", q, k, v, q0, k0, segment_len, ratio, valid, dout)
     _check_vectors("stream_pair_bwd_dkv", q, lse, delta)
+    _check_tensor_cores("stream_pair_bwd_dkv", q=q, k=k, v=v, dout=dout)
     B, cq, H, D = q.shape
     ck = k.shape[1]
     geo, _, k_rows = _geometry(H, q0, cq, k0, ck, segment_len, ratio, valid)
-    n_ktiles = -(-k_rows // KEY_ROWS_DKV)
+    n_ktiles = -(-k_rows // (KEY_ROWS_DKV_BF16 if q.dtype == torch.bfloat16 else KEY_ROWS_DKV))
     if B * H * n_ktiles >= 2**31:
         raise ValueError(f"stream_pair_bwd_dkv: {B * H * n_ktiles} blocks do not fit one grid")
     # keys off the lattice or past the valid bound: 0

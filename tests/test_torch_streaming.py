@@ -12,6 +12,7 @@ JAX session and the port's dense model. Out-of-order delivery and
 export/restore are bit-exact.
 """
 
+import functools
 import types
 
 import jax
@@ -23,6 +24,7 @@ import torch
 from gigapath_tpu.models.slide_encoder import LongNetViT as JaxLongNetViT
 from gigapath_tpu.models.streaming_encoder import streaming_forward as jax_streaming_forward
 from gigapath_tpu.ops.flash_attention import combine_partials as jax_combine_partials
+from gigapath_tpu.ops import pallas_streaming as jps
 from gigapath_tpu.ops.pallas_streaming import pallas_pair_partial
 from gigapath_tpu.ops import streaming_prefill as jsp
 from gigapath_tpu_torch.models import slide_encoder as port_se
@@ -145,6 +147,49 @@ def test_backward_plain_version_matches_autograd_of_the_forward():
         torch.testing.assert_close(ours, want, atol=1e-5, rtol=1e-5, msg=name)
     covered = (lse > COVERED).transpose(1, 2)  # [1, cq, H]
     assert not dq[~covered].any()
+
+
+@functools.partial(jax.jit, static_argnums=(7, 8))
+def _jax_pair_bwd_impl(info, q, k, v, lse, delta, do, g, r):
+    return jps._bwd_impl(info, q, k, v, lse, delta, do, g, r, 128, 128, True)
+
+
+# (g, r, q0, k0, valid): segment boundaries inside 64-row and 64-key tiles;
+# a g % r != 0 branch with both blocks inside segment 1 (a shifted phase
+# lattice) and a ragged valid bound
+BF16_PAIR_CASES = [(96, 1, 0, 0, None), (301, 2, 301, 301, 501)]
+
+
+@pytest.mark.parametrize("g,r,q0,k0,valid", BF16_PAIR_CASES, ids=["seg_in_tile", "shift_ragged"])
+def test_pair_bwd_bf16_matches_jax_bwd_impl(g, r, q0, k0, valid):
+    """The function the tensor-core dq and dkv are held to on the card:
+    ``stream_pair_bwd_reference`` against the Pallas ``_bwd_impl``
+    (interpret mode, 128-row blocks) on the same bf16 q, k, v and dO and the
+    same lse and delta (from one plain forward, a nonzero dlse folded in),
+    past one 64-row and one 64-key tile (cq = ck = 256). Both recompute p in
+    fp32 from the lse with unrounded q, round ds to bf16 before ds.K and
+    keep p and ds fp32 for dK and dV, so dq, dk and dv agree to 5e-3 of
+    their max and at least 99 % of dq's elements are bit-equal (read: dq
+    4.9e-5 and 6.7e-4 of its max, 99.97 % and 99.98 % bit-equal; without
+    the rounding of ds, 3.1e-3 and 5.4e-3, 60 % and 80 %)."""
+    H, D, c = 4, 16, 256
+    rng = np.random.default_rng(7)
+    q, k, v, do = (torch.from_numpy(2 * _blk(rng, c, H, D)).to(torch.bfloat16) for _ in range(4))
+    dlse = torch.from_numpy(rng.normal(size=(1, H, c)).astype(np.float32))
+    out, lse = sk.stream_pair_fwd_reference(q, k, v, q0, k0, g, r, valid)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2) - dlse
+    ours = sk.stream_pair_bwd_reference(q, k, v, do, lse, delta, q0, k0, g, r, valid)
+
+    info = jnp.asarray([q0, k0, valid if valid is not None else 2**31 - 1, c, c], jnp.int32)
+    bf = [jnp.asarray(x.float().numpy(), jnp.bfloat16).transpose(0, 2, 1, 3) for x in (q, k, v, do)]
+    ref = _jax_pair_bwd_impl(info, *bf[:3], jnp.asarray(lse.numpy()), jnp.asarray(delta.numpy()), bf[3], g, r)
+    for name, a, b in zip(("dq", "dk", "dv"), ours, ref):
+        a = a.float().numpy()
+        b = np.asarray(b.astype(jnp.float32)).transpose(0, 2, 1, 3)
+        err = float(np.abs(a - b).max() / np.abs(b).max())
+        assert err <= 5e-3, (name, err)
+        if name == "dq":
+            assert (a == b).mean() >= 0.99, float((a == b).mean())
 
 
 def test_wrappers_refuse_tensors_off_the_cpu_and_the_card():
