@@ -487,17 +487,19 @@ STREAM_CASES = [
     (STREAM_L, 16, 4, 5, STREAM_L, "one clamped segment"),
     (STREAM_L, 16, 5, 0, STREAM_L, "the 1-row cls block as keys"),
 ]
+# the pair's three kernels, each bf16 on the tensor cores (rows 15 and 16)
 STREAM_KERNELS = ("stream_pair_fwd", "stream_pair_bwd_dq", "stream_pair_bwd_dkv")
-STREAM_BWD_SOURCES = STREAM_KERNELS[1:]  # bf16 on the tensor cores (row 16)
+STREAM_BWD_SOURCES = STREAM_KERNELS[1:]  # the pair's backward (row 16)
 # the stray-write canary's pairs (g, r, query block, key block, valid): a
 # lattice of step 8 with a ragged valid bound, and a g % r != 0 branch
 # whose blocks cross segment boundaries (lattice step 1, every row)
 STREAM_CANARY = [(STREAM_L, 8, 5, 5, STREAM_L - 37), (1000, 3, 1, 1, STREAM_L)]
 STREAM_REQUESTS = (N_TILES, 4097, 2048)  # tiles of the three served slides; the head takes the second
 # a stream kernel vs its plain version on the card: out as the branch
-# kernels (the plain version rounds its probabilities to bf16 before PV,
-# the kernel keeps them fp32), lse on covered rows, gradients as
-# BWD_REL_TOL
+# kernels (both compute one function in fp32 from the same inputs, q and p
+# rounded alike, and differ in the order of sums and the kernel's
+# ex2.approx, so a bf16 out moves by a few ulps where p's rounding flips),
+# lse on covered rows, gradients as BWD_REL_TOL
 STREAM_LSE_TOL = {"float32": dict(atol=1e-4, rtol=1e-5), "bfloat16": dict(atol=1e-3, rtol=1e-5)}
 # the stream-fusion route with direct packs (GIGAPATH_STREAM_FUSION=1,
 # GIGAPATH_PACK_DIRECT=1): the flagship's three branches clamped to one
@@ -695,7 +697,7 @@ def phase_build():
 
     specs = _build.FLAGSHIP + _build.TILE_FLAGSHIP + _build.STREAM_FLAGSHIP + _build.FLASH_FLAGSHIP + tuple(
         (name, (("GP_HEAD_DIM", dh),)) for dh in OTHER_HEAD_DIMS
-        for name in BRANCH_SOURCES + PIPE_KERNELS + FLASH_SOURCES + STREAM_BWD_SOURCES
+        for name in BRANCH_SOURCES + PIPE_KERNELS + FLASH_SOURCES + STREAM_KERNELS
     )
     t0 = time.perf_counter()
     _build.build_all(specs)
@@ -706,7 +708,7 @@ def phase_build():
     # library, ~2 s each when run one after another)
     t0 = time.perf_counter()
     flagship = (("GP_HEAD_DIM", E // H),)
-    _read_sass([(name, flagship) for name in FWD_MMA_SOURCES + BWD_MMA_SOURCES + STREAM_BWD_SOURCES + FLASH_SOURCES]
+    _read_sass([(name, flagship) for name in FWD_MMA_SOURCES + BWD_MMA_SOURCES + STREAM_KERNELS + FLASH_SOURCES]
                + [(name, ()) for name in COPY_SOURCES + ("q_matmul",)]
                + [("q_flash_attention", (("GP_HEAD_DIM", TILE_E // TILE_H),))])
     emit("build", seconds=seconds, sass_seconds=time.perf_counter() - t0, built=sorted(_build.build_log),
@@ -1411,9 +1413,11 @@ def phase_head_widths():
     registry's other head widths (H = 16, E = 16 * Dh, one r = 2 branch on
     2049 tokens with a ragged real length), and the three segment-flash
     kernels there (a head-major r = 3 branch and
-    a flat r = 1 one), and the streaming pair's dq and dkv (a 300-row pair
-    across a segment boundary, r = 2, a ragged valid bound), fp32 and bf16,
-    against their plain versions; ptxas' spill stores of each."""
+    a flat r = 1 one), and the streaming pair's forward, dq and dkv (a
+    300-row pair across a segment boundary, r = 2, a ragged valid bound;
+    the forward's out within KERNEL_TOL, lse on covered rows within
+    STREAM_LSE_TOL, the gradients' relative error within BWD_REL_TOL), fp32
+    and bf16, against their plain versions; ptxas' spill stores of each."""
     import torch
 
     from gigapath_tpu_torch.ops import dilated_attention as pda
@@ -1461,10 +1465,10 @@ def phase_head_widths():
                 flash_errs[f"{dname} r={r_}"] = _check_flash(
                     f"Dh={dh} r={r_}", dname, flat, _flash_fwd_bwd(fk, flat, fargs),
                     _flash_fwd_bwd(fk, flat, fargs, plain=True), dq_rows=L - 37 if flat else None, args=fargs)
-        # the streaming pair's backward at this width: 300-row blocks, the
-        # query block across the g = 256 boundary (lattice step 2, 150 rows
-        # a head: three 64-row tiles), keys past valid; lse and delta from
-        # the plain forward
+        # the streaming pair at this width: 300-row blocks, the query block
+        # across the g = 256 boundary (lattice step 2, 150 rows a head: three
+        # 64-row tiles), keys past valid; the forward against its plain
+        # version, the backward's lse and delta from the plain forward
         stream_errs = {}
         g_s, r_s, q0_s, k0_s, c_s, valid_s = 256, 2, 100, 0, 300, 290
         for dtype in (torch.float32, torch.bfloat16):
@@ -1472,6 +1476,13 @@ def phase_head_widths():
             q, k, v, do = (torch.randn(1, c_s, H, dh, device="cuda", generator=gen).to(dtype) for _ in range(4))
             geo = (q0_s, k0_s, g_s, r_s, valid_s)
             out, lse = sk.stream_pair_fwd_reference(q, k, v, *geo)
+            out_k, lse_k = sk.stream_pair_fwd(q, k, v, *geo)
+            covered = lse > -5e7
+            check(bool(torch.equal(lse_k > -5e7, covered)), f"Dh={dh} {dname} stream fwd: covered rows differ")
+            torch.testing.assert_close(out_k, out, **KERNEL_TOL[dname])
+            torch.testing.assert_close(lse_k[covered], lse[covered], **STREAM_LSE_TOL[dname])
+            stream_errs[f"{dname} out"] = max_err(out_k, out)
+            stream_errs[f"{dname} lse_covered"] = max_err(lse_k[covered], lse[covered])
             delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
             args = (q, k, v, do, lse, delta, *geo)
             ours = (sk.stream_pair_bwd_dq(*args), *sk.stream_pair_bwd_dkv(*args))
@@ -1480,12 +1491,12 @@ def phase_head_widths():
                 check(err <= BWD_REL_TOL[dname], f"Dh={dh} {dname} stream {name} rel err {err} > {BWD_REL_TOL[dname]}")
                 stream_errs[f"{dname} {name}"] = err
         emit("head_widths", Dh=dh, E=Eh, L=L, sl=sl, r=r, max_rel_err=errs, tolerance=BWD_REL_TOL,
-             flash_max_err=flash_errs, stream_max_rel_err=stream_errs,
+             flash_max_err=flash_errs, stream_max_err=stream_errs,
              stream_geometry=dict(g=g_s, r=r_s, q0=q0_s, k0=k0_s, c=c_s, valid=valid_s),
              spill_store_bytes={name: _spill_bytes(f"{name}-GP_HEAD_DIM={dh}")
-                                for name in BRANCH_SOURCES + PIPE_KERNELS + FLASH_SOURCES + STREAM_BWD_SOURCES},
+                                for name in BRANCH_SOURCES + PIPE_KERNELS + FLASH_SOURCES + STREAM_KERNELS},
              tensor_core_ptxas={name: _mma_ptxas(f"{name}-GP_HEAD_DIM={dh}")
-                                for name in FWD_MMA_SOURCES + BWD_MMA_SOURCES + STREAM_BWD_SOURCES})
+                                for name in FWD_MMA_SOURCES + BWD_MMA_SOURCES + STREAM_KERNELS})
 
 
 def _head_and_steps(torch, lr=5e-5, scheduler="fixed", **slide_kwargs):
@@ -2205,14 +2216,14 @@ def phase_stream_kernels():
 
 
 def _stream_sass():
-    """The SASS of the two stream backward libraries at Dh = 48: HMMA > 0
-    (bf16 tensors run on the tensor cores; fp32 on the FMA kernels), and
-    no spill store in their tensor-core kernels."""
-    sass = {name: _sass_counts(name, GP_HEAD_DIM=E // H) for name in STREAM_BWD_SOURCES}
-    ptxas = {name: _mma_ptxas(f"{name}-GP_HEAD_DIM={E // H}") for name in STREAM_BWD_SOURCES}
+    """The SASS of the three stream libraries at Dh = 48: HMMA > 0 (bf16
+    tensors run on the tensor cores; fp32 on the FMA kernels), and no spill
+    store in their tensor-core kernels."""
+    sass = {name: _sass_counts(name, GP_HEAD_DIM=E // H) for name in STREAM_KERNELS}
+    ptxas = {name: _mma_ptxas(f"{name}-GP_HEAD_DIM={E // H}") for name in STREAM_KERNELS}
     emit("stream_kernels_sass", sass=sass, tensor_core_ptxas=ptxas,
-         note="cuobjdump -sass at Dh = 48: HMMA is mma.sync (the bf16 dq and dkv)")
-    for name in STREAM_BWD_SOURCES:
+         note="cuobjdump -sass at Dh = 48: HMMA is mma.sync (the bf16 forward, dq and dkv)")
+    for name in STREAM_KERNELS:
         check(sass[name]["HMMA"] > 0, f"{name}: no HMMA in its SASS {sass[name]}")
         check(ptxas[name]["registers"] is not None and ptxas[name]["spill_store_bytes"] == 0,
               f"{name}: the tensor-core kernel spills or was not built here: {ptxas[name]}")
@@ -2236,16 +2247,18 @@ def _stream_lattice_rows(off: int, c: int, g: int, r: int, H: int, valid=None):
 
 
 def _stream_canary(sk, gen):
-    """The bf16 dq and dkv write the lattice rows and keys below valid and
-    nothing else: the C entries called directly into NaN-filled dq, dk and
-    dv one row longer than the tensor, at the STREAM_CANARY pairs. The rows
-    off the lattice, the keys past valid and the extra row stay NaN, and
-    the rows written equal the wrappers' output bit for bit."""
+    """The bf16 forward, dq and dkv write the lattice rows and keys below
+    valid and nothing else: the C entries called directly into NaN-filled
+    out and lse, dq, dk and dv one row longer than the tensors, at the
+    STREAM_CANARY pairs. The rows off the lattice, the keys past valid and
+    the extra row stay NaN, and the rows written equal the wrappers' output
+    bit for bit."""
     import torch
 
     from gigapath_tpu_torch.ops import _build
 
     D = E // H
+    lib_fwd = _build.library("stream_pair_fwd", GP_HEAD_DIM=D)
     lib_dq = _build.library("stream_pair_bwd_dq", GP_HEAD_DIM=D)
     lib_dkv = _build.library("stream_pair_bwd_dkv", GP_HEAD_DIM=D)
     results = []
@@ -2264,10 +2277,15 @@ def _stream_canary(sk, gen):
         check(max(rel.values()) <= BWD_REL_TOL["bfloat16"], f"canary g={g} r={r}: vs the plain version {rel}")
         geo, q_rows, k_rows = sk._geometry(H, q0, cq, k0, ck, g, r, valid)
         bufs = {name: torch.full(((c + 1) * H * D,), float("nan"), dtype=torch.bfloat16, device="cuda")
-                for name, c in (("dq", cq), ("dk", ck), ("dv", ck))}
+                for name, c in (("out", cq), ("dq", cq), ("dk", ck), ("dv", ck))}
         views = {name: buf[:-H * D].view(1, -1, H, D) for name, buf in bufs.items()}
+        lse_buf = torch.full(((cq + 1) * H,), float("nan"), device="cuda")  # [B, H, cq] and one row more
+        lse_view = lse_buf[:-H].view(1, H, cq)
         scales = (D**-0.5 * sk.LOG2E, D**-0.5)
         with torch.cuda.device(q.device):
+            rc_fwd = lib_fwd.gp_stream_pair_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), views["out"].data_ptr(), lse_view.data_ptr(), 1, 1, D,
+                geo, -(-q_rows // sk.ROW_TILE), sk._strides(q, k, v, views["out"]), scales[0], sk.cuda_stream(q))
             rc_dq = lib_dq.gp_stream_pair_bwd_dq(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                 views["dq"].data_ptr(), 1, 1, D, geo, -(-q_rows // sk.ROW_TILE),
@@ -2276,13 +2294,17 @@ def _stream_canary(sk, gen):
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                 views["dk"].data_ptr(), views["dv"].data_ptr(), 1, 1, D, geo, -(-k_rows // sk.KEY_ROWS_DKV_BF16),
                 sk._strides(q, k, v, do, views["dk"], views["dv"]), *scales, sk.cuda_stream(q))
-        check(rc_dq == 0 and rc_dkv == 0, f"canary g={g} r={r}: the entries returned {rc_dq}, {rc_dkv}")
+        check(rc_fwd == rc_dq == rc_dkv == 0, f"canary g={g} r={r}: the entries returned {rc_fwd}, {rc_dq}, {rc_dkv}")
         torch.cuda.synchronize()
         written = {"dq": _stream_lattice_rows(q0, cq, g, r, H),
                    "dk": _stream_lattice_rows(k0, ck, g, r, H, valid)}
-        written["dv"] = written["dk"]
+        written["out"], written["dv"] = written["dq"], written["dk"]
         counts = {}
-        for name, want in (("dq", want_dq), ("dk", want_dk), ("dv", want_dv)):
+        got, on = lse_view[0].t(), written["dq"]  # [cq, H]
+        check(bool(torch.isnan(lse_buf[-H:]).all()), f"canary g={g} r={r}: lse wrote past the tensor")
+        check(bool(torch.isnan(got[~on]).all()), f"canary g={g} r={r}: lse wrote a row off the lattice")
+        check(torch.equal(got[on], lse[0].t()[on]), f"canary g={g} r={r}: lse's rows differ from the wrapper's")
+        for name, want in (("out", out), ("dq", want_dq), ("dk", want_dk), ("dv", want_dv)):
             got, on = views[name][0], written[name]  # [c, H, D], [c, H]
             check(bool(torch.isnan(bufs[name][-H * D:]).all()), f"canary g={g} r={r}: {name} wrote past the tensor")
             check(bool(torch.isnan(got[~on]).all()), f"canary g={g} r={r}: {name} wrote a row off the lattice")
@@ -2291,15 +2313,16 @@ def _stream_canary(sk, gen):
         results.append({"g": g, "r": r, "q_block": [q0, q1], "k_block": [k0, k1], "valid": valid,
                         "lattice_steps": [int(geo[6]), int(geo[10])], "rows": counts, "max_rel_err_vs_plain": rel})
     emit("stream_kernels_canary", dtype="bfloat16", pairs=results, tolerance=BWD_REL_TOL["bfloat16"],
-         note="dq/dk/dv one row past the tensor, NaN-filled: the rows off the lattice, the keys past valid and the "
-              "extra row stayed NaN; the rows written bit-equal to the wrappers', which are held to the plain "
-              "version")
+         note="out/lse/dq/dk/dv one row past the tensor, NaN-filled: the rows off the lattice, the keys past valid "
+              "and the extra row stayed NaN; the rows written bit-equal to the wrappers', which are held to the "
+              "plain version")
 
 
 def _refused_stream_inputs(sk):
-    """bf16 blocks the tensor-core dq and dkv cannot take raise in both
-    wrappers: a q that is not 16-byte aligned, and a k whose head stride
-    is no whole number of 16 bytes; no plain version runs on the card."""
+    """bf16 blocks the tensor-core forward, dq and dkv cannot take raise in
+    the three wrappers: a q that is not 16-byte aligned, and a k whose head
+    stride is no whole number of 16 bytes; no plain version runs on the
+    card."""
     import torch
 
     D, c = E // H, 64
@@ -2308,14 +2331,17 @@ def _refused_stream_inputs(sk):
     ok = torch.zeros(1, c, H, D, dtype=torch.bfloat16, device="cuda")
     vec = torch.zeros(1, H, c, device="cuda")
     refused = []
-    for fn in (sk.stream_pair_bwd_dq, sk.stream_pair_bwd_dkv):
+    calls = {"stream_pair_fwd": lambda q, k: sk.stream_pair_fwd(q, k, ok, 0, 0, 64, 1),
+             "stream_pair_bwd_dq": lambda q, k: sk.stream_pair_bwd_dq(q, k, ok, ok, vec, vec, 0, 0, 64, 1),
+             "stream_pair_bwd_dkv": lambda q, k: sk.stream_pair_bwd_dkv(q, k, ok, ok, vec, vec, 0, 0, 64, 1)}
+    for name, call in calls.items():
         for label, (q, k) in (("misaligned q", (shifted, ok)), ("k head stride of 104 bytes", (ok, wide))):
             try:
-                fn(q, k, ok, ok, vec, vec, 0, 0, 64, 1)
+                call(q, k)
             except ValueError:
-                refused.append(f"{fn.__name__} {label}")
+                refused.append(f"{name} {label}")
                 continue
-            raise AssertionError(f"{fn.__name__} took bf16 blocks with {label}")
+            raise AssertionError(f"{name} took bf16 blocks with {label}")
     emit("stream_kernels_refused_inputs", refused=refused)
 
 
@@ -2425,7 +2451,7 @@ def phase_stream_forward():
             record.update(_stream_session_checks(model, rounded, stream))
             with torch.inference_mode():
                 record["forward_trace"] = _profile(lambda: run_inference_with_slide_encoder_streaming(
-                    in_order, N_TILES, model, chunk_tiles=STREAM_CHUNK))
+                    in_order, N_TILES, model, chunk_tiles=STREAM_CHUNK), watch=STREAM_KERNELS[:1])
         emit("stream_forward", **record)
         result[dname] = timing
         result["launches"] = counts
@@ -4160,7 +4186,49 @@ def stream_backward_times(reps: int = 5):
          nvidia_smi=smi)
 
 
-def sass_digests(names=FWD_MMA_SOURCES + FLASH_SOURCES[1:] + BWD_MMA_SOURCES + STREAM_BWD_SOURCES,
+def stream_forward_times(reps: int = 5):
+    """The flagship slide's bf16 streamed forward alone (10240 tiles in
+    chunks of 2048 through ``run_inference_with_slide_encoder_streaming``,
+    1776 ``stream_pair_fwd`` launches): the host clock of one slide (median
+    of ``reps`` runs, each ending in the device->host copy), and the device
+    busy time and idle share of one slide under ``torch.profiler`` with the
+    device time of the pair forward (per slide; a layer is a twelfth), with
+    the card's name and power limit. Not part of the smoke run; it uses only
+    entry points every tree of the port has, so it times another tree's
+    kernels from that tree's root, in turns with this one in one call:
+
+        python3 -c "import runpy; runpy.run_path('<this file>')['stream_forward_times']()"
+    """
+    import torch
+
+    from gigapath_tpu_torch.models.slide_encoder import create_model
+    from gigapath_tpu_torch.pipeline import run_inference_with_slide_encoder_streaming
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    x, coords = _flagship_inputs(1, gen)
+    chunks = _slide_chunks(x, coords, range(5))
+    model = create_model("", "gigapath_slide_enc12l768d", dtype=torch.bfloat16, seed=0)
+
+    def slide():
+        return run_inference_with_slide_encoder_streaming(chunks, N_TILES, model, chunk_tiles=STREAM_CHUNK)
+
+    slide()  # warm-up
+    secs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        slide()
+        secs.append(time.perf_counter() - t0)
+    with torch.inference_mode():
+        profile = _profile(slide, watch=STREAM_KERNELS[:1])
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    emit("stream_forward_times", dtype="bfloat16", tiles=N_TILES, chunk_tiles=STREAM_CHUNK,
+         ms_per_slide=statistics.median(secs) * 1e3, runs_ms=[x_ * 1e3 for x_ in secs], profile=profile,
+         nvidia_smi=smi)
+
+
+def sass_digests(names=FWD_MMA_SOURCES + FLASH_SOURCES[1:] + BWD_MMA_SOURCES + STREAM_KERNELS,
                  head_dims=(48, 64), plain=COPY_SOURCES):
     """Each kernel function's SASS in the libraries of ``names`` at
     ``head_dims`` and of ``plain`` (built without defines: the pack and

@@ -4,7 +4,10 @@
 // (dilated_branch_fwd_pipe.cu, row 6), which compute the same function and
 // differ only in how they order the steps, and by the segment-flash
 // forward (flash_fwd.cu, rows 11 and 13), which runs them on a FlashCell
-// and stores a ragged last query tile's rows only (finish<true>).
+// and stores a ragged last query tile's rows only (finish<true>), and by
+// the streaming pair forward (stream_pair_fwd.cu, row 15), which runs
+// load_q, scores, softmax (its segment mask applied before, by select)
+// and pv on a StreamCell, with its own epilogue to the lattice rows.
 //
 // A block of 4 warps owns 64 query rows of one cell, 16 a warp; thread
 // (warp, lane = 4 g + c) holds rows g and g + 8 of its warp's 16 (index h =

@@ -12,20 +12,25 @@ segment (``t // g == u // g``) and ``u < valid_len``. Three CUDA kernels
   cq] fp32)``, the pair's chunk-normalized partial;
 - :func:`stream_pair_bwd_dq` and :func:`stream_pair_bwd_dkv`, its backward
   from the stored lse, with the lse cotangent folded into the delta term
-  (``delta' = rowsum(dout * out) - dlse``): bf16 blocks on the tensor
-  cores (16-byte aligned pointers and strides, else the wrappers raise),
-  fp32 on the FMA pipes.
+  (``delta' = rowsum(dout * out) - dlse``).
 
-Each wrapper runs its ``*_reference`` plain PyTorch version when its tensor
-lies on the CPU, launches its kernel on a CUDA tensor (or raises), and counts
-its launches in :data:`LAUNCHES`. The plain versions reproduce the JAX
-package's jnp tier (``streaming_prefill.pair_partial_attention``): a dense
-``[H, cq, ck]`` mask, natural-log softmax, masked logits at
-``ops/attention.py:NEG_INF`` (-1e8), so a fully masked row's lse is ~-1e8 +
-log(ck) there and ~-6.9e19 in the kernels (the ``M_FLOOR`` discipline of
-``ops/dilated_kernels.py``); either weighs 0 in every downstream combine, so
-compare lse on covered rows only. The backward's plain version rounds ds to
-the inputs' dtype before ``ds @ k``, as the Pallas ``_dq_kernel`` does.
+All three run bf16 blocks on the tensor cores (16-byte aligned pointers and
+strides, else the wrappers raise) and fp32 blocks on the FMA pipes. Each
+wrapper runs its ``*_reference`` plain PyTorch version when its tensor lies
+on the CPU, launches its kernel on a CUDA tensor (or raises), and counts its
+launches in :data:`LAUNCHES`. The plain versions compute the JAX package's
+Pallas tier (``pallas_streaming.py``), forward and backward, so the bf16
+gradient is the derivative of the bf16 forward under one tier. The forward:
+``q * Dh^-1/2 * log2(e)`` rounded to the inputs' dtype once, fp32 scores,
+masked scores selected to -1e30, a base-2 online softmax whose running max
+(floored at ``M_FLOOR``) moves per tile of 64 keys of the head's key lattice
+(the kernels' tiles; JAX's moves per key block), p rounded to v's dtype
+before ``p @ v`` and l summing the unrounded p. In fp32 that is the jnp
+tier's softmax up to the order of sums. A fully masked row gives out = 0
+and lse ~ :data:`KERNEL_LSE_SENTINEL` (~-6.9e19; the jnp tier's is ~-1e8 +
+log(ck)); either weighs 0 in every downstream combine, so compare lse on
+covered rows only. The backward's plain version rounds ds to the inputs'
+dtype before ``ds @ k``, as the Pallas ``_dq_kernel`` does.
 
 :func:`pair_partial` is the differentiable op (``_PairPartial``, the
 counterpart of ``_pair_with_lse``'s custom VJP) with
@@ -43,13 +48,13 @@ from typing import Optional, Tuple
 
 import torch
 
-from gigapath_tpu_torch.ops.attention import NEG_INF
 from gigapath_tpu_torch.ops.common import check_cuda, cuda_stream, raise_on
 
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 NO_VALID = 2**31 - 1  # valid_len=None: no key is past the valid bound
 M_FLOOR = -1e20  # the kernels' running-max floor
+MASKED_SCORE = -1e30  # a masked score, selected before the running max
 # lse of a row with no visible key in the kernels (and of the rows off the
 # phase lattice, which the wrapper fills)
 KERNEL_LSE_SENTINEL = (M_FLOOR + math.log2(1e-30)) * LN2
@@ -121,19 +126,63 @@ def stream_pair_fwd_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q0: int, k0: int,
     segment_len: int, ratio: int, valid_len: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(out [B, cq, H, D] in q's dtype, lse [B, H, cq] fp32)`` of one pair,
-    as the JAX package's jnp tier computes it: fp32 logits times Dh^-1/2,
-    masked logits at NEG_INF, a natural-log softmax, the probabilities cast
-    to v's dtype before the PV product, summed in fp32."""
+    """``(out [B, cq, H, D] in q's dtype, lse [B, H, cq] fp32)`` of one pair:
+    the kernels' function, the Pallas ``_fwd_kernel``'s with the kernels'
+    key tiles. ``q * Dh^-1/2 * log2(e)`` is rounded to q's dtype once; the
+    scores are fp32 sums of its products with k; masked scores are selected
+    to ``MASKED_SCORE`` (-1e30) before the max; a base-2 online softmax runs
+    over tiles of the head's key lattice (lattice keys ``[64n, 64n + 64)``,
+    the lattice cut at ``valid_len``; 32 in fp32 above a head width of 64,
+    the FMA kernel's), its running max floored at ``M_FLOOR`` (-1e20), so
+    masked keys underflow to an exact 0; p = exp2(s - m) is rounded to v's
+    dtype before ``p @ v`` and l sums the unrounded fp32 p; out = acc /
+    max(l, 1e-30) and lse = (m + log2 max(l, 1e-30)) ln 2. A fully masked
+    row gives out = 0 and lse ~ ``KERNEL_LSE_SENTINEL``. In fp32 the
+    roundings are no-ops and this is the one-shot softmax up to the order of
+    sums. In bf16 p's rounding follows the running max, which moves per key
+    block of 1024 rows in JAX: one key tile, or JAX blocks that hold the
+    same lattice keys (r = 2 and 128-row blocks), agree bit for bit but for
+    the order of sums, and past one tile the two differ by a few bf16
+    roundings of p (``tests/test_torch_streaming.py::
+    test_pair_fwd_bf16_matches_jax_fwd_impl`` reads 99.98 % and 100 % of
+    out bit-equal on one tile and on matching tiles, 93.7 % with four tiles
+    in one block, lse on covered rows within 1.9e-6). The largest temporary is one [B, H, cq,
+    tile] fp32 score block."""
     B, cq, H, D = q.shape
     ck = k.shape[1]
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * D**-0.5
-    mask = pair_mask(q0, cq, k0, ck, segment_len, ratio, valid_len, H, q.device)
-    s = s.masked_fill(~mask, NEG_INF)
-    lse = torch.logsumexp(s, dim=-1)
-    p = torch.exp(s - lse[..., None]).masked_fill(~mask, 0.0)
-    out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
-    return out.to(q.dtype), lse
+    g, r, dev = segment_len, ratio, q.device
+    tile = 32 if D > 64 and q.dtype == torch.float32 else ROW_TILE  # csrc/stream_pair_fwd.cu's key tiles
+    # each head's key lattice (step, shift as the kernels'): block rows
+    # start + step * n; rows past the block are masked
+    step, shift = lattice(k0, ck, g, r)
+    phases = torch.arange(H, device=dev) // -(-H // r)
+    rows = (phases + shift - k0) % step
+    rows = rows[:, None] + step * torch.arange(-(-ck // step), device=dev)  # [H, nk]
+    u = k0 + rows
+    k_ok = (rows < ck) & ((u % g) % r == phases[:, None])
+    if valid_len is not None:
+        k_ok &= u < valid_len
+    rows, heads = rows.clamp(max=ck - 1), torch.arange(H, device=dev)[:, None]
+    kl, vl = k[:, rows, heads].float(), v[:, rows, heads].float()  # [B, H, nk, D]
+    t = q0 + torch.arange(cq, device=dev)
+    q_ok = ((t % g) % r)[None, :] == phases[:, None]  # [H, cq]
+    qs = _round_to(q.float() * (D**-0.5 * LOG2E), q.dtype).transpose(1, 2)  # [B, H, cq, D], base-2 units
+    m_run = torch.full((B, H, cq, 1), M_FLOOR, dtype=torch.float32, device=dev)
+    l_run = torch.zeros_like(m_run)
+    acc = torch.zeros((B, H, cq, D), dtype=torch.float32, device=dev)
+    for n0 in range(0, rows.shape[1], tile):
+        n1 = n0 + tile
+        seen = q_ok[:, :, None] & k_ok[:, None, n0:n1] & ((t // g)[None, :, None] == (u[:, None, n0:n1] // g))
+        sc = (qs @ kl[:, :, n0:n1].transpose(-1, -2)).masked_fill(~seen, MASKED_SCORE)
+        m_new = torch.maximum(m_run, sc.amax(dim=-1, keepdim=True))
+        p = torch.exp2(sc - m_new)
+        alpha = torch.exp2(m_run - m_new)
+        l_run = l_run * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + _round_to(p, v.dtype) @ vl[:, :, n0:n1]
+        m_run = m_new
+    l_row = l_run.clamp_min(1e-30)
+    out = (acc / l_row).to(q.dtype).transpose(1, 2).contiguous()
+    return out, ((m_run + torch.log2(l_row)) * LN2)[..., 0]
 
 
 def stream_pair_bwd_reference(
@@ -209,11 +258,25 @@ def _check(name: str, q, k, v, q0, k0, segment_len, ratio, valid, dout=None) -> 
         raise ValueError(f"{name}: geometry out of range (q0={q0}, k0={k0}, g={segment_len}, r={ratio})")
 
 
+def _check_tensor_cores(name: str, **tensors: torch.Tensor) -> None:
+    """The bf16 kernels load and store 16-byte pieces: raise unless
+    every pointer and every (batch, row, head) stride in bytes is a
+    multiple of 16."""
+    for arg, t in tensors.items():
+        if t.dtype != torch.bfloat16:
+            continue
+        es = t.element_size()
+        if t.data_ptr() % 16 or any(t.stride(i) * es % 16 for i in range(3)):
+            raise ValueError(f"{name} {arg}: the bf16 kernel needs a 16-byte aligned pointer and (batch, row, "
+                             f"head) strides of whole 16 bytes, got strides {tuple(t.stride())}")
+
+
 def stream_pair_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q0: int, k0: int,
     segment_len: int, ratio: int, valid_len: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One pair's ``(out, lse)`` (``csrc/stream_pair_fwd.cu``); arguments as
+    """One pair's ``(out, lse)`` (``csrc/stream_pair_fwd.cu``: bf16 on the
+    tensor cores, fp32 on the FMA pipes); arguments as
     :func:`stream_pair_fwd_reference`."""
     if q.device.type == "cpu":
         return stream_pair_fwd_reference(q, k, v, q0, k0, segment_len, ratio, valid_len)
@@ -221,6 +284,7 @@ def stream_pair_fwd(
 
     valid = NO_VALID if valid_len is None else int(valid_len)
     _check("stream_pair_fwd", q, k, v, q0, k0, segment_len, ratio, valid)
+    _check_tensor_cores("stream_pair_fwd", q=q, k=k, v=v)
     B, cq, H, D = q.shape
     geo, q_rows, _ = _geometry(H, q0, cq, k0, k.shape[1], segment_len, ratio, valid)
     n_qtiles = -(-q_rows // ROW_TILE)
@@ -239,19 +303,6 @@ def stream_pair_fwd(
     raise_on(rc, "stream_pair_fwd")
     LAUNCHES["stream_pair_fwd"] += 1
     return out, lse
-
-
-def _check_tensor_cores(name: str, **tensors: torch.Tensor) -> None:
-    """The bf16 backward kernels load and store 16-byte pieces: raise unless
-    every pointer and every (batch, row, head) stride in bytes is a
-    multiple of 16."""
-    for arg, t in tensors.items():
-        if t.dtype != torch.bfloat16:
-            continue
-        es = t.element_size()
-        if t.data_ptr() % 16 or any(t.stride(i) * es % 16 for i in range(3)):
-            raise ValueError(f"{name} {arg}: the bf16 kernel needs a 16-byte aligned pointer and (batch, row, "
-                             f"head) strides of whole 16 bytes, got strides {tuple(t.stride())}")
 
 
 def _check_vectors(name: str, q: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor) -> None:
