@@ -138,23 +138,32 @@ stdout:
 15. fusion_kernels: the stream-fusion route's four kernels against their
     plain versions at the flagship's branch shapes (L = 10241), fp32 and
     bf16, with a ragged real length (timed) and a B = 2 batch with per-row
-    valid lengths: ``pack_phases_direct`` and ``unpack_phases_direct`` on the
-    three single-segment branches (r = 4, 8, 16), bit-exact and bit-equal
-    to ``pack_phases``/``unpack_phases``; ``fusion_epilogue_fwd`` over the
-    five branches' packed results, also against the default route's dense
-    fusion; ``fusion_epilogue_bwd`` per branch, exact zeros off the
-    extent; each kernel's device time (from a CUDA graph of 20 calls; one
-    call's CUDA-event time, mostly the wrapper's host work, beside it)
-    against the bound, the plain version and a library call
-    (``torch.take``, ``index_copy_``, by the same two clocks; none for the
-    epilogue, whose line carries the device time of the default route's
-    fusion of the same packed results instead).
+    valid lengths: ``pack_phases_direct`` (q, k and v in one launch) and
+    ``unpack_phases_direct`` on the three single-segment branches (r = 4,
+    8, 16), bit-exact and bit-equal to ``pack_phases``/``unpack_phases``;
+    ``fusion_epilogue_fwd`` over the five branches' packed results, also
+    against the default route's dense fusion; ``fusion_epilogue_bwd`` per
+    branch, exact zeros off the extent; each kernel's device time (from a
+    CUDA graph of 20 calls; one call's CUDA-event time, mostly the
+    wrapper's host work, beside it) against the bound, the plain version
+    and a library call (``torch.take``, ``index_copy_``, by the same two
+    clocks; none for the epilogue, whose line carries the device time of
+    the default route's fusion of the same packed results instead). Then
+    the same checks on ``STRADDLE_SCHEDULE`` (g = 40: segment ends inside
+    the epilogue's 16-token tiles) at B = 1 and 2; per dtype a
+    ``fusion_layer_ms`` line (the direct pack per branch, one tensor and
+    q, k, v in one launch, the epilogue, each beside its bound, and the
+    launch floor: ``graph_ms`` of ``torch.cuda._sleep(1)``); and the direct
+    pack's canary (its C entry on q, k, v into NaN-filled destinations:
+    one shifted by one element, bit-exact with nothing outside written;
+    one off the element size, refused with nothing written).
 16. fusion_forward: the flagship forward with ``GIGAPATH_STREAM_FUSION=1
     GIGAPATH_PACK_DIRECT=1`` against the default route, fp32 (rel) and
     bf16 (cosine), with its exact launches; ms per slide and peak memory
     of both routes on 10240 tiles and (bf16) on one 102400-tile slide, with
-    the peak of one attention call alone there; a profiler breakdown of
-    one bf16 forward on each route.
+    the peak of one attention call alone there and rows 4 and 9 of one
+    layer by device time; a profiler breakdown of one bf16 forward on each
+    route.
 17. fusion_step: the flagship fine-tune step on that route: fp32
     gradients against the default route, the exact launches of one bf16
     step, ms per step and peak memory of both routes (bf16).
@@ -233,11 +242,14 @@ stdout:
 
 ``default_route_times`` (not part of the run) times the default route's
 bf16 forward per slide and bf16 step alone (or, with ``dilated_ratio``,
-the head-major route's), and profiles one forward and one step (device
-busy, idle share), for comparing two trees of the port in turns in one
-call; ``copy_kernel_times`` (not part of the run) times the pack and
-unpack per flagship layer by device time beside their library calls,
-for the same use; ``stream_backward_times`` (not part of the run) times
+the head-major route's; under ``env_flags``, the route the flags select),
+and profiles one forward and one step (device busy, idle share), for
+comparing two trees of the port in turns in one call;
+``copy_kernel_times`` (not part of the run) times the pack and unpack per
+flagship layer by device time beside their library calls, for the same
+use; ``fusion_kernel_times`` (not part of the run) times rows 4 and 9 per
+flagship layer (10241 and 102401 tokens) with the launch floor, for the
+same use; ``stream_backward_times`` (not part of the run) times
 one flagship layer's bf16 streaming attention backward (host clock,
 device busy, idle share, the two kernels' device time), for the same use;
 ``sass_digests`` (not part of the run either) digests each kernel
@@ -503,20 +515,28 @@ STREAM_REQUESTS = (N_TILES, 4097, 2048)  # tiles of the three served slides; the
 STREAM_LSE_TOL = {"float32": dict(atol=1e-4, rtol=1e-5), "bfloat16": dict(atol=1e-3, rtol=1e-5)}
 # the stream-fusion route with direct packs (GIGAPATH_STREAM_FUSION=1,
 # GIGAPATH_PACK_DIRECT=1): the flagship's three branches clamped to one
-# segment (r = 4, 8, 16) take the direct pack and unpack, the r = 1 and 2
-# branches the row-2/3 kernels; one epilogue launch per layer forward, one
-# per branch and layer backward (11 layers with feat_layer 11)
+# segment (r = 4, 8, 16) take the direct pack (q, k and v in one launch,
+# forward and again backward) and unpack, the r = 1 and 2 branches the
+# row-2/3 kernels (one launch a tensor); one epilogue launch per layer
+# forward, one per branch and layer backward (11 layers with feat_layer 11)
 FUSION_KERNELS = ("pack_phases_direct", "unpack_phases_direct", "fusion_epilogue_fwd", "fusion_epilogue_bwd")
 FUSION_ENV = {"GIGAPATH_STREAM_FUSION": "1", "GIGAPATH_PACK_DIRECT": "1"}
 FUSION_FWD_LAUNCHES = {"pack_phases": 12 * 2 * 3, "dilated_branch_fwd": 60, "unpack_phases": 0,
                        "dilated_branch_bwd_dq": 0, "dilated_branch_bwd_dkv": 0,
-                       "pack_phases_direct": 12 * 3 * 3, "unpack_phases_direct": 0,
+                       "pack_phases_direct": 12 * 3, "unpack_phases_direct": 0,
                        "fusion_epilogue_fwd": 12, "fusion_epilogue_bwd": 0, **NO_PIPE}
 FUSION_STEP_LAUNCHES = {"pack_phases": 72 + 11 * 2 * 3, "dilated_branch_fwd": 60,
                         "unpack_phases": 11 * 2 * 3, "dilated_branch_bwd_dq": 55,
-                        "dilated_branch_bwd_dkv": 55, "pack_phases_direct": 108 + 11 * 3 * 3,
+                        "dilated_branch_bwd_dkv": 55, "pack_phases_direct": 36 + 11 * 3,
                         "unpack_phases_direct": 11 * 3 * 3, "fusion_epilogue_fwd": 12,
                         "fusion_epilogue_bwd": 55, **NO_PIPE}
+# a schedule whose segment ends fall inside the epilogue's 16-token tiles
+# (g = 40; the flagship's 1024 and 5792 are multiples of 16), at the
+# flagship width
+STRADDLE_SCHEDULE = ([40, 96, 512], [1, 2, 4])
+# the kernel names of rows 4 and 9 in a profiler trace
+FUSION_KERNEL_NAMES = ("::pack_direct_kernel<", "::epilogue_fwd_kernel<")
+CUDA_ERROR_MISALIGNED_ADDRESS = 716  # cudaErrorMisalignedAddress
 # the epilogue kernels vs their plain versions (and the forward vs the
 # default route's dense fusion): the same fp32 arithmetic in another order
 # (expf against torch.exp, fused multiply-adds): fp32 out read 4.5e-8 at
@@ -657,6 +677,8 @@ def plain_kernels():
     saved = {name: getattr(dk, name) for name in names}
     for name in ("pack_phases", "dilated_branch_fwd", "unpack_phases", *FUSION_KERNELS, "dilated_branch_fwd_pipe"):
         setattr(dk, name, getattr(dk, name + "_reference"))
+    # the direct pack takes a sequence of tensors, its plain version one
+    dk.pack_phases_direct = lambda xs, *a: tuple(dk.pack_phases_direct_reference(x, *a) for x in xs)
     dk.dilated_branch_bwd_dq = lambda *a: dk.dilated_branch_bwd_reference(*a, dkv=False)[0]
     dk.dilated_branch_bwd_dkv = lambda *a: dk.dilated_branch_bwd_reference(*a, dq=False)[1:]
     dk.dilated_branch_bwd_dq_pipe = lambda *a: dk.dilated_branch_bwd_pipe_reference(*a, dkv=False)[0]
@@ -2699,27 +2721,31 @@ def _dense_fusion_bwd(dk, dy, weights, plan):
             for w, (g, S, r, m, Mp) in zip(weights, plan.branches)]
 
 
-def _fusion_case(dk, B, dtype, gen, real_len, valid, timed: bool):
+def _fusion_case(dk, B, dtype, gen, real_len, valid, timed: bool, schedule=SCHEDULE):
     """The four kernels vs their plain versions on one flagship layer's
-    branches (q, k, v at L = 10241); returns the per-layer summary."""
+    branches (q, k, v at L = 10241) of ``schedule``; returns the per-layer
+    summary."""
     import torch
 
     L = N_TILES + 1
     dname = str(dtype).replace("torch.", "")
     q, k, v = (torch.randn(B, L, E, device="cuda", generator=gen).to(dtype) for _ in range(3))
-    plan = dk.plan_stream_fusion(L, E, H, *SCHEDULE)
+    plan = dk.plan_stream_fusion(L, E, H, *schedule)
     tot = {name: dict(ms=0.0, plain_ms=0.0, err=0.0, library_ms=None) for name in FUSION_KERNELS}
     outs, lses = [], []
-    for (g, S, r, m, Mp), sl in zip(plan.branches, SCHEDULE[0]):
+    for (g, S, r, m, Mp), sl in zip(plan.branches, schedule[0]):
         kvlen = dk._branch_kvlen(B, S, g, r, m, real_len, valid, q.device)
         if S == 1 and r > 1:
-            # direct pack: exact copy of its plain version and of the row-2 pack
-            q6, k6, v6 = (dk.pack_phases_direct(x, g, S, r, Mp, H) for x in (q, k, v))
+            # direct pack, q, k and v in one launch: each an exact copy of its
+            # plain version and of the row-2 pack, and of a one-tensor call
+            q6, k6, v6 = dk.pack_phases_direct((q, k, v), g, S, r, Mp, H)
             for x, x6 in ((q, q6), (k, k6), (v, v6)):
                 check(torch.equal(x6, dk.pack_phases_direct_reference(x, g, S, r, Mp, H)),
                       f"pack_phases_direct {dname} B={B} r={r}: differs from its plain version")
                 check(torch.equal(x6, dk.pack_phases(x, g, S, r, Mp, H)),
                       f"pack_phases_direct {dname} B={B} r={r}: differs from pack_phases")
+            check(torch.equal(dk.pack_phases_direct((k,), g, S, r, Mp, H)[0], k6),
+                  f"pack_phases_direct {dname} B={B} r={r}: a one-tensor call differs")
         else:
             q6, k6, v6 = (dk.pack_phases(x, g, S, r, Mp, H) for x in (q, k, v))
         out6, lse5 = dk.dilated_branch_fwd(q6, k6, v6, kvlen)
@@ -2733,7 +2759,8 @@ def _fusion_case(dk, B, dtype, gen, real_len, valid, timed: bool):
         check(torch.equal(dense, dk.unpack_phases(out6, L, E, g, S, r)),
               f"unpack_phases_direct {dname} B={B} r={r}: differs from unpack_phases")
         if timed:
-            pack = lambda: dk.pack_phases_direct(q, g, S, r, Mp, H)  # noqa: E731
+            # a layer packs q, k, v of each direct branch in one launch
+            pack = lambda: dk.pack_phases_direct((q, k, v), g, S, r, Mp, H)  # noqa: E731
             unpack = lambda: dk.unpack_phases_direct(out6, L, E, g, S, r)  # noqa: E731
             lib = _copy_yardsticks(dk, q, out6, q6, dense, g, S, r, Mp)
             for name, fn, plain, n, key in (
@@ -2742,8 +2769,8 @@ def _fusion_case(dk, B, dtype, gen, real_len, valid, timed: bool):
                  1, "index_copy"),
             ):
                 t = tot[name]
-                t["ms"] += n * graph_ms(fn)
-                t["event_ms"] = t.get("event_ms", 0.0) + n * time_ms(fn)
+                t["ms"] += graph_ms(fn)
+                t["event_ms"] = t.get("event_ms", 0.0) + time_ms(fn)
                 t["plain_ms"] += n * time_ms(plain, reps=5)
                 t["library_ms"] = (t["library_ms"] or 0.0) + n * lib[f"{key}_ms"]
                 t["library_event_ms"] = t.get("library_event_ms", 0.0) + n * lib[f"{key}_event_ms"]
@@ -2779,12 +2806,13 @@ def _fusion_case(dk, B, dtype, gen, real_len, valid, timed: bool):
     tot["fusion_epilogue_bwd"]["err"] = err_bwd
     for name in ("pack_phases_direct", "unpack_phases_direct"):
         tot[name]["err"] = 0.0  # checked bit-exact above
-    record = {"dtype": dname, "B": B, "real_len": real_len,
+    record = {"dtype": dname, "B": B, "real_len": real_len, "schedule": schedule,
               "valid": None if valid is None else valid.tolist(),
               "max_abs_err": {"epilogue_out": tot["fusion_epilogue_fwd"]["err"],
                               "epilogue_vs_dense_fusion": max_err(out, dense_out),
                               "fused_lse_covered": max_err(fused[covered], fused_ref[covered]),
-                              "epilogue_bwd": err_bwd, "pack_direct": 0.0, "unpack_direct": 0.0}}
+                              "epilogue_bwd": err_bwd, "pack_direct": 0.0, "unpack_direct": 0.0},
+              "uncovered_pairs": int((~covered).sum())}
     if timed:
         weights = torch.softmax(torch.stack([dk._scatter_lse(l5, L, H, g, r, m)
                                              for l5, (g, S, r, m, Mp) in zip(lses, plan.branches)]), dim=0)
@@ -2809,10 +2837,108 @@ def _fusion_case(dk, B, dtype, gen, real_len, valid, timed: bool):
     return tot
 
 
+def _fusion_layer_ms(dk, L: int, dtype, gen) -> dict:
+    """Rows 4 and 9 on one flagship layer of L tokens (B = 1) by device time
+    (``graph_ms``): the direct pack of each single-segment branch, one
+    tensor alone and q, k, v as the tree's route packs them (one launch
+    where the wrapper takes several tensors, else one a tensor), and the
+    epilogue forward over the five branches' packed results, each beside
+    its bound; and the launch floor, ``graph_ms`` of
+    ``torch.cuda._sleep(1)``, a kernel that does almost nothing. Only entry
+    points every tree of the port has, so it times another tree's kernels
+    too (:func:`fusion_kernel_times`)."""
+    import torch
+
+    q, k, v = (torch.randn(1, L, E, device="cuda", generator=gen).to(dtype) for _ in range(3))
+    plan = dk.plan_stream_fusion(L, E, H, *SCHEDULE)
+    es = q.element_size()
+    merged = hasattr(dk, "PACK_DIRECT_MAX_TENSORS")
+    per_r, pack_ms, outs, lses = {}, 0.0, [], []
+    for g, S, r, m, Mp in plan.branches:
+        kvlen = dk._branch_kvlen(1, S, g, r, m, L, None, q.device)
+        q6, k6, v6 = (dk.pack_phases(x, g, S, r, Mp, H) for x in (q, k, v))
+        out6, lse5 = dk.dilated_branch_fwd(q6, k6, v6, kvlen)
+        outs.append(out6)
+        lses.append(lse5)
+        del q6, k6, v6
+        if not (S == 1 and r > 1):
+            continue
+        if merged:
+            one = lambda: dk.pack_phases_direct((q,), g, S, r, Mp, H)  # noqa: E731
+            layer = lambda: dk.pack_phases_direct((q, k, v), g, S, r, Mp, H)  # noqa: E731
+        else:  # a tree whose wrapper takes one tensor
+            one = lambda: dk.pack_phases_direct(q, g, S, r, Mp, H)  # noqa: E731
+            layer = lambda: [dk.pack_phases_direct(x, g, S, r, Mp, H) for x in (q, k, v)]  # noqa: E731
+        one_bytes = (L * E // r + Mp * E) * es
+        per_r[r] = {"one_tensor_ms": graph_ms(one),
+                    "one_tensor_bound_ms": one_bytes / HBM_BYTES_PER_S * 1e3,
+                    "qkv_ms": graph_ms(layer), "qkv_launches": 1 if merged else 3,
+                    "qkv_bound_ms": 3 * one_bytes / HBM_BYTES_PER_S * 1e3}
+        pack_ms += per_r[r]["qkv_ms"]
+    bounds = _fusion_bounds(1, L, plan, es)
+    torch.cuda.synchronize()
+    return {"L": L, "dtype": str(dtype).replace("torch.", ""), "pack_merged": merged,
+            "launch_floor_ms": graph_ms(lambda: torch.cuda._sleep(1)),
+            "pack_per_r": per_r, "pack_layer_ms": pack_ms, "pack_layer_bound_ms": bounds["pack_phases_direct"],
+            "epilogue_fwd_ms": graph_ms(lambda: dk.fusion_epilogue_fwd(outs, lses, plan)),
+            "epilogue_fwd_bound_ms": bounds["fusion_epilogue_fwd"]}
+
+
+def _pack_direct_canary(dk, gen):
+    """The direct pack's C entry called directly on q, k, v (bf16, the
+    flagship r = 4 branch at L = 10241) into NaN-filled destinations one
+    unit longer than the packed tensor: with one destination shifted by
+    one element (the launch falls to a narrower unit) every packed slot
+    bit-equal to the plain version and nothing outside written; with one
+    destination off the element size the call is refused
+    (``cudaErrorMisalignedAddress``) and nothing is written."""
+    import ctypes
+
+    import torch
+
+    from gigapath_tpu_torch.ops import _build
+
+    L = N_TILES + 1
+    r = SCHEDULE[1][2]
+    g, S, _, Mp = dk._branch_geometry(L, SCHEDULE[0][2], r)
+    xs = [torch.randn(1, L, E, device="cuda", generator=gen).to(torch.bfloat16) for _ in range(3)]
+    n6 = Mp * E
+    lib = _build.library("pack_phases_direct")
+    arr = lambda ptrs: (ctypes.c_longlong * 3)(*ptrs)  # noqa: E731
+    for shift_bytes, want in ((2, 0), (1, CUDA_ERROR_MISALIGNED_ADDRESS)):
+        bufs = [torch.full((n6 + 8,), float("nan"), device="cuda", dtype=torch.bfloat16) for _ in range(3)]
+        ptrs = [bufs[0].data_ptr(), bufs[1].data_ptr() + shift_bytes, bufs[2].data_ptr()]
+        rc = lib.gp_pack_phases_direct(arr([x.data_ptr() for x in xs]), arr(ptrs), 3, 2, 1, L, E, r, H // r,
+                                       E // H, Mp, torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        check(rc == want, f"pack_phases_direct canary: rc {rc} with a destination shifted {shift_bytes} bytes")
+        for i, (x, buf) in enumerate(zip(xs, bufs)):
+            if want:
+                check(bool(torch.isnan(buf).all()), "pack_phases_direct canary: a refused call wrote")
+                continue
+            off = shift_bytes // 2 if i == 1 else 0
+            ref = dk.pack_phases_direct_reference(x, g, S, r, Mp, H).reshape(-1)
+            check(torch.equal(_bits(buf[off:off + n6]), _bits(ref)), f"pack_phases_direct canary: tensor {i} differs")
+            rest = torch.cat([buf[:off], buf[off + n6:]])
+            check(bool(torch.isnan(rest).all()), f"pack_phases_direct canary: tensor {i} written outside")
+    # the wrapper refuses tensors of one call that differ in dtype
+    try:
+        dk.pack_phases_direct((xs[0], xs[1].float()), g, S, r, Mp, H)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("pack_phases_direct took tensors of two dtypes in one call")
+    emit("pack_direct_canary", r=r, L=L, shifted_destination="bit-exact, nothing outside written",
+         destination_off_the_element=f"refused ({CUDA_ERROR_MISALIGNED_ADDRESS}), nothing written",
+         mixed_dtypes="refused")
+
+
 def phase_fusion_kernels():
     """The four kernels vs their plain versions at the flagship's branch
-    shapes: fp32 and bf16 with a ragged real length (timed), and a B = 2
-    batch with per-row valid lengths."""
+    shapes: fp32 and bf16 with a ragged real length (timed), a B = 2
+    batch with per-row valid lengths, and the epilogue on a schedule whose
+    segment ends fall inside its token tiles (B = 1 and 2); the direct
+    pack's canary; rows 4 and 9 per layer with the launch floor."""
     import torch
 
     from gigapath_tpu_torch.ops import dilated_kernels as dk
@@ -2823,6 +2949,11 @@ def phase_fusion_kernels():
     for dtype in (torch.float32, torch.bfloat16):
         summary[str(dtype).replace("torch.", "")] = _fusion_case(dk, 1, dtype, gen, L - 37, None, timed=True)
         _fusion_case(dk, 2, dtype, gen, L, torch.tensor([L, 7002], device="cuda"), timed=False)
+        _fusion_case(dk, 1, dtype, gen, L - 37, None, timed=False, schedule=STRADDLE_SCHEDULE)
+        _fusion_case(dk, 2, dtype, gen, L, torch.tensor([L, 7002], device="cuda"), timed=False,
+                     schedule=STRADDLE_SCHEDULE)
+        emit("fusion_layer_ms", **_fusion_layer_ms(dk, L, dtype, gen))
+    _pack_direct_canary(dk, gen)
     return summary
 
 
@@ -2944,6 +3075,8 @@ def phase_fusion_forward():
             base = torch.cuda.memory_allocated()
             dilated_attention(q, k, v, *SCHEDULE)
             timing[route]["attention_peak_gb_above_qkv"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    # rows 4 and 9 of one layer at this length, by device time
+    timing["rows_4_9"] = _fusion_layer_ms(dk, LONG_TILES + 1, torch.bfloat16, gen)
     emit("fusion_forward_long", dtype="bfloat16", tiles=LONG_TILES, last_layer_one_minus_cos=one_minus_cos, **timing)
     result["long"] = timing
     del q, k, v
@@ -4054,8 +4187,9 @@ def default_route_times(reps: int = 3, dilated_ratio=None):
     profile of one forward and one step (device busy time, idle share),
     with the card's name and power limit: a line for comparing two trees in
     turns in one call. With ``dilated_ratio`` (e.g. ``BHLD_RATIOS``) the
-    same model and head at those ratios, so the head-major route. Not part
-    of the smoke run; it uses only entry points every tree of the port has,
+    same model and head at those ratios, so the head-major route; called
+    under ``env_flags(FUSION_ENV)``, the stream-fusion route. Not part of
+    the smoke run; it uses only entry points every tree of the port has,
     so it can time another tree's package from that tree's root:
 
         python3 -c "import runpy; runpy.run_path('<this file>')['default_route_times']()"
@@ -4083,8 +4217,9 @@ def default_route_times(reps: int = 3, dilated_ratio=None):
     model = create_model("", "gigapath_slide_enc12l768d", dtype=torch.bfloat16, seed=0, **ratio)
     forward = lambda: run_inference_with_slide_encoder(x, coords, model)  # noqa: E731
     fwd_ms, fwd_runs = median_ms(forward)
+    watch = COPY_KERNEL_NAMES + FUSION_KERNEL_NAMES
     with torch.inference_mode():
-        fwd_profile = _profile(forward, watch=COPY_KERNEL_NAMES)
+        fwd_profile = _profile(forward, watch=watch)
     del model, forward
     labels = torch.tensor([[3]], device="cuda")
     pad_mask = torch.ones(1, N_TILES, dtype=torch.bool, device="cuda")
@@ -4092,7 +4227,7 @@ def default_route_times(reps: int = 3, dilated_ratio=None):
     step = lambda: train_step(model, loss_fn, steps, x, coords, labels, pad_mask,  # noqa: E731
                               multi_label=False, bf16=True)
     step_ms, step_runs = median_ms(step)
-    step_profile = _profile(step, watch=COPY_KERNEL_NAMES)  # device busy, idle share, costliest kernels
+    step_profile = _profile(step, watch=watch)  # device busy, idle share, costliest kernels
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     emit("default_route_times", dtype="bfloat16", tiles=N_TILES, dilated_ratio=dilated_ratio,
@@ -4137,6 +4272,30 @@ def copy_kernel_times():
     emit("copy_kernel_times", tiles=N_TILES, times=per_layer, nvidia_smi=smi,
          note="ms per flagship layer: pack x3 (q, k, v) + unpack x1; *_ms device time from a CUDA graph of "
               "20 calls, wrapper_ms_* and *_event_ms one call's CUDA-event time")
+
+
+def fusion_kernel_times():
+    """Rows 4 and 9 (the direct pack and the fusion epilogue forward) of
+    one flagship layer by device time, bf16 and fp32 at 10241 tokens and
+    bf16 at 102401 (:func:`_fusion_layer_ms`: the pack per single-segment
+    branch, one tensor alone and q, k, v as the tree's route packs them,
+    the epilogue, each beside its bound, and the launch floor), with the
+    card's name and power limit. Not part of the smoke run; it uses only
+    entry points every tree of the port has, so it times another tree's
+    kernels from that tree's root, in turns with this one in one call:
+
+        python3 -c "import runpy; runpy.run_path('<this file>')['fusion_kernel_times']()"
+    """
+    import torch
+
+    from gigapath_tpu_torch.ops import dilated_kernels as dk
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    layers = [_fusion_layer_ms(dk, L, dtype, gen) for L, dtype in (
+        (N_TILES + 1, torch.bfloat16), (N_TILES + 1, torch.float32), (LONG_TILES + 1, torch.bfloat16))]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    emit("fusion_kernel_times", layers=layers, nvidia_smi=smi)
 
 
 def stream_backward_times(reps: int = 5):

@@ -9,8 +9,8 @@
 // masked probability of 0 times a NaN would poison the PV product.
 //
 // Bound on the H100: bytes. The kernel must read the L*E/r band elements and
-// write the whole packed tensor, and does no arithmetic. It is the
-// single-segment direct pack's design (pack_phases_direct.cu) with a segment
+// write the whole packed tensor, and does no arithmetic. It is the direct
+// unpack's tiling (unpack_phases_direct.cu) run the other way, with a segment
 // index: the grid is (Mp / BT, S, B), and block (i, s, b) takes packed rows
 // j0 = i*BT .. j0+BT-1 of every phase of segment s, i.e. the BT*r
 // consecutive in-segment positions w = j0*r .. (j0+BT)*r - 1. It loads only

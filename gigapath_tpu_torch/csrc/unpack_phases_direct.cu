@@ -70,7 +70,7 @@ template <typename U>
 int launch(const void* p6, void* out, int B, int L, int E, int R, int HB,
            int Dh, int Mp, int es, cudaStream_t stream) {
   const int u = (int)sizeof(U);
-  int BT = 16;  // as pack_phases_direct.cu, so both walk the same blocks
+  int BT = 16;  // packed rows per block, halved as below
   while (BT > 1 && (Mp % BT || (long long)BT * E * es > kSmemBytes ||
                     (long long)B * (Mp / BT) < 2 * 132))
     BT /= 2;

@@ -101,7 +101,7 @@ _SIGNATURES = {
     "dilated_branch_bwd_dkv": (
         "gp_dilated_branch_bwd_dkv", [_P] * 9 + [_I] * 6 + [_F, _F, _P],
     ),
-    "pack_phases_direct": ("gp_pack_phases_direct", [_P, _P] + [_I] * 8 + [_P]),
+    "pack_phases_direct": ("gp_pack_phases_direct", [_LLP, _LLP] + [_I] * 9 + [_P]),
     "unpack_phases_direct": ("gp_unpack_phases_direct", [_P, _P] + [_I] * 8 + [_P]),
     "fusion_epilogue_fwd": ("gp_fusion_epilogue_fwd", [_LLP, _LLP, _IP, _I, _P, _P] + [_I] * 5 + [_P]),
     "fusion_epilogue_bwd": ("gp_fusion_epilogue_bwd", [_P] * 4 + [_I] * 9 + [_P]),

@@ -35,8 +35,10 @@ package's, resolved once per public call through
 :func:`gigapath_tpu_torch.plan.resolve_plan`):
 
 - ``pack_direct``: a single-segment branch with ``r > 1`` packs and unpacks
-  through :func:`pack_phases_direct` / :func:`unpack_phases_direct`, which
-  stage whole row-blocks of ``[B, L, E]`` in shared memory;
+  through :func:`pack_phases_direct` (q, k and v in one launch, each
+  16-byte unit copied straight to its packed place) and
+  :func:`unpack_phases_direct` (whole row-blocks of ``[B, L, E]`` staged in
+  shared memory);
 - ``stream_fusion``: :func:`dilated_attention_stream_fused` keeps every
   branch's ``(out6, lse5)`` packed (:func:`dilated_branch_attention_packed`)
   and folds them in one :func:`fusion_epilogue_fwd` launch into the fused
@@ -90,6 +92,7 @@ LAUNCHES = {
     "dilated_branch_fwd_pipe": 0, "dilated_branch_bwd_dq_pipe": 0, "dilated_branch_bwd_dkv_pipe": 0,
 }
 MAX_FUSED_BRANCHES = 8  # branches one fusion_epilogue_fwd launch takes
+PACK_DIRECT_MAX_TENSORS = 3  # tensors one pack_phases_direct launch packs
 
 
 def reset_launch_counts() -> None:
@@ -807,26 +810,40 @@ def dilated_branch_bwd_dkv_pipe(
 
 
 def pack_phases_direct(
-    x: torch.Tensor, g: int, S: int, r: int, Mp: int, num_heads: int
-) -> torch.Tensor:
-    """Single-segment dense [B, L, E] -> packed [B, 1, r, hb, Mp, Dh]
-    through shared-memory row-blocks (``csrc/pack_phases_direct.cu``)."""
-    if x.device.type == "cpu":
-        return pack_phases_direct_reference(x, g, S, r, Mp, num_heads)
+    xs: Sequence[torch.Tensor], g: int, S: int, r: int, Mp: int, num_heads: int
+) -> Tuple[torch.Tensor, ...]:
+    """Single-segment dense [B, L, E] tensors (1 to
+    :data:`PACK_DIRECT_MAX_TENSORS` of one shape and dtype: a branch's q, k
+    and v) -> each packed [B, 1, r, hb, Mp, Dh], in order, in one launch
+    (``csrc/pack_phases_direct.cu``: each 16-byte unit copied straight to
+    its packed place, no shared memory)."""
+    if isinstance(xs, torch.Tensor):
+        raise TypeError("pack_phases_direct: takes a sequence of tensors, e.g. (q, k, v) or (x,)")
+    xs = tuple(xs)
+    if not 1 <= len(xs) <= PACK_DIRECT_MAX_TENSORS:
+        raise ValueError(f"pack_phases_direct: takes 1 to {PACK_DIRECT_MAX_TENSORS} tensors; got {len(xs)}")
+    if xs[0].device.type == "cpu":
+        return tuple(pack_phases_direct_reference(x, g, S, r, Mp, num_heads) for x in xs)
     from gigapath_tpu_torch.ops import _build
 
-    check_cuda("pack_phases_direct", x)
-    B, L, E = x.shape
+    for i, x in enumerate(xs):
+        check_cuda(f"pack_phases_direct xs[{i}]", x)
+        if x.shape != xs[0].shape or x.dtype != xs[0].dtype or x.device != xs[0].device:
+            raise ValueError("pack_phases_direct: the tensors of one call must share shape, dtype and device")
+    B, L, E = xs[0].shape
     _check_direct("pack_phases_direct", L, g, S, r)
     hb, Dh = num_heads // r, E // num_heads
-    out = torch.empty((B, 1, r, hb, Mp, Dh), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
+    outs = tuple(torch.empty((B, 1, r, hb, Mp, Dh), dtype=x.dtype, device=x.device) for x in xs)
+    n = len(xs)
+    with torch.cuda.device(xs[0].device):
         rc = _build.library("pack_phases_direct").gp_pack_phases_direct(
-            x.data_ptr(), out.data_ptr(), x.element_size(), B, L, E, r, hb, Dh, Mp, cuda_stream(x),
+            (ctypes.c_longlong * n)(*(x.data_ptr() for x in xs)),
+            (ctypes.c_longlong * n)(*(o.data_ptr() for o in outs)),
+            n, xs[0].element_size(), B, L, E, r, hb, Dh, Mp, cuda_stream(xs[0]),
         )
     raise_on(rc, "pack_phases_direct")
     LAUNCHES["pack_phases_direct"] += 1
-    return out
+    return outs
 
 
 def unpack_phases_direct(p6: torch.Tensor, L: int, E: int, g: int, S: int, r: int) -> torch.Tensor:
@@ -926,12 +943,14 @@ def fusion_epilogue_bwd(
 # ---------------------------------------------------------------------------
 
 
-def _pack(x, g, S, r, Mp, num_heads, pack_direct: bool) -> torch.Tensor:
-    """Row 4's direct pack where the JAX package takes it (one segment,
-    ``r > 1``, ``pack_direct``), else row 2's pack."""
+def _pack(xs, g, S, r, Mp, num_heads, pack_direct: bool) -> Tuple[torch.Tensor, ...]:
+    """The dense tensors ``xs`` packed: by row 4's direct pack, all in one
+    launch, where the JAX package takes it (one segment, ``r > 1``,
+    ``pack_direct``; it packs them one call each), else by row 2's pack,
+    one launch each."""
     if pack_direct and S == 1 and r > 1:
-        return pack_phases_direct(x, g, S, r, Mp, num_heads)
-    return pack_phases(x, g, S, r, Mp, num_heads)
+        return pack_phases_direct(xs, g, S, r, Mp, num_heads)
+    return tuple(pack_phases(x, g, S, r, Mp, num_heads) for x in xs)
 
 
 def _unpack(p6, L, E, g, S, r, pack_direct: bool) -> torch.Tensor:
@@ -946,7 +965,7 @@ def _branch_packed_fwd(q, k, v, kvlen, geometry, num_heads, is_causal, pack_dire
     of ``_branch_packed_fwd_impl``: row 6's pipelined kernel when
     ``pipe_fwd`` and not causal, else row 1's."""
     L, E, g, S, r, m, Mp = geometry
-    q6, k6, v6 = (_pack(x, g, S, r, Mp, num_heads, pack_direct) for x in (q, k, v))
+    q6, k6, v6 = _pack((q, k, v), g, S, r, Mp, num_heads, pack_direct)
     if pipe_fwd and not is_causal:
         return dilated_branch_fwd_pipe(q6, k6, v6, kvlen)
     return dilated_branch_fwd(q6, k6, v6, kvlen, is_causal)
@@ -959,7 +978,7 @@ def _branch_bwd(q, k, v, kvlen, do6, out6, lse5, geometry, num_heads, is_causal,
     not causal, else row 7's. Off-band lanes come back exact 0: the branch
     never reads them."""
     L, E, g, S, r, m, Mp = geometry
-    q6, k6, v6 = (_pack(x, g, S, r, Mp, num_heads, pack_direct) for x in (q, k, v))
+    q6, k6, v6 = _pack((q, k, v), g, S, r, Mp, num_heads, pack_direct)
     # delta = rowsum(do * out) per (token, head), in the lse layout
     delta = (do6.float() * out6.float()).sum(dim=-1)
     if pipe_bwd and not is_causal:
@@ -1001,7 +1020,7 @@ class _DilatedBranch(torch.autograd.Function):
         q, k, v, kvlen, out6, lse5 = ctx.saved_tensors
         L, E, g, S, r, m, Mp = ctx.geometry
         with torch.autocast(q.device.type, enabled=False):
-            do6 = _pack(dout.to(q.dtype).contiguous(), g, S, r, Mp, ctx.num_heads, ctx.pack_direct)
+            (do6,) = _pack((dout.to(q.dtype).contiguous(),), g, S, r, Mp, ctx.num_heads, ctx.pack_direct)
             grads = _branch_bwd(q, k, v, kvlen, do6, out6, lse5, ctx.geometry, ctx.num_heads,
                                 ctx.is_causal, ctx.pack_direct, ctx.pipe_bwd)
         return (*grads, None, None, None, None, None, None, None)

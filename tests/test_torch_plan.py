@@ -272,14 +272,16 @@ def test_pipelined_routing(case, calls, monkeypatch):
 
 
 # wrapper calls of one forward + backward at L = 300: 5 branches, of which
-# r = 8 and 16 have one segment (the direct kernels' branches)
+# r = 8 and 16 have one segment (the direct kernels' branches); the direct
+# pack takes q, k and v of a branch in one call, forward and backward
+# (and dout in one more on the pack_direct route)
 ROUTE_CALLS = {
     "default": dict(pack_phases=15 + 20, dilated_branch_fwd=5, unpack_phases=5 + 15,
                     dilated_branch_bwd_dq=5, dilated_branch_bwd_dkv=5),
-    "pack_direct": dict(pack_phases=9 + 12, pack_phases_direct=6 + 8, dilated_branch_fwd=5,
+    "pack_direct": dict(pack_phases=9 + 12, pack_phases_direct=2 + 4, dilated_branch_fwd=5,
                         unpack_phases=3 + 9, unpack_phases_direct=2 + 6,
                         dilated_branch_bwd_dq=5, dilated_branch_bwd_dkv=5),
-    "stream_direct": dict(pack_phases=9 + 9, pack_phases_direct=6 + 6, dilated_branch_fwd=5,
+    "stream_direct": dict(pack_phases=9 + 9, pack_phases_direct=2 + 2, dilated_branch_fwd=5,
                           unpack_phases=9, unpack_phases_direct=6, fusion_epilogue_fwd=1,
                           fusion_epilogue_bwd=5, dilated_branch_bwd_dq=5, dilated_branch_bwd_dkv=5),
     "streaming": dict(pack_phases=15 + 20, dilated_branch_fwd=5, unpack_phases=5 + 15,

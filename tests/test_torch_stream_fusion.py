@@ -51,6 +51,8 @@ ROUTES = {
 # route's Pallas kernels in interpret mode, 10-35 s)
 ROUTE_CASES = [
     ("stream_direct", SCH5, "per_row"),
+    # g = 40 and 96: segment ends off any 16- or 32-token tile of the epilogue
+    ("stream_direct", ([40, 96, 512], [1, 2, 4]), "per_row"),
     ("stream_direct", SCH3, 250),
     ("stream", SCH2, None),
     ("streaming", SCH3, "per_row"),
@@ -70,13 +72,50 @@ def test_pack_phases_direct_matches_jax(L, sl, r):
     g, S, m, Mp = dk._branch_geometry(L, sl, r)
     assert S == 1
     jMp = _jax_geometry(L, sl, r)[3]
-    ours = dk.pack_phases_direct(torch.from_numpy(x), g, S, r, Mp, H).numpy()
+    (ours,) = dk.pack_phases_direct((torch.from_numpy(x),), g, S, r, Mp, H)
+    ours = ours.numpy()
     ref = np.asarray(jpd._pack_phases(jnp.asarray(x), g, S, r, jMp, H, True, pack_direct=True))
     assert ours.shape == (2, 1, r, H // r, Mp, DH)
     np.testing.assert_array_equal(ours[:, :, :, :, :m], ref[:, :, :, :, :m])
     assert not ours[:, :, :, :, m:].any()  # packed rows past the dense extent are exact zeros
     # the same function as the row-2 pack
     np.testing.assert_array_equal(ours, dk.pack_phases(torch.from_numpy(x), g, S, r, Mp, H).numpy())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("L,sl,r", DIRECT_CASES)
+def test_pack_phases_direct_three_tensors_match_jax(L, sl, r, dtype):
+    """q, k and v packed in one call (one launch on the card) each equal
+    the JAX package's direct pack of that tensor alone (it packs them one
+    call each); the three differ in content."""
+    xs = [_data(seed, 2, L, E) for seed in (41, 42, 43)]
+    g, S, m, Mp = dk._branch_geometry(L, sl, r)
+    jMp = _jax_geometry(L, sl, r)[3]
+    tdtype, jdtype = getattr(torch, dtype), getattr(jnp, dtype)
+    ours = dk.pack_phases_direct(tuple(torch.from_numpy(x).to(tdtype) for x in xs), g, S, r, Mp, H)
+    assert isinstance(ours, tuple) and len(ours) == 3
+    for x, x6 in zip(xs, ours):
+        ref = jpd._pack_phases(jnp.asarray(x, jdtype), g, S, r, jMp, H, True, pack_direct=True)
+        assert x6.shape == (2, 1, r, H // r, Mp, DH) and x6.dtype == tdtype
+        np.testing.assert_array_equal(x6.float().numpy()[..., :m, :], np.asarray(ref.astype(jnp.float32))[..., :m, :])
+        assert not x6[..., m:, :].any()
+    assert not torch.equal(ours[0], ours[1]) and not torch.equal(ours[1], ours[2])
+
+
+def test_pack_phases_direct_tensors_keep_their_order():
+    """A call's tensors come back packed in the order given, each as its
+    own one-tensor call packs it: inputs x, 0 and -x (the pad rows of all
+    three are zeros). A bare tensor is refused."""
+    L, sl, r = 300, 512, 4
+    x = torch.from_numpy(_data(44, 2, L, E))
+    g, S, _, Mp = dk._branch_geometry(L, sl, r)
+    ins = (x, torch.zeros_like(x), -x)
+    ours = dk.pack_phases_direct(ins, g, S, r, Mp, H)
+    for t, t6 in zip(ins, ours):
+        assert torch.equal(t6, dk.pack_phases_direct((t,), g, S, r, Mp, H)[0])
+    assert torch.equal(ours[2], -ours[0]) and not ours[1].any() and ours[0].any()
+    with pytest.raises(TypeError):  # a bare tensor would iterate over its batch rows
+        dk.pack_phases_direct(x, g, S, r, Mp, H)
 
 
 @pytest.mark.parametrize("L,sl,r", DIRECT_CASES)
@@ -103,7 +142,7 @@ def test_direct_pack_fully_out_of_bounds_tail_block():
     x = _data(32, 1, L, e)
     g, S, m, Mp = dk._branch_geometry(L, sl, r)
     _, _, _, jm, jMp, _ = jpd._branch_geometry(L, e, sl, r)
-    p6 = dk.pack_phases_direct(torch.from_numpy(x), g, S, r, Mp, h)
+    (p6,) = dk.pack_phases_direct((torch.from_numpy(x),), g, S, r, Mp, h)
     ref6 = np.asarray(jpd._pack_phases(jnp.asarray(x), g, S, r, jMp, h, True, pack_direct=True))
     np.testing.assert_array_equal(p6.numpy()[..., :m, :], ref6[..., :m, :])
     dense = dk.unpack_phases_direct(p6, L, e, g, S, r).numpy()
