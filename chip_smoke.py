@@ -142,8 +142,9 @@ stdout:
     ``unpack_phases_direct`` on the three single-segment branches (r = 4,
     8, 16), bit-exact and bit-equal to ``pack_phases``/``unpack_phases``;
     ``fusion_epilogue_fwd`` over the five branches' packed results, also
-    against the default route's dense fusion; ``fusion_epilogue_bwd`` per
-    branch, exact zeros off the extent; each kernel's device time (from a
+    against the default route's dense fusion; ``fusion_epilogue_bwd`` over
+    the five branches in one launch, exact zeros off the extent; each
+    kernel's device time (from a
     CUDA graph of 20 calls; one call's CUDA-event time, mostly the
     wrapper's host work, beside it) against the bound, the plain version
     and a library call (``torch.take``, ``index_copy_``, by the same two
@@ -152,11 +153,14 @@ stdout:
     the same checks on ``STRADDLE_SCHEDULE`` (g = 40: segment ends inside
     the epilogue's 16-token tiles) at B = 1 and 2; per dtype a
     ``fusion_layer_ms`` line (the direct pack per branch, one tensor and
-    q, k, v in one launch, the epilogue, each beside its bound, and the
-    launch floor: ``graph_ms`` of ``torch.cuda._sleep(1)``); and the direct
-    pack's canary (its C entry on q, k, v into NaN-filled destinations:
-    one shifted by one element, bit-exact with nothing outside written;
-    one off the element size, refused with nothing written).
+    q, k, v in one launch, the epilogue forward and backward, each beside
+    its bound, and the launch floor: ``graph_ms`` of
+    ``torch.cuda._sleep(1)``); the direct pack's canary (its C entry on q,
+    k, v into NaN-filled destinations: one shifted by one element,
+    bit-exact with nothing outside written; one off the element size,
+    refused with nothing written); and the epilogue backward's canary (its
+    outputs on blocks the caching allocator last held filled with NaN:
+    every slot written).
 16. fusion_forward: the flagship forward with ``GIGAPATH_STREAM_FUSION=1
     GIGAPATH_PACK_DIRECT=1`` against the default route, fp32 (rel) and
     bf16 (cosine), with its exact launches; ms per slide and peak memory
@@ -518,7 +522,7 @@ STREAM_LSE_TOL = {"float32": dict(atol=1e-4, rtol=1e-5), "bfloat16": dict(atol=1
 # segment (r = 4, 8, 16) take the direct pack (q, k and v in one launch,
 # forward and again backward) and unpack, the r = 1 and 2 branches the
 # row-2/3 kernels (one launch a tensor); one epilogue launch per layer
-# forward, one per branch and layer backward (11 layers with feat_layer 11)
+# forward and one per layer backward (11 layers with feat_layer 11)
 FUSION_KERNELS = ("pack_phases_direct", "unpack_phases_direct", "fusion_epilogue_fwd", "fusion_epilogue_bwd")
 FUSION_ENV = {"GIGAPATH_STREAM_FUSION": "1", "GIGAPATH_PACK_DIRECT": "1"}
 FUSION_FWD_LAUNCHES = {"pack_phases": 12 * 2 * 3, "dilated_branch_fwd": 60, "unpack_phases": 0,
@@ -529,13 +533,13 @@ FUSION_STEP_LAUNCHES = {"pack_phases": 72 + 11 * 2 * 3, "dilated_branch_fwd": 60
                         "unpack_phases": 11 * 2 * 3, "dilated_branch_bwd_dq": 55,
                         "dilated_branch_bwd_dkv": 55, "pack_phases_direct": 36 + 11 * 3,
                         "unpack_phases_direct": 11 * 3 * 3, "fusion_epilogue_fwd": 12,
-                        "fusion_epilogue_bwd": 55, **NO_PIPE}
+                        "fusion_epilogue_bwd": 11, **NO_PIPE}
 # a schedule whose segment ends fall inside the epilogue's 16-token tiles
 # (g = 40; the flagship's 1024 and 5792 are multiples of 16), at the
 # flagship width
 STRADDLE_SCHEDULE = ([40, 96, 512], [1, 2, 4])
-# the kernel names of rows 4 and 9 in a profiler trace
-FUSION_KERNEL_NAMES = ("::pack_direct_kernel<", "::epilogue_fwd_kernel<")
+# the kernel names of rows 4, 9 and 10 in a profiler trace
+FUSION_KERNEL_NAMES = ("::pack_direct_kernel<", "::epilogue_fwd_kernel<", "::epilogue_bwd_kernel<")
 CUDA_ERROR_MISALIGNED_ADDRESS = 716  # cudaErrorMisalignedAddress
 # the epilogue kernels vs their plain versions (and the forward vs the
 # default route's dense fusion): the same fp32 arithmetic in another order
@@ -2681,20 +2685,67 @@ def _fusion_bounds(B, L, plan, itemsize):
     direct pack's three tensors and one unpack in each clamped branch, the
     epilogue forward over the five branches (covered packed elements, one
     lse per covered (token, head), out and fused_lse written), and its
-    backward over the five branches (covered dY lanes, lse and fused_lse,
-    the whole packed cotangent written)."""
-    pack = unpack = bwd = 0.0
+    backward over the five branches (dY and fused_lse read once for the
+    layer, each branch's lse per covered (token, head), every branch's
+    whole packed cotangent written)."""
+    pack = unpack = 0.0
     fwd = B * L * E * itemsize + B * L * H * 4  # out, fused_lse
+    bwd = B * L * E * itemsize + B * L * H * 4  # dY, fused_lse
     for g, S, r, m, Mp in plan.branches:
         band = B * L * E // r
         fwd += band * itemsize + B * L * H // r * 4
-        bwd += band * itemsize + 2 * (B * L * H // r) * 4 + B * S * Mp * E * itemsize
+        bwd += B * L * H // r * 4 + B * S * Mp * E * itemsize
         if S == 1 and r > 1:
             pack += 3 * (band + B * Mp * E) * itemsize
             unpack += (band + B * L * E) * itemsize
     return {name: b / HBM_BYTES_PER_S * 1e3 for name, b in (
         ("pack_phases_direct", pack), ("unpack_phases_direct", unpack),
         ("fusion_epilogue_fwd", fwd), ("fusion_epilogue_bwd", bwd))}
+
+
+def _check_epilogue_bwd(dk, d6s, refs, plan, label) -> float:
+    """Row 10's outputs against its plain version's under
+    ``EPILOGUE_BWD_TOL``: one tensor per branch, finite, exact 0 at every
+    slot off the segment or the sequence; returns the largest error."""
+    import torch
+
+    check(len(d6s) == len(plan.branches), f"fusion_epilogue_bwd {label}: {len(d6s)} tensors for "
+          f"{len(plan.branches)} branches")
+    err = 0.0
+    for d6, ref, (g, S, r, m, Mp) in zip(d6s, refs, plan.branches):
+        check(bool(torch.isfinite(d6).all()), f"fusion_epilogue_bwd {label} r={r}: non-finite")
+        torch.testing.assert_close(d6, ref, **EPILOGUE_BWD_TOL[str(d6.dtype).replace("torch.", "")])
+        err = max(err, max_err(d6, ref))
+        inside = dk.pack_phases_reference(torch.ones(1, plan.L, E, device="cuda"), g, S, r, Mp, H) > 0
+        check(not bool(d6[:, ~inside[0]].any()), f"fusion_epilogue_bwd {label} r={r}: slots off the extent not 0")
+    return err
+
+
+def _epilogue_bwd_canary(dk, gen):
+    """Row 10 (bf16, B = 2, the flagship's five branches at L = 10241) with
+    its outputs on memory the caching allocator last held filled with NaN:
+    blocks of the outputs' sizes are filled and freed first, the call is
+    checked to land on them, and every slot then holds its plain version's
+    value (an unwritten one would stay NaN), exact 0 off the extent."""
+    import torch
+
+    L, B = N_TILES + 1, 2
+    plan = dk.plan_stream_fusion(L, E, H, *SCHEDULE)
+    dy = torch.randn(B, L, E, device="cuda", generator=gen).to(torch.bfloat16)
+    fused = torch.randn(B, L, H, device="cuda", generator=gen)
+    lses = [fused.new_empty(B, S, r, H // r, Mp).normal_(generator=gen) for g, S, r, m, Mp in plan.branches]
+    refs = dk.fusion_epilogue_bwd_reference(dy, fused, lses, plan)
+    torch.cuda.synchronize()
+    nans = [torch.full((B, S, r, H // r, Mp, E // H), float("nan"), dtype=dy.dtype, device="cuda")
+            for g, S, r, m, Mp in plan.branches]
+    held = {t.data_ptr() for t in nans}
+    del nans
+    d6s = dk.fusion_epilogue_bwd(dy, fused, lses, plan)
+    landed = sum(d6.data_ptr() in held for d6 in d6s)
+    check(landed == len(d6s), f"fusion_epilogue_bwd canary: {landed} of {len(d6s)} outputs on the NaN blocks")
+    err = _check_epilogue_bwd(dk, d6s, refs, plan, "canary")
+    emit("epilogue_bwd_canary", B=B, L=L, dtype="bfloat16", outputs_on_nan_blocks=landed, max_abs_err=err,
+         unwritten_slots=0)
 
 
 def _dense_fusion(dk, outs, lses, plan):
@@ -2790,19 +2841,11 @@ def _fusion_case(dk, B, dtype, gen, real_len, valid, timed: bool, schedule=SCHED
     dense_out = _dense_fusion(dk, outs, lses, plan).reshape(B, L, E)
     torch.testing.assert_close(out, dense_out, **EPILOGUE_TOL[dname])
 
-    # the epilogue backward, one launch per branch: packed cotangents, exact 0
-    # off the segment and the sequence
+    # the epilogue backward, one launch for the five branches: packed
+    # cotangents, exact 0 off the segment and the sequence
     dy = torch.randn(B, L, E, device="cuda", generator=gen).to(dtype)
-    err_bwd = 0.0
-    for l5, branch in zip(lses, plan.branches):
-        g, S, r, m, Mp = branch
-        d6 = dk.fusion_epilogue_bwd(dy, fused, l5, branch, H)
-        d6_ref = dk.fusion_epilogue_bwd_reference(dy, fused, l5, branch, H)
-        torch.testing.assert_close(d6, d6_ref, **EPILOGUE_BWD_TOL[dname])
-        err_bwd = max(err_bwd, max_err(d6, d6_ref))
-        inside = dk.pack_phases_reference(torch.ones(1, L, E, device="cuda"), g, S, r, Mp, H) > 0
-        check(not bool(d6[:, ~inside[0]].any()), f"fusion_epilogue_bwd {dname} r={r}: slots off the extent not 0")
-        check(bool(torch.isfinite(d6).all()), f"fusion_epilogue_bwd {dname} r={r}: non-finite")
+    err_bwd = _check_epilogue_bwd(dk, dk.fusion_epilogue_bwd(dy, fused, lses, plan),
+                                  dk.fusion_epilogue_bwd_reference(dy, fused, lses, plan), plan, dname)
     tot["fusion_epilogue_bwd"]["err"] = err_bwd
     for name in ("pack_phases_direct", "unpack_phases_direct"):
         tot[name]["err"] = 0.0  # checked bit-exact above
@@ -2822,12 +2865,11 @@ def _fusion_case(dk, B, dtype, gen, real_len, valid, timed: bool, schedule=SCHED
         t["event_ms"] = time_ms(fwd)
         t["plain_ms"] = time_ms(lambda: dk.fusion_epilogue_fwd_reference(outs, lses, plan), reps=3, warmup=1)
         t["dense_route_ms"] = _device_busy_ms(lambda: _dense_fusion(dk, outs, lses, plan))
+        bwd = lambda: dk.fusion_epilogue_bwd(dy, fused, lses, plan)  # noqa: E731
         t = tot["fusion_epilogue_bwd"]
-        for l5, br in zip(lses, plan.branches):
-            bwd = lambda: dk.fusion_epilogue_bwd(dy, fused, l5, br, H)  # noqa: E731
-            t["ms"] += graph_ms(bwd)
-            t["event_ms"] = t.get("event_ms", 0.0) + time_ms(bwd)
-            t["plain_ms"] += time_ms(lambda: dk.fusion_epilogue_bwd_reference(dy, fused, l5, br, H), reps=3, warmup=1)
+        t["ms"] = graph_ms(bwd)
+        t["event_ms"] = time_ms(bwd)
+        t["plain_ms"] = time_ms(lambda: dk.fusion_epilogue_bwd_reference(dy, fused, lses, plan), reps=3, warmup=1)
         t["dense_route_ms"] = _device_busy_ms(lambda: _dense_fusion_bwd(dk, dy, weights, plan))
         bounds = _fusion_bounds(B, L, plan, q.element_size())
         for name in FUSION_KERNELS:
@@ -2838,15 +2880,18 @@ def _fusion_case(dk, B, dtype, gen, real_len, valid, timed: bool, schedule=SCHED
 
 
 def _fusion_layer_ms(dk, L: int, dtype, gen) -> dict:
-    """Rows 4 and 9 on one flagship layer of L tokens (B = 1) by device time
-    (``graph_ms``): the direct pack of each single-segment branch, one
+    """Rows 4, 9 and 10 on one flagship layer of L tokens (B = 1) by device
+    time (``graph_ms``): the direct pack of each single-segment branch, one
     tensor alone and q, k, v as the tree's route packs them (one launch
-    where the wrapper takes several tensors, else one a tensor), and the
-    epilogue forward over the five branches' packed results, each beside
-    its bound; and the launch floor, ``graph_ms`` of
-    ``torch.cuda._sleep(1)``, a kernel that does almost nothing. Only entry
-    points every tree of the port has, so it times another tree's kernels
-    too (:func:`fusion_kernel_times`)."""
+    where the wrapper takes several tensors, else one a tensor), the
+    epilogue forward over the five branches' packed results and its
+    backward as the tree's route calls it (one launch where the wrapper
+    takes every branch, else one a branch), each beside its bound; and the
+    launch floor, ``graph_ms`` of ``torch.cuda._sleep(1)``, a kernel that
+    does almost nothing. Only entry points every tree of the port has, so
+    it times another tree's kernels too (:func:`fusion_kernel_times`)."""
+    import inspect
+
     import torch
 
     q, k, v = (torch.randn(1, L, E, device="cuda", generator=gen).to(dtype) for _ in range(3))
@@ -2876,12 +2921,22 @@ def _fusion_layer_ms(dk, L: int, dtype, gen) -> dict:
                     "qkv_bound_ms": 3 * one_bytes / HBM_BYTES_PER_S * 1e3}
         pack_ms += per_r[r]["qkv_ms"]
     bounds = _fusion_bounds(1, L, plan, es)
+    _, fused = dk.fusion_epilogue_fwd(outs, lses, plan)
+    dy = torch.randn(1, L, E, device="cuda", generator=gen).to(dtype)
+    bwd_merged = "plan" in inspect.signature(dk.fusion_epilogue_bwd).parameters
+    if bwd_merged:
+        bwd = lambda: dk.fusion_epilogue_bwd(dy, fused, lses, plan)  # noqa: E731
+    else:  # a tree whose wrapper takes one branch
+        bwd = lambda: [dk.fusion_epilogue_bwd(dy, fused, l5, br, H)  # noqa: E731
+                       for l5, br in zip(lses, plan.branches)]
     torch.cuda.synchronize()
     return {"L": L, "dtype": str(dtype).replace("torch.", ""), "pack_merged": merged,
             "launch_floor_ms": graph_ms(lambda: torch.cuda._sleep(1)),
             "pack_per_r": per_r, "pack_layer_ms": pack_ms, "pack_layer_bound_ms": bounds["pack_phases_direct"],
             "epilogue_fwd_ms": graph_ms(lambda: dk.fusion_epilogue_fwd(outs, lses, plan)),
-            "epilogue_fwd_bound_ms": bounds["fusion_epilogue_fwd"]}
+            "epilogue_fwd_bound_ms": bounds["fusion_epilogue_fwd"],
+            "epilogue_bwd_ms": graph_ms(bwd), "epilogue_bwd_launches": 1 if bwd_merged else len(lses),
+            "epilogue_bwd_bound_ms": bounds["fusion_epilogue_bwd"]}
 
 
 def _pack_direct_canary(dk, gen):
@@ -2938,7 +2993,8 @@ def phase_fusion_kernels():
     shapes: fp32 and bf16 with a ragged real length (timed), a B = 2
     batch with per-row valid lengths, and the epilogue on a schedule whose
     segment ends fall inside its token tiles (B = 1 and 2); the direct
-    pack's canary; rows 4 and 9 per layer with the launch floor."""
+    pack's canary and the epilogue backward's; rows 4, 9 and 10 per layer
+    with the launch floor."""
     import torch
 
     from gigapath_tpu_torch.ops import dilated_kernels as dk
@@ -2954,6 +3010,7 @@ def phase_fusion_kernels():
                      schedule=STRADDLE_SCHEDULE)
         emit("fusion_layer_ms", **_fusion_layer_ms(dk, L, dtype, gen))
     _pack_direct_canary(dk, gen)
+    _epilogue_bwd_canary(dk, gen)
     return summary
 
 
@@ -4275,11 +4332,12 @@ def copy_kernel_times():
 
 
 def fusion_kernel_times():
-    """Rows 4 and 9 (the direct pack and the fusion epilogue forward) of
-    one flagship layer by device time, bf16 and fp32 at 10241 tokens and
-    bf16 at 102401 (:func:`_fusion_layer_ms`: the pack per single-segment
-    branch, one tensor alone and q, k, v as the tree's route packs them,
-    the epilogue, each beside its bound, and the launch floor), with the
+    """Rows 4, 9 and 10 (the direct pack and the fusion epilogue forward
+    and backward) of one flagship layer by device time, bf16 and fp32 at
+    10241 tokens and bf16 at 102401 (:func:`_fusion_layer_ms`: the pack
+    per single-segment branch, one tensor alone and q, k, v as the tree's
+    route packs them, the epilogue forward, its backward as the tree's
+    route calls it, each beside its bound, and the launch floor), with the
     card's name and power limit. Not part of the smoke run; it uses only
     entry points every tree of the port has, so it times another tree's
     kernels from that tree's root, in turns with this one in one call:
@@ -4296,6 +4354,77 @@ def fusion_kernel_times():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     emit("fusion_kernel_times", layers=layers, nvidia_smi=smi)
+
+
+def epilogue_bwd_block_sizes(tokens=(16, 8, 4, 32)):
+    """Row 10 built with each of ``tokens`` dense tokens a block (the
+    source's ``kTokens``; the first is the source's own), each held against
+    the plain version, then timed by ``graph_ms`` on the flagship layer
+    (bf16 and fp32 at 10241 tokens, bf16 at 102401) in turns, ``tokens``
+    then the same reversed, with the card's name and power limit. Not part
+    of the smoke run:
+
+        python3 -c "import runpy; runpy.run_path('chip_smoke.py')['epilogue_bwd_block_sizes']()"
+    """
+    import ctypes
+
+    import torch
+
+    from gigapath_tpu_torch.ops import _build
+    from gigapath_tpu_torch.ops import dilated_kernels as dk
+
+    src = (_build.CSRC / "fusion_epilogue_bwd.cu").read_text()
+    own = f"constexpr int kTokens = {tokens[0]};"
+    check(own in src, f"fusion_epilogue_bwd.cu does not hold {own!r}")
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    builds = []
+    for n in tokens:
+        path = _build.BUILD_DIR / f"fusion_epilogue_bwd_tokens{n}.cu"
+        path.write_text(src.replace(own, f"constexpr int kTokens = {n};"))
+        lib = path.with_suffix(".so")
+        builds.append((n, lib, subprocess.Popen([_build._nvcc(), *_build._flags(()), "-o", str(lib), str(path)],
+                                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    _build.build_all((("pack_phases", ()), ("dilated_branch_fwd", (("GP_HEAD_DIM", E // H),)),
+                      ("fusion_epilogue_fwd", ()), ("fusion_epilogue_bwd", ())))
+    symbol, argtypes = _build._SIGNATURES["fusion_epilogue_bwd"]
+    libs = {}
+    for n, lib, proc in builds:
+        log, _ = proc.communicate()
+        check(proc.returncode == 0, f"kTokens = {n}: nvcc failed\n{log}")
+        libs[n] = ctypes.CDLL(str(lib))
+        getattr(libs[n], symbol).argtypes = argtypes
+        getattr(libs[n], symbol).restype = ctypes.c_int
+    _build.library("fusion_epilogue_bwd")  # registered, then swapped below
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    layers = []
+    for L, dtype in ((N_TILES + 1, torch.bfloat16), (N_TILES + 1, torch.float32), (LONG_TILES + 1, torch.bfloat16)):
+        dname = str(dtype).replace("torch.", "")
+        q, k, v = (torch.randn(1, L, E, device="cuda", generator=gen).to(dtype) for _ in range(3))
+        plan = dk.plan_stream_fusion(L, E, H, *SCHEDULE)
+        outs, lses = [], []
+        for g, S, r, m, Mp in plan.branches:
+            kvlen = dk._branch_kvlen(1, S, g, r, m, L, None, q.device)
+            out6, lse5 = dk.dilated_branch_fwd(*(dk.pack_phases(x, g, S, r, Mp, H) for x in (q, k, v)), kvlen)
+            outs.append(out6)
+            lses.append(lse5)
+        _, fused = dk.fusion_epilogue_fwd(outs, lses, plan)
+        dy = torch.randn(1, L, E, device="cuda", generator=gen).to(dtype)
+        refs = dk.fusion_epilogue_bwd_reference(dy, fused, lses, plan)
+        for n in tokens:
+            _build._loaded["fusion_epilogue_bwd"] = libs[n]
+            _check_epilogue_bwd(dk, dk.fusion_epilogue_bwd(dy, fused, lses, plan), refs, plan, f"kTokens = {n}")
+        layers.append((f"{L}-{dname}", dy, fused, lses, plan))
+    ms = {}
+    for n in tokens + tokens[::-1]:
+        _build._loaded["fusion_epilogue_bwd"] = libs[n]
+        for key, dy, fused, lses, plan in layers:
+            ms.setdefault(key, {}).setdefault(n, []).append(
+                graph_ms(lambda: dk.fusion_epilogue_bwd(dy, fused, lses, plan)))
+    _build._loaded["fusion_epilogue_bwd"] = libs[tokens[0]]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    emit("epilogue_bwd_block_sizes", ms=ms, nvidia_smi=smi,
+         note="device ms of one flagship layer's row 10 (graph_ms), per kTokens, in turns")
 
 
 def stream_backward_times(reps: int = 5):
@@ -4388,10 +4517,11 @@ def stream_forward_times(reps: int = 5):
 
 
 def sass_digests(names=FWD_MMA_SOURCES + FLASH_SOURCES[1:] + BWD_MMA_SOURCES + STREAM_KERNELS,
-                 head_dims=(48, 64), plain=COPY_SOURCES):
+                 head_dims=(48, 64), plain=COPY_SOURCES + FUSION_KERNELS):
     """Each kernel function's SASS in the libraries of ``names`` at
     ``head_dims`` and of ``plain`` (built without defines: the pack and
-    unpack) (``cuobjdump -sass``), as an instruction count and a digest of
+    unpack, the direct pack and unpack, the fusion epilogue forward and
+    backward) (``cuobjdump -sass``), as an instruction count and a digest of
     its text: two trees' lines agree on a function exactly when its
     instructions do. Not part of the smoke run; it builds with the package
     of the directory it runs from, so it reads another tree's kernels from

@@ -104,7 +104,7 @@ _SIGNATURES = {
     "pack_phases_direct": ("gp_pack_phases_direct", [_LLP, _LLP] + [_I] * 9 + [_P]),
     "unpack_phases_direct": ("gp_unpack_phases_direct", [_P, _P] + [_I] * 8 + [_P]),
     "fusion_epilogue_fwd": ("gp_fusion_epilogue_fwd", [_LLP, _LLP, _IP, _I, _P, _P] + [_I] * 5 + [_P]),
-    "fusion_epilogue_bwd": ("gp_fusion_epilogue_bwd", [_P] * 4 + [_I] * 9 + [_P]),
+    "fusion_epilogue_bwd": ("gp_fusion_epilogue_bwd", [_LLP, _LLP, _IP, _I, _P, _P] + [_I] * 5 + [_P]),
     "dilated_branch_fwd_pipe": ("gp_dilated_branch_fwd_pipe", [_P] * 6 + [_I] * 5 + [_F, _P]),
     "dilated_branch_bwd_dq_pipe": (
         "gp_dilated_branch_bwd_dq_pipe", [_P] * 8 + [_I] * 5 + [_F, _F, _P],

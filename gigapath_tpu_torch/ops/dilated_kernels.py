@@ -43,7 +43,7 @@ package's, resolved once per public call through
   branch's ``(out6, lse5)`` packed (:func:`dilated_branch_attention_packed`)
   and folds them in one :func:`fusion_epilogue_fwd` launch into the fused
   ``[B, L, E]``; its backward (:func:`fusion_epilogue_bwd`, one launch per
-  branch) hands each branch its cotangent already packed, so no dense
+  layer) hands each branch its cotangent already packed, so no dense
   per-branch ``out``/``lse`` exists in either direction.
 
 On either route a non-causal branch takes the pipelined kernels where the
@@ -91,7 +91,7 @@ LAUNCHES = {
     "fusion_epilogue_fwd": 0, "fusion_epilogue_bwd": 0,
     "dilated_branch_fwd_pipe": 0, "dilated_branch_bwd_dq_pipe": 0, "dilated_branch_bwd_dkv_pipe": 0,
 }
-MAX_FUSED_BRANCHES = 8  # branches one fusion_epilogue_fwd launch takes
+MAX_FUSED_BRANCHES = 8  # branches one fusion_epilogue_fwd or fusion_epilogue_bwd launch takes
 PACK_DIRECT_MAX_TENSORS = 3  # tensors one pack_phases_direct launch packs
 
 
@@ -507,19 +507,22 @@ def fusion_epilogue_fwd_reference(
 
 
 def fusion_epilogue_bwd_reference(
-    dy: torch.Tensor, fused_lse: torch.Tensor, lse5: torch.Tensor,
-    branch: Tuple[int, int, int, int, int], num_heads: int,
-) -> torch.Tensor:
-    """One branch's packed output cotangent ``d_out6 = exp(lse_branch -
-    fused_lse) * dY`` in fp32, stored in dY's dtype in the branch's packed
-    layout ``[B, S, r, hb, Mp, Dh]``, exact zeros at every slot outside the
-    segment or the sequence. ``branch`` is ``(g, S, r, m, Mp)``."""
-    g, S, r, m, Mp = branch
+    dy: torch.Tensor, fused_lse: torch.Tensor, lses: Sequence[torch.Tensor], plan: "EpiloguePlan"
+) -> list:
+    """Every branch's packed output cotangent, in plan order: ``d_out6 =
+    exp(lse_branch - fused_lse) * dY`` in fp32, stored in dY's dtype in the
+    branch's packed layout ``[B, S, r, hb, Mp, Dh]``, exact zeros at every
+    slot outside the segment or the sequence. ``dy`` is ``[B, L, E]``,
+    ``fused_lse`` ``[B, L, H]`` fp32 (the forward's), ``lses`` each
+    branch's ``lse5``."""
     B, L, E = dy.shape
-    H = num_heads
-    w = torch.exp(_scatter_lse(lse5, L, H, g, r, m) - fused_lse.transpose(1, 2))  # [B, H, L]
-    x = dy.float().reshape(B, L, H, E // H) * w.transpose(1, 2)[..., None]
-    return pack_phases_reference(x.reshape(B, L, E).to(dy.dtype), g, S, r, Mp, H)
+    H = plan.H
+    d6s = []
+    for lse5, (g, S, r, m, Mp) in zip(lses, plan.branches):
+        w = torch.exp(_scatter_lse(lse5, L, H, g, r, m) - fused_lse.transpose(1, 2))  # [B, H, L]
+        x = dy.float().reshape(B, L, H, E // H) * w.transpose(1, 2)[..., None]
+        d6s.append(pack_phases_reference(x.reshape(B, L, E).to(dy.dtype), g, S, r, Mp, H))
+    return d6s
 
 
 # ---------------------------------------------------------------------------
@@ -907,35 +910,44 @@ def fusion_epilogue_fwd(
 
 
 def fusion_epilogue_bwd(
-    dy: torch.Tensor, fused_lse: torch.Tensor, lse5: torch.Tensor,
-    branch: Tuple[int, int, int, int, int], num_heads: int,
-) -> torch.Tensor:
-    """One branch's packed output cotangent (``csrc/fusion_epilogue_bwd.cu``);
-    arguments as :func:`fusion_epilogue_bwd_reference`."""
+    dy: torch.Tensor, fused_lse: torch.Tensor, lses: Sequence[torch.Tensor], plan: "EpiloguePlan"
+) -> list:
+    """Every branch's packed output cotangent in one launch
+    (``csrc/fusion_epilogue_bwd.cu``); arguments as
+    :func:`fusion_epilogue_bwd_reference`."""
     if dy.device.type == "cpu":
-        return fusion_epilogue_bwd_reference(dy, fused_lse, lse5, branch, num_heads)
+        return fusion_epilogue_bwd_reference(dy, fused_lse, lses, plan)
     from gigapath_tpu_torch.ops import _build
 
-    g, S, r, m, Mp = branch
     B, L, E = dy.shape
-    H = num_heads
+    H, n = plan.H, len(plan.branches)
     Dh = E // H
     check_cuda("fusion_epilogue_bwd dy", dy)
     check_cuda("fusion_epilogue_bwd fused_lse", fused_lse, (torch.float32,))
-    check_cuda("fusion_epilogue_bwd lse5", lse5, (torch.float32,))
-    if (fused_lse.shape != (B, L, H) or lse5.shape != (B, S, r, H // r, Mp) or Dh % 4
-            or fused_lse.device != dy.device or lse5.device != dy.device):
-        raise ValueError(f"fusion_epilogue_bwd: fused_lse {tuple(fused_lse.shape)}, lse5 {tuple(lse5.shape)} do "
-                         f"not fit B={B}, L={L}, H={H}, (S, r, Mp)={(S, r, Mp)}, or Dh={Dh} is not a multiple of 4")
-    d6 = torch.empty((B, S, r, H // r, Mp, Dh), dtype=dy.dtype, device=dy.device)
+    if not 1 <= n <= MAX_FUSED_BRANCHES or len(lses) != n or Dh % 4:
+        raise ValueError(f"fusion_epilogue_bwd: needs 1..{MAX_FUSED_BRANCHES} branches and Dh % 4 == 0; "
+                         f"got {len(lses)} lses, {n} planned, Dh={Dh}")
+    if (L, E) != (plan.L, plan.E) or fused_lse.shape != (B, L, H) or fused_lse.device != dy.device:
+        raise ValueError(f"fusion_epilogue_bwd: dy {tuple(dy.shape)}, fused_lse {tuple(fused_lse.shape)} do not "
+                         f"fit L={plan.L}, E={plan.E}, H={H}")
+    for i, (l5, (g, S, r, m, Mp)) in enumerate(zip(lses, plan.branches)):
+        check_cuda(f"fusion_epilogue_bwd lse5[{i}]", l5, (torch.float32,))
+        if l5.shape != (B, S, r, H // r, Mp) or l5.device != dy.device:
+            raise ValueError(f"fusion_epilogue_bwd: branch {i} lse5 {tuple(l5.shape)} does not fit "
+                             f"(B, S, r, hb, Mp) = {(B, S, r, H // r, Mp)}")
+    d6s = [torch.empty((B, S, r, H // r, Mp, Dh), dtype=dy.dtype, device=dy.device)
+           for g, S, r, m, Mp in plan.branches]
+    d6_ptrs = (ctypes.c_longlong * n)(*(d6.data_ptr() for d6 in d6s))
+    lse_ptrs = (ctypes.c_longlong * n)(*(l5.data_ptr() for l5 in lses))
+    geo = (ctypes.c_int * (4 * n))(*(v for g, S, r, _, Mp in plan.branches for v in (g, S, r, Mp)))
     with torch.cuda.device(dy.device):
         rc = _build.library("fusion_epilogue_bwd").gp_fusion_epilogue_bwd(
-            dy.data_ptr(), fused_lse.data_ptr(), lse5.data_ptr(), d6.data_ptr(),
-            int(dy.dtype == torch.bfloat16), B, L, H, Dh, g, S, r, Mp, cuda_stream(dy),
+            d6_ptrs, lse_ptrs, geo, n, dy.data_ptr(), fused_lse.data_ptr(),
+            int(dy.dtype == torch.bfloat16), B, L, H, Dh, cuda_stream(dy),
         )
     raise_on(rc, "fusion_epilogue_bwd")
     LAUNCHES["fusion_epilogue_bwd"] += 1
-    return d6
+    return d6s
 
 
 # ---------------------------------------------------------------------------
@@ -1180,13 +1192,9 @@ class _FusionEpilogue(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         fused, *lses = ctx.saved_tensors
-        plan = ctx.plan
-        grads = []
         with torch.autocast(dy.device.type, enabled=False):
-            dy = dy.contiguous()
-            for l5, branch in zip(lses, plan.branches):
-                grads += [fusion_epilogue_bwd(dy, fused, l5, branch, plan.H), None]
-        return (None, *grads)
+            d6s = fusion_epilogue_bwd(dy.contiguous(), fused, lses, ctx.plan)
+        return (None, *(x for d6 in d6s for x in (d6, None)))
 
 
 def dilated_attention_stream_fused(

@@ -283,7 +283,7 @@ ROUTE_CALLS = {
                         dilated_branch_bwd_dq=5, dilated_branch_bwd_dkv=5),
     "stream_direct": dict(pack_phases=9 + 9, pack_phases_direct=2 + 2, dilated_branch_fwd=5,
                           unpack_phases=9, unpack_phases_direct=6, fusion_epilogue_fwd=1,
-                          fusion_epilogue_bwd=5, dilated_branch_bwd_dq=5, dilated_branch_bwd_dkv=5),
+                          fusion_epilogue_bwd=1, dilated_branch_bwd_dq=5, dilated_branch_bwd_dkv=5),
     "streaming": dict(pack_phases=15 + 20, dilated_branch_fwd=5, unpack_phases=5 + 15,
                       dilated_branch_bwd_dq=5, dilated_branch_bwd_dkv=5),
 }

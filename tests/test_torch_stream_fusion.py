@@ -218,9 +218,9 @@ def test_epilogue_reference_matches_dense_fusion():
     ref, weights = _dense_fusion(outs, lses, plan)
     torch.testing.assert_close(out, ref, atol=1e-6, rtol=1e-6)
     dy = torch.from_numpy(_data(40, 2, L, E))
-    for l5, w, branch in zip(lses, weights, plan.branches):
+    d6s = dk.fusion_epilogue_bwd(dy, fused, lses, plan)
+    for l5, w, branch, d6 in zip(lses, weights, plan.branches, d6s):
         g, S, r, m, Mp = branch
-        d6 = dk.fusion_epilogue_bwd(dy, fused, l5, branch, H)
         scaled = dy.reshape(2, L, H, DH) * w.transpose(1, 2)[..., None]
         ref6 = dk.pack_phases_reference(scaled.reshape(2, L, E), g, S, r, Mp, H)
         # a row with no valid key in the branch (lse ~-6.9e19) takes no
@@ -230,6 +230,101 @@ def test_epilogue_reference_matches_dense_fusion():
         live = (l5 > -1e19)[..., None].expand_as(d6)
         torch.testing.assert_close(d6[live], ref6[live], atol=1e-6, rtol=1e-6)
         assert torch.isfinite(d6).all() and not d6[ref6 == 0].any()
+
+
+# (schedule, dtype) of the epilogue backward against the JAX package's VJP:
+# ragged per-row valid lengths; the second schedule's segment ends (g = 40,
+# 96) fall inside the kernel's 16-token tiles
+EPILOGUE_BWD_CASES = [(sch, dtype) for sch in (SCH5, ([40, 96, 512], [1, 2, 4]))
+                      for dtype in ("float32", "bfloat16")]
+
+
+@functools.lru_cache(maxsize=None)
+def _packed_branches(segment_lengths, dilated_ratios, L=300):
+    """Every branch's packed ``(out6, lse5)`` in the port's layout, from the
+    plain branch op on seeded q, k, v with the per-row valid lengths (shared
+    by the cases: callers do not write to them)."""
+    schedule = (segment_lengths, dilated_ratios)
+    q, k, v = (torch.from_numpy(_data(s, 2, L, E)) for s in (46, 47, 48))
+    packed = [dk.dilated_branch_attention_packed(q, k, v, sl, r, H, valid_len_dyn=torch.from_numpy(PER_ROW),
+                                                 flags=dk.PipelineFlags())
+              for sl, r in zip(*schedule)]
+    return [o for o, _ in packed], [l for _, l in packed]
+
+
+def _to_jax_lse(lse5, m, jMp):
+    """The port's ``[B, S, r, hb, Mp]`` lse -> the JAX package's ``[B, S, r,
+    jMp, LANES]`` (head t of the band on lane t); rows m..jMp and lanes past
+    hb hold 0."""
+    B, S, r, hb, _ = lse5.shape
+    lse = np.zeros((B, S, r, jMp, 128), np.float32)
+    lse[..., :m, :hb] = lse5[..., :m].numpy().transpose(0, 1, 2, 4, 3)
+    return lse
+
+
+@pytest.mark.parametrize("schedule,dtype", EPILOGUE_BWD_CASES,
+                         ids=[f"{len(s[0])}br-{d}" for s, d in EPILOGUE_BWD_CASES])
+def test_epilogue_bwd_matches_jax_vjp(schedule, dtype):
+    """Every branch's packed cotangent from the port's one backward call
+    against the JAX package's VJP of ``_fusion_epilogue`` (its Pallas
+    backward in interpret mode) on the same packed results, dY and
+    fused_lse. Rows below m compare: fp32 1e-6 (exp in another library),
+    bf16 one bf16 rounding of the same fp32 product (|a - b| <= one ulp of
+    b, 2^-7 |b|). Rows m..Mp and every slot off the segment or the
+    sequence are exact zeros on both sides."""
+    L = 300
+    tdtype, jdtype = getattr(torch, dtype), getattr(jnp, dtype)
+    outs, lses = _packed_branches(*map(tuple, schedule), L)
+    plan = dk.plan_stream_fusion(L, E, H, *schedule)
+    jplan = jpd.plan_stream_fusion(L, E, H, *schedule, interpret=True)
+    jlses = []
+    for l5, (g, S, r, m, Mp), jbranch in zip(lses, plan.branches, jplan.branches):
+        assert jbranch[:4] == (r, H // r, S, g)
+        jlses.append(jnp.asarray(_to_jax_lse(l5, m, jbranch[4])))
+    jlses = tuple(jlses)
+    dy = _data(49, 2, L, E)
+    _, fused = dk.fusion_epilogue_fwd([o.to(tdtype) for o in outs], lses, plan)
+    # the backward rule of the custom VJP, on the residuals its forward saves
+    ref, _ = jpd._fusion_epilogue_bwd(jplan, (jlses, jnp.asarray(fused.numpy())), jnp.asarray(dy, jdtype))
+    ours = dk.fusion_epilogue_bwd(torch.from_numpy(dy).to(tdtype), fused, lses, plan)
+    tol = dict(atol=1e-6, rtol=1e-6) if dtype == "float32" else dict(atol=0, rtol=2 ** -7)
+    for d6, jd6, (g, S, r, m, Mp) in zip(ours, ref, plan.branches):
+        assert d6.shape == (2, S, r, H // r, Mp, DH) and d6.dtype == tdtype
+        a, b = d6.float().numpy(), np.asarray(jd6.astype(jnp.float32))
+        np.testing.assert_allclose(a[..., :m, :], b[..., :m, :], err_msg=f"r={r}", **tol)
+        inside = dk.pack_phases_reference(torch.ones(1, L, E), g, S, r, Mp, H)[0].numpy() > 0
+        assert not inside[..., m:, :].any()
+        assert not a[:, ~inside].any() and not b[..., :m, :][:, ~inside[..., :m, :]].any()
+        assert not b[..., m:, :].any() and np.isfinite(a).all()
+
+
+def test_epilogue_bwd_one_call_per_layer(monkeypatch):
+    """One backward of the fusion makes one ``fusion_epilogue_bwd`` call
+    (one launch on the card) that returns one tensor per branch, in plan
+    order, each equal to that branch alone in a one-branch plan."""
+    L = 300
+    outs, lses = _packed_branches(*map(tuple, SCH3), L)
+    plan = dk.plan_stream_fusion(L, E, H, *SCH3)
+    leaves = [o.clone().requires_grad_() for o in outs]
+    calls = []
+    real = dk.fusion_epilogue_bwd
+
+    def counting(*a, **kw):
+        calls.append(real(*a, **kw))
+        return calls[-1]
+
+    monkeypatch.setattr(dk, "fusion_epilogue_bwd", counting)
+    out = dk._FusionEpilogue.apply(plan, *(x for pair in zip(leaves, lses) for x in pair))
+    dy = torch.from_numpy(_data(50, 2, L, E))
+    out.backward(dy)
+    assert len(calls) == 1 and len(calls[0]) == len(plan.branches)
+    _, fused = dk.fusion_epilogue_fwd(outs, lses, plan)
+    for i, (leaf, l5, branch) in enumerate(zip(leaves, lses, plan.branches)):
+        g, S, r, m, Mp = branch
+        assert calls[0][i].shape == (2, S, r, H // r, Mp, DH)
+        one = dk.EpiloguePlan(L=L, E=E, H=H, branches=(branch,))
+        (alone,) = real(dy, fused, [l5], one)
+        assert torch.equal(calls[0][i], alone) and torch.equal(leaf.grad, alone)
 
 
 def test_uncovered_and_fully_masked_tokens():
