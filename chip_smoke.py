@@ -145,7 +145,9 @@ stdout:
     of ``serve.forward``, none unexpected), five dispatches, the copy one
     ``cache_hit`` event (it joins its twin, still waiting in its bucket),
     every label equal to the ``--no-buckets`` path's, the run log's event
-    counts and the ledger's per-capture seconds, pool bytes and launches;
+    counts and the ledger's per-capture seconds, pool bytes and launches,
+    and the same run with ``--prefetch 2`` (a loader thread through the
+    dist boundary's memory channel) giving the same CSV bit for bit;
     the launches of the run (every count set to 0 just before it) include
     the pack, branch forward and unpack. Then a ``SlideService`` whose
     forward gives the slide encoder's final embedding, fp32 and bf16, on
@@ -168,6 +170,29 @@ stdout:
     hands its graphs' memory back at once; a graph cache that waited for
     the collector once left the large keys' pool held into the next
     phases), and ``torch.profiler`` still records device activity.
+14c. dist: the disaggregated two-stage pipeline at full width. The plan:
+    2048 synthetic 224 x 224 tiles in 16 chunks of 128, two ViT-G/14
+    ``int8+attn`` worker processes (``python -m
+    gigapath_tpu_torch.dist.worker --device cuda``, both on the one card)
+    into the flagship head of ``inference.load_model`` (bf16) in this
+    process. First the workers' encoder in process: its q_matmul and
+    q_flash_attention launches, its seconds beside those of making the
+    synthetic tiles alone, every chunk's embeddings kept. Then three runs,
+    each with its wall time, the workers' start (spawn to the first
+    encode), each worker's encode seconds, each chunk's transit (send end
+    to deliver start) and the merged fleet timeline's critical path
+    (``obs/fleet.py``), on the links' clock estimates and on the host's
+    shared monotonic clock: (1) over the ``dir`` transport: every
+    assembled row equal to the in-process encoder's, the result (the
+    last-layer embedding and the logits) equal to one forward of the same
+    rows in this process, with the same launches (every count set to 0
+    just before each), and within 1 - cos 5e-4 of
+    ``run_inference_with_slide_encoder``; (2) over ``tcp`` with
+    ``kill_worker@4`` on w1: exit codes 0 and -9, ``worker_lost`` and
+    ``recovery action="reassign"`` events, assembled rows and result
+    bit-equal to run 1's; (3) chunked prefill: within 1 - cos 5e-4 of run
+    1, equal to one streaming session's result in this process, with the
+    same ``stream_pair_fwd`` launches. The phase's seconds last.
 
 15. fusion_kernels: the stream-fusion route's four kernels against their
     plain versions at the flagship's branch shapes (L = 10241), fp32 and
@@ -580,6 +605,18 @@ SERVE_SHARED_POOL_GROWTH = 0.25
 # models deleted and no garbage collection run: kernels' plans and
 # cuBLAS's workspaces, not a graph pool or the static inputs
 SERVE_MEMORY_SLACK = 1 << 30
+# the disaggregated pipeline (phase 14c): two ViT-G/14 int8+attn tile
+# worker processes on the one card feed the flagship head's consumer, 2048
+# tiles of 224 x 224 in 16 chunks of 128. A lease must outlast a chunk's
+# encode on a card that two workers and the consumer share (a worker renews
+# between chunks), so the plan's lease is 30 s where the CPU tests keep
+# 1.5 s; a killed worker is seen at once from its exit code all the same.
+DIST_TILES = 2048
+DIST_CHUNK = 128
+DIST_LEASE_S = 30.0
+DIST_RETRANSMIT_S = 10.0
+DIST_DEADLINE_S = 300.0
+DIST_KILL = "kill_worker@4"
 # the stream-fusion route with direct packs (GIGAPATH_STREAM_FUSION=1,
 # GIGAPATH_PACK_DIRECT=1): the flagship's three branches clamped to one
 # segment (r = 4, 8, 16) take the direct pack (q, k and v in one launch,
@@ -2884,6 +2921,14 @@ def phase_serve():
         check(list(bucketed["predicted_label"]) == list(exact["predicted_label"]),
               f"serve CLI labels {list(bucketed['predicted_label'])} != exact {list(exact['predicted_label'])}")
         conf_err = _check_confidences("serve CLI", bucketed, exact)
+        # --prefetch 2: a loader thread two slides ahead through the dist
+        # boundary's memory channel; the same verdicts, bit for bit
+        os.makedirs(os.path.join(tmp, "prefetch"))
+        t0 = time.perf_counter()
+        prefetched = inference.run_inference(head, feat_dir, os.path.join(tmp, "prefetch", "bucketed.csv"),
+                                             use_buckets=True, batch_size=SERVE_BATCH, prefetch=2)
+        prefetch_s = time.perf_counter() - t0
+        check(prefetched.equals(bucketed), "serve CLI: --prefetch 2 verdicts differ from --prefetch 0's")
         (log_path,) = [p for p in glob.glob(os.path.join(tmp, "obs", "*.jsonl"))
                        if '"buckets": true' in open(p).readline()]
         events = [_json.loads(line) for line in open(log_path)]
@@ -2912,7 +2957,8 @@ def phase_serve():
              run_end={k: end[k] for k in ("dispatches", "buckets_used", "cache_hits", "unexpected_retraces",
                                           "compile_seconds_total")}, cache_hit_events=hits,
              captures={e["key"]: e["seconds"] for e in captures},
-             graphs=graphs, launches_of_the_run=launches, nvidia_smi=smi)
+             graphs=graphs, launches_of_the_run=launches, prefetch_2_seconds=prefetch_s,
+             prefetch_2_bit_equal=True, nvidia_smi=smi)
         emit("serve_large_buckets", **_serve_large_buckets(head, tmp), nvidia_smi=smi)
         del head
         torch.cuda.empty_cache()
@@ -2987,6 +3033,250 @@ def phase_serve():
     del bf16
     _serve_memory_released(reserved_start)
     return launches
+
+
+def _dist_plan(**kw) -> dict:
+    """The full-width plan: ``default_plan`` at ViT-G/14 int8+attn on 224 x
+    224 tiles into the flagship's 1536-wide input, plus the tile arch and
+    its compute dtype (the card's quantized kernels take bf16)."""
+    from gigapath_tpu_torch.dist.pipeline import default_plan
+
+    plan = default_plan(n_tiles=DIST_TILES, chunk_tiles=DIST_CHUNK, dim_in=1536, dim_out=1536,
+                        workers=["w0", "w1"], encoder="quant_vit", quant="int8+attn", img_size=224,
+                        lease_s=DIST_LEASE_S, retransmit_s=DIST_RETRANSMIT_S, **kw)
+    plan.update(tile_arch="gigapath_tile_enc", tile_dtype="bfloat16")
+    return plan
+
+
+def _dist_out(head, embeds):
+    """The consumer's result: the slide encoder's last-layer embedding
+    [768] and the head's logits [2], fp32, from the per-layer embeddings
+    (a dense forward's or a streaming session's)."""
+    import numpy as np
+
+    from gigapath_tpu_torch.serve.streaming import streaming_head_logits
+
+    last = embeds[-1].float().reshape(-1).cpu().numpy()
+    return np.concatenate([last, streaming_head_logits(head, embeds).reshape(-1)])
+
+
+def _dist_builders(head):
+    """The consumer's dense and streaming slide stage on ``head`` (the
+    flagship as ``inference.load_model`` builds it: bf16, on the card)."""
+    import torch
+
+    from gigapath_tpu_torch.models.streaming_encoder import StreamingEncoderSession
+
+    @torch.inference_mode()
+    def forward(model, embeds, coords):
+        x = torch.from_numpy(embeds).cuda().to(torch.bfloat16)
+        c = torch.from_numpy(coords).cuda()
+        return _dist_out(model, model.slide_encoder(x, c, all_layer_embed=True))[None]  # [1, E + 2]
+
+    def streaming(dim_in):
+        def open_session(n_tiles, chunk_tiles, runlog=None):
+            return StreamingEncoderSession(head.slide_encoder, n_tiles, chunk_tiles=chunk_tiles,
+                                           all_layer_embed=True)
+
+        return open_session, lambda embeds: _dist_out(head, embeds)
+
+    return (lambda dim_in: (forward, head)), streaming, forward
+
+
+def _dist_run(root: str, plan: dict, **kw) -> dict:
+    """One slide through the fleet (a shared obs run id, so the processes'
+    trace exports merge), timed, with the consumer's launches (every count
+    set to 0 just before), the run's events and the merged timeline's
+    critical path."""
+    import glob
+    import json as _json
+    import os
+
+    from gigapath_tpu_torch.dist.pipeline import run_disaggregated
+    from gigapath_tpu_torch.obs.fleet import FleetTimeline
+
+    run_id = f"dist-{os.path.basename(root)}"
+    with env_flags({"GIGAPATH_OBS_RUN_ID": run_id}):
+        reset_all_launch_counts()
+        t_wall0 = time.time()
+        t0 = time.perf_counter()
+        result = run_disaggregated(root, plan=plan, deadline_s=DIST_DEADLINE_S, run_id=run_id, device="cuda", **kw)
+        result["wall_s"] = time.perf_counter() - t0
+        result["launches"] = {k: v for k, v in all_launch_counts().items() if v}
+    events = []
+    for path in glob.glob(os.path.join(root, "obs", "*.jsonl")):
+        for line in open(path):
+            try:
+                events.append(_json.loads(line))
+            except ValueError:
+                continue  # a SIGKILLed worker can die mid-line
+    result["events"] = events
+    # the merged timeline twice: on the links' clock estimates (what
+    # scripts/fleet_report.py shows), and on the one host's monotonic
+    # clock, which every process here shares (offset 0): a handshake's
+    # estimate carries the producer's first encode in its round trip
+    fleet = FleetTimeline.from_dir(os.path.join(root, "obs"), run_id)
+    one_host = FleetTimeline.from_parts([{"label": p.label, "doc": p.doc, "events": p.events, "offset_s": 0.0,
+                                          "uncertainty_s": 0.0} for p in fleet.processes], run_id=run_id)
+    (result["critical_path"],) = fleet.critical_path().values()
+    (result["critical_path_one_host"],) = one_host.critical_path().values()
+    result["fleet_invariants"] = fleet.invariants() + one_host.invariants()
+    result["clock_offsets_s"] = {p.label: [p.offset_s, p.uncertainty_s] for p in fleet.processes}
+    # the workers' start (spawn to the first encode), each worker's encode
+    # seconds, and each chunk's transit from its send's end to its deliver
+    encodes = [e for e in events if e["kind"] == "span" and e.get("name") == "dist.encode"]
+    result["first_encode_s"] = min(e["t"] - e["dur_s"] for e in encodes) - t_wall0
+    result["encode_s"] = {w: sum(e["dur_s"] for e in encodes if e.get("worker") == w) for w in plan["workers"]}
+    wires = sorted(t1 - t0 for _, _, t0, t1 in one_host.wire_intervals())
+    result["wire_transit_s"] = {"median": statistics.median(wires), "max": wires[-1], "chunks": len(wires)}
+    return result
+
+
+def _dist_line(name: str, run: dict, smi: str, **extra) -> None:
+    emit(name, wall_s=run["wall_s"], first_encode_s=run["first_encode_s"], worker_encode_s=run["encode_s"],
+         wire_transit_s=run["wire_transit_s"], slide_wall_s=run["critical_path"]["wall_s"],
+         critical_path_s=run["critical_path"]["seconds"], critical_path_shares=run["critical_path"]["shares"],
+         one_host_critical_path_s=run["critical_path_one_host"]["seconds"],
+         one_host_critical_path_shares=run["critical_path_one_host"]["shares"],
+         clock_offsets_s=run["clock_offsets_s"],
+         straggler=run["critical_path"]["straggler"], recovery_gaps=run["critical_path"]["recovery_gaps"],
+         worker_exit_codes=run["worker_exit_codes"], lost=run["lost"], reassignments=run["reassignments"],
+         channel=run["stats"], consumer_launches=run["launches"], fleet_invariants=run["fleet_invariants"],
+         nvidia_smi=smi, **extra)
+
+
+def phase_dist():
+    """The disaggregated two-stage pipeline (14c) at full width: two ViT-G/14
+    int8+attn worker processes (``python -m gigapath_tpu_torch.dist.worker``
+    on the one card) stream 2048 tiles of 224 x 224 in chunks of 128 to the
+    flagship head in this process. First the worker's encoder in process
+    (its launches of q_matmul and q_flash_attention, every chunk's bits).
+    Then three runs: over the ``dir`` transport; over ``tcp`` with
+    ``kill_worker@4`` on w1 (bit-equal to the first: embedding and every
+    assembled row; ``worker_lost`` and ``recovery action="reassign"``;
+    exit codes 0 and -9); chunked prefill (1 - cosine against the first
+    within the bf16 route limit). The first run's tiles equal the in-process
+    encoder's bit for bit, its result agrees with the one-process
+    ``run_inference_with_slide_encoder``, and the consumer's launches of
+    each run equal a one-process forward's (dense) and session's (chunked
+    prefill) at the same length."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from gigapath_tpu_torch.dist.boundary import plan_chunks
+    from gigapath_tpu_torch.dist.worker import chunk_images, make_encoder
+    from gigapath_tpu_torch.models.streaming_encoder import StreamingEncoderSession
+    from gigapath_tpu_torch.pipeline import run_inference_with_slide_encoder
+
+    t_phase = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    plan = _dist_plan()
+    chunks = plan_chunks(DIST_TILES, DIST_CHUNK)
+
+    # -- the worker's encoder in this process: the reference bits ----------
+    cudnn = (torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic)
+    t0 = time.perf_counter()
+    encode = make_encoder(plan, device="cuda")
+    build_s = time.perf_counter() - t0
+    reset_all_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tiles = [encode(a, b) for _, a, b in chunks]
+    encode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _, a, b in chunks:  # the synthetic tiles alone (numpy, on the host)
+        chunk_images(plan, a, b)
+    images_s = time.perf_counter() - t0
+    tile_launches = {k: v for k, v in all_launch_counts().items() if v}
+    check(tile_launches.get("q_matmul", 0) > 0 and tile_launches.get("q_flash_attention", 0) > 0,
+          f"dist: the in-process tile encoder launched {tile_launches}")
+    expected = np.concatenate([t[0] for t in tiles])
+    coords = np.concatenate([t[1] for t in tiles])
+    del encode, tiles
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = cudnn
+    torch.cuda.empty_cache()
+    emit("dist_tile_encoder", tiles=DIST_TILES, chunk_tiles=DIST_CHUNK, build_s=build_s,
+         encode_s=encode_s, images_s=images_s, tiles_per_s=DIST_TILES / encode_s, launches=tile_launches,
+         finite=bool(np.isfinite(expected).all()), nvidia_smi=smi)
+    check(np.isfinite(expected).all(), "dist: the tile encoder's embeddings are not finite")
+
+    from gigapath_tpu_torch import inference
+
+    head = inference.load_model("", n_classes=2, feat_layer="11", seed=0)
+    dense, streaming, forward = _dist_builders(head)
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- run 1: the dir transport -------------------------------------
+        clean = _dist_run(os.path.join(tmp, "clean"), plan, forward_builder=dense)
+        check(clean["worker_exit_codes"] == {"w0": 0, "w1": 0} and clean["lost"] == [],
+              f"dist clean: exit codes {clean['worker_exit_codes']}, lost {clean['lost']}")
+        check(np.array_equal(clean["assembled"], expected),
+              "dist clean: the workers' tile embeddings differ from the in-process encoder's")
+        check(np.array_equal(clean["coords"], coords), "dist clean: coords differ")
+        emb = clean["embedding"]
+        check(emb.shape == (E + 2,) and np.isfinite(emb).all(), f"dist clean: bad result {emb.shape}")
+        # the consumer's forward against the same forward in one process:
+        # the same launches and the same bits
+        reset_all_launch_counts()
+        t0 = time.perf_counter()
+        one = forward(head, clean["assembled"][None], clean["coords"][None])
+        torch.cuda.synchronize()
+        forward_s = time.perf_counter() - t0
+        one_launches = {k: v for k, v in all_launch_counts().items() if v}
+        check(clean["launches"] == one_launches and all(one_launches.get(k, 0) > 0 for k in FWD_KERNELS),
+              f"dist clean: consumer launches {clean['launches']} != one forward's {one_launches}")
+        check(np.array_equal(one[0], emb), "dist clean: the consumer's result differs from one forward's")
+        ref = run_inference_with_slide_encoder(clean["assembled"], clean["coords"], head.slide_encoder)
+        vs_pipeline = _one_minus_cos(torch.from_numpy(emb[:E]), torch.from_numpy(ref["last_layer_embed"]))
+        check(vs_pipeline <= BF16_MAX_ONE_MINUS_COS,
+              f"dist clean: 1 - cos vs run_inference_with_slide_encoder {vs_pipeline}")
+        _dist_line("dist_clean", clean, smi, transport="dir", one_process_forward_s=forward_s,
+                   one_process_tile_encode_s=encode_s, one_minus_cos_vs_pipeline=vs_pipeline)
+
+        # -- run 2: tcp, one worker killed mid-slide ----------------------
+        killed = _dist_run(os.path.join(tmp, "killed"), dict(plan, transport="tcp"),
+                           worker_chaos={"w1": DIST_KILL}, forward_builder=dense)
+        check(killed["worker_exit_codes"] == {"w0": 0, "w1": -9},
+              f"dist killed: exit codes {killed['worker_exit_codes']}")
+        check(killed["lost"] == ["w1"] and killed["reassignments"] >= 1,
+              f"dist killed: lost {killed['lost']}, reassignments {killed['reassignments']}")
+        check(np.array_equal(killed["assembled"], clean["assembled"]), "dist killed: assembled rows differ")
+        check(np.array_equal(killed["embedding"], emb), "dist killed: the embedding is not bit-equal")
+        lost_events = [e for e in killed["events"] if e["kind"] == "worker_lost" and e.get("worker") == "w1"]
+        reassign = [e for e in killed["events"] if e["kind"] == "recovery" and e.get("action") == "reassign"]
+        check(lost_events and reassign and reassign[0]["worker"] == "w1",
+              f"dist killed: worker_lost {lost_events}, reassign {reassign}")
+        check(killed["launches"] == one_launches, f"dist killed: consumer launches {killed['launches']}")
+        _dist_line("dist_killed", killed, smi, transport="tcp", chaos={"w1": DIST_KILL},
+                   worker_lost=lost_events[0], reassign={k: reassign[0][k] for k in ("worker", "chunks", "survivors")},
+                   bit_equal=True)
+
+        # -- run 3: chunked prefill -----------------------------------------
+        stream = _dist_run(os.path.join(tmp, "stream"), dict(plan, chunked_prefill=True),
+                           streaming_builder=streaming)
+        check(stream["streaming"] and stream["worker_exit_codes"] == {"w0": 0, "w1": 0},
+              f"dist stream: {stream['streaming']}, exit codes {stream['worker_exit_codes']}")
+        vs_dense = _one_minus_cos(torch.from_numpy(stream["embedding"]), torch.from_numpy(emb))
+        check(vs_dense <= BF16_MAX_ONE_MINUS_COS, f"dist stream: 1 - cos vs the dense run {vs_dense}")
+        reset_all_launch_counts()
+        session = StreamingEncoderSession(head.slide_encoder, DIST_TILES, chunk_tiles=DIST_CHUNK,
+                                          all_layer_embed=True)
+        for cid, a, b in chunks:
+            session.feed(cid, expected[a:b], coords[a:b])
+        one_stream = _dist_out(head, session.finalize())
+        stream_launches = {k: v for k, v in all_launch_counts().items() if v}
+        check(stream["launches"] == stream_launches and stream_launches.get("stream_pair_fwd", 0) > 0,
+              f"dist stream: consumer launches {stream['launches']} != one session's {stream_launches}")
+        check(np.array_equal(one_stream, stream["embedding"]),
+              "dist stream: the consumer's result differs from one session's")
+        _dist_line("dist_stream", stream, smi, transport="dir", one_minus_cos_vs_dense=vs_dense,
+                   logits=stream["embedding"][E:].tolist(), dense_logits=emb[E:].tolist())
+    del head, session
+    torch.cuda.empty_cache()
+    emit("dist", seconds=time.perf_counter() - t_phase, runs_wall_s={
+        "clean": clean["wall_s"], "killed": killed["wall_s"], "stream": stream["wall_s"]}, nvidia_smi=smi)
 
 
 def _serve_memory_released(reserved_start: int) -> None:
@@ -5045,6 +5335,7 @@ def main() -> int:
     stream = phase_stream_forward()
     phase_stream_serve()
     phase_serve()
+    phase_dist()
     launches["stream_pair_fwd"] = stream["launches"]["stream_pair_fwd"]
     launches.update({name: stream["backward"][name] for name in ("stream_pair_bwd_dq", "stream_pair_bwd_dkv")})
     summary.update(phase_fusion_kernels()["bfloat16"])

@@ -1,0 +1,198 @@
+"""Per-stage placement and the declarative sharding-rule registry
+(counterpart of ``gigapath_tpu/dist/stagemesh.py``).
+
+The disaggregated pipeline runs the two encoders as separate fleets, and
+each fleet has its own geometry and parameter layout:
+
+- the **tile encoder** is data-parallel over tiles (optional tensor
+  parallelism over the ViT's hidden dim) — axes ``("data", "model")``;
+- the **slide encoder** is sequence/model-sharded — axes
+  ``("data", "seq", "model")``.
+
+Each stage's layout is a *registry entry*: an ordered list of
+``(param-name regex, spec)`` rules resolved against a module's
+``state_dict`` names by :func:`match_partition_rules` (first matching rule
+wins, scalars never partition, a param no rule covers is a loud error, not
+silent replication).
+
+A rule's spec is written as the JAX package writes it, over the flax
+``kernel`` layout: ``[in, out]`` for a dense kernel, HWIO for a conv. A
+torch ``weight`` is ``[out, in]`` (OIHW for a conv), so the matched spec
+is permuted into the torch layout — the permutation
+:func:`gigapath_tpu_torch.utils.convert.state_dict_from_flax_params`
+applies to the values. A column-parallel ``(None, "model")`` on a flax
+kernel is ``("model", None)`` on the torch weight.
+
+Placement: one device is ``module.to(device)``. Placing a stage over more
+than one device is the tensor/sequence-parallel layer, which the port does
+not have yet (``ROADMAP.md`` Queue A item 6, ``parallel/``); it raises
+rather than replicate silently.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import Dict, List, Mapping, Sequence, Tuple, Union
+
+import torch
+
+# leaf module name -> the rule for its weight; biases and norms stay
+# replicated. The port's copy of the JAX package's
+# ``parallel/sharding.py`` name lists.
+_COLUMN_PARALLEL = (
+    "q_proj", "k_proj", "v_proj", "fc1", "gate",
+    # retention gate projection: [E, value_dim], split like q/k/v
+    "g_proj",
+    # ViT packed qkv: [D, 3D], output-dim split (megatron fused-qkv rule)
+    "qkv",
+    # vocab head: [E, V], vocab-dim split
+    "output_projection",
+)
+_ROW_PARALLEL = (
+    "out_proj", "fc2",
+    # ViT attention output projection; the patch embed shares the name —
+    # its kernel also input-dim splits
+    "proj",
+)
+
+Spec = Tuple[object, ...]  # one mesh-axis name (or None) per flax axis
+
+# flax kernel axis order -> torch weight axis order, by rank (the values'
+# permutation in utils/convert.py): torch axis j is flax axis perm[j]
+_TORCH_FROM_FLAX = {2: (1, 0), 4: (3, 2, 0, 1)}
+
+
+def _to_torch_layout(spec: Spec, name: str, ndim: int) -> Spec:
+    """A spec over the flax kernel's axes -> the same spec over the torch
+    weight's axes (padded with None to the rank first)."""
+    full = tuple(spec) + (None,) * (ndim - len(spec))
+    if not name.endswith("weight") or ndim not in _TORCH_FROM_FLAX or not any(full):
+        return tuple(spec)
+    return tuple(full[j] for j in _TORCH_FROM_FLAX[ndim])
+
+
+def _named_shapes(params) -> List[Tuple[str, Tuple[int, ...]]]:
+    if isinstance(params, torch.nn.Module):
+        params = params.state_dict()
+    return [(name, tuple(getattr(v, "shape", ()))) for name, v in params.items()]
+
+
+def match_partition_rules(rules: Sequence[Tuple[str, Spec]],
+                          params: Union[torch.nn.Module, Mapping[str, torch.Tensor]]
+                          ) -> Dict[str, Spec]:
+    """``{state_dict name: spec over the torch tensor's axes}`` from
+    ordered ``(regex, flax-layout spec)`` rules.
+
+    Each name (``slide_encoder.encoder.layers.0.ffn.fc1.weight``) is
+    matched with ``re.search``; the FIRST matching rule wins. Scalar (or
+    1-element) tensors never partition. A name matching no rule raises — a
+    silent fall-through to replicated is exactly the bug class the
+    registry's explicit catch-all exists to rule out."""
+    compiled = [(re.compile(rule), tuple(spec)) for rule, spec in rules]
+    out: Dict[str, Spec] = {}
+    for name, shape in _named_shapes(params):
+        numel = 1
+        for d in shape:
+            numel *= int(d)
+        if len(shape) == 0 or numel == 1:
+            out[name] = ()
+            continue
+        for rx, spec in compiled:
+            if rx.search(name) is not None:
+                out[name] = _to_torch_layout(spec, name, len(shape))
+                break
+        else:
+            raise ValueError(
+                f"no partition rule matches param '{name}' "
+                f"(shape {shape}); add a rule (or an explicit "
+                "catch-all) to the stage's registry entry"
+            )
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class StageSpec:
+    """One fleet's declarative geometry + layout."""
+
+    name: str
+    axes: Tuple[str, ...]
+    rules: Tuple[Tuple[str, Spec], ...]
+    description: str = ""
+
+
+def _tp_rules(model_axis: str = "model") -> Tuple[Tuple[str, Spec], ...]:
+    """The tensor-parallel weight rules over ``state_dict`` names, from the
+    column/row-parallel name lists above (specs in the flax layout)."""
+    col = "|".join(_COLUMN_PARALLEL)
+    row = "|".join(_ROW_PARALLEL)
+    return (
+        (rf"(^|\.)({col})\.weight$", (None, model_axis)),
+        (rf"(^|\.)({row})\.weight$", (model_axis, None)),
+        # stacked MoE experts carry a leading E axis
+        (r"(^|\.)experts\.", ("expert",)),
+        (r".*", ()),  # everything else (biases, norms, embeddings)
+    )
+
+
+_REGISTRY: Dict[str, StageSpec] = {}
+
+
+def register_stage(spec: StageSpec) -> StageSpec:
+    _REGISTRY[spec.name] = spec
+    return spec
+
+
+def get_stage(name: str) -> StageSpec:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown stage '{name}' (registered: {stage_names()})"
+        ) from None
+
+
+def stage_names() -> List[str]:
+    return sorted(_REGISTRY)
+
+
+register_stage(StageSpec(
+    name="tile_encoder",
+    axes=("data", "model"),
+    rules=_tp_rules(),
+    description="ViT-G tile fleet: data-parallel over tiles, optional "
+                "tensor parallelism over hidden/head dims",
+))
+
+register_stage(StageSpec(
+    name="slide_encoder",
+    axes=("data", "seq", "model"),
+    rules=_tp_rules(),
+    description="LongNet slide fleet: the tile-embedding sequence shards "
+                "over seq (ring/chunked prefill), weights over model",
+))
+
+
+def stage_param_specs(name: str, params) -> Dict[str, Spec]:
+    """One stage's registry rules resolved over a module (or state
+    dict): ``{state_dict name: spec over the torch tensor's axes}``."""
+    return match_partition_rules(get_stage(name).rules, params)
+
+
+def place_stage(name: str, module: torch.nn.Module, devices) -> torch.nn.Module:
+    """Place one stage's module: its rules must cover every parameter (an
+    uncovered one raises), then one device is ``module.to(device)``. More
+    than one device raises ``NotImplementedError``: stage sharding needs
+    the port's ``parallel/`` layer (``ROADMAP.md`` Queue A item 6), and
+    silent replication is not a placement."""
+    stage_param_specs(name, module)
+    if isinstance(devices, (str, torch.device)):
+        devices = [devices]
+    devices = list(devices)
+    if len(devices) != 1:
+        raise NotImplementedError(
+            f"stage '{name}' over {len(devices)} devices needs the port's "
+            "parallel/ layer (ROADMAP.md Queue A item 6); place it on one "
+            "device"
+        )
+    return module.to(torch.device(devices[0]))

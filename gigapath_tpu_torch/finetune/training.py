@@ -9,14 +9,25 @@ sequence length are echoed every 20 iterations.
 A micro-step (:func:`train_step`) is forward, loss and backward, and every
 ``gc``-th one an optimizer step. ``bf16`` runs the forward under
 ``torch.autocast(bfloat16)``: parameters, gradients and optimizer state
-stay fp32, activations are bf16, as in the JAX package. Echo goes through
-``logging``; the JAX package's observability stack (run log, heartbeat,
-compile watchdog, ledger, numerics) is not ported yet.
+stay fp32, activations are bf16, as in the JAX package.
+
+Observability, as the JAX loop's: every fold appends schema-versioned JSONL
+events under ``<save_dir>/fold_k/obs/`` (``GIGAPATH_OBS=0`` disables the
+stream but keeps the echo): ``step`` events (synced at the 20-iteration
+echoes, with the loss), a ``CompileWatchdog`` over the step's
+``(batch, tiles)`` buckets (a bucket's first step, synchronised and timed,
+and the kernel builds it triggers; its shape signature in the run's perf
+ledger), ``eval`` events, ``epoch`` / ``eval`` / ``test`` spans, the
+``finetune.step_wall_s`` histogram, and heartbeat/stall liveness
+(``GIGAPATH_OBS_HEARTBEAT_S`` / ``GIGAPATH_OBS_STALL_S``, 60/600 s by
+default). A failure runs ``fail_run`` with an emergency checkpoint. Console
+output goes through the run log's echo. The JAX loop's in-graph step
+scalars and per-layer numerics (``obs/telemetry.py``, ``obs/numerics.py``)
+are not ported (``ROADMAP.md`` Queue A item 8).
 """
 
 from __future__ import annotations
 
-import logging
 import os
 import time
 from typing import Any, Dict, Optional
@@ -36,10 +47,20 @@ from gigapath_tpu_torch.finetune.utils import (
     make_writer,
 )
 from gigapath_tpu_torch.models.classification_head import get_model
+from gigapath_tpu_torch.obs import (
+    CompileWatchdog,
+    Heartbeat,
+    NullRunLog,
+    get_ledger,
+    get_metrics,
+    get_run_log,
+    span,
+)
+from gigapath_tpu_torch.obs.heartbeat import env_seconds
+from gigapath_tpu_torch.obs.runlog import fail_run
+from gigapath_tpu_torch.obs.spans import fence_devices
 from gigapath_tpu_torch.utils.checkpoint import MonitorScore, restore_checkpoint, save_checkpoint
 from gigapath_tpu_torch.utils.device import resolve_device
-
-logger = logging.getLogger(__name__)
 
 
 def count_model_statistics(model: torch.nn.Module) -> Dict[str, Any]:
@@ -88,6 +109,15 @@ def train_step(
     return loss
 
 
+def _obs_config(args) -> dict:
+    """JSON-safe slice of the run config for the run_start manifest."""
+    return {
+        k: v
+        for k, v in sorted(vars(args).items())
+        if isinstance(v, (str, int, float, bool)) or v is None
+    }
+
+
 def train(dataloader, fold: int, args):
     """Train one fold; returns ``(val_records, test_records)``."""
     train_loader, val_loader, test_loader = dataloader
@@ -95,6 +125,9 @@ def train(dataloader, fold: int, args):
     writer_dir = os.path.join(args.save_dir, f"fold_{fold}", "tensorboard")
     writer, report_to = make_writer(args.report_to, writer_dir, args)
     fold_dir = os.path.join(args.save_dir, f"fold_{fold}")
+    # GIGAPATH_OBS is read here, once, at driver start: the event stream
+    # lands under fold_dir/obs/
+    runlog = get_run_log("finetune", out_dir=fold_dir, config=_obs_config(args))
 
     model = get_model(
         input_dim=args.input_dim,
@@ -114,9 +147,9 @@ def train(dataloader, fold: int, args):
         checkpoint_activations=getattr(args, "checkpoint_activations", False),
     )
     stats = count_model_statistics(model)
-    logger.info(f"Model statistics: {stats['total_params']:,} params")
+    runlog.echo(f"Model statistics: {stats['total_params']:,} params")
     for mod, n in stats["params_by_module"].items():
-        logger.info(f"  - {mod}: {n:,}")
+        runlog.echo(f"  - {mod}: {n:,}")
 
     num_layers = len(model.slide_encoder.encoder.layers) + 1
     steps_per_epoch = max(len(train_loader) / args.gc, 1e-9)
@@ -146,49 +179,107 @@ def train(dataloader, fold: int, args):
     if getattr(args, "model_select", "val") == "val":
         monitor = MonitorScore.from_checkpoint(ckpt_path)
         if monitor.best_score is not None:
-            logger.info(f"[resume] best-checkpoint monitor re-armed at {monitor.best_score:.4f}")
+            runlog.echo(f"[resume] best-checkpoint monitor re-armed at {monitor.best_score:.4f}")
     else:
         monitor = MonitorScore()
 
-    logger.info(f"Training on {len(train_loader.dataset)} samples")
+    runlog.echo(f"Training on {len(train_loader.dataset)} samples")
     if val_loader is not None:
-        logger.info(f"Validating on {len(val_loader.dataset)} samples")
+        runlog.echo(f"Validating on {len(val_loader.dataset)} samples")
     if test_loader is not None:
-        logger.info(f"Testing on {len(test_loader.dataset)} samples")
-    logger.info("Training starts!")
+        runlog.echo(f"Testing on {len(test_loader.dataset)} samples")
+    runlog.echo("Training starts!")
 
+    # perf ledger: each new bucket's step lands its shape signature in
+    # <fold_dir>/obs/*.ledger.json
+    ledger = get_ledger(runlog)
+    compile_log = CompileWatchdog("train_step", runlog, ledger=ledger)
+    # deadline precedence: an explicit args attribute (programmatic
+    # callers) wins; else the env knobs; else finetune's 60/600 — a large
+    # bucket legitimately takes minutes per step
+    hb_interval = getattr(args, "obs_heartbeat_s", None)
+    hb_stall = getattr(args, "obs_stall_s", None)
+    heartbeat = Heartbeat(
+        runlog,
+        interval_s=(float(hb_interval) if hb_interval is not None
+                    else env_seconds("GIGAPATH_OBS_HEARTBEAT_S", 60.0)),
+        stall_after_s=(float(hb_stall) if hb_stall is not None
+                       else env_seconds("GIGAPATH_OBS_STALL_S", 600.0)),
+        name="finetune",
+    )
     val_records, test_records = None, None
-    for epoch in range(args.epochs):
-        logger.info(f"Epoch: {epoch}")
-        train_records = train_one_epoch(train_loader, model, loss_fn, steps, epoch, args)
+    try:
+        with heartbeat:
+            for epoch in range(args.epochs):
+                runlog.echo(f"Epoch: {epoch}")
+                with span("epoch", runlog, epoch=epoch):
+                    train_records = train_one_epoch(
+                        train_loader, model, loss_fn, steps, epoch, args,
+                        compile_log=compile_log, runlog=runlog, heartbeat=heartbeat,
+                    )
 
-        if val_loader is not None:
-            val_records = evaluate(val_loader, model, loss_fn, epoch, args)
-            log_dict = {"train_" + k: v for k, v in train_records.items() if "prob" not in k and "label" not in k}
-            log_dict.update({"val_" + k: v for k, v in val_records.items() if "prob" not in k and "label" not in k})
-            log_writer(log_dict, epoch, report_to, writer)
-            score = val_records["macro_auroc"]
+                if val_loader is not None:
+                    with span("eval", runlog, epoch=epoch):
+                        val_records = evaluate(val_loader, model, loss_fn, epoch, args,
+                                               runlog=runlog, heartbeat=heartbeat)
+                    log_dict = {"train_" + k: v for k, v in train_records.items()
+                                if "prob" not in k and "label" not in k}
+                    log_dict.update({"val_" + k: v for k, v in val_records.items()
+                                     if "prob" not in k and "label" not in k})
+                    log_writer(log_dict, epoch, report_to, writer)
+                    score = val_records["macro_auroc"]
 
-        if args.model_select == "val" and val_loader is not None:
-            monitor(score, {"params": model.state_dict()}, ckpt_path)
-        elif args.model_select == "last_epoch" and epoch == args.epochs - 1:
-            save_checkpoint(ckpt_path, {"params": model.state_dict()})
+                if args.model_select == "val" and val_loader is not None:
+                    monitor(score, {"params": model.state_dict()}, ckpt_path)
+                elif args.model_select == "last_epoch" and epoch == args.epochs - 1:
+                    save_checkpoint(ckpt_path, {"params": model.state_dict()})
 
-    model.load_state_dict(restore_checkpoint(ckpt_path)["params"])
-    test_records = evaluate(test_loader, model, loss_fn, args.epochs, args)
+            # still inside the heartbeat scope: the test pass blocks on the
+            # device too and must not be a stall-monitoring blind spot
+            model.load_state_dict(restore_checkpoint(ckpt_path)["params"])
+            with span("test", runlog):
+                test_records = evaluate(test_loader, model, loss_fn, args.epochs, args,
+                                        runlog=runlog, heartbeat=heartbeat)
 
-    log_dict = {"test_" + k: v for k, v in test_records.items() if "prob" not in k and "label" not in k}
-    log_writer(log_dict, fold, report_to, writer)
-    if report_to == "wandb":
-        writer.finish()
-    else:
-        writer.close()
+        log_dict = {"test_" + k: v for k, v in test_records.items() if "prob" not in k and "label" not in k}
+        log_writer(log_dict, fold, report_to, writer)
+        if report_to == "wandb":
+            writer.finish()
+        else:
+            writer.close()
+    except Exception as e:
+        # the shared failure tail (error event -> flight dump -> emergency
+        # checkpoint -> terminal run_end)
+        emergency = os.path.join(fold_dir, "emergency_checkpoint.pt")
+        fail_run(
+            runlog, "finetune.train", e,
+            emergency=lambda: save_checkpoint(emergency, {"params": model.state_dict()}) or emergency,
+        )
+        raise
+
+    runlog.run_end(
+        status="ok",
+        fold=fold,
+        test_macro_auroc=float(test_records.get("macro_auroc", float("nan"))),
+        compile_seconds_total=compile_log.compile_seconds_total(),
+        stalls=heartbeat.stall_count,
+        ledger_path=ledger.path,
+    )
     return val_records, test_records
 
 
-def train_one_epoch(train_loader, model, loss_fn, steps: MultiSteps, epoch: int, args):
+def train_one_epoch(train_loader, model, loss_fn, steps: MultiSteps, epoch: int, args, *,
+                    compile_log: Optional[CompileWatchdog] = None, runlog=None,
+                    heartbeat: Optional[Heartbeat] = None):
     """One epoch of micro-steps; the loss is read back to the host only at
-    the 20-iteration echoes and at the end."""
+    the 20-iteration echoes and at the end (and a new bucket's first step
+    is synchronised to time it)."""
+    runlog = runlog if runlog is not None else NullRunLog(driver="finetune")
+    # typed metrics (one registry per run across epochs; the final snapshot
+    # flushes inside run_end). Only the synced 20-iteration walls are
+    # observed — they are the device-truth numbers
+    metrics = get_metrics(runlog)
+    step_walls = metrics.histogram("finetune.step_wall_s")
     model.train()
     device = next(model.parameters()).device
     bf16 = getattr(args, "bf16", True)
@@ -198,43 +289,86 @@ def train_one_epoch(train_loader, model, loss_fn, steps: MultiSteps, epoch: int,
     records = get_records_array(len(train_loader), args.n_classes)
     loss_sum: Optional[torch.Tensor] = None
     n_batches = 0
+    steps_per_epoch = len(train_loader)
+    t_prev = start_time
 
     for batch_idx, batch in enumerate(_prefetched(train_loader, device, bf16)):
         images, coords, labels, pad_mask = _unpack(batch)
         seq_len += images.shape[1]
+        bucket = tuple(images.shape[:2])
+        global_step = epoch * steps_per_epoch + batch_idx
+        new_bucket = compile_log is not None and compile_log.is_new(bucket)
+        if new_bucket and loss_sum is not None:
+            # drain the queue first, or every pending step's runtime gets
+            # billed to this bucket's first call
+            fence_devices([loss_sum])
+        t0 = time.time()
         loss = train_step(
             model, loss_fn, steps, images, coords, labels, pad_mask,
             multi_label=multi_label, bf16=bf16,
         )
+        if new_bucket:
+            fence_devices([loss])  # isolate the first call's cost
+            compile_log.record(bucket, time.time() - t0)
+            compile_log.profile(bucket, train_step, images, coords, labels, pad_mask)
+        elif compile_log is not None:
+            compile_log.record(bucket, None)
         loss_sum = loss if loss_sum is None else loss_sum + loss
         n_batches += 1
+        if heartbeat is not None:
+            heartbeat.beat(global_step)
 
         if (batch_idx + 1) % 20 == 0:
             running_loss = float(loss_sum)  # the sync point
-            time_per_it = (time.time() - start_time) / (batch_idx + 1)
-            logger.info(
+            # timestamp AFTER the drain: the synced step's wall_s carries
+            # the queued device work it just waited for
+            t_now = time.time()
+            time_per_it = (t_now - start_time) / (batch_idx + 1)
+            runlog.step(
+                global_step, wall_s=round(t_now - t_prev, 6), synced=True, epoch=epoch,
+                bucket=str(bucket), loss=running_loss / (batch_idx + 1),
+                sec_per_it=time_per_it, seq_len=seq_len / (batch_idx + 1),
+            )
+            step_walls.observe(round(t_now - t_prev, 6))
+            metrics.maybe_flush()
+            runlog.echo(
                 "Epoch: {}, Batch: {}, Loss: {:.4f}, Time: {:.4f} sec/it, "
                 "Seq len: {:.1f}, Slide ID: {}".format(
                     epoch, batch_idx, running_loss / (batch_idx + 1), time_per_it,
                     seq_len / (batch_idx + 1),
                     batch["slide_id"][-1] if "slide_id" in batch else "None",
-                )
+                ),
+                step=global_step,
             )
+        else:
+            # unsynced: wall_s is host launch time; the report reads
+            # `synced` and treats these accordingly
+            t_now = time.time()
+            runlog.step(global_step, wall_s=round(t_now - t_prev, 6), synced=bool(new_bucket),
+                        epoch=epoch, bucket=str(bucket))
+        t_prev = t_now
 
     records["loss"] = (float(loss_sum) if loss_sum is not None else 0.0) / max(n_batches, 1)
     epoch_sec = time.time() - start_time
-    logger.info(
+    runlog.echo(
         "Epoch: {}, Loss: {:.4f}, Epoch time: {:.1f}s ({:.3f} sec/it)".format(
             epoch, records["loss"], epoch_sec, epoch_sec / max(n_batches, 1)
-        )
+        ),
+        step=epoch * steps_per_epoch + max(n_batches - 1, 0),
     )
+    if compile_log is not None and compile_log.first_call_sec:
+        runlog.echo(compile_log.summary())
     return records
 
 
 @torch.no_grad()
-def evaluate(loader, model, loss_fn, epoch: int, args):
+def evaluate(loader, model, loss_fn, epoch: int, args, *, runlog=None,
+             heartbeat: Optional[Heartbeat] = None):
     """Eval pass collecting probabilities, one-hot labels and the task's
-    metrics. Samples skipped by the loader leave no rows behind."""
+    metrics. Samples skipped by the loader leave no rows behind. Each batch
+    beats the heartbeat (step number untouched): a long healthy eval stays
+    distinguishable from a hung one."""
+    runlog = runlog if runlog is not None else NullRunLog(driver="finetune")
     model.eval()
     device = next(model.parameters()).device
     bf16 = getattr(args, "bf16", True)
@@ -242,6 +376,8 @@ def evaluate(loader, model, loss_fn, epoch: int, args):
     total_loss, n = 0.0, 0
     task_setting = args.task_config.get("setting", "multi_class")
     for batch in _prefetched(loader, device, bf16):
+        if heartbeat is not None:
+            heartbeat.beat()
         images, coords, labels, pad_mask = _unpack(batch)
         with torch.autocast(device.type, dtype=torch.bfloat16, enabled=bf16):
             logits = model(images, coords, pad_mask=pad_mask)
@@ -265,8 +401,11 @@ def evaluate(loader, model, loss_fn, epoch: int, args):
     records.update(calculate_metrics_with_task_cfg(records["prob"], records["label"], args.task_config))
     records["loss"] = total_loss / max(n, 1)
 
+    runlog.eval_event(
+        epoch, **{k: float(v) for k, v in records.items() if isinstance(v, (int, float, np.floating))},
+    )
     if task_setting == "multi_label":
-        logger.info(
+        runlog.echo(
             "Epoch: {}, Loss: {:.4f}, Micro AUROC: {:.4f}, Macro AUROC: {:.4f}, "
             "Micro AUPRC: {:.4f}, Macro AUPRC: {:.4f}".format(
                 epoch, records["loss"], records["micro_auroc"], records["macro_auroc"],
@@ -279,5 +418,5 @@ def evaluate(loader, model, loss_fn, epoch: int, args):
         )
         for metric in args.task_config.get("add_metrics", []):
             info += ", {}: {:.4f}".format(metric, records[metric])
-        logger.info(info)
+        runlog.echo(info)
     return records

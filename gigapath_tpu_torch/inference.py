@@ -26,10 +26,12 @@ Three paths:
 
 Every path writes the JAX module's run log (``GIGAPATH_OBS`` /
 ``GIGAPATH_OBS_DIR``; by default ``<output dir>/obs/``), with a heartbeat,
-and ends it with ``run_end`` (``fail_run`` on an error). ``--prefetch > 0``
-is not ported yet and raises ``NotImplementedError``: it needs the dist
-boundary's ``dist/boundary.py`` (``ROADMAP.md`` Queue A item 4). The model
-computes in bf16, as the JAX module's does.
+and ends it with ``run_end`` (``fail_run`` on an error). ``--prefetch N``
+(N > 0) runs a loader thread up to N slides ahead through the dist
+boundary's bounded :class:`~gigapath_tpu_torch.dist.boundary.MemoryChannel`
+on the bucketed and ``--stream`` paths, as the JAX module's does (the
+exact-shape path loads inside its timed slide span). The model computes in
+bf16, as the JAX module's does.
 """
 
 from __future__ import annotations
@@ -102,6 +104,68 @@ def _load_features(path: str):
     return to_np(t), None
 
 
+def _feature_stream(feature_files, prefetch: int, runlog):
+    """Yield ``(idx, path, feats, coords)`` for every feature file.
+
+    ``prefetch == 0``: plain synchronous loads. ``prefetch > 0``: a loader
+    thread runs ahead through the dist boundary's bounded
+    :class:`~gigapath_tpu_torch.dist.boundary.MemoryChannel` — at most
+    ``prefetch`` slides in flight (credit-based, so a slow device
+    backpressures the loader onto the obs bus instead of into unbounded
+    host memory), IO overlapped with dispatch.
+    """
+    if prefetch <= 0:
+        for idx, path in enumerate(feature_files):
+            feats, coords = _load_features(path)
+            yield idx, path, feats, coords
+        return
+
+    import threading
+
+    from gigapath_tpu_torch.dist.boundary import BoundaryConfig, EmbeddingChunk, MemoryChannel
+
+    channel = MemoryChannel(BoundaryConfig(capacity=int(prefetch)), runlog=runlog,
+                            name="inference.prefetch")
+    failure: list = []
+
+    def load():
+        try:
+            for idx, path in enumerate(feature_files):
+                feats, coords = _load_features(path)
+                feats = np.asarray(feats, np.float32)
+                # digest=False: an intra-process handoff cannot corrupt, and
+                # sha256 over a 10^5-tile slide would tax the hot path the
+                # prefetch exists to speed up
+                channel.send(EmbeddingChunk.build(
+                    os.path.basename(path), idx, 0, feats.shape[0], feats,
+                    coords=None if coords is None else np.asarray(coords, np.float32),
+                    producer="loader", digest=False,
+                ))
+        except BaseException as e:  # surfaced on the consuming thread
+            failure.append(e)
+        finally:
+            channel.close()
+
+    loader = threading.Thread(target=load, name="inference-prefetch", daemon=True)
+    loader.start()
+    served = 0
+    try:
+        while served < len(feature_files):
+            chunk = channel.recv(timeout=1.0)
+            if chunk is None:
+                if failure:
+                    raise failure[0]
+                continue
+            yield chunk.chunk_id, feature_files[chunk.chunk_id], chunk.payload, chunk.coords
+            channel.ack(chunk.seq)
+            served += 1
+        if failure:
+            raise failure[0]
+    finally:
+        channel.close()
+        loader.join(timeout=10)
+
+
 def _coords_or_zeros(feats, coords, runlog, warned: list):
     """None coords become zeros (the positional signal collapses to one grid
     cell), with one warning per run (``warned`` is the shared flag)."""
@@ -155,12 +219,13 @@ def _exact_logits(model, feats, coords) -> np.ndarray:
         return model(x, c).float().cpu().numpy()[0]
 
 
-def _run_inference_bucketed(model, feature_files, output_file: str, runlog, batch_size: int):
+def _run_inference_bucketed(model, feature_files, output_file: str, runlog, batch_size: int,
+                            prefetch: int = 0):
     """The bucketed path: the serving stack's ladder, coalescer, per-bucket
     CUDA graphs and content-hash cache, driven synchronously. Submits
     stream one file at a time and full buckets dispatch at once (``step()``
     after every submit), so at most ``batch_size`` slides per bucket are
-    resident."""
+    resident (plus ``prefetch`` slides loaded ahead)."""
     from concurrent.futures import Future
 
     from gigapath_tpu_torch.serve import ServeConfig, SlideService
@@ -185,8 +250,7 @@ def _run_inference_bucketed(model, feature_files, output_file: str, runlog, batc
     try:
         with Heartbeat(runlog, name="inference") as heartbeat:
             futures = []
-            for idx, path in enumerate(feature_files):
-                feats, coords = _load_features(path)
+            for idx, path, feats, coords in _feature_stream(feature_files, prefetch, runlog):
                 slide_id = _slide_id(path)
                 feats = np.asarray(feats, np.float32)
                 coords = _coords_or_zeros(feats, coords, runlog, warned)
@@ -233,19 +297,19 @@ def _run_inference_bucketed(model, feature_files, output_file: str, runlog, batc
     )
 
 
-def _run_inference_streaming(model, feature_files, output_file: str, runlog, chunk_tiles: int):
+def _run_inference_streaming(model, feature_files, output_file: str, runlog, chunk_tiles: int,
+                             prefetch: int = 0):
     """The ``--stream`` path: every slide folds through the streaming
-    submitter, chunk by chunk."""
+    submitter, chunk by chunk (``prefetch`` slides loaded ahead)."""
     from gigapath_tpu_torch.serve.streaming import head_streaming_submitter, streaming_head_logits
 
-    submitter = head_streaming_submitter(model, chunk_tiles=chunk_tiles or None)
+    submitter = head_streaming_submitter(model, chunk_tiles=chunk_tiles or None, runlog=runlog)
     metrics = get_metrics(runlog)
     slide_walls = metrics.histogram("inference.slide_wall_s")
     results, warned = [], []
     try:
         with Heartbeat(runlog, name="inference") as heartbeat:
-            for idx, path in enumerate(feature_files):
-                feats, coords = _load_features(path)
+            for idx, path, feats, coords in _feature_stream(feature_files, prefetch, runlog):
                 feats = np.asarray(feats, np.float32)
                 coords = _coords_or_zeros(feats, coords, runlog, warned)
                 with span("slide", runlog, fence=True) as sp:
@@ -316,15 +380,13 @@ def run_inference(
     """Classify every ``*_features.pt`` in ``feature_dir``; returns the
     results DataFrame (None when there is no feature file).
     ``use_buckets`` routes through the serving stack; False is the
-    exact-shape path."""
+    exact-shape path. ``prefetch > 0`` overlaps feature IO with dispatch
+    through the dist boundary's bounded channel (at most that many slides
+    in flight) on the bucketed and streaming paths."""
     feature_files = sorted(glob.glob(os.path.join(feature_dir, "*_features.pt")))
     if not feature_files:
         console(f"No feature files found in {feature_dir}")
         return None
-    if prefetch > 0:
-        raise NotImplementedError(
-            "inference --prefetch > 0 needs the dist boundary (dist/boundary.py), not ported "
-            "yet (ROADMAP.md Queue A item 4)")
     runlog = get_run_log(
         "inference", out_dir=os.path.dirname(os.path.abspath(output_file)),
         config={"feature_dir": feature_dir, "output_file": output_file,
@@ -333,9 +395,11 @@ def run_inference(
                 "stream": bool(stream)},
     )
     if stream:
-        return _run_inference_streaming(model, feature_files, output_file, runlog, int(stream_chunk))
+        return _run_inference_streaming(model, feature_files, output_file, runlog, int(stream_chunk),
+                                        prefetch=prefetch)
     if use_buckets:
-        return _run_inference_bucketed(model, feature_files, output_file, runlog, batch_size)
+        return _run_inference_bucketed(model, feature_files, output_file, runlog, batch_size,
+                                       prefetch=prefetch)
     return _run_inference_exact(model, feature_files, output_file, runlog)
 
 
@@ -354,7 +418,8 @@ def main(argv: Optional[list] = None):
     parser.add_argument("--stream-chunk", type=int, default=0,
                         help="Tiles per streaming-prefill chunk (0 = GIGAPATH_PREFILL_CHUNK, default 2048)")
     parser.add_argument("--prefetch", type=int, default=0,
-                        help="Slides a loader thread runs ahead (not ported yet: 0 only)")
+                        help="Slides a loader thread runs ahead through the dist boundary's "
+                             "bounded channel (0 = synchronous loads)")
     parser.add_argument("--num_classes", type=int, default=2)
     parser.add_argument("--model_arch", type=str, default="gigapath_slide_enc12l768d")
     parser.add_argument("--device", type=str, default=None,

@@ -25,7 +25,8 @@ held and folded when their predecessors arrive, so the fold sequence, and
 the result bit for bit, depends on the slide's geometry alone.
 
 Left out: the JAX session's run log and per-stage compile watchdogs (there
-is no jit cache to watch: ``ROADMAP.md`` Queue A item 15) and its fold-plan
+is no jit cache to watch; the compile-side obs is ``ROADMAP.md`` Queue A
+item 8) and its fold-plan
 resolution (the kernels fix their own tiles). Each session method runs
 without autograd.
 """

@@ -288,3 +288,16 @@ def test_finetune_main_end_to_end(tmp_path):
     assert "val_macro_auroc" in summary.columns
     assert np.isfinite(summary["test_loss"]).all() and np.isfinite(summary["val_loss"]).all()
     assert (save_dir / "toy" / "eval_toy" / "fold_1" / "checkpoint.pt").is_file()
+    # each fold's run log, as the JAX loop writes it: the manifest, steps,
+    # a compile event per new (batch, tiles) bucket, evals, spans, run_end
+    import glob
+    import json
+
+    (log_path,) = glob.glob(str(save_dir / "toy" / "eval_toy" / "fold_1" / "obs" / "*.jsonl"))
+    events = [json.loads(line) for line in open(log_path)]
+    kinds = {e["kind"] for e in events}
+    assert {"run_start", "step", "compile", "eval", "span", "run_end"} <= kinds, kinds
+    assert {e["name"] for e in events if e["kind"] == "span"} >= {"epoch", "eval", "test"}
+    assert all(e["fn"] == "train_step" and not e.get("unexpected") for e in events if e["kind"] == "compile")
+    (end,) = [e for e in events if e["kind"] == "run_end"]
+    assert end["status"] == "ok" and end["fold"] == 1 and end["stalls"] == 0

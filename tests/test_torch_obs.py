@@ -397,3 +397,162 @@ def test_ledger_adopts_captures_and_writes_a_canonical_file(tmp_path):
     log.close()
     profiles = [r for r in _events(log.path) if r["kind"] == "compile_profile"]
     assert [p["key"] for p in profiles] == ["(4, 16)", "(1, 5)"]
+
+
+# ---------------------------------------------------------------------------
+# the fleet's clock, trace merge, trend history and drift sentinel
+# ---------------------------------------------------------------------------
+
+from gigapath_tpu.obs import clock as jax_clock  # noqa: E402
+from gigapath_tpu.obs import drift as jax_drift  # noqa: E402
+from gigapath_tpu.obs import fleet as jax_fleet  # noqa: E402
+from gigapath_tpu.obs import history as jax_history  # noqa: E402
+from gigapath_tpu_torch.obs import clock as port_clock  # noqa: E402
+from gigapath_tpu_torch.obs import drift as port_drift  # noqa: E402
+from gigapath_tpu_torch.obs import fleet as port_fleet  # noqa: E402
+from gigapath_tpu_torch.obs import history as port_history  # noqa: E402
+
+FLEET_SIDES = {"jax": (jax_runlog, jax_clock, jax_fleet, jax_history, jax_drift, jax_metrics),
+               "port": (port_runlog, port_clock, port_fleet, port_history, port_drift, port_metrics)}
+CLOCK_SAMPLES = [(1000.0, 5.02, 5.021, 1000.05), (1000.2, 5.205, 5.206, 1000.212),
+                 (1000.4, 5.41, 5.43, 1000.5), (2000.0, 7.01, 7.011, 2000.02)]
+
+
+def _clock_run(clock_mod, runlog):
+    """Four handshakes on one link (a resync before the last: a restarted
+    consumer) -> every estimate and the clock_sync events."""
+    link = clock_mod.LinkClock("tcp.w0")
+    out = []
+    for i, sample in enumerate(CLOCK_SAMPLES):
+        if i == 3:
+            link.resync()
+        est = link.update(clock_mod.ClockSample(*sample))
+        clock_mod.emit_clock_sync(runlog, link, est)
+        out.append((est.offset_s, est.rtt_s, est.uncertainty_s, link.offset_s, link.uncertainty_s,
+                    est.to_reference(1000.1)))
+    return out
+
+
+def test_clock_offsets_match_jax(tmp_path):
+    logs, out = _runlogs(tmp_path), {}
+    for side, (_, clock_mod, *_rest) in FLEET_SIDES.items():
+        out[side] = (_clock_run(clock_mod, logs[side]), )
+        logs[side].close()
+        out[side] += ([_strip(e) for e in _events(logs[side].path)],)
+    assert out["port"] == out["jax"]
+    assert len(out["port"][1]) == 4 and out["port"][1][-1]["epoch"] == 1
+
+
+def _span(name, t0, t1, **args):
+    return {"ph": "X", "tid": 1, "name": name, "ts": t0 * 1e6, "dur": (t1 - t0) * 1e6, "args": args}
+
+
+def _exports(clock_mod, runlog):
+    """Two processes' trace exports of one slide: a producer whose
+    monotonic clock reads ~995 s ahead (its clock_sync events from
+    :func:`_clock_run`) and the consumer (the reference axis)."""
+    tr = "tr-fleet"
+    sid = lambda actor, name, c=None: f"{tr}/{actor}/{name}" if c is None else f"{tr}/{actor}/c{c}/{name}"  # noqa: E731
+    producer, consumer = [], []
+    for c in range(3):
+        t = 1000.0 + 0.03 * c
+        producer += [_span("dist.encode", t, t + 0.02, span_id=sid("w0", "dist.encode", c), trace_id=tr,
+                           chunk=c, actor="w0"),
+                     _span("send", t + 0.02, t + 0.025, span_id=sid("w0", "send", c), trace_id=tr,
+                           chunk=c, actor="w0", parent_span_id=sid("w0", "dist.encode", c))]
+        d = 5.03 + 0.03 * c
+        consumer += [_span("deliver", d, d + 0.004, span_id=sid("consumer", "deliver", c), trace_id=tr,
+                           chunk=c, actor="consumer", parent_span_id=sid("w0", "send", c)),
+                     _span("dist.fold", d + 0.004, d + 0.02, span_id=sid("consumer", "dist.fold", c),
+                           trace_id=tr, chunk=c, actor="consumer",
+                           parent_span_id=sid("consumer", "deliver", c))]
+    consumer.append(_span("dist.finalize", 5.13, 5.15, span_id=sid("consumer", "dist.finalize"),
+                          trace_id=tr, actor="consumer"))
+    _clock_run(clock_mod, runlog)
+    runlog.close()
+    events = _events(runlog.path)
+    doc = lambda actor, spans, pid: {"metadata": {"clock": {"t0_monotonic": 0.0}, "actor": actor,  # noqa: E731
+                                                  "pid": pid}, "traceEvents": spans}
+    return [{"label": "w0", "doc": doc("w0", producer, 11), "events": events[:3]},
+            {"label": "consumer", "doc": doc("consumer", consumer, 22)}]
+
+
+def test_fleet_merge_of_two_exports_matches_jax(tmp_path):
+    """Two exports merged on the producer's clock_sync offset: the merged
+    Perfetto doc, the critical path, the invariants, the orphans and the
+    fleet health agree with the JAX package's merge."""
+    logs, out = _runlogs(tmp_path), {}
+    for side, (_, clock_mod, fleet_mod, *_rest) in FLEET_SIDES.items():
+        fleet = fleet_mod.FleetTimeline.from_parts(_exports(clock_mod, logs[side]), run_id="r")
+        perfetto = fleet.perfetto()
+        assert perfetto["metadata"].pop("source") == fleet_mod.__name__  # each names its own module
+        out[side] = {"perfetto": perfetto, "critical": fleet.critical_path(),
+                     "invariants": fleet.invariants(), "orphans": [s.span_id for s in fleet.orphans()],
+                     "health": fleet.health()}
+    assert out["port"] == out["jax"]
+    flows = [e for e in out["port"]["perfetto"]["traceEvents"] if e.get("ph") in ("s", "f")]
+    assert len(flows) == 6 and out["port"]["invariants"] == []
+
+
+def _history_run(history_mod, path):
+    doc = history_mod.new_history()
+    history_mod.fold_bench(doc, {"rc": 0, "parsed": {"value": 10.0, "mfu": 0.4}}, "r01")
+    history_mod.fold_bench(doc, {"rc": 0, "parsed": {"value": 12.0, "mfu": 0.35}}, "r02")
+    history_mod.fold_bench(doc, {"rc": 1, "parsed": {"error": "no chip"}}, "r03")
+    history_mod.append_point(doc, "dist|smoke", "r01", {"chunks_per_sec": 50.0, "nan": float("nan")})
+    history_mod.append_point(doc, "dist|smoke", "r02", {"chunks_per_sec": 40.0})
+    history_mod.append_point(doc, "dist|smoke", "r01", {"chunks_per_sec": 55.0}, force=True)
+    try:
+        history_mod.append_point(doc, "dist|smoke", "r02", {"chunks_per_sec": 1.0})
+    except ValueError as e:
+        refused = str(e)
+    history_mod.write_history(doc, path)
+    return {"doc": history_mod.load_history(path), "best": history_mod.trend_verdict(doc),
+            "prev": history_mod.trend_verdict(doc, baseline="prev"), "refused": refused,
+            "directions": [history_mod.metric_direction(m) for m in ("mfu", "peak_hbm_gb", "chunks_per_sec")]}
+
+
+def test_history_folding_matches_jax(tmp_path):
+    out = {side: _history_run(mods[3], str(tmp_path / f"{side}.json")) for side, mods in FLEET_SIDES.items()}
+    assert out["port"] == out["jax"]
+    assert not out["port"]["best"]["decision"]["ok"]  # dist|smoke regressed against its best
+
+
+def _drift_run(drift_mod, metrics_mod, runlog, path):
+    rng = np.random.default_rng(5)
+    baseline = drift_mod.EmbeddingSketch(6)
+    for vec in rng.standard_normal((32, 6)):
+        baseline.update(vec)
+    baseline.save(path)
+    loaded = drift_mod.EmbeddingSketch.load(path)
+    metrics = metrics_mod.MetricsRegistry()
+    sentinel = drift_mod.DriftSentinel(loaded, runlog, metrics=metrics, every=2, threshold=1.0, min_count=2)
+    records = []
+    for i in range(12):  # in distribution, then shifted by 3 sigma, then back
+        shift = 3.0 if 4 <= i < 8 else 0.0
+        records.append(sentinel.observe(rng.standard_normal(6) + shift))
+    sentinel.emit_status()
+    with open(os.path.join(path, "manifest.json")) as fh:
+        manifest = json.load(fh)
+    return {"records": [_strip(r) if r else r for r in records], "status": sentinel.status(),
+            "scores": drift_mod.drift_scores(sentinel.current, baseline), "gauges": metrics.snapshot(),
+            "manifest": sorted(manifest)}
+
+
+def test_drift_sentinel_alarms_match_jax(tmp_path):
+    """One fixed embedding sequence through the sentinel: the same alarming
+    transitions, drift events, scores and gauges; a tampered baseline is a
+    loud ``CorruptDriftArtifact`` on both sides."""
+    logs, out = _runlogs(tmp_path), {}
+    for side, (_, _, _, _, drift_mod, metrics_mod) in FLEET_SIDES.items():
+        path = str(tmp_path / f"{side}-baseline")
+        out[side] = _drift_run(drift_mod, metrics_mod, logs[side], path)
+        logs[side].close()
+        out[side]["events"] = [_strip(e) for e in _events(logs[side].path) if e["kind"] == "drift"]
+        victim = [n for n in os.listdir(path) if n != "manifest.json"][0]
+        with open(os.path.join(path, victim), "ab") as fh:
+            fh.write(b"x")
+        with pytest.raises(drift_mod.CorruptDriftArtifact):
+            drift_mod.EmbeddingSketch.load(path)
+    assert out["port"] == out["jax"]
+    assert sum(1 for e in out["port"]["events"] if e.get("alarming")) >= 1

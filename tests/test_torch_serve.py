@@ -326,8 +326,45 @@ def test_cli_bucketed_path_writes_the_exact_paths_verdicts(tmp_path, monkeypatch
     assert list(bucketed["slide_id"]) == list(exact["slide_id"]) == [f"s{i}" for i in range(len(lengths))]
     assert list(bucketed["predicted_label"]) == list(exact["predicted_label"])
     np.testing.assert_allclose(bucketed["confidence"], exact["confidence"], atol=1e-5, rtol=0)
-    with pytest.raises(NotImplementedError, match="dist/boundary.py"):
-        inference.run_inference(head, str(tmp_path), str(tmp_path / "p.csv"), prefetch=2)
+    # --prefetch 2 (a loader thread through the dist boundary's memory
+    # channel) gives the synchronous loads' verdicts, bit for bit
+    prefetched = inference.run_inference(head, str(tmp_path), str(tmp_path / "p.csv"), batch_size=3, prefetch=2)
+    assert prefetched.equals(bucketed)
+
+
+@pytest.mark.parametrize("path", ["bucketed", "exact", "stream"])
+def test_prefetch_gives_the_synchronous_verdicts(path, tmp_path, monkeypatch):
+    """``prefetch=2`` against ``prefetch=0`` on each path of the CLI: the
+    same slide order, labels and confidences, bit for bit, and the loader's
+    channel on the run log."""
+    import glob
+    import json
+
+    from gigapath_tpu_torch import inference
+    from gigapath_tpu_torch.models.classification_head import get_model
+
+    rng = np.random.default_rng(21)
+    for i, n in enumerate([3, 12, 20, 7, 12]):
+        torch.save({"features": torch.from_numpy(rng.normal(size=(n, 16)).astype(np.float32)),
+                    "coords": torch.from_numpy(rng.uniform(0, 25000, (n, 2)).astype(np.float32))},
+                   tmp_path / f"s{i}_features.pt")
+    for name, value in (("BUCKET_MIN", "16"), ("BUCKET_MAX", "64"), ("BUCKET_ALIGN", "16")):
+        monkeypatch.setenv(f"GIGAPATH_SERVE_{name}", value)
+    head = get_model(input_dim=16, latent_dim=32, feat_layer="1", n_classes=2, model_arch="gigapath_slide_enc_tiny",
+                     device="cpu", seed=4).eval()
+    kw = {"bucketed": dict(batch_size=2), "exact": dict(use_buckets=False),
+          "stream": dict(stream=True, stream_chunk=8)}[path]
+    out = {}
+    for prefetch in (0, 2):
+        out_dir = tmp_path / f"out{prefetch}"
+        out_dir.mkdir()
+        out[prefetch] = inference.run_inference(head, str(tmp_path), str(out_dir / "p.csv"), prefetch=prefetch, **kw)
+    assert list(out[2]["slide_id"]) == [f"s{i}" for i in range(5)]
+    assert out[2].equals(out[0])
+    events = [json.loads(line) for f in glob.glob(str(tmp_path / "out2" / "obs" / "*.jsonl")) for line in open(f)]
+    start = next(e for e in events if e["kind"] == "run_start")
+    assert start["config"]["prefetch"] == 2
+    assert [e["status"] for e in events if e["kind"] == "run_end"] == ["ok"]
 
 
 # ---------------------------------------------------------------------------

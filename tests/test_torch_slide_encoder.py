@@ -193,6 +193,10 @@ def test_port_imports_nothing_of_jax():
         " 'metrics', 'reqtrace', 'heartbeat', 'watchdog', 'ledger')}\n"
         "need |= {'gigapath_tpu_torch.obs', 'gigapath_tpu_torch.resilience', 'gigapath_tpu_torch.resilience.chaos'}\n"
         "need |= {'gigapath_tpu_torch.serve.' + m for m in ('buckets', 'queue', 'cache', 'health', 'aot', 'service')}\n"
+        "need |= {'gigapath_tpu_torch.obs.' + m for m in ('clock', 'fleet', 'history')}\n"
+        "need |= {'gigapath_tpu_torch.dist.' + m for m in ('boundary', 'membership', 'transport', 'stagemesh',"
+        " 'worker', 'pipeline')}\n"
+        "need |= {'gigapath_tpu_torch.dist', 'gigapath_tpu_torch.resilience.checkpoint'}\n"
         "assert need <= set(names), sorted(need - set(names))\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n"

@@ -448,6 +448,50 @@ def test_serve_submitter_and_pipeline_entry_match_the_dense_entry():
     np.testing.assert_allclose(streaming_head_logits(head, served), logits, atol=1e-5, rtol=0)
 
 
+def test_submitter_events_trace_spans_and_drift(tmp_path):
+    """The submitter's obs wiring: ``stream_open`` / ``stream_peek`` /
+    ``stream_result`` events, ``fold`` and ``finalize`` spans on the
+    slide's trace context, the confidence histogram, and every final
+    embedding folded into the drift sentinel."""
+    import json
+
+    from gigapath_tpu_torch.obs.drift import DriftSentinel, EmbeddingSketch
+    from gigapath_tpu_torch.obs.metrics import MetricsRegistry
+    from gigapath_tpu_torch.obs.reqtrace import RequestTrace, TraceContext
+    from gigapath_tpu_torch.obs.runlog import RunLog
+    from gigapath_tpu_torch.serve.streaming import StreamingSubmitter
+
+    head = _head()
+    rng = np.random.default_rng(10)
+    n = 45
+    feats = rng.normal(size=(n, 24)).astype(np.float32)
+    coords = rng.uniform(0, 5000, (n, 2)).astype(np.float32)
+    log = RunLog(str(tmp_path / "run.jsonl"), driver="t", echo=False)
+    metrics = MetricsRegistry()
+    drift = DriftSentinel(EmbeddingSketch(32), log, every=1, min_count=1)
+    submitter = StreamingSubmitter(head.slide_encoder, chunk_tiles=16, runlog=log, drift=drift,
+                                   peek_every=1, metrics=metrics)
+    trace = RequestTrace("tr-s0", 1, "s0", 0.0)
+    ctx = TraceContext(trace, "consumer")
+    session = submitter.open("s0", n, trace=ctx)
+    for i in (0, 0, 1, 2):  # a duplicate delivery folds once
+        a, b = session.session.tile_bounds[i]
+        session.feed(i, feats[a:b], coords[a:b])
+    session.result()
+    log.close()
+    events = [json.loads(line) for line in open(log.path)]
+    (opened,) = [e for e in events if e["kind"] == "stream_open"]
+    assert (opened["slide"], opened["n_tiles"], opened["n_chunks"], opened["chunk_tiles"]) == ("s0", n, 3, 16)
+    peeks = [e for e in events if e["kind"] == "stream_peek"]
+    assert [p["frontier"] for p in peeks] == [1, 2] and peeks[0]["cos_prev"] is None
+    (result,) = [e for e in events if e["kind"] == "stream_result"]
+    assert result["peeks"] == 2 and result["confidence_last"] == round(session.peeks[-1]["confidence"], 6)
+    assert metrics.snapshot()["histograms"]["serve.stream_confidence"]["count"] == 2
+    assert drift.current.count == 1
+    names = sorted(sp.name for sp in trace.spans)
+    assert names == ["finalize", "fold", "fold", "fold"]
+
+
 def test_inference_stream_and_exact_paths_write_the_same_verdicts(tmp_path):
     import pandas as pd
 
@@ -469,8 +513,11 @@ def test_inference_stream_and_exact_paths_write_the_same_verdicts(tmp_path):
     assert list(bucketed["slide_id"]) == list(exact["slide_id"])
     assert list(bucketed["predicted_label"]) == list(exact["predicted_label"])
     np.testing.assert_allclose(bucketed["confidence"], exact["confidence"], atol=1e-5)
-    with pytest.raises(NotImplementedError, match="dist/boundary.py"):
-        inference.run_inference(head, str(tmp_path), str(tmp_path / "p.csv"), stream=True, prefetch=2)
+    # --prefetch 2 (a loader thread through the dist boundary's memory
+    # channel) gives the synchronous loads' verdicts, bit for bit
+    prefetched = inference.run_inference(head, str(tmp_path), str(tmp_path / "p.csv"), stream=True,
+                                         stream_chunk=4, prefetch=2)
+    assert prefetched.equals(stream)
 
     # the CLI on the flagship head (random weights), --stream, on the CPU
     flagship = tmp_path / "flagship"
