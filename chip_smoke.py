@@ -221,6 +221,35 @@ stdout:
     2 epochs then ``resume="auto"`` to 3 end bit-equal to the uninterrupted
     run (parameters, AdamW state, the dropout generator). The phase's
     seconds last.
+14e. harness: the three harness entries. ``harness_parity``:
+    ``quant.parity.parity_report`` on the committed fixture
+    (``vit_tile_enc_test``: E = 32, 4 heads of 8, 5 tokens) in bf16,
+    int8, fp8_e4m3 and int8+attn through the kernels (the launches of
+    rows 17 and 18 exact), each variant's embeddings against the same
+    variant on the plain path (1 - cosine within
+    ``TILE_MAX_ONE_MINUS_COS``), each quantized variant's cosine against
+    the fp32 oracle at least ``COSINE_BAR``; the probe deltas and the
+    ``adopt_quant_tile`` row (``decision_table`` with the bf16 and
+    int8+attn forward ms of a 128-tile batch that tile_forward measured)
+    printed, not gated. ``harness_probe``: 4096 synthetic 224 px PNG tiles
+    of two stain classes embedded by the flagship tile encoder in
+    int8+attn (random weights), a PCam-shaped zip of per-tile ``.pt``
+    tensors and csv (2048 / 1024 / 1024), then
+    ``linear_probe.main`` at batch 512 for 1000 iterations with evals at
+    500 and 1000: ``results.txt`` and the run log's ``eval`` and
+    ``run_end`` events, test AUROC at least ``HARNESS_PROBE_AUROC``, the
+    final parameters within ``HARNESS_PROBE_RTOL`` of a CPU ``train`` from
+    the same initial parameters and embeddings; ms per iteration, encode
+    tiles/s, peak memory. ``harness_pretrain``:
+    ``pretrain_gigapath.main`` on two synthetic 4096 px slides with the
+    full-width tile encoder (bf16 compute, fp32 master weights), 2 tile
+    epochs at batch 16 and 5 slide epochs: every loss finite, the restored
+    best encoder's features on one batch bit-equal to the live encoder's
+    when that checkpoint was written, and one MAE step of a 2-block
+    full-width copy in fp32 on the card against the same step on the CPU
+    (loss, gradients and parameters, ``MAE_STEP_TOL``); ms per MAE step
+    (median and first), tiles/s, peak memory, checkpoint seconds and bytes,
+    the stage-2 loss per epoch. The phase's seconds last.
 
 15. fusion_kernels: the stream-fusion route's four kernels against their
     plain versions at the flagship's branch shapes (L = 10241), fp32 and
@@ -373,6 +402,7 @@ import concurrent.futures
 import contextlib
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -657,6 +687,23 @@ WSI_PX, WSI_TILE, WSI_SLIDES, WSI_EPOCHS = 8192, 256, 2, 3
 WSI_TIER = "int8+attn"
 WSI_TRAIN = dict(model_arch="gigapath_slide_enc12l768d", latent_dim=768, feat_layer="11",
                  freeze_pretrained=True, checkpoint_every=1)
+# the harnesses (phase 14e): the parity fixture's four variants; the probe
+# on 4096 tiles of two stain classes (the reference's 12500 iterations cut
+# to 1000 for the phase's time); the pretraining driver at full width on two
+# 4096 px slides (about 128 tiles each) at batch 16, where the reference's
+# 64 would not fit ViT-G's saved activations and AdamW state in 80 GB
+HARNESS_VARIANTS = ("bf16", "int8", "fp8_e4m3", "int8+attn")
+HARNESS_FIXTURE_DH = 8  # vit_tile_enc_test: E = 32, 4 heads
+HARNESS_PARITY_LAUNCHES = {"q_matmul": 3 * 8, "q_flash_attention": 2}  # 2 blocks, one forward a variant
+HARNESS_PROBE_TILES, HARNESS_PROBE_SPLITS = 4096, (("train", 2048), ("val", 1024), ("test", 1024))
+HARNESS_PROBE_ARGS = ["--batch_size", "512", "--train_iters", "1000", "--eval_interval", "500"]
+HARNESS_STAINS = {"eosin": (232, 150, 190), "hematoxylin": (110, 90, 170)}  # the probe's two classes, RGB
+HARNESS_PROBE_AUROC = 0.9  # a signal check on separable classes, not a quality claim
+HARNESS_PROBE_RTOL = 1e-4  # ||card - CPU|| / ||CPU|| of each final parameter
+HARNESS_WSI_PX = 4096
+HARNESS_PRETRAIN = dict(tile_epochs=2, slide_epochs=5, batch_size=16)
+MAE_STEP_DEPTH, MAE_STEP_TILES, MAE_STEP_LR = 2, 4, 1e-4
+MAE_STEP_TOL = 1e-4
 # the stream-fusion route with direct packs (GIGAPATH_STREAM_FUSION=1,
 # GIGAPATH_PACK_DIRECT=1): the flagship's three branches clamped to one
 # segment (r = 4, 8, 16) take the direct pack (q, k and v in one launch,
@@ -864,7 +911,7 @@ def phase_build():
     specs = _build.FLAGSHIP + _build.TILE_FLAGSHIP + _build.STREAM_FLAGSHIP + _build.FLASH_FLAGSHIP + tuple(
         (name, (("GP_HEAD_DIM", dh),)) for dh in OTHER_HEAD_DIMS
         for name in BRANCH_SOURCES + PIPE_KERNELS + FLASH_SOURCES + STREAM_KERNELS
-    )
+    ) + (("q_flash_attention", (("GP_HEAD_DIM", HARNESS_FIXTURE_DH),)),)
     t0 = time.perf_counter()
     _build.build_all(specs)
     seconds = time.perf_counter() - t0
@@ -3388,9 +3435,9 @@ def phase_dist():
         "clean": clean["wall_s"], "killed": killed["wall_s"], "stream": stream["wall_s"]}, nvidia_smi=smi)
 
 
-def _write_wsi(path: str, seed: int) -> None:
-    """A synthetic WSI_PX x WSI_PX RGB slide as PNG: a near-white background
-    and tissue-like dark blobs (a blurred random field thresholded at its
+def _write_wsi(path: str, seed: int, px: int = WSI_PX) -> None:
+    """A synthetic px x px RGB slide as PNG: a near-white background and
+    tissue-like dark blobs (a blurred random field thresholded at its
     median: about half the area) stained with a texture that varies over
     ~8 px, as cells do."""
     import numpy as np
@@ -3398,10 +3445,10 @@ def _write_wsi(path: str, seed: int) -> None:
 
     rng = np.random.default_rng(seed)
     field = Image.fromarray((rng.random((64, 64)) * 255).astype(np.uint8))
-    field = np.asarray(field.filter(ImageFilter.GaussianBlur(2)).resize((WSI_PX, WSI_PX), Image.BILINEAR))
+    field = np.asarray(field.filter(ImageFilter.GaussianBlur(2)).resize((px, px), Image.BILINEAR))
     tissue = field < np.median(field)
-    texture = Image.fromarray(rng.integers(60, 196, (WSI_PX // 8, WSI_PX // 8, 3), dtype=np.uint8))
-    stain = np.asarray(texture.resize((WSI_PX, WSI_PX), Image.BILINEAR)) // 2 + np.array([86, 16, 76], np.uint8)
+    texture = Image.fromarray(rng.integers(60, 196, (px // 8, px // 8, 3), dtype=np.uint8))
+    stain = np.asarray(texture.resize((px, px), Image.BILINEAR)) // 2 + np.array([86, 16, 76], np.uint8)
     img = np.where(tissue[..., None], stain, np.uint8(241))
     Image.fromarray(img).save(path, format="PNG", compress_level=1)
 
@@ -3661,6 +3708,337 @@ def phase_train_wsi():
              bit_equal=True, compared=["params", "opt_state", "rng", "step"])
     torch.cuda.empty_cache()
     emit("train_wsi", seconds=time.perf_counter() - t_phase, nvidia_smi=smi)
+
+
+def _smi() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def _harness_parity(tile_timing: dict, smi: str) -> None:
+    """parity_report on the committed fixture through rows 17 and 18, each
+    variant against its plain path, and the adopt_quant_tile row with the
+    card's forward ms of a 128-tile batch."""
+    import numpy as np
+    import torch
+
+    from gigapath_tpu_torch.quant import parity
+
+    t0 = time.perf_counter()
+    params, images, labels = parity.load_fixture()
+    reset_all_launch_counts()
+    report = parity.parity_report(params, images, labels, variants=HARNESS_VARIANTS)
+    counts = all_launch_counts()
+    report_s = time.perf_counter() - t0
+    want = dict.fromkeys(counts, 0)
+    want.update(HARNESS_PARITY_LAUNCHES)
+    check(counts == want, f"harness_parity: launches {counts} != {want}")
+
+    vs_plain = {}
+    for name in HARNESS_VARIANTS:
+        model = parity.build_variant(parity.FIXTURE_ARCH, quant="" if name == "bf16" else name)
+        emb = parity.encode(model, params, images)
+        with plain_tile_kernels():
+            ref = parity.encode(model, None, images)
+        worst = float((1.0 - _cosines(emb, ref)).max())
+        check(np.isfinite(emb).all() and worst <= TILE_MAX_ONE_MINUS_COS,
+              f"harness_parity: {name} 1 - cosine vs plain {worst} > {TILE_MAX_ONE_MINUS_COS}")
+        vs_plain[name] = {"max_one_minus_cos": worst, "max_abs_err": float(np.abs(emb - ref).max())}
+    for name in HARNESS_VARIANTS[1:]:
+        cosine = report["variants"][name]["cosine"]
+        check(cosine >= parity.COSINE_BAR, f"harness_parity: {name} cosine vs the fp32 oracle {cosine} "
+                                           f"< {parity.COSINE_BAR}")
+    timings = {"bf16": tile_timing["bf16"]["forward_ms_per_batch"] / 1e3,
+               "int8+attn": tile_timing["int8+attn"]["forward_ms_per_batch"] / 1e3}
+    decision = parity.decision_table(report, timings, candidate="int8+attn")
+    emit("harness_parity", fixture=os.path.relpath(parity.DEFAULT_FIXTURE, os.path.dirname(os.path.abspath(__file__))), arch=parity.FIXTURE_ARCH,
+         images=int(images.shape[0]), report=report, launches=counts, vs_plain=vs_plain,
+         tolerance=f"1 - cosine per image <= {TILE_MAX_ONE_MINUS_COS} vs plain; cosine vs the fp32 oracle "
+                   f">= {parity.COSINE_BAR} (gated); probe deltas against {parity.PROBE_DELTA_BAR_PT} pt "
+                   "printed, not gated",
+         adopt_quant_tile=decision,
+         timings_note=f"forward ms of one {TILE_BATCH}-tile batch of the flagship tile encoder from "
+                      "tile_forward in this run", report_s=report_s, nvidia_smi=smi)
+    torch.cuda.empty_cache()
+
+
+def _write_stain_tile(path: str, stain: str, seed: int) -> None:
+    """A 224 px tile of one stain: the stain's colour shifted per tile, a
+    texture varying over ~8 px, pixel noise."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    base = np.asarray(HARNESS_STAINS[stain], np.float64) + rng.normal(0, 12, 3)
+    texture = Image.fromarray(rng.integers(0, 256, (28, 28), dtype=np.uint8)).resize((224, 224), Image.BILINEAR)
+    arr = base + (np.asarray(texture, np.float64)[..., None] - 128.0) * 0.4 + rng.normal(0, 6, (224, 224, 3))
+    Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8)).save(path, compress_level=1)
+
+
+def _harness_probe(tmp: str, smi: str) -> None:
+    """The PCam linear probe at full width: int8+attn embeddings of 4096
+    synthetic tiles, a PCam-shaped zip, linear_probe.main on the card and
+    the same training on the CPU."""
+    import io
+    import zipfile
+
+    import numpy as np
+    import torch
+
+    from gigapath_tpu_torch.data.pcam import EmbeddingDataset
+    from gigapath_tpu_torch.linear_probe import main as probe
+    from gigapath_tpu_torch.pipeline import run_inference_with_tile_encoder
+    from gigapath_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    t_phase = time.perf_counter()
+    tile_dir = os.path.join(tmp, "probe_tiles")
+    os.makedirs(tile_dir)
+    stains = sorted(HARNESS_STAINS)
+    paths = [os.path.join(tile_dir, f"{224 * (i % 64):05d}x_{224 * (i // 64):05d}y.png")
+             for i in range(HARNESS_PROBE_TILES)]
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:  # PNG deflate drops the GIL
+        list(pool.map(lambda i: _write_stain_tile(paths[i], stains[i % 2], 1000 + i), range(len(paths))))
+    write_s = time.perf_counter() - t0
+
+    encoder = _tile_encoder("int8+attn")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launch_counts()
+    t0 = time.perf_counter()
+    embeds = run_inference_with_tile_encoder(paths, encoder)["tile_embeds"]
+    encode_s = time.perf_counter() - t0
+    counts = all_launch_counts()
+    encode_peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    batches = math.ceil(HARNESS_PROBE_TILES / TILE_BATCH)
+    want = dict.fromkeys(counts, 0)
+    want["q_matmul"], want["q_flash_attention"] = (batches * k for k in TILE_LAUNCHES["int8+attn"])
+    check(counts == want, f"harness_probe: encode launches {counts} != {want}")
+    check(embeds.shape == (HARNESS_PROBE_TILES, TILE_E) and np.isfinite(embeds).all(),
+          f"harness_probe: embeddings {embeds.shape}")
+    del encoder
+    torch.cuda.empty_cache()
+
+    zpath, csv = os.path.join(tmp, "pcam_embeds.zip"), os.path.join(tmp, "pcam.csv")
+    rows, start = ["input,label,split"], 0
+    with zipfile.ZipFile(zpath, "w") as z:
+        for split, n in HARNESS_PROBE_SPLITS:
+            for i in range(start, start + n):
+                buf = io.BytesIO()
+                torch.save(torch.from_numpy(embeds[i].copy()), buf)
+                z.writestr(f"embeds/{split}_{i}.pt", buf.getvalue())
+                rows.append(f"{split}_{i},{stains[i % 2]},{split}")
+            start += n
+    with open(csv, "w") as fh:
+        fh.write("\n".join(rows) + "\n")
+
+    out = os.path.join(tmp, "probe_card")
+    argv = ["--dataset_csv", csv, "--input_path", zpath, "--embed_dim", str(TILE_E), "--report_to", "jsonl",
+            *HARNESS_PROBE_ARGS]
+    t0 = time.perf_counter()
+    result = probe.main(argv + ["--output_dir", out])
+    main_s = time.perf_counter() - t0
+    events = _wsi_events(out)
+    evals = [e for e in events if e["kind"] == "eval"]
+    ends = [e for e in events if e["kind"] == "run_end"]
+    check(os.path.exists(os.path.join(out, "results.txt")), "harness_probe: no results.txt")
+    check(len(evals) == 2 and [e["status"] for e in ends] == ["ok"],
+          f"harness_probe: {len(evals)} eval events, run_end {[e.get('status') for e in ends]}")
+    check(result["test_auroc"] >= HARNESS_PROBE_AUROC,
+          f"harness_probe: test AUROC {result['test_auroc']} < {HARNESS_PROBE_AUROC}")
+    walls = [e["wall_s"] for e in events if e["kind"] == "step"]  # each spans 10 iterations
+
+    # the same training on the CPU from the same initial parameters
+    args = probe.build_argparser().parse_args(argv + ["--output_dir", os.path.join(tmp, "probe_cpu")])
+    datasets = [EmbeddingDataset(csv, zpath, split=split) for split, _ in HARNESS_PROBE_SPLITS]
+    t0 = time.perf_counter()
+    probe.train(probe.init_linear_probe(TILE_E, len(stains), args.seed), *datasets,
+                **{**vars(args), "device": "cpu"})
+    cpu_s = time.perf_counter() - t0
+    card = restore_checkpoint(os.path.join(out, "model.pt"))
+    cpu = restore_checkpoint(os.path.join(args.output_dir, "model.pt"))
+    rel = {k: float((card[k].double() - cpu[k].double()).norm() / cpu[k].double().norm()) for k in cpu}
+    check(max(rel.values()) <= HARNESS_PROBE_RTOL, f"harness_probe: final parameters vs the CPU run {rel}")
+    emit("harness_probe", tiles=HARNESS_PROBE_TILES, splits=dict(HARNESS_PROBE_SPLITS), tier="int8+attn",
+         encode_launches=counts, encode_s=encode_s, encode_tiles_per_s=HARNESS_PROBE_TILES / encode_s,
+         encode_peak_mem_gb=encode_peak_gb, write_tiles_s=write_s, args=HARNESS_PROBE_ARGS,
+         reduced="train_iters 12500 -> 1000 for the phase's time",
+         results=result, val_evals=[{k: e[k] for k in ("step", "f1", "auroc")} for e in evals],
+         ms_per_iteration=statistics.median(walls) / 10 * 1e3,
+         ms_per_iteration_note="the run log's 10-iteration walls (host batch assembly included) / 10, median",
+         main_s=main_s, cpu_train_s=cpu_s, vs_cpu_rel=rel, tolerance=f"||card - CPU|| / ||CPU|| <= "
+         f"{HARNESS_PROBE_RTOL} per final parameter; test AUROC >= {HARNESS_PROBE_AUROC}",
+         seconds=time.perf_counter() - t_phase, nvidia_smi=smi)
+
+
+def _mae_step_vs_cpu(tile_paths) -> dict:
+    """One stage-1 update (pretrain_gigapath.mae_step) of a MAE_STEP_DEPTH
+    block, full-width tile encoder with its MAE decoder, fp32 on the card
+    and on the CPU from the same weights, tiles and mask noise."""
+    import copy
+
+    import torch
+
+    from gigapath_tpu_torch.models.tile_encoder import create_tile_encoder
+    from gigapath_tpu_torch.pretrain import pretrain_gigapath as ppt
+
+    encoder = create_tile_encoder("", "gigapath_tile_enc", quant="", depth=MAE_STEP_DEPTH,
+                                  generator=torch.Generator(device="cuda").manual_seed(3))
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    with torch.no_grad():  # LayerScales at O(0.1-1), so both blocks matter
+        for block in encoder.blocks:
+            for ls in (block.ls1, block.ls2):
+                ls.gamma.uniform_(0.1, 1.0, generator=gen)
+    with torch.device("cuda"):
+        mae = ppt.MaskedAutoencoder(encoder)
+    mae.init_decoder(gen)
+    mae.train()
+    twin = copy.deepcopy(mae).cpu()
+    imgs = torch.from_numpy(ppt._load_tile_batch(tile_paths[:MAE_STEP_TILES], encoder.img_size))
+    noise = ppt.masking_noise(gen, MAE_STEP_TILES, encoder.img_size**2, "cuda")
+    runs = {}
+    for name, model, dev in (("card", mae, "cuda"), ("cpu", twin, "cpu")):
+        optimizer = ppt.make_adamw(model.parameters(), MAE_STEP_LR)
+        t0 = time.perf_counter()
+        loss = float(ppt.mae_step(model, optimizer, imgs.to(dev), noise.to(dev), MAE_STEP_LR))
+        seconds = time.perf_counter() - t0
+        runs[name] = (loss, {n: p.grad.detach().cpu().double() for n, p in model.named_parameters()},
+                      {n: p.detach().cpu().double() for n, p in model.named_parameters()}, seconds)
+    (loss_k, g_k, p_k, s_k), (loss_c, g_c, p_c, s_c) = runs["card"], runs["cpu"]
+    grad_rel = {n: float((g_k[n] - g).norm() / g.norm()) for n, g in g_c.items() if float(g.norm()) > 0}
+    # an element whose two gradients differ in sign lies within the fp32
+    # noise of its sum around 0, and one AdamW step moves it by +-lr on
+    # each side: those are counted, every other element is held to the
+    # tolerance
+    flips, beyond, worst, n_elems = 0, 0, 0.0, 0
+    for n, p in p_c.items():
+        diff = (p_k[n] - p).abs()
+        flip = torch.sign(g_k[n]) != torch.sign(g_c[n])
+        bad = (diff > MAE_STEP_TOL * (1.0 + p.abs())) & ~flip
+        flips += int(flip.sum())
+        beyond += int(bad.sum())
+        n_elems += p.numel()
+        worst = max(worst, float(diff[~flip].max()) if bool((~flip).any()) else 0.0)
+    out = {"depth": MAE_STEP_DEPTH, "tiles": MAE_STEP_TILES, "lr": MAE_STEP_LR, "params": n_elems,
+           "loss_card": loss_k, "loss_cpu": loss_c, "loss_rel": abs(loss_k - loss_c) / abs(loss_c),
+           "worst_grad_rel": max(grad_rel.values()), "worst_grad": max(grad_rel, key=grad_rel.get),
+           "param_max_abs_err": worst, "params_beyond_tol": beyond, "gradient_sign_flips": flips,
+           "card_s": s_k, "cpu_s": s_c,
+           "tolerance": f"loss and each gradient (norm) relative {MAE_STEP_TOL}; each parameter after the "
+                        f"update |card - cpu| <= {MAE_STEP_TOL} * (1 + |p|) where the gradients agree in sign"}
+    check(out["loss_rel"] <= MAE_STEP_TOL and out["worst_grad_rel"] <= MAE_STEP_TOL and beyond == 0,
+          f"harness_pretrain: the MAE step on the card differs from the CPU's: {out}")
+    return out
+
+
+def _harness_pretrain(tmp: str, smi: str) -> None:
+    """pretrain_gigapath.main at full width on two synthetic slides, the
+    best encoder's restore, and the 2-block MAE step against the CPU."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from gigapath_tpu_torch.pretrain import pretrain_gigapath as ppt
+
+    t_phase = time.perf_counter()
+    free_gb = shutil.disk_usage(tmp).free / 2**30
+    slides = [os.path.join(tmp, f"pre_{i}.png") for i in range(2)]
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        list(pool.map(lambda i: _write_wsi(slides[i], seed=60 + i, px=HARNESS_WSI_PX), range(2)))
+    write_s = time.perf_counter() - t0
+    out = os.path.join(tmp, "pretrain")
+    encoder = ppt._default_encoder(torch.device("cuda"), 0)
+    tile_dirs = [os.path.join(out, "output", os.path.basename(p)) for p in slides]
+
+    # time every checkpoint write; at each best stage-1 write, the live
+    # encoder's features on one fixed batch (the restore is checked
+    # against the last of them)
+    saves, live, fixed = [], {}, {}
+    real_save = ppt.save_checkpoint
+
+    def save(path, state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_save(path, state)
+        saves.append({"file": os.path.basename(path), "s": time.perf_counter() - t0,
+                      "bytes": os.path.getsize(path)})
+        if os.path.basename(path) == "best_tile_encoder.pt":
+            if "x" not in fixed:
+                first = sorted(glob.glob(os.path.join(tile_dirs[0], "*.png")))[:HARNESS_PRETRAIN["batch_size"]]
+                fixed["x"] = torch.from_numpy(ppt._load_tile_batch(first, encoder.img_size)).cuda()
+            with torch.inference_mode():
+                live["features"] = encoder(fixed["x"]).float().cpu()
+
+    tile_s = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launch_counts()
+    ppt.save_checkpoint = save
+    try:
+        from gigapath_tpu_torch import pipeline
+
+        with _timed_calls(pipeline, "tile_one_slide", tile_s):
+            t0 = time.perf_counter()
+            best_tile, best_slide = ppt.main(slides, out, encoder=encoder, tile_size=WSI_TILE, **HARNESS_PRETRAIN)
+            main_s = time.perf_counter() - t0
+    finally:
+        ppt.save_checkpoint = real_save
+    counts = all_launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+
+    tiles = {os.path.basename(d): len(glob.glob(os.path.join(d, "*.png"))) for d in tile_dirs}
+    stage1 = [e for e in _wsi_events(os.path.join(out, "tile_pretrain")) if e["kind"] == "step"]
+    stage2 = [e for e in _wsi_events(os.path.join(out, "slide_pretrain")) if e["kind"] == "step"]
+    n_tiles = sum(tiles.values())
+    steps_per_epoch = max(n_tiles // HARNESS_PRETRAIN["batch_size"], 1)
+    check(len(stage1) == HARNESS_PRETRAIN["tile_epochs"] * steps_per_epoch
+          and all(math.isfinite(e["loss"]) for e in stage1), f"harness_pretrain: stage-1 steps {stage1[:3]}...")
+    check(len(stage2) == HARNESS_PRETRAIN["slide_epochs"] and all(math.isfinite(e["loss"]) for e in stage2),
+          f"harness_pretrain: stage-2 losses {[e['loss'] for e in stage2]}")
+    with torch.inference_mode():
+        restored = encoder(fixed["x"]).float().cpu()
+    check(torch.equal(restored, live["features"]),
+          "harness_pretrain: the restored best encoder's features differ from the live encoder's at its save")
+    best = torch.load(best_tile, map_location="cpu", weights_only=True)
+    best_epoch, best_loss = best["epoch"], best["loss"]
+    del best
+    slide_best = torch.load(best_slide, map_location="cpu", weights_only=True)["loss"]
+    del encoder
+    torch.cuda.empty_cache()
+
+    paths = sorted(glob.glob(os.path.join(tile_dirs[0], "*.png")))
+    mae_check = _mae_step_vs_cpu(paths)
+    walls = [e["wall_s"] for e in stage1]
+    emit("harness_pretrain", slides=len(slides), slide_px=HARNESS_WSI_PX, tile_px=WSI_TILE, tiles=tiles,
+         arch="gigapath_tile_enc", compute="bf16, fp32 master weights", **HARNESS_PRETRAIN,
+         reduced="batch 64 -> 16 (ViT-G's saved activations and AdamW state), epochs 100/50 -> 2/5, "
+                 "two 4096 px slides",
+         stage1_steps=len(stage1), stage1_losses=[e["loss"] for e in stage1],
+         mae_step_ms_median=statistics.median(walls) * 1e3, mae_step_ms_first=walls[0] * 1e3,
+         tiles_per_s=HARNESS_PRETRAIN["batch_size"] / statistics.median(walls), peak_mem_gb=peak_gb,
+         checkpoints=saves, best_tile={"epoch": best_epoch, "loss": best_loss},
+         stage2_loss_per_epoch=[e["loss"] for e in stage2], best_slide_loss=slide_best,
+         restored_features_bit_equal=True, launches=counts, mae_step_vs_cpu=mae_check,
+         tiling_s=tile_s, write_slides_s=write_s, main_s=main_s, disk_free_gb_at_start=free_gb,
+         seconds=time.perf_counter() - t_phase, nvidia_smi=smi)
+
+
+def phase_harness(tile_timing: dict) -> None:
+    """The harness entries (14e): the quantized tier's parity harness, the
+    PCam linear probe and the two-stage pretraining driver; the temporary
+    directory (the ~5 GB stage-1 checkpoints among it) goes at the end."""
+    import torch
+
+    t_phase = time.perf_counter()
+    smi = _smi()
+    _harness_parity(tile_timing, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        _harness_probe(tmp, smi)
+        _harness_pretrain(tmp, smi)
+    torch.cuda.empty_cache()
+    emit("harness", seconds=time.perf_counter() - t_phase, nvidia_smi=smi)
 
 
 def _serve_memory_released(reserved_start: int) -> None:
@@ -5712,7 +6090,7 @@ def main() -> int:
     launches, _ = phase_finetune_step()
     summary.update(phase_q_kernels())
     with tempfile.TemporaryDirectory() as tile_dir:
-        tile_launches, _, (tile_embeds, coords) = phase_tile_forward(tile_dir)
+        tile_launches, tile_timing, (tile_embeds, coords) = phase_tile_forward(tile_dir)
     launches.update({name: tile_launches["int8+attn"][name] for name in ("q_matmul", "q_flash_attention")})
     phase_two_stage(tile_embeds, coords)
     summary.update(phase_stream_kernels())
@@ -5721,6 +6099,7 @@ def main() -> int:
     phase_serve()
     phase_dist()
     phase_train_wsi()
+    phase_harness(tile_timing)
     launches["stream_pair_fwd"] = stream["launches"]["stream_pair_fwd"]
     launches.update({name: stream["backward"][name] for name in ("stream_pair_bwd_dq", "stream_pair_bwd_dkv")})
     summary.update(phase_fusion_kernels()["bfloat16"])

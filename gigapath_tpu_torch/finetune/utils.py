@@ -162,6 +162,25 @@ def make_lr_scheduler(
     )
 
 
+def cosine_decay_schedule(init_value: float, decay_steps: int, alpha: float = 0.0) -> Callable[[int], float]:
+    """``optax.cosine_decay_schedule``: the learning rate of update ``t``
+    (counted from 0), ``init_value * ((1 - alpha) * (1 + cos(pi * min(t, T)
+    / T)) / 2 + alpha)``. The linear probe and the pretraining driver set it
+    on the optimizer before each step (:func:`set_lr`)."""
+
+    def schedule(step: int) -> float:
+        count = min(step, decay_steps)
+        cosine = 0.5 * (1.0 + math.cos(math.pi * count / decay_steps))
+        return init_value * ((1.0 - alpha) * cosine + alpha)
+
+    return schedule
+
+
+def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+
+
 class MultiSteps:
     """Gradient accumulation over ``gc`` micro-steps (counterpart of
     ``optax.MultiSteps``). Call :meth:`step` after each micro-step's

@@ -9,4 +9,9 @@
   (``csrc/q_flash_attention.cu`` on the card), the ``+attn`` rider.
 - :mod:`.convert`: the on-disk quantized artifact, the same format as the
   JAX package's, so an artifact written by either loads in the other.
+- :mod:`.parity`: the drift-vs-oracle harness behind the
+  ``adopt_quant_tile`` decision row (``parity_report``, ``decision_table``).
 """
+
+from gigapath_tpu_torch.quant import parity  # noqa: F401
+

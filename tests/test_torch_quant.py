@@ -437,3 +437,128 @@ def test_quant_dense_param_surface_is_nn_linear():
     lin = pqmatmul.QuantLinear(16, 8, "fp8")
     assert {k: tuple(v.shape) for k, v in lin.state_dict().items()} == {
         k: tuple(v.shape) for k, v in state_dict_from_flax_params(q).items()}
+
+
+# ---------------------------------------------------------------------------
+# the parity harness
+# ---------------------------------------------------------------------------
+
+from gigapath_tpu_torch.quant import parity as pparity  # noqa: E402
+
+# build_variant's arguments for each variant (the fp32 oracle first)
+VARIANTS = {"oracle": dict(dtype_name="float32"), "bf16": dict(), "int8": dict(quant="int8"),
+            "fp8_e4m3": dict(quant="fp8_e4m3"), "int8+attn": dict(quant="int8+attn")}
+
+
+@pytest.fixture
+def one_thread():
+    """Intra-op threads at 1 for the probe's 400 small steps (a few ms of
+    work each, which threads only slow down on a shared host)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def fixture_labels():
+    params, images, labels = pparity.load_fixture()
+    ref_params, ref_images, ref_labels = jparity.load_fixture()
+    np.testing.assert_array_equal(images, ref_images)
+    np.testing.assert_array_equal(labels, ref_labels)
+    assert dict(_flat(params)).keys() == dict(_flat(ref_params)).keys()
+    return params, images, labels
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_parity_encode_matches_jax(fixture_labels, variant):
+    """Each variant's embeddings of 128 fixture images against the JAX
+    variant's: the fp32 oracle 1e-5 (as the artifact test above), the bf16
+    compute variants at the bf16 QuantLinear tolerance above."""
+    params, images, _ = fixture_labels
+    kw = VARIANTS[variant]
+    ref = jparity.encode(jparity.build_variant(pparity.FIXTURE_ARCH, **kw), params, images[:128])
+    ours = pparity.encode(pparity.build_variant(pparity.FIXTURE_ARCH, device="cpu", **kw), params, images[:128])
+    assert ours.dtype == np.float32 and ours.shape == ref.shape == (128, 32)
+    tol = dict(atol=1e-5, rtol=1e-5) if variant == "oracle" else dict(atol=1e-2, rtol=8e-3)
+    np.testing.assert_allclose(ours, ref, **tol)
+
+
+def test_mean_cosine_matches_jax():
+    rng = np.random.default_rng(8)
+    a, b = rng.normal(size=(50, 32)).astype(np.float32), rng.normal(size=(50, 32)).astype(np.float32)
+    b[3] = 0.0  # a zero row: the 1e-12 floor
+    for x, y in ((a, b), (a, a + 1e-3 * b)):
+        assert abs(pparity.mean_cosine(x, y) - jparity.mean_cosine(x, y)) <= 1e-7
+
+
+def test_fit_probe_matches_jax(fixture_labels, one_thread):
+    """The probe on identical embeddings (the port's fp32 oracle's) from
+    JAX's initial parameters: accuracy equal to JAX's ``fit_probe``, the
+    final parameters 1e-5 of its optax loop."""
+    import optax
+
+    from gigapath_tpu.linear_probe.main import init_linear_probe as jinit
+
+    params, images, labels = fixture_labels
+    embeds = pparity.encode(pparity.build_variant(pparity.FIXTURE_ARCH, dtype_name="float32", device="cpu"),
+                            params, images)
+    init = jinit(32, 2, 42)
+    acc, state = pparity.fit_probe(embeds, labels, params=state_dict_from_flax_params(init), device="cpu",
+                                   return_params=True)
+    assert acc == jparity.fit_probe(embeds, labels)
+
+    train = np.arange(len(labels)) % 4 < 2
+    tx = optax.sgd(0.02)
+
+    @jax.jit
+    def fit(p):
+        x, y = jnp.asarray(embeds[train]), jnp.asarray(labels[train])
+
+        def body(_, carry):
+            p, s = carry
+            grads = jax.grad(lambda q: optax.softmax_cross_entropy_with_integer_labels(
+                x @ q["kernel"] + q["bias"], y).mean())(p)
+            updates, s = tx.update(grads, s, p)
+            return optax.apply_updates(p, updates), s
+
+        return jax.lax.fori_loop(0, 400, body, (p, tx.init(p)))[0]
+
+    want = state_dict_from_flax_params(fit(init))
+    for key in ("weight", "bias"):
+        np.testing.assert_allclose(state[key].numpy(), want[key].numpy(), atol=1e-5, rtol=1e-5)
+
+
+def test_parity_report_on_the_cpu(fixture_labels, one_thread):
+    params, images, labels = fixture_labels
+    report = pparity.parity_report(params, images, labels, variants=("int8",), device="cpu")
+    row = report["variants"]["int8"]
+    assert set(row) == {"cosine", "probe_acc", "probe_delta_pt"}
+    assert row["cosine"] >= pparity.COSINE_BAR
+    assert abs(row["probe_delta_pt"] - (row["probe_acc"] - report["oracle"]["probe_acc"]) * 100.0) < 0.01
+
+
+# JAX's parity_report on the CPU for bf16, int8 and int8+attn (its
+# numbers on the committed fixture), plus one made-up fp8_e4m3 row that
+# passes both parity bars, so the speed gate decides; each row goes
+# through the three timing cases of tests/test_quant.py
+JAX_REPORT = {"oracle": {"probe_acc": 0.99609375}, "variants": {
+    "bf16": {"cosine": 0.999992, "probe_acc": 0.9727, "probe_delta_pt": -2.344},
+    "int8": {"cosine": 0.999992, "probe_acc": 0.9688, "probe_delta_pt": -2.734},
+    "int8+attn": {"cosine": 0.999992, "probe_acc": 0.9688, "probe_delta_pt": -2.734},
+    "fp8_e4m3": {"cosine": 0.9995, "probe_acc": 0.9961, "probe_delta_pt": 0.0}}}
+
+
+@pytest.mark.parametrize("candidate", ["int8", "int8+attn", "fp8_e4m3", "absent"])
+def test_decision_table_matches_jax(candidate):
+    for timings in (None, {"bf16": 0.010, candidate: 0.008}, {"bf16": 0.010, candidate: 0.011}):
+        assert pparity.decision_table(JAX_REPORT, timings, candidate=candidate) == \
+            jparity.decision_table(JAX_REPORT, timings, candidate=candidate)
+    fast = pparity.decision_table(JAX_REPORT, {"bf16": 0.010, "fp8_e4m3": 0.008}, candidate="fp8_e4m3")
+    assert fast["adopt_quant_tile"] is True and fast["speedup_ok"] is True
+
+
+def test_parity_constants_match_jax():
+    for name in ("FIXTURE_ARCH", "COSINE_BAR", "PROBE_DELTA_BAR_PT", "SPEEDUP_BAR"):
+        assert getattr(pparity, name) == getattr(jparity, name), name
+    assert os.path.samefile(pparity.DEFAULT_FIXTURE, jparity.DEFAULT_FIXTURE)

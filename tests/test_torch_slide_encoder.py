@@ -166,8 +166,8 @@ def test_create_model_without_device_raises_without_cuda(monkeypatch):
 
 def test_port_imports_nothing_of_jax():
     """Importing every port module (the fine-tuning, tile, streaming,
-    head-major, serving, obs, tiling and whole-slide training paths'
-    included) leaves
+    head-major, serving, obs, tiling, whole-slide training, linear-probe,
+    parity and pretraining paths' included) leaves
     jax, flax, optax, sklearn and gigapath_tpu (the exact name, or the
     gigapath_tpu. prefix) out of sys.modules, and pandas, yaml and h5py too:
     the port imports those only inside the functions that read files."""
@@ -203,6 +203,8 @@ def test_port_imports_nothing_of_jax():
         "need |= {'gigapath_tpu_torch.data.' + m for m in ('box_utils', 'tiling', 'slide_utils')}\n"
         "need |= {'gigapath_tpu_torch.preprocessing', 'gigapath_tpu_torch.preprocessing.foreground_segmentation',"
         " 'gigapath_tpu_torch.preprocessing.create_tiles_dataset'}\n"
+        "need |= {'gigapath_tpu_torch.data.pcam', 'gigapath_tpu_torch.linear_probe', 'gigapath_tpu_torch.linear_probe.main',"
+        " 'gigapath_tpu_torch.quant.parity', 'gigapath_tpu_torch.pretrain', 'gigapath_tpu_torch.pretrain.pretrain_gigapath'}\n"
         "assert need <= set(names), sorted(need - set(names))\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n"
