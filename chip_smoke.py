@@ -359,6 +359,27 @@ stdout:
     GIGAPATH_PIPELINED_BWD=1``: fp32 gradients against the serial route,
     the exact launches of one bf16 step (60/55/55 pipelined, 0 serial), ms
     per step and peak memory beside the serial step.
+26. seq_parallel: sequence parallelism, ``SEQ_WORLD`` = 4 rank processes
+    sharing ``cuda:0`` over a gloo group (NCCL refuses two ranks on one
+    device; every collective crosses the host), spawned after the build so
+    that no rank builds a kernel, their seq group the ``seq`` dim of a
+    ``parallel.mesh.make_mesh`` mesh. (a) one layer's op in fp32 at H = 16,
+    Dh = 48, L = 16384, ``[1024, 4096, 8192, 16384] / [1, 2, 4, 8]``,
+    gathered and ringed, against the single-device op on the card (rel <=
+    1e-5 forward, <= 1e-4 gradients); (c) one flagship-width layer's bf16
+    gradients at L = 32768, every parameter's gradient summed over the ranks
+    against the single-device layer's and the ring's against the gather's (1
+    - cosine <= 5e-4); (b) the flagship-width encoder
+    ``LongNet_12_layers_768_dim`` in bf16 at L = 131072 (32768 a rank),
+    ``[1024, 32768, 65536, 131072] / [1, 2, 4, 8]`` (the JAX package's
+    power-of-two recipe: the flagship schedule cannot be sharded), gathered
+    and ringed, dense and with 100000 valid tokens, each rank's slice
+    against the single-device forward of the same weights (1 - cosine <=
+    5e-4); (d) every rank's exact launches of rows 1-3, 7, 11 and 12 on
+    each route (``_seq_launches``); (e) per-rank host ms and device busy of
+    the encoder forward, gathered and ringed, beside the single-device
+    forward, labelled as time-shared. A failed rank fails the phase, and
+    every rank still running is killed.
 
 ``default_route_times`` (not part of the run) times the default route's
 bf16 forward per slide and bf16 step alone (or, with ``dilated_ratio``,
@@ -6067,6 +6088,369 @@ def sass_digests(names=FWD_MMA_SOURCES + FLASH_SOURCES[1:] + BWD_MMA_SOURCES + S
     emit("sass_digests", libraries=libraries)
 
 
+# ---------------------------------------------------------------------------
+# 26. seq_parallel
+# ---------------------------------------------------------------------------
+
+SEQ_WORLD = 4
+SEQ_LABEL = "4 ranks time-sharing one H100, collectives through gloo on the host"
+# (a) one layer's op in fp32 at the flagship's heads
+SEQ_OP_L = 16384
+SEQ_OP_SCHEDULE = ([1024, 4096, 8192, 16384], [1, 2, 4, 8])
+# (b) the flagship-width encoder in bf16, on the power-of-two schedule of
+# the JAX package's recipe ([1024, 32768, 2 * local, n], scripts/
+# long_context_smoke.py:run_sharded): the flagship's own schedule cannot be
+# sharded (185363 and 5792 divide into no shard length)
+SEQ_ENCODER_ARCH = "LongNet_12_layers_768_dim"
+SEQ_ENCODER_L = 131072
+SEQ_ENCODER_SCHEDULE = ([1024, 32768, 65536, 131072], [1, 2, 4, 8])
+SEQ_ENCODER_VALID = 100000  # the ragged cut falls inside rank 3
+SEQ_ENCODER_RUNS = tuple((mask, route) for mask in ("dense", "ragged") for route in ("gather", "ring"))
+# (c) one flagship-width layer's gradients in bf16; the ring backward is
+# plain torch, whose fp32 probabilities grow with the square of the local
+# chunk
+SEQ_GRAD_ARCH = "LongNet_1_layers_768_dim"
+SEQ_GRAD_L = 32768
+SEQ_GRAD_SCHEDULE = ([1024, 8192, 16384, 32768], [1, 2, 4, 8])
+# the sharded op against the single-device op: fp32 max |err| / max |ref|,
+# the JAX package's tier (forward 1e-5, gradients 1e-4); bf16 1 - cosine of
+# each rank's output slice and of each parameter's summed gradient
+SEQ_FWD_REL_TOL, SEQ_GRAD_REL_TOL = 1e-5, 1e-4
+SEQ_BF16_MAX_ONE_MINUS_COS = 5e-4
+SEQ_TIMED_REPS = 2
+SEQ_RANK_TIMEOUT_S = 600
+SEQ_COUNTED = ("pack_phases", "dilated_branch_fwd", "unpack_phases", "dilated_branch_bwd_dq",
+               "dilated_branch_bwd_dkv", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def _seq_launches(schedule, L: int, layers: int, ring: bool, backward: bool) -> dict:
+    """Exact kernel launches of one rank's sharded call over ``layers``
+    layers: a branch inside the shard runs rows 1-3 (q, k, v packed, out
+    unpacked; the backward packs dout, q, k, v, runs row 7's dq and dkv
+    and unpacks dq, dk, dv); a sharded branch runs row 11 once gathered,
+    once per ring step ringed, and row 12's dq and dkv in a gathered
+    backward (the ring's backward is plain torch). Every other kernel 0."""
+    from gigapath_tpu_torch.ops import all_launch_counts
+
+    sls, _ = schedule
+    fused = sum(1 for sl in sls if sl <= L)
+    rps = [sl // L for sl in sls if sl > L]
+    n = dict.fromkeys(all_launch_counts(), 0)
+    n.update(pack_phases=3 * fused, dilated_branch_fwd=fused, unpack_phases=fused,
+             flash_fwd=sum(rps) if ring else len(rps))
+    if backward:
+        n.update(pack_phases=7 * fused, unpack_phases=4 * fused, dilated_branch_bwd_dq=fused,
+                 dilated_branch_bwd_dkv=fused)
+        if not ring:
+            n.update(flash_bwd_dq=len(rps), flash_bwd_dkv=len(rps))
+    return {k: v * layers for k, v in n.items()}
+
+
+def _seq_counts() -> dict:
+    import torch
+
+    from gigapath_tpu_torch.ops import all_launch_counts
+
+    torch.cuda.synchronize()
+    return dict(all_launch_counts())
+
+
+def _seq_ring_env(ring: bool):
+    return env_flags({"GIGAPATH_RING_ATTN": "1" if ring else "0"})
+
+
+def _seq_op(rank: int, group) -> dict:
+    """(a) One layer's op in fp32, gathered and ringed, against the
+    single-device op on the card (every rank computes it and holds its own
+    slice), forward and the gradients of a seeded cotangent."""
+    import torch
+
+    from gigapath_tpu_torch.ops import reset_all_launch_counts
+    from gigapath_tpu_torch.ops.dilated_attention import dilated_attention
+    from gigapath_tpu_torch.ops.dilated_kernels import PipelineFlags
+
+    sls, drs = SEQ_OP_SCHEDULE
+    loc = SEQ_OP_L // SEQ_WORLD
+    mine = slice(rank * loc, (rank + 1) * loc)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, do = (torch.randn(1, SEQ_OP_L, H, E // H, generator=gen, device="cuda") for _ in range(4))
+    full = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    ref = dilated_attention(*full, sls, drs, flags=PipelineFlags())
+    ref.backward(do)
+    out = {}
+    for route, ring in (("gather", False), ("ring", True)):
+        local = [x[:, mine].clone().requires_grad_(True) for x in (q, k, v)]
+        reset_all_launch_counts()
+        o = dilated_attention(*local, sls, drs, flags=PipelineFlags(ring_attn=ring), seq_group=group)
+        o.backward(do[:, mine])
+        launches = _seq_counts()
+        want = _seq_launches(SEQ_OP_SCHEDULE, loc, 1, ring, backward=True)
+        check(launches == want, f"seq op {route} rank {rank}: launches {launches} != {want}")
+        fwd = _grad_rel_err(o.detach(), ref.detach()[:, mine])
+        grads = {g: _grad_rel_err(x.grad, f.grad[:, mine]) for g, x, f in zip(("dq", "dk", "dv"), local, full)}
+        check(fwd <= SEQ_FWD_REL_TOL, f"seq op {route} rank {rank}: forward rel {fwd} > {SEQ_FWD_REL_TOL}")
+        for g, err in grads.items():
+            check(err <= SEQ_GRAD_REL_TOL, f"seq op {route} rank {rank}: {g} rel {err} > {SEQ_GRAD_REL_TOL}")
+        out[route] = {"fwd_rel": fwd, "grad_rel": grads,
+                      "launches": {name: launches[name] for name in SEQ_COUNTED}}
+    return out
+
+
+def _seq_model(arch: str, schedule, group):
+    """The LongNet encoder at ``arch``'s width in bf16 on the card, its
+    weights from torch's seed 0 (the same on every rank); sequence-parallel
+    over ``group`` unless it is None."""
+    import torch
+
+    from gigapath_tpu_torch.models.longnet import make_longnet_from_name
+
+    sls, drs = schedule
+    torch.manual_seed(0)
+    model, _ = make_longnet_from_name(arch, dilated_ratio=drs, segment_length=sls, drop_path_rate=0.0,
+                                      dropout=0.0, seq_parallel=group is not None, seq_group=group)
+    return model.to("cuda", torch.bfloat16).eval()
+
+
+def _seq_grads(rank: int, group) -> dict:
+    """(c) One flagship-width layer in bf16: every parameter's gradient,
+    summed over the ranks (in fp32), against the single-device layer's
+    (rank 0), gathered and ringed, and the ring's against the gather's, by
+    1 - cosine; a gradient under 1e-2 of the largest counts as held (the
+    rule of ``_worst_grad_err``) and is listed."""
+    import torch
+    import torch.distributed as dist
+
+    from gigapath_tpu_torch.ops import reset_all_launch_counts
+
+    loc = SEQ_GRAD_L // SEQ_WORLD
+    mine = slice(rank * loc, (rank + 1) * loc)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x, dy = (torch.randn(1, SEQ_GRAD_L, E, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(2))
+    model = _seq_model(SEQ_GRAD_ARCH, SEQ_GRAD_SCHEDULE, group)
+    names = [n for n, _ in model.named_parameters()]
+    single = None
+    if rank == 0:
+        ref = _seq_model(SEQ_GRAD_ARCH, SEQ_GRAD_SCHEDULE, None)
+        ref.load_state_dict(model.state_dict())
+        ref(x)["encoder_out"].backward(dy)
+        single = {n: p.grad.float() for n, p in ref.named_parameters()}
+        del ref
+    summed, out = {}, {}
+    for route, ring in (("gather", False), ("ring", True)):
+        model.zero_grad(set_to_none=True)
+        reset_all_launch_counts()
+        with _seq_ring_env(ring):
+            model(x[:, mine])["encoder_out"].backward(dy[:, mine])
+        launches = _seq_counts()
+        want = _seq_launches(SEQ_GRAD_SCHEDULE, loc, 1, ring, backward=True)
+        check(launches == want, f"seq grads {route} rank {rank}: launches {launches} != {want}")
+        params = dict(model.named_parameters())
+        flat = torch.cat([params[n].grad.float().reshape(-1) for n in names])
+        dist.all_reduce(flat, group=group)
+        summed[route] = dict(zip(names, flat.split([params[n].numel() for n in names])))
+        out[route] = {"launches": {name: launches[name] for name in SEQ_COUNTED}}
+    if rank == 0:
+        # as _worst_grad_err: a gradient under 1e-2 of the largest has no
+        # direction to hold (k_proj.bias's is 0 up to rounding: a constant
+        # shift of a softmax row's logits)
+        floor = 1e-2 * max(float(g.abs().max()) for g in single.values())
+        held = [n for n in names if float(single[n].abs().max()) > floor]
+        for route in ("gather", "ring"):
+            errs = {n: _one_minus_cos(summed[route][n], single[n]) for n in held}
+            worst = max(errs, key=errs.get)
+            check(errs[worst] <= SEQ_BF16_MAX_ONE_MINUS_COS,
+                  f"seq grads {route}: {worst} 1 - cos {errs[worst]} > {SEQ_BF16_MAX_ONE_MINUS_COS}")
+            out[route].update(worst_param=worst, worst_one_minus_cos=errs[worst], n_held=len(errs),
+                              under_floor=sorted(set(names) - set(held)))
+        ring_vs_gather = max(_one_minus_cos(summed["ring"][n], summed["gather"][n]) for n in held)
+        check(ring_vs_gather <= SEQ_BF16_MAX_ONE_MINUS_COS,
+              f"seq grads ring vs gather 1 - cos {ring_vs_gather} > {SEQ_BF16_MAX_ONE_MINUS_COS}")
+        out["ring_vs_gather_worst_one_minus_cos"] = ring_vs_gather
+    return out
+
+
+def _seq_forward_ms(fn, group) -> list:
+    """Host ms of ``SEQ_TIMED_REPS`` calls of ``fn()``, each started
+    together on every rank (a barrier) and ended by a synchronize."""
+    import torch
+    import torch.distributed as dist
+
+    times = []
+    for _ in range(SEQ_TIMED_REPS):
+        torch.cuda.synchronize()
+        if group is not None:
+            dist.barrier(group=group)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def _seq_encoder(rank: int, group) -> dict:
+    """(b) The flagship-width encoder in bf16, dense and with
+    ``SEQ_ENCODER_VALID`` valid tokens, gathered and ringed: every rank's
+    output slice against the single-device forward of the same weights
+    (rank 0), the exact launches, and (e) the timings."""
+    import torch
+    import torch.distributed as dist
+
+    from gigapath_tpu_torch.ops import reset_all_launch_counts
+
+    loc = SEQ_ENCODER_L // SEQ_WORLD
+    mine = slice(rank * loc, (rank + 1) * loc)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn(1, SEQ_ENCODER_L, E, generator=gen, device="cuda").to(torch.bfloat16)
+    pad = torch.zeros(1, SEQ_ENCODER_L, dtype=torch.bool, device="cuda")
+    pad[:, SEQ_ENCODER_VALID:] = True
+    model = _seq_model(SEQ_ENCODER_ARCH, SEQ_ENCODER_SCHEDULE, group)
+    single, timing = {}, {}
+    if rank == 0:
+        ref = _seq_model(SEQ_ENCODER_ARCH, SEQ_ENCODER_SCHEDULE, None)
+        ref.load_state_dict(model.state_dict())
+        with torch.no_grad():
+            for mask in ("dense", "ragged"):
+                single[mask] = ref(x, encoder_padding_mask=pad if mask == "ragged" else None)["encoder_out"]
+    out = {}
+    for mask, route in SEQ_ENCODER_RUNS:
+        ring = route == "ring"
+        reset_all_launch_counts()
+        with torch.no_grad(), _seq_ring_env(ring):
+            o = model(x[:, mine], encoder_padding_mask=pad[:, mine] if mask == "ragged" else None)["encoder_out"]
+        launches = _seq_counts()
+        want = _seq_launches(SEQ_ENCODER_SCHEDULE, loc, len(model.layers), ring, backward=False)
+        check(launches == want, f"seq encoder {mask} {route} rank {rank}: launches {launches} != {want}")
+        check(bool(torch.isfinite(o).all()), f"seq encoder {mask} {route} rank {rank}: non-finite output")
+        parts = [torch.empty_like(o) for _ in range(SEQ_WORLD)]
+        dist.all_gather(parts, o.contiguous(), group=group)
+        entry = {"launches": {name: launches[name] for name in SEQ_COUNTED}}
+        if rank == 0:
+            ref_slices = single[mask].split(loc, dim=1)
+            entry["rank_one_minus_cos"] = [_one_minus_cos(p, r) for p, r in zip(parts, ref_slices)]
+            worst = max(entry["rank_one_minus_cos"])
+            check(worst <= SEQ_BF16_MAX_ONE_MINUS_COS,
+                  f"seq encoder {mask} {route}: 1 - cos {worst} > {SEQ_BF16_MAX_ONE_MINUS_COS}")
+        out[f"{mask}_{route}"] = entry
+        del o, parts
+    for route, ring in (("gather", False), ("ring", True)):
+        def forward(ring=ring):
+            with torch.no_grad(), _seq_ring_env(ring):
+                model(x[:, mine])["encoder_out"]
+
+        timing[route] = {"host_ms": _seq_forward_ms(forward, group)}
+        dist.barrier(group=group)
+        timing[route].update(_profile(forward, top=4))
+    dist.barrier(group=group)
+    if rank == 0:
+        def single_forward():
+            with torch.no_grad():
+                ref(x)["encoder_out"]
+
+        timing["single_device"] = {"host_ms": _seq_forward_ms(single_forward, None)}
+        timing["single_device"].update(_profile(single_forward, top=4))
+        del ref, single
+    dist.barrier(group=group)
+    out["timing"] = timing
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def _seq_rank(rank: int, workdir: str) -> None:
+    """One rank of ``phase_seq_parallel`` (a spawned process on ``cuda:0``):
+    a gloo group over a ``FileStore`` in ``workdir``, the ``seq`` dim of a
+    one-dim mesh, then (a), (c) and (b) with (e); its results go to
+    ``rank{rank}.json``, a traceback to ``rank{rank}.err``."""
+    import datetime
+    import traceback
+
+    try:
+        import torch
+        import torch.distributed as dist
+
+        from gigapath_tpu_torch.parallel.mesh import make_mesh
+
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group("gloo", store=dist.FileStore(os.path.join(workdir, "store"), SEQ_WORLD),
+                                rank=rank, world_size=SEQ_WORLD,
+                                timeout=datetime.timedelta(seconds=SEQ_RANK_TIMEOUT_S))
+        group = make_mesh(axis_sizes={"seq": SEQ_WORLD}).get_group("seq")
+        out = {"backend": dist.get_backend(group), "op": _seq_op(rank, group)}
+        out["grads"] = _seq_grads(rank, group)
+        out["encoder"] = _seq_encoder(rank, group)
+        with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(workdir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def _seq_wait(procs, workdir: str) -> None:
+    """Wait for every rank; the first that fails (or the deadline) ends
+    the wait with its traceback, and every rank still running is killed."""
+    deadline = time.monotonic() + SEQ_RANK_TIMEOUT_S
+    try:
+        while any(p.is_alive() for p in procs):
+            failed = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0)]
+            check(not failed and time.monotonic() < deadline,
+                  f"seq_parallel: rank(s) {failed or 'timed out'} failed:\n"
+                  + "\n".join(open(os.path.join(workdir, f"rank{r}.err")).read()
+                              for r in range(len(procs)) if os.path.exists(os.path.join(workdir, f"rank{r}.err"))))
+            time.sleep(0.2)
+        failed = [r for r, p in enumerate(procs) if p.exitcode != 0]
+        check(not failed, f"seq_parallel: rank(s) {failed} exited non-zero")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+
+
+def phase_seq_parallel() -> None:
+    """Sequence parallelism (26): SEQ_WORLD rank processes on ``cuda:0``
+    over a gloo group (NCCL refuses two ranks on one device), spawned after
+    the build phase so that no rank builds a kernel. (a) one layer's op in
+    fp32 and (c) one layer's bf16 gradients against the single-device op
+    and layer, (b) the flagship-width encoder in bf16 against its
+    single-device forward, (d) every rank's exact launches on each route,
+    (e) the timings, labelled ``SEQ_LABEL``."""
+    import torch
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    smi = _smi()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="seq_parallel_") as work:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_seq_rank, args=(r, work)) for r in range(SEQ_WORLD)]
+        for p in procs:
+            p.start()
+        _seq_wait(procs, work)
+        ranks = []
+        for r in range(SEQ_WORLD):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    check(all(r["backend"] == "gloo" for r in ranks), "seq_parallel: the seq group is not gloo")
+    emit("seq_parallel_op", dtype="float32", L=SEQ_OP_L, H=H, Dh=E // H, schedule=SEQ_OP_SCHEDULE,
+         fwd_rel_tol=SEQ_FWD_REL_TOL, grad_rel_tol=SEQ_GRAD_REL_TOL, ranks=[r["op"] for r in ranks])
+    emit("seq_parallel_grads", dtype="bfloat16", arch=SEQ_GRAD_ARCH, L=SEQ_GRAD_L, schedule=SEQ_GRAD_SCHEDULE,
+         tol=SEQ_BF16_MAX_ONE_MINUS_COS, summary=ranks[0]["grads"],
+         launches=[r["grads"]["gather"]["launches"] for r in ranks])
+    enc = [r["encoder"] for r in ranks]
+    emit("seq_parallel_encoder", dtype="bfloat16", arch=SEQ_ENCODER_ARCH, L=SEQ_ENCODER_L,
+         valid=SEQ_ENCODER_VALID, schedule=SEQ_ENCODER_SCHEDULE, tol=SEQ_BF16_MAX_ONE_MINUS_COS,
+         one_minus_cos={f"{m}_{r}": enc[0][f"{m}_{r}"]["rank_one_minus_cos"] for m, r in SEQ_ENCODER_RUNS},
+         launches=[{f"{m}_{r}": e[f"{m}_{r}"]["launches"] for m, r in SEQ_ENCODER_RUNS} for e in enc])
+    emit("seq_parallel_times", label=SEQ_LABEL, nvidia_smi=smi,
+         ranks=[e["timing"] for e in enc], peak_memory_gb=[e["peak_memory_gb"] for e in enc])
+    emit("seq_parallel", seconds=time.perf_counter() - t_phase, world=SEQ_WORLD, backend="gloo",
+         collectives=["all_gather", "reduce_scatter", "all_to_all_single"], nvidia_smi=smi)
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print("chip_smoke: takes no arguments", file=sys.stderr)
@@ -6116,6 +6500,7 @@ def main() -> int:
     phase_pipe_forward()
     pipe_launches = phase_pipe_step()
     launches.update({name: pipe_launches[name] for name in PIPE_KERNELS})
+    phase_seq_parallel()
     print(json.dumps({"kernels": [
         {"name": name, **meta, "launches": launches[name],
          "max_abs_err": summary[name]["err"], "ms": summary[name]["ms"],

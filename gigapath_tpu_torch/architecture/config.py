@@ -44,6 +44,9 @@ class EncoderConfig:
     segment_length: IntList = None
     dilated_ratio: IntList = None
     checkpoint_activations: bool = False
+    # sequence parallelism: the encoder's DilatedAttention layers shard the
+    # tokens over the process group in ``extras["seq_group"]``
+    seq_parallel: bool = False
     extras: Dict[str, Any] = field(default_factory=dict)
 
     def __post_init__(self):

@@ -23,10 +23,14 @@ is permuted into the torch layout — the permutation
 applies to the values. A column-parallel ``(None, "model")`` on a flax
 kernel is ``("model", None)`` on the torch weight.
 
+The column- and row-parallel name lists and the flax-to-torch spec
+permutation come from :mod:`gigapath_tpu_torch.parallel.sharding`, as the
+JAX module takes its lists from ``gigapath_tpu/parallel/sharding.py``.
+
 Placement: one device is ``module.to(device)``. Placing a stage over more
-than one device is the tensor/sequence-parallel layer, which the port does
-not have yet (``ROADMAP.md`` Queue A item 6, ``parallel/``); it raises
-rather than replicate silently.
+than one device runs a model on sharded weights, which the port does not
+do yet (``ROADMAP.md`` Queue A item 1, "place_stage above one device");
+it raises rather than replicate silently.
 """
 
 from __future__ import annotations
@@ -37,39 +41,7 @@ from typing import Dict, List, Mapping, Sequence, Tuple, Union
 
 import torch
 
-# leaf module name -> the rule for its weight; biases and norms stay
-# replicated. The port's copy of the JAX package's
-# ``parallel/sharding.py`` name lists.
-_COLUMN_PARALLEL = (
-    "q_proj", "k_proj", "v_proj", "fc1", "gate",
-    # retention gate projection: [E, value_dim], split like q/k/v
-    "g_proj",
-    # ViT packed qkv: [D, 3D], output-dim split (megatron fused-qkv rule)
-    "qkv",
-    # vocab head: [E, V], vocab-dim split
-    "output_projection",
-)
-_ROW_PARALLEL = (
-    "out_proj", "fc2",
-    # ViT attention output projection; the patch embed shares the name —
-    # its kernel also input-dim splits
-    "proj",
-)
-
-Spec = Tuple[object, ...]  # one mesh-axis name (or None) per flax axis
-
-# flax kernel axis order -> torch weight axis order, by rank (the values'
-# permutation in utils/convert.py): torch axis j is flax axis perm[j]
-_TORCH_FROM_FLAX = {2: (1, 0), 4: (3, 2, 0, 1)}
-
-
-def _to_torch_layout(spec: Spec, name: str, ndim: int) -> Spec:
-    """A spec over the flax kernel's axes -> the same spec over the torch
-    weight's axes (padded with None to the rank first)."""
-    full = tuple(spec) + (None,) * (ndim - len(spec))
-    if not name.endswith("weight") or ndim not in _TORCH_FROM_FLAX or not any(full):
-        return tuple(spec)
-    return tuple(full[j] for j in _TORCH_FROM_FLAX[ndim])
+from gigapath_tpu_torch.parallel.sharding import _COLUMN_PARALLEL, _ROW_PARALLEL, Spec, _to_torch_layout
 
 
 def _named_shapes(params) -> List[Tuple[str, Tuple[int, ...]]]:
@@ -182,8 +154,8 @@ def stage_param_specs(name: str, params) -> Dict[str, Spec]:
 def place_stage(name: str, module: torch.nn.Module, devices) -> torch.nn.Module:
     """Place one stage's module: its rules must cover every parameter (an
     uncovered one raises), then one device is ``module.to(device)``. More
-    than one device raises ``NotImplementedError``: stage sharding needs
-    the port's ``parallel/`` layer (``ROADMAP.md`` Queue A item 6), and
+    than one device raises ``NotImplementedError``: running a stage on
+    sharded weights is not ported yet (``ROADMAP.md`` Queue A item 1), and
     silent replication is not a placement."""
     stage_param_specs(name, module)
     if isinstance(devices, (str, torch.device)):
@@ -191,8 +163,8 @@ def place_stage(name: str, module: torch.nn.Module, devices) -> torch.nn.Module:
     devices = list(devices)
     if len(devices) != 1:
         raise NotImplementedError(
-            f"stage '{name}' over {len(devices)} devices needs the port's "
-            "parallel/ layer (ROADMAP.md Queue A item 6); place it on one "
-            "device"
+            f"stage '{name}' over {len(devices)} devices: running a stage on "
+            "sharded weights is not ported yet (ROADMAP.md Queue A item 1, "
+            "'place_stage above one device'); place it on one device"
         )
     return module.to(torch.device(devices[0]))

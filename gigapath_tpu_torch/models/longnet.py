@@ -27,6 +27,8 @@ class LongNetEncoderLayer(EncoderLayer):
             subln=args.subln,
             layernorm_eps=args.layernorm_eps,
             dropout=args.attention_dropout,
+            seq_parallel=args.seq_parallel,
+            seq_group=args.extras.get("seq_group"),
         )
 
 
@@ -40,17 +42,27 @@ def make_longnet_from_name(
     segment_length: Union[str, list] = "[1024, 2048, 4096, 8192, 16384]",
     drop_path_rate: float = 0.1,
     dropout: float = 0.1,
+    *,
+    seq_parallel: bool = False,
+    seq_group=None,
     **overrides,
 ) -> Tuple[LongNetEncoder, EncoderConfig]:
     """Build a LongNet encoder from a registry name; ``**overrides``
-    update any EncoderConfig field. Returns ``(module, config)``."""
+    update any EncoderConfig field. Returns ``(module, config)``.
+
+    ``seq_parallel`` with ``seq_group`` (the process group of a mesh's
+    ``seq`` dim; the JAX package's ``seq_axis_name`` / ``seq_axis_size``)
+    makes every layer's attention sequence-parallel: each rank runs the
+    encoder on its own slice of the tokens."""
     cfg_dict = longnet_config.get_config(config_name)
     cfg_dict.update(
         dropout=dropout,
         drop_path_rate=drop_path_rate,
         dilated_ratio=dilated_ratio,
         segment_length=segment_length,
+        seq_parallel=seq_parallel,
         **overrides,
     )
     cfg = EncoderConfig.from_dict(cfg_dict)
+    cfg.extras["seq_group"] = seq_group
     return LongNetEncoder(cfg), cfg

@@ -29,7 +29,8 @@ The ``torch.profiler`` passthroughs live here too: :func:`trace` /
 :func:`start_trace` / :func:`stop_trace` capture a profiler trace (a
 Chrome-trace JSON under the given directory), :func:`annotate` and
 :func:`named_scope` name a host region inside one
-(``torch.profiler.record_function``), and ``span(..., annotate=True)``
+(``torch.profiler.record_function``), :func:`ring_step` names one step of
+a ring schedule, and ``span(..., annotate=True)``
 nests such a region so obs spans and profiler traces line up.
 """
 
@@ -102,6 +103,14 @@ def named_scope(name: str):
     """The JAX package's ``jax.named_scope`` seam: a named region of the
     launched work inside a profiler trace."""
     return _record_function(name)
+
+
+def ring_step(step: int, total: int, comm_bytes: int):
+    """A named region for one step of a ring schedule, under the JAX
+    package's name ``ring_step_{step+1}of{total}_comm{bytes}B``
+    (``comm_bytes``: what the step's exchange moves per rank), so a
+    profiler trace groups each step's launches and its collective."""
+    return _record_function(f"ring_step_{step + 1}of{total}_comm{comm_bytes}B")
 
 
 _RANK: Optional[int] = None

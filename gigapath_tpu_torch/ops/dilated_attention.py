@@ -1,5 +1,6 @@
 """Dilated attention (LongNet), counterpart of
-``gigapath_tpu/ops/dilated_attention.py`` on its single-device routes.
+``gigapath_tpu/ops/dilated_attention.py`` on its single-device and
+sequence-parallel routes.
 
 For each branch ``(segment length sl, ratio r)`` the sequence is cut into
 segments of ``min(sl, L)``; within a segment head band ``p`` attends only
@@ -44,9 +45,53 @@ On both phase-major routes a non-causal branch takes the pipelined
 kernels where the flags or a blessed plan's branch variant select them
 (``GIGAPATH_PIPELINED_ATTN``, ``GIGAPATH_PIPELINED_BWD``;
 ``dilated_kernels._branch_pipelined``); the head-major route and causal
-calls stay on their serial kernels, as in the JAX package. Sequence
-parallelism, attention-probability dropout and decoding are not ported yet
-(``ROADMAP.md``).
+calls stay on their serial kernels, as in the JAX package.
+
+Sequence parallelism (``seq_group=``, the process group of a mesh's
+``seq`` dim): each rank holds ``L`` consecutive tokens of the sequence,
+rank ``w`` of the group tokens ``[w*L, (w+1)*L)``. A branch whose segment
+fits the shard (``sl <= L``) is, per rank, a single-device branch and runs
+the phase-major kernels as on one device (``H % r == 0``), else the
+generic branch on the segment-flash kernel. A branch with ``sl > L``
+spans ``rps = sl / L`` ranks: its sparse queries stay local and its
+sparse keys and values come from the segment's ranks, either
+
+- **gathered** (:class:`_GatherKV`): an all-gather over the group, of
+  which the segment's ``rps`` chunks are kept, then ``flash_attention``
+  (row 11 forward, row 12 backward) at ``Lk = rps * Lq``; its backward is
+  the all-gather's adjoint, a reduce-scatter. A causal branch masks the
+  segment's later ranks through an additive bias, so it runs the plain
+  ``attention_with_lse``, as in the JAX package; or
+- **ringed** (:class:`_RingAttention`, ``flags.ring_attn`` /
+  ``GIGAPATH_RING_ATTN``): the local chunk rotates around the segment's
+  sub-ring, each step's ``partial_attention`` (row 11) folded by
+  ``combine_partials`` into an fp32 accumulator, the next chunk's exchange
+  issued before the resident chunk's compute. The backward replays the
+  rotation with the dK/dV accumulators travelling with their chunk, in
+  plain PyTorch (the JAX package has no kernel for it).
+
+Every collective takes CUDA tensors under both gloo and NCCL
+(``all_gather``, ``reduce_scatter``, ``all_to_all_single``). The ring's
+exchange is an all-to-all whose one non-empty split goes to the next rank
+of the sub-ring, so it is addressed by group ranks. Point-to-point
+``isend`` / ``irecv`` would not do: gloo refuses CUDA tensors there
+(``scripts/torch_gloo_cuda_probe.py``, PyTorch 2.11 on an NVIDIA H100 80GB
+HBM3). So the transport is one and the same whatever
+``dist.get_backend(group)`` says. The ranks' valid counts of a ragged
+batch are all-gathered once per call and shared by every sharded branch.
+
+Where the JAX package asserts, the port raises ``ValueError``: a sharded
+branch needs ``sl % L == 0``, ``rps <= W`` and ``W % rps == 0``, and
+decoding (``offset``) does not combine with sequence parallelism. It also
+refuses three cases that the JAX package runs to another function than
+its single-device op: a sharded branch whose ratio does not divide ``L``
+(the ranks' phases shift), a gathered branch whose ``rps`` does not divide
+``W`` (the last segment's slice of the gathered ranks is clamped) and a
+local branch whose segment does not divide ``L`` (the segment edges move
+to the rank edges). The branches' fusion is the
+stacked softmax of their lse; ``stream_fusion`` and ``streaming_fusion``
+act on one device only, as in the JAX package. Attention-probability
+dropout and decoding are not ported yet (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -59,9 +104,10 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gigapath_tpu_torch.ops import flash_kernels as fk
-from gigapath_tpu_torch.ops.attention import NEG_INF, MultiheadAttention
+from gigapath_tpu_torch.ops.attention import NEG_INF, MultiheadAttention, combine_partials
 from gigapath_tpu_torch.ops.common import round_up
 from gigapath_tpu_torch.ops.dilated_kernels import (
     MAX_FUSED_BRANCHES,
@@ -71,6 +117,7 @@ from gigapath_tpu_torch.ops.dilated_kernels import (
     dyn_sparse_counts,
     plan_stream_fusion,
 )
+from gigapath_tpu_torch.ops.flash_attention import flash_attention, partial_attention
 
 _WARNED: set = set()
 _PER_ROW = threading.local()
@@ -122,6 +169,8 @@ def dilated_attention(
     valid_len=None,
     flags: Optional[PipelineFlags] = None,
     streaming_fusion: Optional[bool] = None,
+    seq_group=None,
+    offset: int = 0,
 ) -> torch.Tensor:
     """Multi-branch dilated self-attention on [B, L, H, D] -> [B, L, H, D].
 
@@ -132,17 +181,34 @@ def dilated_attention(
     pins the online branch fold (None: ``flags.streaming_fusion``). A
     ratio that does not divide H (or H*D) sends the whole call to
     :func:`dilated_attention_bhld`, with one warning per schedule.
+
+    ``seq_group``: a process group of more than one rank makes this call
+    sequence-parallel (the module docstring): L is the local shard, and
+    ``valid_len`` each rank's own suffix count of a suffix-padded batch, a
+    [B] tensor wherever a branch spans ranks. ``offset`` (decoding) is not
+    ported: above 0 it raises.
     """
     if len(segment_lengths) != len(dilated_ratios):
         raise ValueError("segment_lengths and dilated_ratios differ in length")
+    seq_world = 1 if seq_group is None else dist.get_world_size(seq_group)
+    if offset:
+        if seq_world > 1:
+            raise ValueError("offset decoding and sequence parallelism are not supported together")
+        raise NotImplementedError("offset decoding is not ported yet (ROADMAP.md)")
     if not (q.shape == k.shape == v.shape):
         raise ValueError(f"self-attention needs equal q/k/v shapes; got {q.shape}, {k.shape}, {v.shape}")
     B, L, H, Dh = q.shape
     E = H * Dh
+    if seq_world > 1:
+        routes = _seq_routes(segment_lengths, dilated_ratios, L, H, E, seq_world)
     if flags is None:
         from gigapath_tpu_torch.plan import resolve_plan
 
         flags = resolve_plan("dilated_attention", (q, k, v))
+    if seq_world > 1:
+        return _dilated_attention_seq_parallel(
+            q, k, v, routes, is_causal=is_causal, valid_len=valid_len, flags=flags, seq_group=seq_group,
+        )
     if streaming_fusion is None:
         streaming_fusion = flags.streaming_fusion
     if any(H % int(r) or E % int(r) for r in dilated_ratios):
@@ -203,19 +269,24 @@ def dilated_attention(
     outs, lses = [], []
     for sl, r in zip(segment_lengths, dilated_ratios):
         o, l = branch(sl, r)
-        outs.append(o)
+        outs.append(o.reshape(B, L, H, Dh))
         lses.append(l)
     if not multi:
-        return outs[0].reshape(B, L, H, Dh)
+        return outs[0]
+    return _stacked_fusion(outs, lses, q.dtype)
 
-    # LSE-softmax fusion across branches: [n, B, H, L] weights, constant in
-    # the backward, each broadcast over its head's Dh lanes as [B, L, H, 1]
+
+def _stacked_fusion(outs, lses, dtype: torch.dtype) -> torch.Tensor:
+    """LSE-softmax fusion across branches: the dense outputs [B, L, H, D]
+    weighted by the softmax of their lse [B, H, L] over the branch axis,
+    constant in the backward, each broadcast over its head's Dh lanes as
+    [B, L, H, 1]."""
     weights = torch.softmax(torch.stack(lses).detach(), dim=0)
     acc = None
     for o, w in zip(outs, weights):
-        term = o.reshape(B, L, H, Dh).float() * w.transpose(1, 2)[..., None]
+        term = o.float() * w.transpose(1, 2)[..., None]
         acc = term if acc is None else acc + term
-    return acc.to(q.dtype)
+    return acc.to(dtype)
 
 
 
@@ -484,12 +555,356 @@ def dilated_attention_bhld(
         out = sum(o.float() * w for o, w in zip(outs, weights))
     return out.to(q.dtype).transpose(1, 2).contiguous()
 
+
+# ---------------------------------------------------------------------------
+# sequence parallelism (the JAX package's gathered and ring branches)
+# ---------------------------------------------------------------------------
+
+
+def _pad_to_multiple(x: torch.Tensor, mult: int, axis: int) -> torch.Tensor:
+    rem = x.shape[axis] % mult
+    if rem == 0:
+        return x
+    pad = [0, 0] * (x.dim() - 1 - axis) + [0, mult - rem]
+    return torch.nn.functional.pad(x, pad)
+
+
+def dense_to_sparse(x: torch.Tensor, ratio: int) -> torch.Tensor:
+    """Dilated subsample of segments: [b, g, H, D] -> [b, m, H, D], m =
+    ceil(g/r); head ``h`` keeps positions ``phase(h) + r*j`` (static phase
+    slices of the [b, m, r, H, D] view, concatenated over heads)."""
+    if ratio == 1:
+        return x
+    b, _, H, Dh = x.shape
+    x = _pad_to_multiple(x, ratio, axis=1)
+    x5 = x.reshape(b, x.shape[1] // ratio, ratio, H, Dh)
+    parts = [x5[:, :, p, hs:he, :] for p, hs, he in _phase_head_ranges(H, ratio)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=2)
+
+
+def sparse_to_dense(
+    out_s: torch.Tensor, lse_s: torch.Tensor, ratio: int, seg_len: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The inverse of :func:`dense_to_sparse` for a branch's results:
+    ``out_s`` [b, m, H, D], ``lse_s`` [b, H, m] -> (out [b, g, H, D], lse
+    [b, H, g]), the positions a head does not cover 0 with lse
+    ``NEG_INF`` (zero weight in the branches' fusion)."""
+    if ratio == 1:
+        return out_s[:, :seg_len], lse_s[..., :seg_len]
+    b, m, H, Dh = out_s.shape
+    dev = out_s.device
+    own = (torch.arange(H, device=dev) // -(-H // ratio))[None, :] == torch.arange(ratio, device=dev)[:, None]
+    out_d = torch.where(own[None, None, :, :, None], out_s[:, :, None], 0)  # [b, m, r, H, D]
+    lse_d = torch.where(own.T[None, :, None, :], lse_s[..., None], NEG_INF)  # [b, H, m, r]
+    return out_d.reshape(b, m * ratio, H, Dh)[:, :seg_len], lse_d.reshape(b, H, m * ratio)[..., :seg_len]
+
+
+def _seq_routes(segment_lengths, dilated_ratios, L: int, H: int, E: int, world: int):
+    """Each branch's ``(sl, r, route, rps)`` on a seq group of ``world``
+    ranks holding ``L`` tokens each: ``"fused"`` (the phase-major kernels,
+    as on one device), ``"local"`` (the generic branch) or ``"sharded"``
+    (keys from ``rps`` ranks). Raises ``ValueError`` where the JAX package
+    asserts, and where its sharded op is not its single-device op."""
+    routes = []
+    for sl, r in zip(segment_lengths, dilated_ratios):
+        sl, r = int(sl), int(r)
+        if sl <= L:
+            if L % sl:
+                raise ValueError(
+                    f"a local branch's segment {sl} must divide the shard length {L}: otherwise its "
+                    "segments start at the rank edges, not at the sequence's"
+                )
+            routes.append((sl, r, "fused" if H % r == 0 and E % r == 0 else "local", 1))
+            continue
+        if sl % L:
+            raise ValueError(f"a sharded branch's segment {sl} must be a multiple of the shard length {L}")
+        rps = sl // L
+        if rps > world:
+            raise ValueError(f"gathered branch needs {rps} ranks but the seq group has {world}")
+        if world % rps:
+            raise ValueError(f"a sharded branch's {rps} ranks must divide the seq group's {world}")
+        if L % r:
+            raise ValueError(
+                f"a sharded branch's ratio {r} must divide the shard length {L}: otherwise each rank's "
+                "phases shift against the sequence's"
+            )
+        routes.append((sl, r, "sharded", rps))
+    return routes
+
+
+def _gather_counts(valid_dyn: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's [B] valid counts -> [W, B] int32 (one all-gather)."""
+    mine = valid_dyn.to(torch.int32).contiguous()
+    parts = [torch.empty_like(mine) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, mine, group=group)
+    return torch.stack(parts)
+
+
+class _GatherKV(torch.autograd.Function):
+    """All-gather a rank's sparse K or V chunk [b, m, H, D] over the seq
+    group and keep the ``rps`` chunks of its own segment -> [b, rps*m, H,
+    D] (the JAX package's ``_gather_kv_seq_parallel``). The backward is the
+    all-gather's adjoint: the segment's gradient placed at its ranks in a
+    [W] list of zero chunks and reduce-scattered, so each rank gets the sum
+    of every rank's gradient for its own chunk."""
+
+    @staticmethod
+    def forward(ctx, x, group, rps):
+        x = x.contiguous()
+        start = dist.get_rank(group) // rps * rps
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x, group=group)
+        ctx.group, ctx.rps, ctx.start = group, rps, start
+        return torch.cat(parts[start:start + rps], dim=1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        chunks = [c.contiguous() for c in grad.chunk(ctx.rps, dim=1)]
+        zero = torch.zeros_like(chunks[0])
+        inputs = [zero] * dist.get_world_size(ctx.group)
+        inputs[ctx.start:ctx.start + ctx.rps] = chunks
+        out = torch.empty_like(zero)
+        dist.reduce_scatter(out, inputs, group=ctx.group)
+        return out, None, None
+
+
+def _ring_perm(world: int, rps: int) -> Tuple[Tuple[int, int], ...]:
+    """(src, dst) pairs rotating every ``rps``-sized sub-ring of the group
+    by one: rank r sends to the next rank of its own segment's ring. After
+    s rotations rank r holds the chunk of rank ``(r // rps) * rps + (r % rps
+    - s) % rps``."""
+    if world % rps:
+        raise ValueError(f"the sub-ring size {rps} must divide the group size {world}")
+    return tuple((src, (src // rps) * rps + ((src % rps) + 1) % rps) for src in range(world))
+
+
+def _ring_shift(x: torch.Tensor, group, rps: int):
+    """Start one rotation of ``x`` around the sub-rings: ``(received,
+    work)``, the received buffer valid after ``work.wait()``. One
+    ``all_to_all_single`` whose only non-empty splits are this rank's
+    next (send) and previous (receive) rank of its sub-ring."""
+    world, me = dist.get_world_size(group), dist.get_rank(group)
+    perm = _ring_perm(world, rps)
+    dst = perm[me][1]
+    src = next(s for s, d in perm if d == me)
+    n = x.shape[0]
+    send, recv = [0] * world, [0] * world
+    send[dst], recv[src] = n, n
+    out = torch.empty_like(x)
+    work = dist.all_to_all_single(out, x.contiguous(), recv, send, group=group, async_op=True)
+    return out, work
+
+
+def _ring_partial_bwd(qs, k_c, v_c, do, lse, delta, cnt, scale):
+    """One ring step's (dq, dk, dv) of the local queries against the
+    resident chunk: the chunk's probabilities recomputed from the logits
+    and the combined lse (so no per-step softmax state is kept), masked
+    keys at ``NEG_INF`` before the subtraction and zeroed after, all fp32
+    (the JAX package's ``_ring_partial_bwd``)."""
+    q32, k32, v32, do32 = qs.float(), k_c.float(), v_c.float(), do.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q32, k32) * scale
+    col_ok = None
+    if cnt is not None:
+        col_ok = torch.arange(k_c.shape[1], device=qs.device)[None, None, None, :] < cnt.to(torch.int64)[:, :, None, None]
+        s = s.masked_fill(~col_ok, NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    if col_ok is not None:
+        p = p.masked_fill(~col_ok, 0.0)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do32)
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", do32, v32) - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k32) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q32) * scale
+    return dq, dk, dv
+
+
+class _RingAttention(torch.autograd.Function):
+    """Local sparse queries ``qs`` [B, mq, H, D] against the segment's
+    rotating sparse K/V chunks (``ks``, ``vs`` [B, mk, H, D], the local
+    chunk) -> ``(out [B, mq, H, D], lse [B, H, mq])``: the JAX package's
+    ``_ring_attention`` with its custom VJP. ``counts``: None, or the [rps,
+    B, H] valid sparse-key counts per origin rank of the sub-ring. The lse
+    output takes no gradient.
+
+    Forward: each step's ``partial_attention`` (row 11) folds into an fp32
+    accumulator by ``combine_partials``; the next chunk's exchange is
+    started before the resident chunk's compute and awaited after it. K
+    and V travel as one stacked buffer, one all-to-all a step. Backward:
+    the same rotation replays, each rank adds its contribution to the
+    resident chunk's dK/dV into fp32 accumulators that rotate with the
+    chunk and arrive home after ``rps`` steps; only the local inputs and
+    the combined ``(out, lse)`` are saved."""
+
+    @staticmethod
+    def forward(ctx, qs, ks, vs, counts, group, rps):
+        from gigapath_tpu_torch.obs.spans import ring_step
+
+        my_rel = dist.get_rank(group) % rps
+        kv = torch.stack((ks, vs))
+        comm_bytes = kv.numel() * kv.element_size()
+        out = lse = None
+        for s in range(rps):
+            with ring_step(s, rps, comm_bytes if s + 1 < rps else 0):
+                nxt, work = _ring_shift(kv, group, rps) if s + 1 < rps else (None, None)
+                cnt = None if counts is None else counts[(my_rel - s) % rps]
+                o_s, l_s = partial_attention(qs, kv[0], kv[1], kv_valid_len=cnt)
+                if out is None:
+                    out, lse = o_s.float(), l_s
+                else:
+                    out, lse = combine_partials(out, lse, o_s, l_s)
+                if work is not None:
+                    work.wait()
+                    kv = nxt
+        out = out.to(qs.dtype)
+        ctx.save_for_backward(qs, ks, vs, counts, out, lse)
+        ctx.group, ctx.rps = group, rps
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):  # no gradient flows through the lse output
+        from gigapath_tpu_torch.obs.spans import ring_step
+
+        qs, ks, vs, counts, out, lse = ctx.saved_tensors
+        group, rps = ctx.group, ctx.rps
+        my_rel = dist.get_rank(group) % rps
+        scale = qs.shape[-1] ** -0.5
+        delta = torch.einsum("bqhd,bqhd->bhq", do.float(), out.float())
+        dq = torch.zeros(qs.shape, dtype=torch.float32, device=qs.device)
+        acc = torch.zeros((2,) + tuple(ks.shape), dtype=torch.float32, device=ks.device)  # dK, dV
+        kv = torch.stack((ks, vs))
+        kv_bytes = kv.numel() * kv.element_size()
+        acc_bytes = acc.numel() * acc.element_size()
+        for s in range(rps):
+            with ring_step(s, rps, acc_bytes + (kv_bytes if s + 1 < rps else 0)):
+                nxt, work = _ring_shift(kv, group, rps) if s + 1 < rps else (None, None)
+                cnt = None if counts is None else counts[(my_rel - s) % rps]
+                dq_s, dk_s, dv_s = _ring_partial_bwd(qs, kv[0], kv[1], do, lse, delta, cnt, scale)
+                dq += dq_s
+                acc, acc_work = _ring_shift(acc + torch.stack((dk_s, dv_s)), group, rps)
+                acc_work.wait()
+                if work is not None:
+                    work.wait()
+                    kv = nxt
+        return dq.to(qs.dtype), acc[0].to(ks.dtype), acc[1].to(vs.dtype), None, None, None
+
+
+def _local_branch(q, k, v, sl: int, r: int, *, is_causal: bool, real_len: int,
+                  valid_dyn: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A branch inside the shard whose ratio does not divide the heads:
+    the JAX package's generic ``_dilated_branch`` on ``flash_attention``
+    (row 11), keys past the valid length or past their segment masked,
+    as on the port's single-device routes. ``sl`` divides L."""
+    B, L, H, Dh = q.shape
+    n = L // sl
+    qs, ks, vs = (dense_to_sparse(x.reshape(B * n, sl, H, Dh), r) for x in (q, k, v))
+    m = ks.shape[1]
+    kvlen = _bhld_kvlen(B, H, n, sl, r, m, real_len, valid_dyn, q.device)  # [B, H, n]
+    if kvlen is not None:
+        kvlen = kvlen.permute(0, 2, 1).reshape(B * n, H)
+    out_s, lse_s = flash_attention(qs, ks, vs, is_causal=is_causal, kv_valid_len=kvlen)
+    out_d, lse_d = sparse_to_dense(out_s, lse_s, r, sl)
+    return out_d.reshape(B, L, H, Dh), lse_d.reshape(B, n, H, sl).transpose(1, 2).reshape(B, H, L)
+
+
+def _sharded_branch(q, k, v, sl: int, r: int, rps: int, *, is_causal: bool,
+                    counts: Optional[torch.Tensor], ring: bool, group) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A branch whose segment spans ``rps`` ranks (the JAX package's
+    gathered ``_dilated_branch``): local sparse queries against the
+    segment's sparse keys, gathered or ringed. ``counts`` is the call's
+    [W, B] all-gather of the ranks' valid counts (None: every key valid).
+    Returns the dense ``(out [B, L, H, D], lse [B, H, L])``."""
+    B, L, H, Dh = q.shape
+    qs, ks, vs = (dense_to_sparse(x, r) for x in (q, k, v))
+    m = ks.shape[1]
+    rank = dist.get_rank(group)
+    use_ring = ring and not is_causal
+    if ring and is_causal:
+        # visible, once: silently taking the gather path would make the
+        # flag look broken exactly where memory matters most
+        _warn_once(
+            "GIGAPATH_RING_ATTN requested on a CAUSAL gathered branch: the ring schedule has no "
+            "rank-bias construction yet; using the all-gather path for this branch"
+        )
+    kv_valid_len = ring_counts = bias = None
+    if counts is not None:
+        # global suffix padding: every rank before the cut is full, so the
+        # per-origin counts sum to a prefix count of the concatenated keys
+        seg_counts = counts[rank // rps * rps: rank // rps * rps + rps].to(torch.int64)  # [rps, B]
+        phases = torch.arange(H, device=q.device) // -(-H // r)
+        num = seg_counts[:, :, None] - phases[None, None, :]
+        per_rank = (-torch.div(-num, r, rounding_mode="floor")).clamp(0, m).to(torch.int32)  # [rps, B, H]
+        if use_ring:
+            ring_counts = per_rank
+        else:
+            kv_valid_len = per_rank.sum(dim=0).to(torch.int32)
+    if use_ring:
+        out_s, lse_s = _RingAttention.apply(qs, ks, vs, ring_counts, group, rps)
+    else:
+        ks, vs = _GatherKV.apply(ks, group, rps), _GatherKV.apply(vs, group, rps)
+        if is_causal:
+            # key (rank block w', slot j) is visible to query (w, i) of the
+            # same phase iff j_cat <= w_rel*m + i on the concatenated axis:
+            # earlier ranks whole, the own rank causally, later ones not
+            qi = torch.arange(m, device=q.device)[:, None]
+            kj = torch.arange(rps * m, device=q.device)[None, :]
+            bias = torch.where(kj <= qi + (rank % rps) * m, 0.0, NEG_INF)[None, None]
+            out_s, lse_s = flash_attention(qs, ks, vs, bias=bias)
+        else:
+            out_s, lse_s = flash_attention(qs, ks, vs, kv_valid_len=kv_valid_len)
+    return sparse_to_dense(out_s, lse_s, r, L)
+
+
+def _dilated_attention_seq_parallel(q, k, v, routes, *, is_causal: bool, valid_len, flags: PipelineFlags,
+                                    seq_group) -> torch.Tensor:
+    """The sequence-parallel dispatch over the branches' ``routes``
+    (:func:`_seq_routes`), fused by the stacked softmax of their lse."""
+    B, L, H, Dh = q.shape
+    E = H * Dh
+    real_len, valid_dyn = _normalize_valid_len(valid_len, B, L)
+    counts = None
+    if valid_len is not None and any(route == "sharded" for _, _, route, _ in routes):
+        if is_causal:
+            raise NotImplementedError("causal + padding masks + sequence parallelism are not supported together yet")
+        if valid_dyn is None:
+            # one partial count on every rank is not a contiguous prefix of
+            # the concatenated keys, which a prefix count would mis-mask
+            raise NotImplementedError(
+                "a static-int valid_len on a gathered sequence-parallel branch would mask the same "
+                "suffix on every shard, not a contiguous prefix of the concatenated key axis; pass "
+                "the per-shard counts of a suffix-padded batch (a [B] tensor) instead"
+            )
+        counts = _gather_counts(valid_dyn, seq_group)  # once per call, shared by every sharded branch
+    qE, kE, vE = (x.reshape(B, L, E) for x in (q, k, v))
+    outs, lses = [], []
+    for sl, r, route, rps in routes:
+        if route == "fused":
+            o, lse = dilated_branch_attention(
+                qE, kE, vE, sl, r, H, real_len=real_len, valid_len_dyn=valid_dyn, is_causal=is_causal,
+                flags=flags,
+            )
+            o = o.reshape(B, L, H, Dh)
+        elif route == "local":
+            o, lse = _local_branch(q, k, v, sl, r, is_causal=is_causal, real_len=real_len, valid_dyn=valid_dyn)
+        else:
+            o, lse = _sharded_branch(q, k, v, sl, r, rps, is_causal=is_causal, counts=counts,
+                                     ring=flags.ring_attn, group=seq_group)
+        outs.append(o)
+        lses.append(lse)
+    if len(outs) == 1:
+        return outs[0].to(q.dtype)
+    return _stacked_fusion(outs, lses, q.dtype)
+
+
 class DilatedAttention(MultiheadAttention):
     """LongNet attention module: the MultiheadAttention projections and
     sub-LN around :func:`dilated_attention`. ``dropout`` (on the attention
     probabilities) must be 0: every registry configuration trains with
     ``attention_dropout = 0``, and the kernels never form the probabilities
-    a dropout would act on."""
+    a dropout would act on.
+
+    ``seq_parallel`` with a ``seq_group`` makes the attention
+    sequence-parallel: each rank passes its own slice of the tokens (and of
+    ``key_padding_mask``)."""
 
     def __init__(
         self,
@@ -500,6 +915,8 @@ class DilatedAttention(MultiheadAttention):
         subln: bool = False,
         layernorm_eps: float = 1e-5,
         dropout: float = 0.0,
+        seq_parallel: bool = False,
+        seq_group=None,
     ):
         if dropout > 0.0:
             raise NotImplementedError(
@@ -508,21 +925,27 @@ class DilatedAttention(MultiheadAttention):
         super().__init__(embed_dim, num_heads, subln=subln, layernorm_eps=layernorm_eps)
         self.segment_length = tuple(int(x) for x in segment_length)
         self.dilated_ratio = tuple(int(x) for x in dilated_ratio)
+        self.seq_group = seq_group if seq_parallel else None
 
     def _attend(self, q, k, v, *, key_padding_mask=None, is_causal=False):
         # key_padding_mask (True = pad) is a suffix pad (data collate
         # convention): one count shared by every row becomes a static int,
         # per-row counts a [B] tensor (always under per_row_valid_len: the
-        # JAX service's jitted forward traces it so)
+        # JAX service's jitted forward traces it so). Under sequence
+        # parallelism the counts are each rank's own and stay a [B] tensor,
+        # as JAX's traced mask does inside shard_map: equal counts on every
+        # row are still a per-rank count, which a static int would apply to
+        # every rank's suffix
         valid_len = None
         if key_padding_mask is not None:
             counts = (~key_padding_mask.to(torch.bool)).sum(dim=-1).to(torch.int32)
-            if not getattr(_PER_ROW, "on", False) and bool((counts == counts[0]).all()):
+            per_row = getattr(_PER_ROW, "on", False) or self.seq_group is not None
+            if not per_row and bool((counts == counts[0]).all()):
                 valid_len = int(counts[0])
             else:
                 valid_len = counts
         out = dilated_attention(
             q, k, v, self.segment_length, self.dilated_ratio,
-            is_causal=is_causal, valid_len=valid_len,
+            is_causal=is_causal, valid_len=valid_len, seq_group=self.seq_group,
         )
         return out.reshape(out.shape[0], out.shape[1], self.embed_dim)

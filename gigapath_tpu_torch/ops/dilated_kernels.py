@@ -113,8 +113,8 @@ class PipelineFlags(NamedTuple):
     branch and, through ``ctx``, to the backward, so the two passes of one
     call never see different flags. The port acts on ``pack_direct``,
     ``stream_fusion``, ``streaming_fusion``, ``pipelined_fwd``,
-    ``pipelined_bwd`` and the variant of ``branch_plans``
-    (:func:`_branch_pipelined`); the tile encoder's factory reads
+    ``pipelined_bwd``, ``ring_attn`` (the sequence-parallel ring schedule)
+    and the variant of ``branch_plans`` (:func:`_branch_pipelined`); the tile encoder's factory reads
     ``quant_tile`` (``GIGAPATH_QUANT_TILE`` as written, or a blessed plan's
     tier; the factory normalizes it). The other fields are carried so that
     a plan or a caller can set them, and are unused here: ``pipe_block_k``,
@@ -122,10 +122,9 @@ class PipelineFlags(NamedTuple):
     kernels stage 64 keys, the fp32 ones 32 above a head width of 64), the branch
     ``block`` of ``branch_plans`` and the fold blocks are TPU VMEM tiling;
     ``quant_pallas`` picks the TPU's Pallas or XLA quantized matmul (the
-    port always runs its kernels); ``ring_attn`` belongs to sequence
-    parallelism; the drivers read ``chunked_prefill`` from their own
-    environment variables; the port's streaming fold always runs its
-    kernels (``fold_pallas``)."""
+    port always runs its kernels); ``chunked_prefill`` is read by the
+    disaggregated consumer where its plan does not set it; the port's
+    streaming fold always runs its kernels (``fold_pallas``)."""
 
     pipelined_fwd: bool = False
     pipelined_bwd: bool = False
@@ -172,8 +171,9 @@ def snapshot_flags() -> PipelineFlags:
     """Read the dispatch flags the port acts on from the environment, once:
     GIGAPATH_PIPELINED_ATTN/_BWD, GIGAPATH_PIPE(_BWD)_BLOCK_K,
     GIGAPATH_PACK_DIRECT, GIGAPATH_STREAM_FUSION,
-    GIGAPATH_STREAMING_FUSION, GIGAPATH_QUANT_TILE and
-    GIGAPATH_QUANT_PALLAS. The other fields keep their defaults."""
+    GIGAPATH_STREAMING_FUSION, GIGAPATH_RING_ATTN, GIGAPATH_CHUNKED_PREFILL,
+    GIGAPATH_QUANT_TILE and GIGAPATH_QUANT_PALLAS. The other fields keep
+    their defaults."""
 
     def _int(name: str) -> Optional[int]:
         raw = os.environ.get(name, "").strip()
@@ -187,6 +187,8 @@ def snapshot_flags() -> PipelineFlags:
         pack_direct=env_flag("GIGAPATH_PACK_DIRECT"),
         stream_fusion=env_flag("GIGAPATH_STREAM_FUSION"),
         streaming_fusion=env_flag("GIGAPATH_STREAMING_FUSION"),
+        ring_attn=env_flag("GIGAPATH_RING_ATTN"),
+        chunked_prefill=env_flag("GIGAPATH_CHUNKED_PREFILL"),
         quant_tile=os.environ.get("GIGAPATH_QUANT_TILE", "").strip(),
         quant_pallas=env_flag("GIGAPATH_QUANT_PALLAS"),
     )

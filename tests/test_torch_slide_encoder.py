@@ -205,6 +205,7 @@ def test_port_imports_nothing_of_jax():
         " 'gigapath_tpu_torch.preprocessing.create_tiles_dataset'}\n"
         "need |= {'gigapath_tpu_torch.data.pcam', 'gigapath_tpu_torch.linear_probe', 'gigapath_tpu_torch.linear_probe.main',"
         " 'gigapath_tpu_torch.quant.parity', 'gigapath_tpu_torch.pretrain', 'gigapath_tpu_torch.pretrain.pretrain_gigapath'}\n"
+        "need |= {'gigapath_tpu_torch.parallel'} | {'gigapath_tpu_torch.parallel.' + m for m in ('mesh', 'sharding', 'spmd')}\n"
         "assert need <= set(names), sorted(need - set(names))\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n"
