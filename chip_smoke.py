@@ -380,6 +380,30 @@ stdout:
     the encoder forward, gathered and ringed, beside the single-device
     forward, labelled as time-shared. A failed rank fails the phase, and
     every rank still running is killed.
+27. tensor_parallel: tensor parallelism over a model group of T = 2 and
+    4 of ``TP_RANKS`` = 4 rank processes sharing ``cuda:0`` over gloo
+    (forked like phase 26's): (a) one flagship layer's fp32 op at L =
+    10241 on each rank's H/T heads (the tensor-parallel route: head-major
+    at the global phases) against the single-device op, forward rel <=
+    1e-5 and gradients <= 1e-4; (b) the flagship slide encoder in bf16 at
+    10240 tiles on ``shard_state_dict`` parts, every layer's embedding
+    against the single-device model's (1 - cosine <= 5e-4); (c) one
+    flagship-width layer's bf16 parameter gradients gathered over the
+    group against the single-device layer's; (d) each rank's exact
+    launches (``_tp_launches``); (e) a rank's host ms, device busy, idle
+    share and peak memory beside the single-device forward, labelled as
+    time-shared, and each rank's step times. The same ranks then run
+    phase 28's expert parallelism.
+28. moe: the flagship encoder's MoE variant (``moe_freq=2,
+    moe_expert_count=8``), top-1 and top-2: in fp32 at L = 2049 against
+    the plain CPU run of the same weights (rel <= 1e-4, ``l_aux`` rel <=
+    1e-5, exact launches of rows 1-3), and in bf16 at L = 10241 (finite,
+    exact launches, the gating telemetry's keys, host ms, a profile, peak
+    memory); expert parallelism over 4 ranks in both variants (gathered
+    experts against one device; per-shard gating with the all-to-all
+    against one device on each rank's tokens), fp32 forward, ``l_aux``
+    and gradients; ``dryrun.dryrun_multichip(4)`` and ``(8)`` at once,
+    each stage's loss finite.
 
 ``default_route_times`` (not part of the run) times the default route's
 bf16 forward per slide and bf16 step alone (or, with ``dilated_ratio``,
@@ -6388,25 +6412,25 @@ def _seq_rank(rank: int, workdir: str) -> None:
         raise
 
 
-def _seq_wait(procs, workdir: str) -> None:
-    """Wait for every rank; the first that fails (or the deadline) ends
-    the wait with its traceback, and every rank still running is killed."""
-    deadline = time.monotonic() + SEQ_RANK_TIMEOUT_S
-    try:
-        while any(p.is_alive() for p in procs):
-            failed = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0)]
-            check(not failed and time.monotonic() < deadline,
-                  f"seq_parallel: rank(s) {failed or 'timed out'} failed:\n"
-                  + "\n".join(open(os.path.join(workdir, f"rank{r}.err")).read()
-                              for r in range(len(procs)) if os.path.exists(os.path.join(workdir, f"rank{r}.err"))))
-            time.sleep(0.2)
-        failed = [r for r, p in enumerate(procs) if p.exitcode != 0]
-        check(not failed, f"seq_parallel: rank(s) {failed} exited non-zero")
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-            p.join()
+def _spawn_ranks(target, world: int, phase: str) -> list:
+    """``world`` processes of ``target(rank, workdir)`` on the card, forked
+    from the port's rank forkserver (never from this process, which holds
+    a CUDA context; ``dryrun.run_ranks``, which raises with the ranks'
+    tracebacks if one fails); each rank's ``rank{r}.json``, in rank
+    order."""
+    import torch
+
+    from gigapath_tpu_torch.dryrun import run_ranks
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix=f"{phase}_") as work:
+        run_ranks(target, world, work, timeout=SEQ_RANK_TIMEOUT_S, what=phase)
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    return ranks
 
 
 def phase_seq_parallel() -> None:
@@ -6417,23 +6441,9 @@ def phase_seq_parallel() -> None:
     and layer, (b) the flagship-width encoder in bf16 against its
     single-device forward, (d) every rank's exact launches on each route,
     (e) the timings, labelled ``SEQ_LABEL``."""
-    import torch
-    import torch.multiprocessing as mp
-
     t_phase = time.perf_counter()
     smi = _smi()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(prefix="seq_parallel_") as work:
-        ctx = mp.get_context("spawn")
-        procs = [ctx.Process(target=_seq_rank, args=(r, work)) for r in range(SEQ_WORLD)]
-        for p in procs:
-            p.start()
-        _seq_wait(procs, work)
-        ranks = []
-        for r in range(SEQ_WORLD):
-            with open(os.path.join(work, f"rank{r}.json")) as f:
-                ranks.append(json.load(f))
+    ranks = _spawn_ranks(_seq_rank, SEQ_WORLD, "seq_parallel")
     check(all(r["backend"] == "gloo" for r in ranks), "seq_parallel: the seq group is not gloo")
     emit("seq_parallel_op", dtype="float32", L=SEQ_OP_L, H=H, Dh=E // H, schedule=SEQ_OP_SCHEDULE,
          fwd_rel_tol=SEQ_FWD_REL_TOL, grad_rel_tol=SEQ_GRAD_REL_TOL, ranks=[r["op"] for r in ranks])
@@ -6449,6 +6459,501 @@ def phase_seq_parallel() -> None:
          ranks=[e["timing"] for e in enc], peak_memory_gb=[e["peak_memory_gb"] for e in enc])
     emit("seq_parallel", seconds=time.perf_counter() - t_phase, world=SEQ_WORLD, backend="gloo",
          collectives=["all_gather", "reduce_scatter", "all_to_all_single"], nvidia_smi=smi)
+
+
+# ---------------------------------------------------------------------------
+# 27. tensor_parallel
+# ---------------------------------------------------------------------------
+
+TP_RANKS = 4  # processes; a T = 2 run uses ranks 0 and 1 while 2 and 3 wait
+TP_WORLDS = (2, 4)
+TP_LABEL = "{} ranks time-sharing one H100, collectives through gloo on the host"
+TP_L = N_TILES + 1
+TP_ARCH = "gigapath_slide_enc12l768d"
+TP_GRAD_ARCH = "LongNet_1_layers_768_dim"
+TP_COUNTED = FLASH_KERNELS + ("pack_phases", "dilated_branch_fwd", "unpack_phases")
+
+
+def _tp_launches(L: int, layers: int, backward: bool) -> dict:
+    """Exact launches of one tensor-parallel rank's call over ``layers``
+    flagship layers: the tensor-parallel route (head-major, the rank's
+    heads at their global phases) runs a flat forward for each undilated
+    branch the flat kernel takes and a segment-flash forward for every
+    other branch, and in the backward the matching dq and dkv. Every other
+    kernel 0."""
+    from gigapath_tpu_torch.ops import all_launch_counts
+    from gigapath_tpu_torch.ops.dilated_attention import _flat_eligible
+
+    sls, drs = SCHEDULE
+    flat = sum(1 for sl, r in zip(sls, drs) if _flat_eligible(min(sl, L), r))
+    seg = len(sls) - flat
+    n = dict.fromkeys(all_launch_counts(), 0)
+    n.update(flat_fwd=flat, flash_fwd=seg)
+    if backward:
+        n.update(flat_bwd_dq=flat, flat_bwd_dkv=flat, flash_bwd_dq=seg, flash_bwd_dkv=seg)
+    return {k: v * layers for k, v in n.items()}
+
+
+def _tp_op(rank: int, T: int) -> dict:
+    """(a) One flagship layer's op in fp32 on this rank's H/T heads (the
+    tensor-parallel route) against the single-device op's slice, forward
+    and the gradients of a seeded cotangent; exact launches."""
+    import torch
+
+    from gigapath_tpu_torch.ops import reset_all_launch_counts
+    from gigapath_tpu_torch.ops.dilated_attention import dilated_attention
+    from gigapath_tpu_torch.ops.dilated_kernels import PipelineFlags
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, do = (torch.randn(1, TP_L, H, E // H, generator=gen, device="cuda") for _ in range(4))
+    full = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    ref = dilated_attention(*full, *SCHEDULE, flags=PipelineFlags())
+    ref.backward(do)
+    per = H // T
+    heads = slice(rank * per, (rank + 1) * per)
+    local = [x[:, :, heads].contiguous().requires_grad_(True) for x in (q, k, v)]
+    reset_all_launch_counts()
+    o = dilated_attention(*local, *SCHEDULE, head_offset=rank * per, num_heads=H)
+    o.backward(do[:, :, heads].contiguous())
+    launches = _seq_counts()
+    want = _tp_launches(TP_L, 1, backward=True)
+    check(launches == want, f"tp op T={T} rank {rank}: launches {launches} != {want}")
+    fwd = _grad_rel_err(o.detach(), ref.detach()[:, :, heads])
+    grads = {g: _grad_rel_err(x.grad, f.grad[:, :, heads]) for g, x, f in zip(("dq", "dk", "dv"), local, full)}
+    check(fwd <= SEQ_FWD_REL_TOL, f"tp op T={T} rank {rank}: forward rel {fwd} > {SEQ_FWD_REL_TOL}")
+    for g, err in grads.items():
+        check(err <= SEQ_GRAD_REL_TOL, f"tp op T={T} rank {rank}: {g} rel {err} > {SEQ_GRAD_REL_TOL}")
+    return {"fwd_rel": fwd, "grad_rel": grads, "launches": {n: launches[n] for n in TP_COUNTED}}
+
+
+def _tp_slide(rank: int, T: int, group, state, single) -> dict:
+    """(b) The flagship slide encoder in bf16 on 10240 tiles, its encoder
+    tensor-parallel over ``group`` (this rank's part of ``state``), every
+    layer's embedding against ``single``'s (the single-device model on the
+    same weights), by 1 - cosine; exact launches; (e) host ms of the
+    forward (a barrier before each), peak memory, and on rank 0 a profile
+    and the single-device forward's."""
+    import torch
+
+    from gigapath_tpu_torch.ops import reset_all_launch_counts
+    from gigapath_tpu_torch.parallel.tensor import shard_state_dict
+    from gigapath_tpu_torch.utils.registry import create_model_from_registry
+
+    with torch.device("meta"):
+        model = create_model_from_registry(TP_ARCH, in_chans=1536, model_group=group)
+    model.load_state_dict(shard_state_dict(state, rank, T), strict=True, assign=True)
+    model = model.to("cuda", torch.bfloat16).eval()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn(1, N_TILES, 1536, generator=gen, device="cuda").to(torch.bfloat16)
+    coords = torch.rand(1, N_TILES, 2, generator=gen, device="cuda") * 100000
+    with torch.no_grad():
+        want = torch.stack(single(x, coords, all_layer_embed=True))
+        reset_all_launch_counts()
+        got = torch.stack(model(x, coords, all_layer_embed=True))
+    launches = _seq_counts()
+    expect = _tp_launches(TP_L, len(model.encoder.layers), backward=False)
+    check(launches == expect, f"tp slide T={T} rank {rank}: launches {launches} != {expect}")
+    check(bool(torch.isfinite(got).all()), f"tp slide T={T} rank {rank}: non-finite embeddings")
+    per_layer = [_one_minus_cos(a, b) for a, b in zip(got, want)]
+    check(max(per_layer) <= SEQ_BF16_MAX_ONE_MINUS_COS,
+          f"tp slide T={T} rank {rank}: 1 - cos {max(per_layer)} > {SEQ_BF16_MAX_ONE_MINUS_COS}")
+
+    def forward():
+        with torch.no_grad():
+            model(x, coords)
+
+    def single_forward():
+        with torch.no_grad():
+            single(x, coords)
+
+    torch.cuda.reset_peak_memory_stats()
+    timing = {"host_ms": _seq_forward_ms(forward, group)}
+    timing["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if rank == 0:  # one rank's profile (the others run the same forward with it)
+        timing.update(_profile(forward, top=4))
+        timing["single_device"] = {"host_ms": _seq_forward_ms(single_forward, None)}
+        timing["single_device"].update(_profile(single_forward, top=4))
+    else:
+        forward()
+    return {"one_minus_cos_by_layer": per_layer, "launches": {n: launches[n] for n in TP_COUNTED},
+            "timing": timing}
+
+
+def _tp_grads(rank: int, T: int, group) -> dict:
+    """(c) One flagship-width LongNet layer in bf16 at L = 10241, its
+    parameter gradients gathered over ``group`` against the single-device
+    layer's, by 1 - cosine (a gradient under 1e-2 of the largest counts as
+    held, the rule of ``_worst_grad_err``); exact launches."""
+    import torch
+
+    from gigapath_tpu_torch.models.longnet import make_longnet_from_name
+    from gigapath_tpu_torch.ops import reset_all_launch_counts
+    from gigapath_tpu_torch.parallel.tensor import gather_state_dict, shard_state_dict
+
+    sls, drs = SCHEDULE
+    kw = dict(dilated_ratio=drs, segment_length=sls, drop_path_rate=0.0, dropout=0.0)
+    torch.manual_seed(1)
+    single, _ = make_longnet_from_name(TP_GRAD_ARCH, **kw)
+    with torch.device("meta"):
+        model, _ = make_longnet_from_name(TP_GRAD_ARCH, model_group=group, **kw)
+    model.load_state_dict(shard_state_dict(single.state_dict(), rank, T), strict=True, assign=True)
+    model, single = (m.to("cuda", torch.bfloat16) for m in (model, single))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x, dy = (torch.randn(1, TP_L, E, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(2))
+    single(x)["encoder_out"].backward(dy)
+    want = {n: p.grad.float() for n, p in single.named_parameters()}
+    reset_all_launch_counts()
+    model(x)["encoder_out"].backward(dy)
+    launches = _seq_counts()
+    expect = _tp_launches(TP_L, 1, backward=True)
+    check(launches == expect, f"tp grads T={T} rank {rank}: launches {launches} != {expect}")
+    got = gather_state_dict({n: p.grad.float() for n, p in model.named_parameters()}, group=group)
+    floor = 1e-2 * max(float(g.abs().max()) for g in want.values())
+    held = [n for n in want if float(want[n].abs().max()) > floor]
+    errs = {n: _one_minus_cos(got[n], want[n]) for n in held}
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= SEQ_BF16_MAX_ONE_MINUS_COS,
+          f"tp grads T={T} rank {rank}: {worst} 1 - cos {errs[worst]} > {SEQ_BF16_MAX_ONE_MINUS_COS}")
+    return {"worst_param": worst, "worst_one_minus_cos": errs[worst], "n_held": len(held),
+            "under_floor": sorted(set(want) - set(held)), "launches": {n: launches[n] for n in TP_COUNTED}}
+
+
+def _tp_rank(rank: int, workdir: str) -> None:
+    """One rank of ``phase_tensor_parallel`` (a spawned process on
+    ``cuda:0``): a gloo group of TP_RANKS over a ``FileStore``; the
+    flagship slide encoder's weights built once; then for each T of
+    TP_WORLDS, on ranks below T, (a), (b) with (e), and (c); last, on every
+    rank, ``phase_moe``'s expert parallelism (``_ep_rank_work``, EP_WORLD =
+    TP_RANKS: one start of the rank processes serves both phases), each
+    step's end in seconds from the rank's start (``steps_s``). The results
+    go to ``rank{rank}.json``, a traceback to ``rank{rank}.err``."""
+    import datetime
+    import traceback
+
+    t_start = time.perf_counter()
+    try:
+        import torch
+        import torch.distributed as dist
+
+        from gigapath_tpu_torch.models import slide_encoder  # noqa: F401  (registers the archs)
+        from gigapath_tpu_torch.utils.registry import create_model_from_registry
+
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group("gloo", store=dist.FileStore(os.path.join(workdir, "store"), TP_RANKS),
+                                rank=rank, world_size=TP_RANKS,
+                                timeout=datetime.timedelta(seconds=SEQ_RANK_TIMEOUT_S))
+        groups = {T: dist.new_group(list(range(T))) for T in TP_WORLDS}
+        steps = {"start": time.perf_counter() - t_start}
+        single = create_model_from_registry(TP_ARCH, in_chans=1536)
+        single.init_weights(torch.Generator().manual_seed(0))
+        state = single.state_dict()
+        single = single.to("cuda", torch.bfloat16).eval()
+        steps["weights"] = time.perf_counter() - t_start
+        out = {"backend": dist.get_backend(), "steps_s": steps}
+        for T in TP_WORLDS:
+            if rank < T:
+                out[str(T)] = {"op": _tp_op(rank, T)}
+                steps[f"op_{T}"] = time.perf_counter() - t_start
+                out[str(T)]["slide"] = _tp_slide(rank, T, groups[T], state, single)
+                steps[f"slide_{T}"] = time.perf_counter() - t_start
+                out[str(T)]["grads"] = _tp_grads(rank, T, groups[T])
+                steps[f"grads_{T}"] = time.perf_counter() - t_start
+                torch.cuda.empty_cache()
+            dist.barrier()
+        del single
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out["ep"] = _ep_rank_work(rank, dist.group.WORLD)
+        steps["ep"] = time.perf_counter() - t_start
+        with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(workdir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def phase_tensor_parallel() -> list:
+    """Tensor parallelism (27): TP_RANKS rank processes on ``cuda:0`` over
+    gloo, spawned after the build; for T = 2 and 4 model ranks, (a) one
+    flagship layer's fp32 op on each rank's heads against the single-device
+    op, (b) the flagship slide encoder in bf16 at 10240 tiles against the
+    single-device model, (c) one layer's bf16 parameter gradients gathered
+    over the group, (d) every rank's exact launches, (e) host time, device
+    busy and peak memory a rank, labelled TP_LABEL. The same ranks then
+    run ``phase_moe``'s expert parallelism; returns its per-rank results."""
+    t_phase = time.perf_counter()
+    smi = _smi()
+    ranks = _spawn_ranks(_tp_rank, TP_RANKS, "tensor_parallel")
+    check(all(r["backend"] == "gloo" for r in ranks), "tensor_parallel: the model group is not gloo")
+    for T in TP_WORLDS:
+        runs = [r[str(T)] for r in ranks[:T]]
+        emit("tensor_parallel_op", T=T, dtype="float32", L=TP_L, H=H, Dh=E // H, schedule=SCHEDULE,
+             fwd_rel_tol=SEQ_FWD_REL_TOL, grad_rel_tol=SEQ_GRAD_REL_TOL, ranks=[r["op"] for r in runs])
+        emit("tensor_parallel_slide", T=T, dtype="bfloat16", arch=TP_ARCH, tiles=N_TILES,
+             tol=SEQ_BF16_MAX_ONE_MINUS_COS, worst_one_minus_cos=max(max(r["slide"]["one_minus_cos_by_layer"])
+                                                                    for r in runs),
+             one_minus_cos_by_layer=[r["slide"]["one_minus_cos_by_layer"] for r in runs],
+             launches=[r["slide"]["launches"] for r in runs])
+        emit("tensor_parallel_grads", T=T, dtype="bfloat16", arch=TP_GRAD_ARCH, L=TP_L,
+             tol=SEQ_BF16_MAX_ONE_MINUS_COS, ranks=[r["grads"] for r in runs])
+        emit("tensor_parallel_times", T=T, label=TP_LABEL.format(T), nvidia_smi=smi,
+             ranks=[r["slide"]["timing"] for r in runs])
+    emit("tensor_parallel", seconds=time.perf_counter() - t_phase, worlds=TP_WORLDS, backend="gloo",
+         rank_steps_s=[r["steps_s"] for r in ranks],
+         route="tensor-parallel (head-major at the global phases)", collectives=["all_reduce", "all_gather"],
+         nvidia_smi=smi, includes="the ranks' start and phase_moe's expert parallelism")
+    return [r["ep"] for r in ranks]
+
+
+# ---------------------------------------------------------------------------
+# 28. moe
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "LongNet_12_layers_768_dim"
+MOE_KW = dict(moe_freq=2, moe_expert_count=8)
+# the plain CPU run holds the card's: 12 layers (6 MoE) at L = 2049 (cut
+# from 10241 for the CPU's time; the schedule's first branch runs in two
+# segments)
+MOE_CPU_L = 2049
+MOE_L_AUX_REL_TOL = 1e-5
+MOE_TIMED_REPS = 3
+EP_WORLD = 4
+EP_LABEL = "4 ranks time-sharing one H100, collectives through gloo on the host"
+EP_L = N_TILES  # tokens a layer's input: a multiple of EP_WORLD for per-shard gating
+EP_AUX_WEIGHT = 0.1
+
+
+def _dense_launches(layers: int) -> dict:
+    """Exact launches of a single-device forward over ``layers`` flagship
+    layers on the default route: per branch, q, k and v packed (row 2),
+    the branch forward (row 1), the output unpacked (row 3). An MoE
+    layer's attention is a dense layer's; its FFN is torch."""
+    from gigapath_tpu_torch.ops import all_launch_counts
+
+    branches = len(SCHEDULE[0])
+    n = dict.fromkeys(all_launch_counts(), 0)
+    n.update(pack_phases=3 * branches * layers, dilated_branch_fwd=branches * layers,
+             unpack_phases=branches * layers)
+    return n
+
+
+def _moe_encoder(top1: bool):
+    """The MoE variant of ``MOE_ARCH`` (``MOE_KW``) on the flagship schedule,
+    weights from torch's seed 4, in eval mode (the eval capacity, no
+    second-expert noise), on the CPU."""
+    import torch
+
+    from gigapath_tpu_torch.models.longnet import make_longnet_from_name
+
+    sls, drs = SCHEDULE
+    torch.manual_seed(4)
+    model, _ = make_longnet_from_name(MOE_ARCH, dilated_ratio=drs, segment_length=sls, drop_path_rate=0.0, dropout=0.0,
+                                      moe_top1_expert=top1, **MOE_KW)
+    return model.eval()
+
+
+def _moe_vs_cpu(top1: bool) -> dict:
+    """The card's fp32 MoE encoder against the same weights' plain run on
+    the CPU: the output (max rel) and the summed ``l_aux``; exact launches
+    (rows 1-3 on every layer, the MoE layers' FFN being torch)."""
+    import torch
+
+    from gigapath_tpu_torch.ops import reset_all_launch_counts
+    from gigapath_tpu_torch.parallel.spmd import collect_moe_l_aux
+
+    model = _moe_encoder(top1)
+    x = torch.randn(1, MOE_CPU_L, E, generator=torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        ref = model(x)["encoder_out"]
+        ref_aux = float(collect_moe_l_aux(model))
+        model.to("cuda")
+        reset_all_launch_counts()
+        out = model(x.to("cuda"))["encoder_out"]
+        aux = float(collect_moe_l_aux(model))
+    launches = _seq_counts()
+    want = _dense_launches(len(model.layers))
+    check(launches == want, f"moe vs cpu top1={top1}: launches {launches} != {want}")
+    rel = _grad_rel_err(out.cpu(), ref)
+    aux_rel = abs(aux - ref_aux) / abs(ref_aux)
+    check(rel <= F32_REL_TOL, f"moe vs cpu top1={top1}: output rel {rel} > {F32_REL_TOL}")
+    check(aux_rel <= MOE_L_AUX_REL_TOL, f"moe vs cpu top1={top1}: l_aux rel {aux_rel} > {MOE_L_AUX_REL_TOL}")
+    return {"out_rel": rel, "l_aux": aux, "l_aux_cpu": ref_aux, "l_aux_rel": aux_rel,
+            "launches": {n: launches[n] for n in SEQ_COUNTED[:3]}}
+
+
+def _moe_flagship(top1: bool) -> dict:
+    """The 12-layer flagship-width MoE encoder in bf16 at L = 10241 on the
+    card: finite output and ``l_aux``, exact launches, the gating
+    telemetry's keys, host ms (median of MOE_TIMED_REPS), a profile and
+    peak memory."""
+    import torch
+
+    from gigapath_tpu_torch.obs.telemetry import moe_scalars
+    from gigapath_tpu_torch.ops import reset_all_launch_counts
+    from gigapath_tpu_torch.parallel.spmd import collect_moe_l_aux
+
+    model = _moe_encoder(top1).to("cuda", torch.bfloat16)
+    x = torch.randn(1, TP_L, E, generator=torch.Generator(device="cuda").manual_seed(6), device="cuda")
+    x = x.to(torch.bfloat16)
+
+    def forward():
+        with torch.no_grad():
+            return model(x)["encoder_out"]
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launch_counts()
+    out = forward()
+    aux = collect_moe_l_aux(model)
+    launches = _seq_counts()
+    want = _dense_launches(len(model.layers))
+    check(launches == want, f"moe flagship top1={top1}: launches {launches} != {want}")
+    check(bool(torch.isfinite(out).all()) and bool(torch.isfinite(aux)), f"moe flagship top1={top1}: non-finite")
+    telemetry = moe_scalars(model)
+    check(len(telemetry) > 0, f"moe flagship top1={top1}: no gating telemetry")
+    host = []
+    for _ in range(MOE_TIMED_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forward()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    res = {"l_aux": float(aux), "launches": {n: launches[n] for n in SEQ_COUNTED[:3]},
+           "telemetry_keys": len(telemetry), "entropy_gating": {k: float(v) for k, v in telemetry.items()
+                                                                if k.endswith("entropy_gating")},
+           "host_ms": host, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    res.update(_profile(forward, top=4))
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def _ep_layer(group=None, mode: str = "gather"):
+    """The flagship-width MoE layer (8 experts, top-1), fp32, eval mode;
+    weights from torch's seed 7; over ``group``'s experts when given."""
+    import torch
+
+    from gigapath_tpu_torch.ops.moe import MOELayer
+    from gigapath_tpu_torch.parallel.tensor import shard_state_dict
+
+    torch.manual_seed(7)
+    whole = MOELayer(E, 4 * E, MOE_KW["moe_expert_count"], top1=True)
+    if group is None:
+        return whole.to("cuda").eval()
+    import torch.distributed as dist
+
+    layer = MOELayer(E, 4 * E, MOE_KW["moe_expert_count"], top1=True, expert_group=group, expert_parallel=mode)
+    layer.load_state_dict(shard_state_dict(whole.state_dict(), dist.get_rank(group), dist.get_world_size(group),
+                                           axis="expert"), strict=True)
+    return layer.to("cuda").eval()
+
+
+def _ep_run(layer, x, ct):
+    """``layer(x)``'s output and ``l_aux`` and the gradients of ``sum(out *
+    ct) + EP_AUX_WEIGHT * l_aux`` (x's and every parameter's)."""
+    x = x.clone().requires_grad_(True)
+    out, l_aux = layer(x)
+    ((out * ct).sum() + EP_AUX_WEIGHT * l_aux).backward()
+    return out.detach(), l_aux.detach(), x.grad, {n: p.grad for n, p in layer.named_parameters()}
+
+
+def _ep_rank_work(rank: int, group) -> dict:
+    """``phase_moe``'s expert parallelism on one rank of ``group`` (run by
+    ``_tp_rank``): variant (a) on every token against the single-device
+    layer, variant (b) on this rank's quarter against the single-device
+    layer on that quarter (the per-shard function, its balance loss
+    averaged over the ranks), forward and gradients (fp32), and the host
+    ms of each (a barrier before each)."""
+    import torch
+    import torch.distributed as dist
+
+    from gigapath_tpu_torch.parallel.tensor import gather_state_dict
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    x, ct = (torch.randn(1, EP_L, E, generator=gen, device="cuda") for _ in range(2))
+    out = {}
+    # (a): every rank on every token
+    single = _ep_layer()
+    s_out, s_aux, s_dx, s_grads = _ep_run(single, x, ct)
+    layer = _ep_layer(group, "gather")
+    g_out, g_aux, g_dx, g_grads = _ep_run(layer, x, ct)
+    g_grads = gather_state_dict(g_grads, group=group, axis="expert")
+    grad_rel = {n: _grad_rel_err(g_grads[n], s_grads[n]) for n in s_grads}
+    out["gathered"] = {"fwd_rel": _grad_rel_err(g_out, s_out), "l_aux_rel": _grad_rel_err(g_aux, s_aux),
+                       "dx_rel": _grad_rel_err(g_dx, s_dx), "worst_grad_rel": max(grad_rel.values())}
+    # (b): each rank gates its own quarter; the reference is the
+    # single-device layer on that quarter, its l_aux weighted 1/D
+    q = EP_L // EP_WORLD
+    mine = slice(rank * q, (rank + 1) * q)
+    single.zero_grad(set_to_none=True)
+    xs = x[:, mine].clone().requires_grad_(True)
+    r_out, r_aux = single(xs)
+    ((r_out * ct[:, mine]).sum() + EP_AUX_WEIGHT / EP_WORLD * r_aux).backward()
+    r_grads = torch.cat([p.grad.reshape(-1) for p in single.parameters()])
+    dist.all_reduce(r_grads, group=group)
+    auxes = [torch.empty_like(r_aux) for _ in range(EP_WORLD)]
+    dist.all_gather(auxes, r_aux.detach().contiguous(), group=group)
+    a2a = _ep_layer(group, "all_to_all")
+    b_out, b_aux, b_dx, b_grads = _ep_run(a2a, x[:, mine], ct[:, mine])
+    b_grads = gather_state_dict(b_grads, group=group, axis="expert")
+    dist.all_reduce(b_grads["gate.wg.weight"], group=group)  # replicated: each rank's covers its own tokens
+    r_split = dict(zip([n for n, _ in single.named_parameters()],
+                       r_grads.split([p.numel() for p in single.parameters()])))
+    b_rel = {n: _grad_rel_err(b_grads[n].reshape(-1), r_split[n]) for n in r_split}
+    out["all_to_all"] = {"fwd_rel": _grad_rel_err(b_out, r_out.detach()),
+                         "l_aux_rel": _grad_rel_err(b_aux, torch.stack(auxes).mean()),
+                         "dx_rel": _grad_rel_err(b_dx, xs.grad), "worst_grad_rel": max(b_rel.values())}
+    for variant, res in out.items():
+        check(res["fwd_rel"] <= SEQ_FWD_REL_TOL and res["l_aux_rel"] <= SEQ_FWD_REL_TOL,
+              f"ep {variant} rank {rank}: forward {res}")
+        check(res["dx_rel"] <= SEQ_GRAD_REL_TOL and res["worst_grad_rel"] <= SEQ_GRAD_REL_TOL,
+              f"ep {variant} rank {rank}: gradients {res}")
+    timing = {}
+    for name, fn in (("single_device", lambda: _ep_run(single, x, ct)), ("gathered", lambda: _ep_run(layer, x, ct)),
+                     ("all_to_all", lambda: _ep_run(a2a, x[:, mine], ct[:, mine]))):
+        timing[name] = {"host_ms": _seq_forward_ms(fn, group)}
+    out["timing"] = timing
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def phase_moe(ep_ranks: list) -> None:
+    """Mixture of experts (28): the flagship config's MoE variant
+    (``moe_freq=2, moe_expert_count=8``), top-1 and top-2, on the card
+    in fp32 against the plain CPU run of the same weights at L = 2049,
+    and in bf16 at 10240 tiles (launches, telemetry, timing);
+    expert parallelism over EP_WORLD ranks in both variants against the
+    single-device layer (``ep_ranks``: run by ``phase_tensor_parallel``'s
+    ranks); and ``dryrun.dryrun_multichip(4)`` and ``(8)``."""
+    from gigapath_tpu_torch.dryrun import dryrun_multichip
+
+    t_phase = time.perf_counter()
+    smi = _smi()
+    for top1 in (True, False):
+        emit("moe_vs_cpu", top1=top1, arch=MOE_ARCH, **MOE_KW, L=MOE_CPU_L, dtype="float32",
+             out_rel_tol=F32_REL_TOL, l_aux_rel_tol=MOE_L_AUX_REL_TOL, **_moe_vs_cpu(top1))
+        emit("moe_flagship", top1=top1, arch=MOE_ARCH, **MOE_KW, L=TP_L, dtype="bfloat16", nvidia_smi=smi,
+             **_moe_flagship(top1))
+    emit("moe_expert_parallel", world=EP_WORLD, L=EP_L, experts=MOE_KW["moe_expert_count"], dtype="float32",
+         fwd_rel_tol=SEQ_FWD_REL_TOL, grad_rel_tol=SEQ_GRAD_REL_TOL, label=EP_LABEL, nvidia_smi=smi,
+         ranks=ep_ranks)
+
+    def dryrun(n):
+        t0 = time.perf_counter()
+        return dryrun_multichip(n), time.perf_counter() - t0
+
+    # both dry runs at once: most of each is its ranks' start
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        runs = {n: pool.submit(dryrun, n) for n in (4, 8)}
+        for n, run in runs.items():
+            lines, seconds = run.result()
+            losses = [float(line.rsplit("loss=", 1)[1]) for line in lines]
+            check(len(lines) == 2 and all(math.isfinite(v) for v in losses), f"dryrun_multichip({n}): {lines}")
+            emit("moe_dryrun", n=n, lines=lines, seconds=seconds)
+    emit("moe", seconds=time.perf_counter() - t_phase, nvidia_smi=smi)
 
 
 def main() -> int:
@@ -6501,6 +7006,7 @@ def main() -> int:
     pipe_launches = phase_pipe_step()
     launches.update({name: pipe_launches[name] for name in PIPE_KERNELS})
     phase_seq_parallel()
+    phase_moe(phase_tensor_parallel())
     print(json.dumps({"kernels": [
         {"name": name, **meta, "launches": launches[name],
          "max_abs_err": summary[name]["err"], "ms": summary[name]["ms"],

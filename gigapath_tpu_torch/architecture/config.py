@@ -1,7 +1,9 @@
 """Encoder config (counterpart of ``gigapath_tpu/architecture/config.py``).
 
-The fields the slide encoder reads, with the same ``postprocessing()``
-invariants (deepnorm and sub-LN exclusive, sub-LN forces pre-LN) and the
+The fields the slide encoder reads and the MoE fields, with the same
+``postprocessing()`` invariants (deepnorm and sub-LN exclusive, sub-LN
+forces pre-LN, xmoe forces normalised gates and the random second-expert
+policy) and the
 same safe parsing of stringified schedules (``ast.literal_eval``, never
 ``eval``). Unknown keys from a registry dict land in ``extras``.
 """
@@ -47,6 +49,15 @@ class EncoderConfig:
     # sequence parallelism: the encoder's DilatedAttention layers shard the
     # tokens over the process group in ``extras["seq_group"]``
     seq_parallel: bool = False
+    # mixture of experts: layer i is an MoE layer when moe_freq divides i + 1
+    moe_freq: int = 0
+    moe_top1_expert: bool = False
+    moe_expert_count: int = 0
+    moe_gating_use_fp32: bool = True
+    moe_eval_capacity_token_fraction: float = 0.25
+    moe_second_expert_policy: str = "random"
+    moe_normalize_gate_prob_before_dropping: bool = False
+    use_xmoe: bool = False
     extras: Dict[str, Any] = field(default_factory=dict)
 
     def __post_init__(self):
@@ -61,6 +72,11 @@ class EncoderConfig:
         if self.subln:
             self.deepnorm = False
             self.encoder_normalize_before = True
+        if self.use_xmoe:
+            self.moe_normalize_gate_prob_before_dropping = True
+            self.moe_second_expert_policy = "random"
+            if not (self.moe_freq > 0 and self.moe_expert_count > 0):
+                raise ValueError("use_xmoe needs moe_freq > 0 and moe_expert_count > 0")
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "EncoderConfig":

@@ -4,8 +4,22 @@ pre-LN (or post-LN) blocks of self-attention and FFN with sub-LN, padding
 rows zeroed at the input, ``return_all_hiddens``, the final ``layer_norm``,
 and ``checkpoint_activations`` (each layer re-run in the backward, the
 counterpart of the JAX package's per-layer ``nn.remat``). Training mode
-comes from ``module.train()``: dropout and drop-path act only there. MoE,
-relative-position bias, multiway and the token embedding are not ported.
+comes from ``module.train()``: dropout and drop-path act only there.
+
+MoE: layer i is an MoE layer when ``moe_freq`` divides ``i + 1``; its FFN
+is a :class:`~gigapath_tpu_torch.ops.moe.MOELayer` (``moe_layer``, fed the
+padding mask so that padded tokens claim no capacity), and the encoder
+keeps the sum of the layers' balance losses as ``moe_l_aux`` (the JAX
+package sows it as ``intermediates/moe_l_aux``), where
+``parallel/spmd.py:collect_moe_l_aux`` finds it; the output dict's
+``l_aux`` lists each layer's (None for a dense layer).
+
+The config's ``extras`` may carry process groups: ``model_group`` (tensor
+parallelism: the attention and dense FFN run on the rank's shards,
+:mod:`gigapath_tpu_torch.parallel.tensor`), ``expert_group`` and
+``expert_parallel`` (the MoE layers' expert parallelism). MoE layers do
+not run tensor-parallel (``ValueError``). Relative-position bias, multiway
+and the token embedding are not ported.
 """
 
 from __future__ import annotations
@@ -22,15 +36,19 @@ from gigapath_tpu_torch.architecture.config import EncoderConfig
 from gigapath_tpu_torch.ops.attention import MultiheadAttention
 from gigapath_tpu_torch.ops.droppath import DropPath
 from gigapath_tpu_torch.ops.feedforward import FeedForwardNetwork
+from gigapath_tpu_torch.ops.moe import MOELayer
 
 
 class EncoderLayer(nn.Module):
     """One encoder block; ``build_self_attention`` is the hook the LongNet
     layer overrides to put in dilated attention."""
 
-    def __init__(self, args: EncoderConfig, depth: int):
+    def __init__(self, args: EncoderConfig, depth: int, is_moe_layer: bool = False):
         super().__init__()
         self.args = args
+        self.model_group = args.extras.get("model_group")
+        if is_moe_layer and self.model_group is not None:
+            raise ValueError("MoE layers do not run tensor-parallel: pass no model_group with moe_freq > 0")
         self.self_attn = self.build_self_attention()
         self.self_attn_layer_norm = nn.LayerNorm(args.encoder_embed_dim, eps=args.layernorm_eps)
         self.dropout_module = nn.Dropout(args.dropout)
@@ -39,15 +57,24 @@ class EncoderLayer(nn.Module):
             prob = float(np.linspace(0, args.drop_path_rate, args.encoder_layers)[depth])
         self.drop_path = DropPath(prob) if prob > 0 else None
         self.normalize_before = args.encoder_normalize_before
-        self.ffn = FeedForwardNetwork(
-            args.encoder_embed_dim,
-            args.encoder_ffn_embed_dim,
-            args.activation_fn,
-            args.dropout,
-            args.activation_dropout,
-            args.layernorm_eps,
-            args.subln,
-        )
+        if is_moe_layer:
+            self.ffn = None
+            self.moe_layer = MOELayer.from_config(
+                args, expert_group=args.extras.get("expert_group"),
+                expert_parallel=args.extras.get("expert_parallel", "gather"),
+            )
+        else:
+            self.moe_layer = None
+            self.ffn = FeedForwardNetwork(
+                args.encoder_embed_dim,
+                args.encoder_ffn_embed_dim,
+                args.activation_fn,
+                args.dropout,
+                args.activation_dropout,
+                args.layernorm_eps,
+                args.subln,
+                model_group=self.model_group,
+            )
         self.final_layer_norm = nn.LayerNorm(args.encoder_embed_dim, eps=args.layernorm_eps)
         self.alpha = math.pow(2.0 * args.encoder_layers, 0.25) if args.deepnorm else 1.0
 
@@ -57,6 +84,7 @@ class EncoderLayer(nn.Module):
             self.args.encoder_attention_heads,
             subln=self.args.subln,
             layernorm_eps=self.args.layernorm_eps,
+            model_group=self.model_group,
         )
 
     def _residual(self, residual: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -64,7 +92,10 @@ class EncoderLayer(nn.Module):
             x = self.drop_path(x)
         return residual * self.alpha + x
 
-    def forward(self, x: torch.Tensor, encoder_padding_mask: Optional[torch.Tensor] = None):
+    def forward(self, x: torch.Tensor, encoder_padding_mask: Optional[torch.Tensor] = None,
+                return_l_aux: bool = False):
+        """The block; with ``return_l_aux``, ``(x, l_aux)`` (None for a
+        dense layer)."""
         residual = x
         if self.normalize_before:
             x = self.self_attn_layer_norm(x)
@@ -76,10 +107,15 @@ class EncoderLayer(nn.Module):
         residual = x
         if self.normalize_before:
             x = self.final_layer_norm(x)
-        x = self._residual(residual, self.ffn(x))
+        l_aux = None
+        if self.moe_layer is None:
+            x = self.ffn(x)
+        else:
+            x, l_aux = self.moe_layer(x, encoder_padding_mask)
+        x = self._residual(residual, x)
         if not self.normalize_before:
             x = self.final_layer_norm(x)
-        return x
+        return (x, l_aux) if return_l_aux else x
 
 
 class Encoder(nn.Module):
@@ -105,8 +141,10 @@ class Encoder(nn.Module):
         )
         self.dropout_module = nn.Dropout(args.dropout)
         self.layers = nn.ModuleList(
-            type(self).layer_cls(args, depth=i) for i in range(args.encoder_layers)
+            type(self).layer_cls(args, depth=i, is_moe_layer=args.moe_freq != 0 and (i + 1) % args.moe_freq == 0)
+            for i in range(args.encoder_layers)
         )
+        self.moe_l_aux = None
         self.layer_norm = (
             nn.LayerNorm(args.encoder_embed_dim, eps=args.layernorm_eps)
             if args.encoder_normalize_before and args.normalize_output else None
@@ -129,15 +167,19 @@ class Encoder(nn.Module):
         keep = state_readout or (lambda state: state)
         encoder_states = [keep(x)] if return_all_hiddens else []
         remat = self.args.checkpoint_activations and torch.is_grad_enabled()
+        l_aux = []
         for layer in self.layers:
             if remat:
                 # non-reentrant; the RNG state is restored for the re-run,
                 # so dropout draws the same masks twice
-                x = torch.utils.checkpoint.checkpoint(layer, x, encoder_padding_mask, use_reentrant=False)
+                x, aux = torch.utils.checkpoint.checkpoint(layer, x, encoder_padding_mask, True, use_reentrant=False)
             else:
-                x = layer(x, encoder_padding_mask)
+                x, aux = layer(x, encoder_padding_mask, return_l_aux=True)
+            l_aux.append(aux)
             if return_all_hiddens:
                 encoder_states.append(keep(x))
+        moe_losses = [a for a in l_aux if a is not None]
+        self.moe_l_aux = sum(moe_losses) if moe_losses else None
         if self.layer_norm is not None:
             x = self.layer_norm(x)
         return {
@@ -145,4 +187,5 @@ class Encoder(nn.Module):
             "encoder_embedding": embed,
             "encoder_padding_mask": encoder_padding_mask,
             "encoder_states": encoder_states,
+            "l_aux": l_aux,
         }

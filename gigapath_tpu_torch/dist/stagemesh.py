@@ -99,10 +99,11 @@ def _tp_rules(model_axis: str = "model") -> Tuple[Tuple[str, Spec], ...]:
     col = "|".join(_COLUMN_PARALLEL)
     row = "|".join(_ROW_PARALLEL)
     return (
+        # stacked MoE experts carry a leading E axis (ops/moe/moe_layer.py):
+        # first, so that an expert's fc1/fc2 is not read as a dense layer
+        (r"(^|\.)experts\.", ("expert",)),
         (rf"(^|\.)({col})\.weight$", (None, model_axis)),
         (rf"(^|\.)({row})\.weight$", (model_axis, None)),
-        # stacked MoE experts carry a leading E axis
-        (r"(^|\.)experts\.", ("expert",)),
         (r".*", ()),  # everything else (biases, norms, embeddings)
     )
 

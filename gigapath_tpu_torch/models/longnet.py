@@ -29,6 +29,7 @@ class LongNetEncoderLayer(EncoderLayer):
             dropout=args.attention_dropout,
             seq_parallel=args.seq_parallel,
             seq_group=args.extras.get("seq_group"),
+            model_group=self.model_group,
         )
 
 
@@ -45,6 +46,9 @@ def make_longnet_from_name(
     *,
     seq_parallel: bool = False,
     seq_group=None,
+    model_group=None,
+    expert_group=None,
+    expert_parallel: str = "gather",
     **overrides,
 ) -> Tuple[LongNetEncoder, EncoderConfig]:
     """Build a LongNet encoder from a registry name; ``**overrides``
@@ -53,7 +57,14 @@ def make_longnet_from_name(
     ``seq_parallel`` with ``seq_group`` (the process group of a mesh's
     ``seq`` dim; the JAX package's ``seq_axis_name`` / ``seq_axis_size``)
     makes every layer's attention sequence-parallel: each rank runs the
-    encoder on its own slice of the tokens."""
+    encoder on its own slice of the tokens. ``model_group`` (a mesh's
+    ``model`` dim) makes the attention and the FFNs tensor-parallel: each
+    rank holds its shards (load them with
+    ``parallel.tensor.shard_state_dict``). ``expert_group`` (a mesh's
+    ``expert`` dim) spreads an MoE variant's experts (``moe_freq=2,
+    moe_expert_count=8`` among the overrides) over its ranks,
+    ``expert_parallel`` ``"gather"`` or ``"all_to_all"``
+    (:mod:`gigapath_tpu_torch.ops.moe.expert_parallel`)."""
     cfg_dict = longnet_config.get_config(config_name)
     cfg_dict.update(
         dropout=dropout,
@@ -64,5 +75,6 @@ def make_longnet_from_name(
         **overrides,
     )
     cfg = EncoderConfig.from_dict(cfg_dict)
-    cfg.extras["seq_group"] = seq_group
+    cfg.extras.update(seq_group=seq_group, model_group=model_group, expert_group=expert_group,
+                      expert_parallel=expert_parallel)
     return LongNetEncoder(cfg), cfg

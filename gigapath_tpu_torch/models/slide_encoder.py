@@ -58,7 +58,10 @@ class LongNetViT(nn.Module):
     ``all_layer_embed``, else just the final one. It trains through
     ``model.train()`` (dropout and drop-path act only then);
     ``checkpoint_activations`` re-runs each encoder layer in the backward
-    instead of keeping its activations.
+    instead of keeping its activations. ``model_group`` makes the encoder's
+    attention and FFNs tensor-parallel over that process group
+    (``models/longnet.py:make_longnet_from_name``); the patch embed, the
+    cls token, the norms and the head stay whole on every rank.
     """
 
     def __init__(
@@ -77,6 +80,7 @@ class LongNetViT(nn.Module):
         segment_length: Optional[List[int]] = None,
         dilated_ratio: str = "[1, 2, 4, 8, 16]",
         checkpoint_activations: bool = False,
+        model_group=None,
     ):
         super().__init__()
         self.embed_dim = embed_dim
@@ -96,6 +100,7 @@ class LongNetViT(nn.Module):
             drop_path_rate=drop_path_rate,
             dropout=dropout,
             checkpoint_activations=checkpoint_activations,
+            model_group=model_group,
         )
         self.norm = nn.LayerNorm(embed_dim, eps=norm_eps)
 

@@ -72,6 +72,8 @@ def check_streamable(cfg) -> None:
         unsupported.append("multiway")
     if _field(cfg, "moe_freq", 0):
         unsupported.append("moe")
+    if _field(cfg, "model_group", None) is not None:
+        unsupported.append("tensor_parallel")
     if _field(cfg, "xpos_rel_pos", False):
         unsupported.append("xpos_rel_pos")
     if _field(cfg, "deepnorm", False):

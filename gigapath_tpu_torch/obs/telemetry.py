@@ -10,7 +10,7 @@ variable and branch on no value.
 A tree is a tensor, an iterable of tensors, or a (possibly nested) dict of
 them, e.g. ``dict(model.named_parameters())``; ``None`` leaves (a
 parameter the loss never reached has no ``.grad``) count as zeros.
-``moe_scalars`` waits for the port's ``ops/moe/``.
+``moe_scalars`` reads the MoE layers' last gating metadata.
 """
 
 from __future__ import annotations
@@ -67,4 +67,15 @@ def step_scalars(
     return out
 
 
-__all__ = ["fp32_leaves", "step_scalars", "tree_leaves", "tree_norm"]
+def moe_scalars(model) -> Dict[str, torch.Tensor]:
+    """The MoE layers' gating telemetry of ``model``'s last forward as 0-d
+    device tensors under the JAX package's ``layer_path/metric`` keys (the
+    flattening of ``utils/profiling.py:iter_moe_metadata``), not
+    synchronised: merge them into :func:`step_scalars`' dict and read them
+    at the step's sync point."""
+    from gigapath_tpu_torch.utils.profiling import iter_moe_metadata
+
+    return {key: leaf.detach() for key, leaf in iter_moe_metadata(model)}
+
+
+__all__ = ["fp32_leaves", "moe_scalars", "step_scalars", "tree_leaves", "tree_norm"]

@@ -9,7 +9,8 @@ merges) folds two such partials over disjoint key sets into one;
 :class:`MultiheadAttention` holds the q/k/v/out projections and the
 sub-LayerNorm, with ``_attend`` as the hook
 :class:`~gigapath_tpu_torch.ops.dilated_attention.DilatedAttention`
-overrides. ``flash_attention`` and ``partial_attention`` (on the
+overrides; with a ``model_group`` it runs tensor-parallel on the rank's own
+heads (:mod:`gigapath_tpu_torch.parallel.tensor`). ``flash_attention`` and ``partial_attention`` (on the
 segment-flash kernel) are in :mod:`~gigapath_tpu_torch.ops.flash_attention`,
 which re-exports :func:`combine_partials`. xPos, multiway and the decode
 cache are not ported yet.
@@ -21,6 +22,14 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+
+from gigapath_tpu_torch.parallel.tensor import (
+    ShardedLayerNorm,
+    copy_to_group,
+    local_heads,
+    rank_and_world,
+    row_parallel_linear,
+)
 
 # Large-but-finite mask value: fully masked rows stay NaN-free.
 NEG_INF = -1e8
@@ -106,7 +115,14 @@ class MultiheadAttention(nn.Module):
     """Self-attention block: q/k/v/out projections around ``_attend``, with
     ``inner_attn_ln`` on the attention output when ``subln``. Key names
     follow torchscale (``q_proj``, ``k_proj``, ``v_proj``, ``out_proj``,
-    ``inner_attn_ln``)."""
+    ``inner_attn_ln``).
+
+    ``model_group`` (the process group of a mesh's ``model`` dim, T ranks)
+    makes it tensor-parallel: rank j holds heads ``[j*H/T, (j+1)*H/T)``,
+    q/k/v are column-parallel (``[E/T, E]`` weights), ``out_proj``
+    row-parallel (``[E, E/T]``), the sub-LN a
+    :class:`~gigapath_tpu_torch.parallel.tensor.ShardedLayerNorm`; load a
+    rank's weights with ``parallel.tensor.shard_state_dict``."""
 
     def __init__(
         self,
@@ -114,23 +130,33 @@ class MultiheadAttention(nn.Module):
         num_heads: int,
         subln: bool = False,
         layernorm_eps: float = 1e-5,
+        model_group=None,
     ):
         super().__init__()
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
-        self.q_proj = nn.Linear(embed_dim, embed_dim)
-        self.k_proj = nn.Linear(embed_dim, embed_dim)
-        self.v_proj = nn.Linear(embed_dim, embed_dim)
-        self.out_proj = nn.Linear(embed_dim, embed_dim)
-        self.inner_attn_ln = nn.LayerNorm(embed_dim, eps=layernorm_eps) if subln else None
+        self.model_group = model_group if rank_and_world(model_group)[1] > 1 else None
+        self.local_heads, self.head_offset = local_heads(num_heads, self.model_group)
+        local = self.local_heads * self.head_dim
+        self.q_proj = nn.Linear(embed_dim, local)
+        self.k_proj = nn.Linear(embed_dim, local)
+        self.v_proj = nn.Linear(embed_dim, local)
+        self.out_proj = nn.Linear(local, embed_dim)
+        if not subln:
+            self.inner_attn_ln = None
+        elif self.model_group is not None:
+            self.inner_attn_ln = ShardedLayerNorm(local, self.model_group, eps=layernorm_eps)
+        else:
+            self.inner_attn_ln = nn.LayerNorm(embed_dim, eps=layernorm_eps)
 
     def _attend(self, q, k, v, *, key_padding_mask=None, is_causal=False):
-        """Inner attention on [B, L, H, D] tensors -> [B, Lq, H*D]."""
+        """Inner attention on [B, L, H, D] tensors (this rank's heads) ->
+        [B, Lq, H*D]."""
         out, _ = attention_with_lse(
             q, k, v, key_padding_mask=key_padding_mask, is_causal=is_causal
         )
-        return out.reshape(out.shape[0], out.shape[1], self.embed_dim)
+        return out.reshape(out.shape[0], out.shape[1], -1)
 
     def forward(
         self,
@@ -142,11 +168,17 @@ class MultiheadAttention(nn.Module):
         is_causal: bool = False,
     ) -> torch.Tensor:
         B, Lq, _ = query.shape
-        H, Dh = self.num_heads, self.head_dim
+        H, Dh = self.local_heads, self.head_dim
+        if self.model_group is not None:
+            # one copy for self-attention: its gradient is all-reduced once
+            same_k, same_v = key is query, value is query
+            query = copy_to_group(query, self.model_group)
+            key = query if same_k else copy_to_group(key, self.model_group)
+            value = query if same_v else copy_to_group(value, self.model_group)
         q = self.q_proj(query).view(B, Lq, H, Dh)
         k = self.k_proj(key).view(B, key.shape[1], H, Dh)
         v = self.v_proj(value).view(B, value.shape[1], H, Dh)
         attn = self._attend(q, k, v, key_padding_mask=key_padding_mask, is_causal=is_causal)
         if self.inner_attn_ln is not None:
             attn = self.inner_attn_ln(attn)
-        return self.out_proj(attn)
+        return row_parallel_linear(attn, self.out_proj, self.model_group)

@@ -171,6 +171,8 @@ def dilated_attention(
     streaming_fusion: Optional[bool] = None,
     seq_group=None,
     offset: int = 0,
+    head_offset: int = 0,
+    num_heads: Optional[int] = None,
 ) -> torch.Tensor:
     """Multi-branch dilated self-attention on [B, L, H, D] -> [B, L, H, D].
 
@@ -187,6 +189,16 @@ def dilated_attention(
     ``valid_len`` each rank's own suffix count of a suffix-padded batch, a
     [B] tensor wherever a branch spans ranks. ``offset`` (decoding) is not
     ported: above 0 it raises.
+
+    ``head_offset`` and ``num_heads``: the H heads of q/k/v are the global
+    heads ``[head_offset, head_offset + H)`` of ``num_heads`` (a
+    tensor-parallel rank's, :class:`DilatedAttention` with a
+    ``model_group``). A dilated branch's phase depends on the global head
+    index, ``h // ceil(num_heads / r)``, so a call on a proper subset of the
+    heads takes the **tensor-parallel route**: the head-major route
+    (:func:`dilated_attention_bhld`, rows 11-14) at the global phases,
+    whatever the flags. It does not combine with ``seq_group``
+    (``ValueError``).
     """
     if len(segment_lengths) != len(dilated_ratios):
         raise ValueError("segment_lengths and dilated_ratios differ in length")
@@ -199,6 +211,19 @@ def dilated_attention(
         raise ValueError(f"self-attention needs equal q/k/v shapes; got {q.shape}, {k.shape}, {v.shape}")
     B, L, H, Dh = q.shape
     E = H * Dh
+    total = H if num_heads is None else int(num_heads)
+    if head_offset or total != H:
+        if seq_world > 1:
+            raise ValueError(
+                "a tensor-parallel rank's heads (head_offset/num_heads) and sequence parallelism "
+                "(seq_group) are not supported together"
+            )
+        if head_offset < 0 or head_offset + H > total:
+            raise ValueError(f"heads [{head_offset}, {head_offset + H}) are not inside the {total} global heads")
+        return dilated_attention_bhld(
+            q, k, v, segment_lengths, dilated_ratios, is_causal=is_causal, valid_len=valid_len,
+            heads=(int(head_offset), total),
+        )
     if seq_world > 1:
         routes = _seq_routes(segment_lengths, dilated_ratios, L, H, E, seq_world)
     if flags is None:
@@ -295,43 +320,66 @@ def _stacked_fusion(outs, lses, dtype: torch.dtype) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _phase_head_ranges(num_heads: int, ratio: int):
-    """(phase, head_start, head_end) triples: heads [hs, he) share ``phase``
-    (phases are contiguous head ranges, ``arange(H) // ceil(H/r)``; where r
-    does not divide H the last phases may hold fewer heads or none)."""
-    heads_per_group = -(-num_heads // ratio)
+def _head_base(num_heads: int, heads) -> Tuple[int, int]:
+    """(the first local head's global index, the global head count) of a
+    call on ``num_heads`` local heads; ``heads`` is None (the local heads
+    are all the heads) or that pair (a tensor-parallel rank's)."""
+    return (0, num_heads) if heads is None else (int(heads[0]), int(heads[1]))
+
+
+def _head_phases(num_heads: int, ratio: int, heads=None, device=None):
+    """The phase of each local head: its global index ``// ceil(H/r)`` over
+    the global head count H; a numpy array, or with ``device`` a tensor
+    made there (no host copy: a captured CUDA graph may run it)."""
+    offset, total = _head_base(num_heads, heads)
+    per = -(-total // ratio)
+    if device is None:
+        return (offset + np.arange(num_heads)) // per
+    return (offset + torch.arange(num_heads, device=device)) // per
+
+
+def _phase_head_ranges(num_heads: int, ratio: int, heads=None):
+    """(phase, head_start, head_end) triples over the local heads: heads
+    [hs, he) share ``phase`` (phases are contiguous head ranges, the global
+    ``arange(H) // ceil(H/r)``; where r does not divide H the last phases
+    may hold fewer heads or none). ``heads`` as :func:`_head_base`: a
+    tensor-parallel rank's heads may start inside a phase and span
+    several."""
+    offset, total = _head_base(num_heads, heads)
+    heads_per_group = -(-total // ratio)
     ranges = []
-    for p in range(ratio):
-        hs = p * heads_per_group
-        if hs >= num_heads:
-            break
-        ranges.append((p, hs, min((p + 1) * heads_per_group, num_heads)))
+    h = 0
+    while h < num_heads:
+        p = (offset + h) // heads_per_group
+        he = min((p + 1) * heads_per_group - offset, num_heads)
+        ranges.append((p, h, he))
+        h = he
     return ranges
 
 
-def _branch_kvlen_bhld(num_heads: int, n_seg: int, g: int, ratio: int, m: int, real_len: int):
+def _branch_kvlen_bhld(num_heads: int, n_seg: int, g: int, ratio: int, m: int, real_len: int, heads=None):
     """[H, n_seg] valid sparse-key counts of a head-major branch, or None
     when every slot is valid: slot j of segment s and head h is dense
     position ``s*g + phase(h) + r*j``, valid iff it is a real token and
     inside the segment's own g positions."""
-    phases = np.arange(num_heads) // -(-num_heads // ratio)
+    phases = _head_phases(num_heads, ratio, heads)
     in_seg = np.clip(real_len - np.arange(n_seg)[None, :] * g, 0, g)
     counts = np.clip(np.ceil((in_seg - phases[:, None]) / ratio), 0, m).astype(np.int32)
     return None if (counts == m).all() else counts
 
 
-def _dilate_bhld(x: torch.Tensor, ratio: int) -> torch.Tensor:
+def _dilate_bhld(x: torch.Tensor, ratio: int, heads=None) -> torch.Tensor:
     """[B, H, n, gp, D] -> [B, H, n, gp/r, D]: each head keeps its phase's
     positions (static slices of the [.., m, r, D] view)."""
     if ratio == 1:
         return x
     B, H, n, gp, D = x.shape
     x6 = x.reshape(B, H, n, gp // ratio, ratio, D)
-    parts = [x6[:, hs:he, :, :, p, :] for p, hs, he in _phase_head_ranges(H, ratio)]
+    parts = [x6[:, hs:he, :, :, p, :] for p, hs, he in _phase_head_ranges(H, ratio, heads)]
     return torch.cat(parts, dim=1)
 
 
-def _undilate_bhld(out_s: torch.Tensor, lse_s: torch.Tensor, ratio: int):
+def _undilate_bhld(out_s: torch.Tensor, lse_s: torch.Tensor, ratio: int, heads=None):
     """Inverse of :func:`_dilate_bhld`: sparse [B, H, n, m, D] (lse [B, H,
     n, m]) back to [B, H, n, m*r, D], the positions a head does not cover 0
     with lse ``NEG_INF`` (the plain attention's -1e8, as in the JAX
@@ -339,8 +387,8 @@ def _undilate_bhld(out_s: torch.Tensor, lse_s: torch.Tensor, ratio: int):
     if ratio == 1:
         return out_s, lse_s
     B, H, n, m, D = out_s.shape
-    h_idx = torch.arange(H, device=out_s.device)[:, None]
-    mask = (h_idx // -(-H // ratio)) == torch.arange(ratio, device=out_s.device)[None, :]  # [H, r]
+    phases = _head_phases(H, ratio, heads, out_s.device)[:, None]
+    mask = phases == torch.arange(ratio, device=out_s.device)[None, :]  # [H, r]
     out_d = torch.where(mask[None, :, None, None, :, None], out_s[:, :, :, :, None, :], 0)
     lse_d = torch.where(mask[None, :, None, None, :], lse_s[..., None], NEG_INF)
     return out_d.reshape(B, H, n, m * ratio, D), lse_d.reshape(B, H, n, m * ratio)
@@ -379,27 +427,27 @@ def _bhld_geom(L: int, sl: int, r: int) -> Tuple[int, int, int, int, int]:
     return g, Lp, Lp // g, gp, gp // r
 
 
-def _seg_dilate(x: torch.Tensor, g: int, Lp: int, n: int, gp: int, r: int) -> torch.Tensor:
+def _seg_dilate(x: torch.Tensor, g: int, Lp: int, n: int, gp: int, r: int, heads=None) -> torch.Tensor:
     """[B, H, L, D] -> the dilated segment view [B, H, n, m, D], contiguous."""
     B, H, L, D = x.shape
     x = torch.nn.functional.pad(x, (0, 0, 0, Lp - L)).reshape(B, H, n, g, D)
     x = torch.nn.functional.pad(x, (0, 0, 0, gp - g))
-    return _dilate_bhld(x, r).contiguous()
+    return _dilate_bhld(x, r, heads).contiguous()
 
 
-def _undilate_to_dense(out_s, lse_s, r: int, g: int, Lp: int, L: int):
+def _undilate_to_dense(out_s, lse_s, r: int, g: int, Lp: int, L: int, heads=None):
     """Sparse ``(out [B, H, n, m, D], lse [B, H, n, m])`` -> dense ``(out
     [B, H, L, D], lse [B, H, L])``."""
     B, H = out_s.shape[:2]
     D = out_s.shape[-1]
-    out_d, lse_d = _undilate_bhld(out_s, lse_s, r)
+    out_d, lse_d = _undilate_bhld(out_s, lse_s, r, heads)
     out = out_d[:, :, :, :g].reshape(B, H, Lp, D)[:, :, :L]
     lse = lse_d[:, :, :, :g].reshape(B, H, Lp)[:, :, :L]
     return out, lse
 
 
 def _bhld_kvlen(B: int, H: int, n: int, g: int, r: int, m: int, real_len: int,
-                valid_len_dyn: Optional[torch.Tensor], device) -> Optional[torch.Tensor]:
+                valid_len_dyn: Optional[torch.Tensor], device, heads=None) -> Optional[torch.Tensor]:
     """[B, H, n] int32 valid sparse-key counts on ``device``, or None when
     every slot is valid: :func:`_branch_kvlen_bhld`'s table (decided on the
     host) combined by minimum with the per-row valid lengths. The table is
@@ -409,12 +457,12 @@ def _bhld_kvlen(B: int, H: int, n: int, g: int, r: int, m: int, real_len: int,
     ``min(real_len, valid_len_dyn)`` (the counts grow with the bound, so
     that is the minimum of the two tables): a table copied from host memory
     would make the stream wait for the device once per branch."""
-    if valid_len_dyn is None and _branch_kvlen_bhld(H, n, g, r, m, real_len) is None:
+    if valid_len_dyn is None and _branch_kvlen_bhld(H, n, g, r, m, real_len, heads) is None:
         return None
     bound = torch.full((B,), real_len, dtype=torch.int64, device=device)
     if valid_len_dyn is not None:
         bound = torch.minimum(bound, valid_len_dyn.to(device=device, dtype=torch.int64))
-    phases = torch.arange(H, device=device) // -(-H // r)
+    phases = _head_phases(H, r, heads, device)
     return dyn_sparse_counts(bound, g, r, m, phases, n).contiguous()
 
 
@@ -433,15 +481,15 @@ class _BranchFlash(torch.autograd.Function):
     output takes no gradient. Autocast is off, as for the other kernels."""
 
     @staticmethod
-    def forward(ctx, qh, kh, vh, kvlen, sl, r, is_causal):
+    def forward(ctx, qh, kh, vh, kvlen, sl, r, is_causal, heads):
         geom = _bhld_geom(qh.shape[2], sl, r)
         g, Lp, n, gp, m = geom
         with torch.autocast(qh.device.type, enabled=False):
-            q5, k5, v5 = (_seg_dilate(x, g, Lp, n, gp, r) for x in (qh, kh, vh))
+            q5, k5, v5 = (_seg_dilate(x, g, Lp, n, gp, r, heads) for x in (qh, kh, vh))
             out_s, lse_s = fk.flash_fwd(q5, k5, v5, kvlen, is_causal)
-            out, lse = _undilate_to_dense(out_s, lse_s, r, g, Lp, qh.shape[2])
+            out, lse = _undilate_to_dense(out_s, lse_s, r, g, Lp, qh.shape[2], heads)
         ctx.save_for_backward(qh, kh, vh, kvlen, out, lse)
-        ctx.geom, ctx.r, ctx.is_causal = geom, r, is_causal
+        ctx.geom, ctx.r, ctx.is_causal, ctx.heads = geom, r, is_causal, heads
         ctx.mark_non_differentiable(lse)
         return out, lse
 
@@ -449,18 +497,19 @@ class _BranchFlash(torch.autograd.Function):
     def backward(ctx, do, _dlse):  # no gradient flows through the lse output
         qh, kh, vh, kvlen, out, lse = ctx.saved_tensors
         g, Lp, n, gp, m = ctx.geom
-        r, L = ctx.r, qh.shape[2]
+        r, L, heads = ctx.r, qh.shape[2], ctx.heads
         with torch.autocast(qh.device.type, enabled=False):
             do = do.to(qh.dtype)
-            q5, k5, v5, do5 = (_seg_dilate(x, g, Lp, n, gp, r) for x in (qh, kh, vh, do))
+            q5, k5, v5, do5 = (_seg_dilate(x, g, Lp, n, gp, r, heads) for x in (qh, kh, vh, do))
             delta = (do.float() * out.float()).sum(dim=-1)
-            delta5, lse5 = (_seg_dilate(x[..., None], g, Lp, n, gp, r)[..., 0].contiguous()
+            delta5, lse5 = (_seg_dilate(x[..., None], g, Lp, n, gp, r, heads)[..., 0].contiguous()
                             for x in (delta, lse))
             dq5 = fk.flash_bwd_dq(q5, k5, v5, do5, lse5, delta5, kvlen, ctx.is_causal)
             dk5, dv5 = fk.flash_bwd_dkv(q5, k5, v5, do5, lse5, delta5, kvlen, ctx.is_causal)
-            grads = [_undilate_to_dense(x5, x5.new_zeros(x5.shape[:-1], dtype=torch.float32), r, g, Lp, L)[0]
+            grads = [_undilate_to_dense(x5, x5.new_zeros(x5.shape[:-1], dtype=torch.float32), r, g, Lp, L,
+                                        heads)[0]
                      for x5 in (dq5, dk5, dv5)]
-        return (*grads, None, None, None, None)
+        return (*grads, None, None, None, None, None)
 
 
 def _branch_bhld(
@@ -474,23 +523,25 @@ def _branch_bhld(
     real_len: int,
     use_pallas: Optional[bool],
     valid_len_dyn: Optional[torch.Tensor] = None,
+    heads=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One dilated branch in [B, H, L, D] -> ``(out [B, H, L, D], lse [B,
     H, L])``: the flat kernel for an undilated branch it takes (no per-row
     valid lengths), else the segmented kernel on the dilated view, or (with
-    ``use_pallas=False``) the plain tier."""
+    ``use_pallas=False``) the plain tier. ``heads``: (first global head,
+    global head count) of a tensor-parallel rank's heads, or None."""
     B, H, L, Dh = qh.shape
     g, Lp, n, gp, m = _bhld_geom(L, sl, r)
     if use_pallas is None:
         use_pallas = True  # the kernels at every length (the JAX package's PALLAS_MIN_SEQ is a TPU tuning)
     if use_pallas and valid_len_dyn is None and _flat_eligible(g, r):
         return fk.flat_segment_flash(qh, kh, vh, segment_len=g, real_len=real_len, is_causal=is_causal)
-    kvlen = _bhld_kvlen(B, H, n, g, r, m, real_len, valid_len_dyn, qh.device)
+    kvlen = _bhld_kvlen(B, H, n, g, r, m, real_len, valid_len_dyn, qh.device, heads)
     if use_pallas:
-        return _BranchFlash.apply(qh, kh, vh, kvlen, sl, r, is_causal)
-    q5, k5, v5 = (_seg_dilate(x, g, Lp, n, gp, r) for x in (qh, kh, vh))
+        return _BranchFlash.apply(qh, kh, vh, kvlen, sl, r, is_causal, heads)
+    q5, k5, v5 = (_seg_dilate(x, g, Lp, n, gp, r, heads) for x in (qh, kh, vh))
     out_s, lse_s = _segment_attention_plain(q5, k5, v5, kvlen, is_causal)
-    return _undilate_to_dense(out_s, lse_s, r, g, Lp, L)
+    return _undilate_to_dense(out_s, lse_s, r, g, Lp, L, heads)
 
 
 def dilated_attention_bhld(
@@ -504,6 +555,7 @@ def dilated_attention_bhld(
     valid_len=None,
     use_pallas: Optional[bool] = None,
     streaming_fusion: bool = False,
+    heads=None,
 ) -> torch.Tensor:
     """Multi-branch dilated self-attention on [B, L, H, D] -> [B, L, H, D]
     through the head-major route: one relayout to [B, H, L, D] at entry,
@@ -516,7 +568,9 @@ def dilated_attention_bhld(
     False the plain tier (``_segment_attention_plain``), used by the tests
     and never by default. ``streaming_fusion`` folds each branch into a
     running ``(acc, m, l)`` so its dense output dies before the next branch
-    runs, instead of stacking them all.
+    runs, instead of stacking them all. ``heads``: None, or (the first
+    local head's global index, the global head count) of a tensor-parallel
+    rank, whose heads take the phases of their global indices.
     """
     if len(segment_lengths) != len(dilated_ratios):
         raise ValueError("segment_lengths and dilated_ratios differ in length")
@@ -526,7 +580,7 @@ def dilated_attention_bhld(
 
     def branch(sl, r):
         return _branch_bhld(qh, kh, vh, int(sl), int(r), is_causal=is_causal, real_len=real_len,
-                            use_pallas=use_pallas, valid_len_dyn=valid_dyn)
+                            use_pallas=use_pallas, valid_len_dyn=valid_dyn, heads=heads)
 
     if streaming_fusion and len(segment_lengths) > 1:
         acc = m_run = l_run = None
@@ -904,7 +958,10 @@ class DilatedAttention(MultiheadAttention):
 
     ``seq_parallel`` with a ``seq_group`` makes the attention
     sequence-parallel: each rank passes its own slice of the tokens (and of
-    ``key_padding_mask``)."""
+    ``key_padding_mask``). ``model_group`` makes it tensor-parallel
+    (:class:`~gigapath_tpu_torch.ops.attention.MultiheadAttention`): each
+    rank attends over its own heads on the tensor-parallel route of
+    :func:`dilated_attention`. The two do not combine (``ValueError``)."""
 
     def __init__(
         self,
@@ -917,12 +974,19 @@ class DilatedAttention(MultiheadAttention):
         dropout: float = 0.0,
         seq_parallel: bool = False,
         seq_group=None,
+        model_group=None,
     ):
         if dropout > 0.0:
             raise NotImplementedError(
                 f"attention-probability dropout ({dropout}) is not ported yet (ROADMAP.md)"
             )
-        super().__init__(embed_dim, num_heads, subln=subln, layernorm_eps=layernorm_eps)
+        if seq_parallel and seq_group is not None and model_group is not None:
+            raise ValueError(
+                "DilatedAttention: a model_group (tensor parallelism) and a seq_group (sequence "
+                "parallelism) are not supported together; make_train_step gathers a seq dim's tokens "
+                "at its entry instead"
+            )
+        super().__init__(embed_dim, num_heads, subln=subln, layernorm_eps=layernorm_eps, model_group=model_group)
         self.segment_length = tuple(int(x) for x in segment_length)
         self.dilated_ratio = tuple(int(x) for x in dilated_ratio)
         self.seq_group = seq_group if seq_parallel else None
@@ -944,8 +1008,11 @@ class DilatedAttention(MultiheadAttention):
                 valid_len = int(counts[0])
             else:
                 valid_len = counts
+        heads = {}
+        if self.model_group is not None:
+            heads = dict(head_offset=self.head_offset, num_heads=self.num_heads)
         out = dilated_attention(
             q, k, v, self.segment_length, self.dilated_ratio,
-            is_causal=is_causal, valid_len=valid_len, seq_group=self.seq_group,
+            is_causal=is_causal, valid_len=valid_len, seq_group=self.seq_group, **heads,
         )
-        return out.reshape(out.shape[0], out.shape[1], self.embed_dim)
+        return out.reshape(out.shape[0], out.shape[1], -1)

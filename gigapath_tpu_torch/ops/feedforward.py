@@ -7,6 +7,12 @@ The activation takes ``fc1``'s output in its own dtype: PyTorch computes a
 bf16 GELU in fp32 internally and rounds once, so the result equals that of
 an explicit fp32 round trip, without the two fp32 ``[L, ffn_dim]`` copies
 (nor the fp32 tensor autograd would save for the backward).
+
+With a ``model_group`` of T ranks (:mod:`gigapath_tpu_torch.parallel.tensor`)
+``fc1`` is column-parallel (``[ffn_dim/T, E]``), the activation dropout and
+the sub-LN act on the rank's slice of ``ffn_dim`` (the whole width's mask,
+sliced; the statistics all-reduced), ``fc2`` is row-parallel (``[E,
+ffn_dim/T]``) and the output dropout acts on the replicated sum.
 """
 
 from __future__ import annotations
@@ -14,6 +20,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from gigapath_tpu_torch.parallel.tensor import (
+    ShardedLayerNorm,
+    copy_to_group,
+    rank_and_world,
+    row_parallel_linear,
+    sharded_dropout,
+)
 
 
 def _activation(name: str):
@@ -36,19 +50,32 @@ class FeedForwardNetwork(nn.Module):
         activation_dropout: float = 0.0,
         layernorm_eps: float = 1e-5,
         subln: bool = False,
+        model_group=None,
     ):
         super().__init__()
+        world = rank_and_world(model_group)[1]
+        if ffn_dim % world:
+            raise ValueError(f"tensor parallelism over {world} ranks needs ffn_dim {ffn_dim} divisible by it")
+        self.model_group = model_group if world > 1 else None
+        local = ffn_dim // world
         self.act = _activation(activation_fn)
-        self.fc1 = nn.Linear(embed_dim, ffn_dim)
-        self.fc2 = nn.Linear(ffn_dim, embed_dim)
+        self.fc1 = nn.Linear(embed_dim, local)
+        self.fc2 = nn.Linear(local, embed_dim)
         self.activation_dropout = nn.Dropout(activation_dropout)
         self.dropout = nn.Dropout(dropout)
-        self.ffn_layernorm = nn.LayerNorm(ffn_dim, eps=layernorm_eps) if subln else None
+        if not subln:
+            self.ffn_layernorm = None
+        elif self.model_group is not None:
+            self.ffn_layernorm = ShardedLayerNorm(local, self.model_group, eps=layernorm_eps)
+        else:
+            self.ffn_layernorm = nn.LayerNorm(ffn_dim, eps=layernorm_eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.fc1(x)
-        h = self.act(h)
-        h = self.activation_dropout(h)
+        if self.model_group is None:
+            h = self.activation_dropout(self.act(self.fc1(x)))
+        else:
+            h = self.act(self.fc1(copy_to_group(x, self.model_group)))
+            h = sharded_dropout(h, self.activation_dropout.p, self.training, self.model_group)
         if self.ffn_layernorm is not None:
             h = self.ffn_layernorm(h)
-        return self.dropout(self.fc2(h))
+        return self.dropout(row_parallel_linear(h, self.fc2, self.model_group))

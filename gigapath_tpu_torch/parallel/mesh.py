@@ -7,9 +7,10 @@ over the ranks of the default process group, with the same axis names:
 - ``data``   — batch (data parallelism; :mod:`~gigapath_tpu_torch.parallel.spmd`);
 - ``seq``    — sequence parallelism: the process group of this dim is the
   ``seq_group`` of :func:`gigapath_tpu_torch.ops.dilated_attention.dilated_attention`;
-- ``model``  — tensor parallelism over hidden and head dims (layout rules
-  only so far, :mod:`~gigapath_tpu_torch.parallel.sharding`);
-- ``expert`` — MoE expert parallelism (no MoE layer is ported yet).
+- ``model``  — tensor parallelism over hidden and head dims
+  (:mod:`~gigapath_tpu_torch.parallel.tensor`, the rules of
+  :mod:`~gigapath_tpu_torch.parallel.sharding`);
+- ``expert`` — MoE expert parallelism (:mod:`gigapath_tpu_torch.ops.moe.expert_parallel`).
 
 The caller initialises the default process group: its backend, the
 store or address, the world size and the rank. This module never picks a

@@ -9,8 +9,9 @@ states them over the flax ``kernel`` ``[in, out]``, and a torch ``weight``
 is ``[out, in]``, so here column-parallel is ``Shard(0)`` of the weight
 and row-parallel ``Shard(1)``. This file holds layout decisions only:
 :func:`apply_shardings` lays a state dict out as DTensors and runs nothing.
-Running a model on ``model``-sharded weights needs the sub-LN's
-cross-rank reduction and is not ported yet (``ROADMAP.md`` Queue A).
+A model runs on ``model``-sharded weights as a tensor-parallel model
+(:mod:`gigapath_tpu_torch.parallel.tensor`: each rank holds its shards as
+plain parameters, cut by ``shard_state_dict`` with these rules).
 
 The JAX package's ``shard_map_compat`` has no counterpart: there is no
 ``shard_map`` here. A rank is a process that runs the model on its own
@@ -63,8 +64,12 @@ _TORCH_FROM_FLAX = {2: (1, 0), 4: (3, 2, 0, 1)}
 
 def _to_torch_layout(spec: Spec, name: str, ndim: int) -> Spec:
     """A spec over the flax kernel's axes -> the same spec over the torch
-    weight's axes (padded with None to the rank first)."""
+    weight's axes (padded with None to the rank first). A stacked expert
+    tensor keeps its leading expert axis in both layouts, so its spec
+    stays as it is."""
     full = tuple(spec) + (None,) * (ndim - len(spec))
+    if "experts" in name.split("."):
+        return tuple(spec)
     if not name.endswith("weight") or ndim not in _TORCH_FROM_FLAX or not any(full):
         return tuple(spec)
     return tuple(full[j] for j in _TORCH_FROM_FLAX[ndim])

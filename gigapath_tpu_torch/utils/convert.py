@@ -6,10 +6,14 @@
   of the JAX package's ``convert_torch_entry``. Dense ``kernel`` [in, out]
   becomes ``weight`` [out, in], a 4-D conv kernel goes from HWIO back to
   OIHW, a norm ``scale`` becomes ``weight``, and flax's ``layers_N`` and
-  ``blocks_N`` become ``layers.N`` and ``blocks.N``.
+  ``blocks_N`` become ``layers.N`` and ``blocks.N``. The MoE layers' vmapped
+  ``experts`` keep their leading E axis (a kernel ``[E, in, out]`` becomes
+  ``[E, out, in]``), and ``gate/wg`` becomes ``gate.wg.weight``.
 - :func:`flax_params_from_state_dict` is its inverse, for the tile
   encoder's and the slide encoder's names: it gives the flax-path tree the
   quantized artifact (:mod:`gigapath_tpu_torch.quant.convert`) stores.
+- :func:`state_dict_for_rank` converts and cuts a tree for one rank of a
+  ``model`` or ``expert`` group (``parallel/tensor.py:shard_state_dict``).
 """
 
 from __future__ import annotations
@@ -55,7 +59,8 @@ def state_dict_from_flax_params(params: Mapping[str, Any]) -> Dict[str, torch.Te
         leaf = parts[-1]
         if leaf == "kernel":
             parts[-1] = "weight"
-            arr = arr.T if arr.ndim == 2 else arr.transpose(3, 2, 0, 1)
+            arr = {2: lambda a: a.T, 3: lambda a: a.transpose(0, 2, 1)}.get(
+                arr.ndim, lambda a: a.transpose(3, 2, 0, 1))(arr)
         elif leaf == "scale":
             parts[-1] = "weight"
         key = re.sub(r"\b(layers|blocks)_(\d+)\b", r"\1.\2", ".".join(parts))
@@ -67,19 +72,33 @@ def flax_params_from_state_dict(state: Mapping[str, torch.Tensor]) -> Dict[str, 
     """The port's ``state_dict`` -> a nested flax-path tree of fp32 numpy
     arrays, the inverse of :func:`state_dict_from_flax_params`: a 2-D
     ``weight`` becomes a transposed ``kernel``, a 4-D one an HWIO
-    ``kernel``, a 1-D one (a LayerNorm's) ``scale``."""
+    ``kernel``, a 1-D one (a LayerNorm's) ``scale``; under ``experts`` the
+    leading E axis is kept and the rule reads the rest."""
     tree: Dict[str, Any] = {}
     for key, value in state.items():
         arr = value.detach().cpu().float().numpy()
         parts = re.sub(r"\b(layers|blocks)\.(\d+)\b", r"\1_\2", key).split(".")
         if parts[-1] == "weight":
-            parts[-1] = "scale" if arr.ndim == 1 else "kernel"
-            if arr.ndim == 2:
-                arr = arr.T
-            elif arr.ndim == 4:
+            stacked = "experts" in parts  # a leading expert axis
+            ndim = arr.ndim - stacked
+            parts[-1] = "scale" if ndim == 1 else "kernel"
+            if ndim == 2:
+                arr = np.swapaxes(arr, -1, -2)
+            elif ndim == 4:
                 arr = arr.transpose(2, 3, 1, 0)
         node = tree
         for part in parts[:-1]:
             node = node.setdefault(part, {})
         node[parts[-1]] = np.ascontiguousarray(arr)
     return tree
+
+
+def state_dict_for_rank(params: Mapping[str, Any], rank: int, world: int, axis: str = "model") -> Dict[str, torch.Tensor]:
+    """A JAX-package param tree (or a whole ``state_dict``) -> rank
+    ``rank``'s of ``world`` ``state_dict`` over the ``model`` or ``expert``
+    dim (:func:`gigapath_tpu_torch.parallel.tensor.shard_state_dict`)."""
+    from gigapath_tpu_torch.parallel.tensor import shard_state_dict
+
+    is_state = all(isinstance(v, torch.Tensor) for v in params.values())
+    state = dict(params) if is_state else state_dict_from_flax_params(params)
+    return shard_state_dict(state, rank, world, axis=axis)

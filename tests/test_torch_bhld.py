@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 from gigapath_tpu.models.slide_encoder import create_model as jax_create_model
 from gigapath_tpu.ops import dilated_attention as jda

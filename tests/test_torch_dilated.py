@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 from gigapath_tpu.ops import pallas_dilated as jpd
 from gigapath_tpu.ops.attention import attention_with_lse as jax_attention_with_lse

@@ -23,6 +23,7 @@ import types
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 import gigapath_tpu.dist.boundary as jax_boundary
 import gigapath_tpu.dist.membership as jax_membership

@@ -16,6 +16,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 from gigapath_tpu.finetune import metrics as jax_metrics
 from gigapath_tpu.finetune import utils as jax_ft

@@ -24,6 +24,7 @@ import optax
 import pandas as pd
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 from gigapath_tpu.data import pcam as jpcam
 from gigapath_tpu.linear_probe import main as jlp

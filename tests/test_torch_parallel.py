@@ -10,8 +10,8 @@ weights and batch. The data-parallel step runs in two rank processes
 temporary directory), each on half of the batch: its loss (rtol 1e-5) and
 gradients (atol 2e-5) equal the one-process step's, as in the JAX
 package's ``tests/test_parallel.py``. The same ranks check the mesh
-helpers, a state dict laid out over a ``model`` dim, and the train step's
-refusal of a ``seq`` dim.
+helpers, a state dict laid out over a ``model`` dim, and a train step over
+a ``seq`` dim (the step gathers the tokens).
 """
 
 import re
@@ -22,6 +22,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 import torch_rank_bodies as rb
 from gigapath_tpu.models.classification_head import ClassificationHead as JaxHead
@@ -197,8 +198,14 @@ def test_mesh_helpers_on_ranks(runs):
 
 
 def test_train_step_refuses_a_seq_dim(runs):
-    _, _, ranks = runs
-    assert [str(r["refusal_seq_step"]) for r in ranks] == ["NotImplementedError"] * rb.DATA_WORLD
+    """The train step no longer refuses a ``seq`` dim: each rank passes
+    half of the tokens, the step gathers them at its entry, and its loss is
+    the one-process step's (the tensor-parallel steps are held against JAX
+    in ``tests/test_torch_tensor_parallel.py``)."""
+    _, single, ranks = runs
+    assert [str(r["refusal_seq_step"]) for r in ranks] == ["ok"] * rb.DATA_WORLD
+    for r in ranks:
+        np.testing.assert_allclose(float(r["seq_step_loss"]), single["loss"], rtol=1e-5)
 
 
 @pytest.mark.parametrize("name,dim", [("slide_encoder.encoder.layers.0.ffn.fc1.weight", 0),

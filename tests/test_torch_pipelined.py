@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 from gigapath_tpu.models.slide_encoder import LongNetViT as JaxLongNetViT
 from gigapath_tpu.ops import pallas_dilated as jpd

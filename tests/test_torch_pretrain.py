@@ -23,6 +23,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread a test process)
 from PIL import Image
 
 from gigapath_tpu.models.tile_encoder import VisionTransformer as JaxViT

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread a test process)
 from flax import linen as nn
 
 from gigapath_tpu.quant import convert as jconvert

@@ -14,6 +14,7 @@ import types
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 import gigapath_tpu.obs.runlog as jax_runlog
 import gigapath_tpu.resilience.chaos as jax_chaos

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread a test process)
 from jax.sharding import Mesh, PartitionSpec as P
 
 import torch_rank_bodies as rb

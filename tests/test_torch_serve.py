@@ -12,6 +12,7 @@ path, which a CUDA-graph capture takes, equals the eager arm.
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 from gigapath_tpu_torch import serve as port_serve
 from gigapath_tpu.serve import buckets as jax_buckets

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 from gigapath_tpu.models.slide_encoder import LongNetViT as JaxLongNetViT
 from gigapath_tpu.ops import pos_embed as jax_pe
@@ -167,7 +168,7 @@ def test_create_model_without_device_raises_without_cuda(monkeypatch):
 def test_port_imports_nothing_of_jax():
     """Importing every port module (the fine-tuning, tile, streaming,
     head-major, serving, obs, tiling, whole-slide training, linear-probe,
-    parity and pretraining paths' included) leaves
+    parity, pretraining, tensor-parallel, MoE and dry-run paths' included) leaves
     jax, flax, optax, sklearn and gigapath_tpu (the exact name, or the
     gigapath_tpu. prefix) out of sys.modules, and pandas, yaml and h5py too:
     the port imports those only inside the functions that read files."""
@@ -206,6 +207,9 @@ def test_port_imports_nothing_of_jax():
         "need |= {'gigapath_tpu_torch.data.pcam', 'gigapath_tpu_torch.linear_probe', 'gigapath_tpu_torch.linear_probe.main',"
         " 'gigapath_tpu_torch.quant.parity', 'gigapath_tpu_torch.pretrain', 'gigapath_tpu_torch.pretrain.pretrain_gigapath'}\n"
         "need |= {'gigapath_tpu_torch.parallel'} | {'gigapath_tpu_torch.parallel.' + m for m in ('mesh', 'sharding', 'spmd')}\n"
+        "need |= {'gigapath_tpu_torch.parallel.tensor', 'gigapath_tpu_torch.ops.moe', 'gigapath_tpu_torch.dryrun',"
+        " 'gigapath_tpu_torch.utils.profiling'} | {'gigapath_tpu_torch.ops.moe.' + m for m in ('routing',"
+        " 'moe_layer', 'expert_parallel')}\n"
         "assert need <= set(names), sorted(need - set(names))\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n"

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread a test process)
 
 from gigapath_tpu.models.slide_encoder import LongNetViT as JaxLongNetViT
 from gigapath_tpu.models.streaming_encoder import streaming_forward as jax_streaming_forward

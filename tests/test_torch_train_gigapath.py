@@ -20,6 +20,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread a test process)
 from PIL import Image
 
 from gigapath_tpu_torch import train_gigapath as ptg

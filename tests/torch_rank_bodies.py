@@ -45,6 +45,32 @@ DATA_SLIDE = dict(embed_dim=64, depth=1, segment_length=[8, 16], dilated_ratio="
 DATA_B, DATA_N = 2, 16
 DATA_LR = 0.1
 
+# tests/test_torch_tensor_parallel.py: the tensor-parallel steps. The head
+# is JAX's test head at 16 heads with two branches: r = 16 exceeds H/T for
+# T = 2 and 4 (a rank's heads span several phases), r = 1 does not
+TP_WORLD = 8
+TP_HEAD = dict(input_dim=32, latent_dim=64, feat_layer="1", n_classes=3)
+TP_SLIDE = dict(embed_dim=64, depth=1, segment_length=[8, 32], dilated_ratio="[1, 16]",
+                dropout=0.0, drop_path_rate=0.0)
+TP_B, TP_N = 2, 32
+TP_LR = 0.1
+# name -> (mesh axes, whether every data rank takes the whole batch)
+TP_MESHES = {
+    "model2": ({"data": 4, "model": 2}, True),
+    "model4": ({"data": 2, "model": 4}, True),
+    "data2_seq2_model2": ({"data": 2, "seq": 2, "model": 2}, False),
+}
+TP_DROPOUT = 0.25
+
+# tests/test_torch_moe.py: the expert-parallel cases
+MOE_WORLD = 4
+MOE_LAYER = dict(embed_dim=16, ffn_dim=32, num_experts=8, top1=True)  # JAX's GSPMD test's layer
+MOE_X_SHAPE = (2, 16, 16)
+# JAX's shard_map test: E experts over D ranks, S_loc tokens a rank
+MOE_E, MOE_S_LOC, MOE_M, MOE_F = 8, 8, 16, 32
+MOE_AUX_WEIGHT = 0.1
+MOE_DROPOUT = 0.25  # the dropout case of variant (a)
+
 
 def _init(rank: int, world: int, workdir: str):
     import torch
@@ -179,9 +205,9 @@ def seq_parallel_rank(rank: int, workdir: str) -> None:
 
 def data_parallel_rank(rank: int, workdir: str) -> None:
     """One rank of tests/test_torch_parallel.py: the mesh helpers, the
-    layout of a state dict over a ``model`` dim, the refusal of a ``seq``
-    dim in the train step, and one data-parallel train step on this rank's
-    half of the batch, into ``rank{rank}.npz``."""
+    layout of a state dict over a ``model`` dim, one train step over a
+    ``seq`` dim on this rank's half of the tokens, and one data-parallel
+    train step on this rank's half of the batch, into ``rank{rank}.npz``."""
     try:
         torch, dist = _init(rank, DATA_WORLD, workdir)
         from gigapath_tpu_torch.models.classification_head import ClassificationHead
@@ -204,11 +230,21 @@ def data_parallel_rank(rank: int, workdir: str) -> None:
                      "slide_encoder.encoder.layers.0.ffn.fc1.bias"):
             out[f"local_{name}"] = laid[name].to_local().numpy()
 
+        batch = dict(np.load(os.path.join(workdir, "batch.npz")))
+        # a seq dim: each rank passes half of the tokens, the step gathers them
+        seq_model = ClassificationHead(**DATA_HEAD, **DATA_SLIDE)
+        seq_model.load_state_dict(state, strict=True)
+        seq_opt = torch.optim.SGD(seq_model.parameters(), lr=DATA_LR)
+        seq_step = {}
+        out["refusal_seq_step"] = np.array(_refusal(
+            lambda: seq_step.setdefault("fn", spmd.make_train_step(seq_model, seq_opt, mesh=seq_mesh))))
+        toks = slice(rank * DATA_N // DATA_WORLD, (rank + 1) * DATA_N // DATA_WORLD)
+        out["seq_step_loss"] = seq_step["fn"]({"images": torch.from_numpy(batch["images"][:, toks]),
+                                               "coords": torch.from_numpy(batch["coords"][:, toks]),
+                                               "labels": torch.from_numpy(batch["labels"])}).numpy()
         model = ClassificationHead(**DATA_HEAD, **DATA_SLIDE)
         model.load_state_dict(state, strict=True)
         opt = torch.optim.SGD(model.parameters(), lr=DATA_LR)
-        out["refusal_seq_step"] = np.array(_refusal(lambda: spmd.make_train_step(model, opt, mesh=seq_mesh)))
-        batch = dict(np.load(os.path.join(workdir, "batch.npz")))
         part = slice(rank * DATA_B // DATA_WORLD, (rank + 1) * DATA_B // DATA_WORLD)
         step = spmd.make_train_step(model, opt, mesh=data)
         loss = step({"images": torch.from_numpy(batch["images"][part]),
@@ -226,46 +262,223 @@ def data_parallel_rank(rank: int, workdir: str) -> None:
         raise
 
 
-# what the forkserver imports once for every rank it forks (imports only:
-# nothing here starts a thread)
-PRELOAD = ["torch", "torch.distributed", "torch_rank_bodies", "gigapath_tpu_torch.ops.dilated_attention",
-           "gigapath_tpu_torch.models.longnet", "gigapath_tpu_torch.models.classification_head"]
+def _tp_step(torch, dist, pmesh, name: str, state, batch) -> dict:
+    """One SGD step of the tensor-parallel head on mesh ``name``: the
+    averaged loss, and (on global rank 0) the gradients gathered over the
+    model group, by parameter name."""
+    from gigapath_tpu_torch.models.classification_head import ClassificationHead
+    from gigapath_tpu_torch.parallel import spmd
+    from gigapath_tpu_torch.parallel.tensor import gather_state_dict, shard_state_dict
+
+    axes, whole = TP_MESHES[name]
+    mesh = pmesh.make_mesh(axis_sizes=axes, device_type="cpu")
+    group = mesh.get_group("model")
+    model = ClassificationHead(**TP_HEAD, **TP_SLIDE, model_group=group)
+    model.load_state_dict(shard_state_dict(state, mesh.get_local_rank("model"), axes["model"]), strict=True)
+    step = spmd.make_train_step(model, torch.optim.SGD(model.parameters(), lr=TP_LR), mesh=mesh)
+    part = {k: torch.from_numpy(v) for k, v in batch.items()}
+    if not whole:
+        d, sq = mesh.get_local_rank("data"), mesh.get_local_rank("seq")
+        rows = slice(d * TP_B // axes["data"], (d + 1) * TP_B // axes["data"])
+        toks = slice(sq * TP_N // axes["seq"], (sq + 1) * TP_N // axes["seq"])
+        part = {"images": part["images"][rows, toks], "coords": part["coords"][rows, toks],
+                "labels": part["labels"][rows]}
+    out = {f"{name}_loss": step(part).numpy()}
+    # a parameter the loss does not reach (the encoder's final norm under
+    # feat_layer "1") has no .grad; JAX's gradient there is 0
+    grads = gather_state_dict({n: torch.zeros_like(p) if p.grad is None else p.grad
+                               for n, p in model.named_parameters()}, group=group)
+    if dist.get_rank() == 0:
+        out.update({f"{name}_grad_{n}": g.numpy() for n, g in grads.items()})
+    return out
+
+
+def _tp_dropout(torch, dist, pmesh, state, batch) -> dict:
+    """The head with dropout in training mode on a model group of 2 and on
+    one device, each after ``torch.manual_seed(7)``: the logits."""
+    from gigapath_tpu_torch.models.classification_head import ClassificationHead
+    from gigapath_tpu_torch.parallel.tensor import shard_state_dict
+
+    mesh = pmesh.make_mesh(axis_sizes={"data": TP_WORLD // 2, "model": 2}, device_type="cpu")
+    slide = dict(TP_SLIDE, dropout=TP_DROPOUT)
+    out = {}
+    for name, group in (("dropout_tp", mesh.get_group("model")), ("dropout_single", None)):
+        model = ClassificationHead(**TP_HEAD, **slide, model_group=group)
+        local = state if group is None else shard_state_dict(state, mesh.get_local_rank("model"), 2)
+        model.load_state_dict(local, strict=True)
+        model.train()
+        torch.manual_seed(7)
+        out[name] = model(torch.from_numpy(batch["images"]), torch.from_numpy(batch["coords"])).detach().numpy()
+    return out
+
+
+def _tp_refusals(torch, dist) -> dict:
+    from gigapath_tpu_torch.models.longnet import make_longnet_from_name
+    from gigapath_tpu_torch.ops.attention import MultiheadAttention
+    from gigapath_tpu_torch.ops.dilated_attention import DilatedAttention, dilated_attention
+    from gigapath_tpu_torch.ops.feedforward import FeedForwardNetwork
+
+    world = dist.group.WORLD
+    q = torch.zeros(1, 16, 2, 4)
+    cases = {
+        "seq_and_model": lambda: DilatedAttention(64, 16, [8], [1], seq_parallel=True, seq_group=world,
+                                                  model_group=world),
+        "op_seq_and_heads": lambda: dilated_attention(q, q, q, [16], [1], head_offset=2, num_heads=16,
+                                                      seq_group=world),
+        "heads_not_divisible": lambda: MultiheadAttention(48, 12, model_group=world),
+        "ffn_not_divisible": lambda: FeedForwardNetwork(64, 100, model_group=world),
+        "moe_and_model": lambda: make_longnet_from_name(
+            "LongNet_2_layers_64_dim", dilated_ratio=[1], segment_length=[16], moe_freq=2, moe_expert_count=8,
+            model_group=world),
+    }
+    return {f"refusal_{n}": np.array(_refusal(fn)) for n, fn in cases.items()}
+
+
+def tensor_parallel_rank(rank: int, workdir: str) -> None:
+    """One rank of tests/test_torch_tensor_parallel.py: the steps on every
+    ``TP_MESHES`` mesh, the dropout check and the refusals, into
+    ``rank{rank}.npz``."""
+    try:
+        torch, dist = _init(rank, TP_WORLD, workdir)
+        from gigapath_tpu_torch.parallel import mesh as pmesh
+
+        state = torch.load(os.path.join(workdir, "head_state.pt"))
+        batch = dict(np.load(os.path.join(workdir, "batch.npz")))
+        out = {}
+        for name in TP_MESHES:
+            out.update(_tp_step(torch, dist, pmesh, name, state, batch))
+        out.update(_tp_dropout(torch, dist, pmesh, state, batch))
+        out.update(_tp_refusals(torch, dist))
+        np.savez(os.path.join(workdir, f"rank{rank}.npz"), **out)
+        dist.destroy_process_group()
+    except Exception:
+        with open(os.path.join(workdir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def _moe_gathered(torch, dist, rank: int, inputs, workdir: str) -> dict:
+    """Variant (a): the layer's experts over the group, every rank on the
+    same tokens: the output, l_aux, and the gradients of ``sum(out * ct)
+    + MOE_AUX_WEIGHT * l_aux`` (the experts' gathered)."""
+    from gigapath_tpu_torch.ops.moe import MOELayer
+    from gigapath_tpu_torch.parallel.tensor import gather_state_dict, shard_state_dict
+
+    world = dist.group.WORLD
+    layer = MOELayer(**MOE_LAYER, expert_group=world, expert_parallel="gather")
+    state = torch.load(os.path.join(workdir, "moe_state.pt"))
+    layer.load_state_dict(shard_state_dict(state, rank, MOE_WORLD, axis="expert"), strict=True)
+    layer.eval()
+    x = torch.from_numpy(inputs["x"]).requires_grad_(True)
+    out, l_aux = layer(x)
+    ((out * torch.from_numpy(inputs["ct"])).sum() + MOE_AUX_WEIGHT * l_aux).backward()
+    grads = gather_state_dict({n: p.grad for n, p in layer.named_parameters()}, group=world, axis="expert")
+    res = {"gathered_out": out.detach().numpy(), "gathered_l_aux": l_aux.detach().numpy(),
+           "gathered_dx": x.grad.numpy()}
+    res.update({f"gathered_grad_{n}": g.numpy() for n, g in grads.items()})
+    return res
+
+
+def _moe_gathered_dropout(torch, dist, rank: int, inputs, workdir: str) -> dict:
+    """Variant (a) in training mode with dropout, the one-device layer on
+    the same weights, and that layer without dropout, each after
+    ``torch.manual_seed(11)``: the outputs and the gradients of ``sum(out *
+    ct)`` (the experts' gathered)."""
+    from gigapath_tpu_torch.ops.moe import MOELayer
+    from gigapath_tpu_torch.parallel.tensor import gather_state_dict, shard_state_dict
+
+    world = dist.group.WORLD
+    state = torch.load(os.path.join(workdir, "moe_state.pt"))
+    out = {}
+    for name, group, p in (("dropout_gathered", world, MOE_DROPOUT), ("dropout_single", None, MOE_DROPOUT),
+                           ("dropout_none", None, 0.0)):
+        layer = MOELayer(**MOE_LAYER, dropout=p, activation_dropout=p, expert_group=group)
+        layer.load_state_dict(state if group is None else shard_state_dict(state, rank, MOE_WORLD, axis="expert"),
+                              strict=True)
+        layer.train()
+        torch.manual_seed(11)
+        x = torch.from_numpy(inputs["x"]).requires_grad_(True)
+        y, _ = layer(x)
+        (y * torch.from_numpy(inputs["ct"])).sum().backward()
+        grads = {n: p.grad for n, p in layer.named_parameters()}
+        if group is not None:
+            grads = gather_state_dict(grads, group=group, axis="expert")
+        out[f"{name}_out"] = y.detach().numpy()
+        out[f"{name}_dx"] = x.grad.numpy()
+        out.update({f"{name}_grad_{n}": g.numpy() for n, g in grads.items()})
+    return out
+
+
+def _moe_all_to_all(torch, dist, rank: int, inputs) -> dict:
+    """Variant (b), JAX's shard_map test's function: this rank's tokens and
+    experts, per-shard gating; the output slice, l_aux, and the gradients
+    of ``sum(out * ct) + MOE_AUX_WEIGHT * l_aux`` (wg's summed over the
+    ranks)."""
+    import torch.nn.functional as F
+
+    from gigapath_tpu_torch.ops.moe.expert_parallel import moe_expert_parallel
+    from gigapath_tpu_torch.ops.moe.routing import top1_gating
+
+    world = dist.group.WORLD
+    el = MOE_E // MOE_WORLD
+    mine = slice(rank * MOE_S_LOC, (rank + 1) * MOE_S_LOC)
+    tokens = torch.from_numpy(inputs["tokens"][mine]).requires_grad_(True)
+    wg = torch.from_numpy(inputs["wg"]).requires_grad_(True)
+    w1 = torch.from_numpy(inputs["w1"][rank * el:(rank + 1) * el]).requires_grad_(True)
+    w2 = torch.from_numpy(inputs["w2"][rank * el:(rank + 1) * el]).requires_grad_(True)
+
+    def gate_fn(t):
+        return top1_gating(t @ wg)
+
+    def expert_fn(d):
+        return torch.bmm(F.gelu(torch.bmm(d, w1), approximate="tanh"), w2)
+
+    out, l_aux, _ = moe_expert_parallel(gate_fn, expert_fn, tokens, world)
+    ((out * torch.from_numpy(inputs["tokens_ct"][mine])).sum() + MOE_AUX_WEIGHT * l_aux).backward()
+    dwg = wg.grad.clone()
+    dist.all_reduce(dwg)
+    return {"a2a_out": out.detach().numpy(), "a2a_l_aux": l_aux.detach().numpy(), "a2a_dtokens": tokens.grad.numpy(),
+            "a2a_dw1": w1.grad.numpy(), "a2a_dw2": w2.grad.numpy(), "a2a_dwg": dwg.numpy()}
+
+
+def moe_rank(rank: int, workdir: str) -> None:
+    """One rank of tests/test_torch_moe.py: both expert-parallel variants
+    and variant (a)'s dropout case, into ``rank{rank}.npz``."""
+    try:
+        torch, dist = _init(rank, MOE_WORLD, workdir)
+        inputs = dict(np.load(os.path.join(workdir, "inputs.npz")))
+        out = _moe_gathered(torch, dist, rank, inputs, workdir)
+        out.update(_moe_gathered_dropout(torch, dist, rank, inputs, workdir))
+        out.update(_moe_all_to_all(torch, dist, rank, inputs))
+        np.savez(os.path.join(workdir, f"rank{rank}.npz"), **out)
+        dist.destroy_process_group()
+    except Exception:
+        with open(os.path.join(workdir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+# what the forkserver imports for the ranks besides the port's own
+# preload (``dryrun.RANK_PRELOAD``)
+PRELOAD = ["torch_rank_bodies", "gigapath_tpu_torch.ops.dilated_attention", "torch.distributed.tensor"]
 
 
 def start_ranks(target, world: int, workdir: str):
-    """Start ``world`` processes of ``target(rank, workdir)``; returns them.
+    """Start ``world`` processes of ``target(rank, workdir)``; returns them
+    (``dryrun.start_ranks``: forked from a forkserver, a fresh interpreter
+    that inherits no thread of the test process, JAX's among them, and
+    imports the port once)."""
+    from gigapath_tpu_torch import dryrun
 
-    They fork from a forkserver: a fresh interpreter (no thread of the test
-    process, JAX's among them, is inherited) that imports ``PRELOAD`` once,
-    so a rank costs a fork, not a torch import."""
-    import torch.multiprocessing as mp
-
-    ctx = mp.get_context("forkserver")
-    ctx.set_forkserver_preload(PRELOAD)
-    procs = [ctx.Process(target=target, args=(r, workdir), daemon=True) for r in range(world)]
-    for p in procs:
-        p.start()
-    return procs
+    return dryrun.start_ranks(target, world, workdir, preload=PRELOAD)
 
 
 def join_ranks(procs, workdir: str, timeout: float = 120.0) -> list:
-    """Wait for the ranks (killing any still running after ``timeout``
-    seconds) and return each rank's results; raises with the ranks'
-    tracebacks if one failed."""
-    for p in procs:
-        p.join(timeout)
-    alive = [p for p in procs if p.is_alive()]
-    for p in alive:
-        p.kill()
-        p.join()
-    errors = []
-    for r, p in enumerate(procs):
-        path = os.path.join(workdir, f"rank{r}.err")
-        if os.path.exists(path):
-            with open(path) as f:
-                errors.append(f"rank {r}:\n{f.read()}")
-        elif p.exitcode != 0:
-            errors.append(f"rank {r}: exit code {p.exitcode}")
-    if alive or errors:
-        raise RuntimeError(f"{len(alive)} rank(s) timed out\n" + "\n".join(errors))
+    """Wait for the ranks (``dryrun.join_ranks``: any still running are
+    killed ``timeout`` seconds from now, or as soon as one rank has failed,
+    and the call raises with the ranks' tracebacks) and return each rank's
+    results."""
+    from gigapath_tpu_torch import dryrun
+
+    dryrun.join_ranks(procs, workdir, timeout)
     return [dict(np.load(os.path.join(workdir, f"rank{r}.npz"))) for r in range(len(procs))]
