@@ -404,6 +404,34 @@ stdout:
     against one device on each rank's tokens), fp32 forward, ``l_aux``
     and gradients; ``dryrun.dryrun_multichip(4)`` and ``(8)`` at once,
     each stage's loss finite.
+29. longnet_decoder: the causal ``LongNetDecoder`` at the flagship slide
+    encoder's width (E = 768, 16 heads, FFN 3072, 12 layers, sub-LN, the
+    flagship schedule), token embeddings fed, no output layer, bf16, at L
+    = 10240 (three of the five branches clamp their segment to L): the
+    forward on the kernels (rows 1-3, exact launches, counts set to 0 just
+    before) against the same forward on their plain versions (1 - cosine
+    and max |err|), ms per forward (median of 3), peak memory, a profile of
+    one forward (device busy, idle share).
+30. longnet_decode: the same model prefills 10176 rows (rows 1-3) and
+    decodes 64 rows one step at a time through ``incremental_state``
+    (each step's 5 branches a layer on row 11, 60 launches a step, counts
+    set to 0 before the steps); the stepped rows against the whole
+    forward's last 64 (1 - cosine), ms per step (the last step profiled
+    instead: device busy, idle share), peak memory over the steps
+    (bounded: the cache grows one row a step).
+31. retnet: ``RetNetConfig``'s defaults (768 / 3 heads / FFN 1280 / 12
+    layers) with the value width 1296 (``RETNET_CFG``: the default 1280
+    does not split into 3 heads) at L = 2048 in bf16, token embeddings fed: the
+    parallel form against the chunkwise form (chunks of 512) and against
+    the recurrent form over the first ``RETNET_RECURRENT_STEPS`` positions
+    (1 - cosine, max |err|), ms of each; plain PyTorch (no Pallas kernel in
+    the JAX package).
+32. beit3: BEiT-3 at ``EncoderConfig``'s defaults with ``multiway``,
+    ``vocab_size`` 64010, 224 px images in 16 px patches, a fused
+    vision-language forward of batch 8 (197 vision tokens and 64 text
+    tokens, the last 16 of half the rows padded) in bf16 (finite, the
+    shape, ms, peak memory), and in fp32 against the same weights' fp32
+    forward on the CPU for 2 of the rows (rel <= 1e-4).
 
 ``default_route_times`` (not part of the run) times the default route's
 bf16 forward per slide and bf16 step alone (or, with ``dilated_ratio``,
@@ -427,7 +455,9 @@ Phase 16 also replays a ``torch.cuda.memory`` allocation history of one
 bf16 forward per route (10240 and 102400 tiles) to its peak and reports the
 allocations live there by the port's source line.
 
-Then a ``{"kernels": [...]}`` line (the launches of the dilated kernels
+Then a ``{"kernels": [...]}`` line (each kernel's ``decoder_forward_launches``
+and ``decoder_decode_launches``: its launches in phase 29's forward and
+phase 30's decode steps; the launches of the dilated kernels
 are those of one training step, of the quantized ones those of one
 ``int8+attn`` 128-tile batch, of ``stream_pair_fwd`` those of one
 streaming forward, of the stream backward kernels those of the backward
@@ -6956,6 +6986,337 @@ def phase_moe(ep_ranks: list) -> None:
     emit("moe", seconds=time.perf_counter() - t_phase, nvidia_smi=smi)
 
 
+# ---------------------------------------------------------------------------
+# the torchscale family: the LongNet decoder, RetNet, BEiT-3
+# ---------------------------------------------------------------------------
+
+DEC_L = N_TILES
+DEC_STEPS = 64
+DEC_PREFILL = DEC_L - DEC_STEPS
+DEC_CFG = dict(decoder_embed_dim=E, decoder_attention_heads=H, decoder_ffn_embed_dim=4 * E, decoder_layers=12,
+               segment_length=SCHEDULE[0], dilated_ratio=SCHEDULE[1], no_output_layer=True, dropout=0.0,
+               drop_path_rate=0.0)
+# a causal forward: the encoder's 12 layers x 5 branches (3 packs, the
+# branch forward, 1 unpack each); a decode step: each layer's 5 branches
+# on the segment-flash forward (row 11)
+DEC_FWD_LAUNCHES = {"pack_phases": 180, "dilated_branch_fwd": 60, "unpack_phases": 60}
+DEC_STEP_LAUNCHES = {"flash_fwd": 60}
+# the stepped rows against the whole forward: another kernel (row 11 on the
+# cut cache against row 1 on the packed phases) rounds otherwise in bf16;
+# 3.1x the 3.23e-5 read on an H100 (PERF.md section 6, PR 25). The first
+# DEC_REPLAY_STEPS steps against their own plain replay are held to
+# BF16_MAX_ONE_MINUS_COS, and each of the replay's row-11 launches to
+# KERNEL_TOL / LSE_TOL.
+DEC_STEP_MAX_ONE_MINUS_COS = 1e-4
+# the replay's steps: row 11's plain version takes ~0.8 s a decode step on
+# an H100 (51 s for all 64)
+DEC_REPLAY_STEPS = 16
+RETNET_L = 2048
+# RetNetConfig's defaults but a value width of 1296 = 3 heads x 432: the
+# default 1280 does not split into its 3 heads (neither package runs it);
+# 432 is torchscale's retnet_base head width, 1296 = 1.6875 x 768 its ratio
+RETNET_CFG = dict(decoder_value_embed_dim=1296)
+RETNET_RECURRENT_STEPS = 512  # of the 2048 positions: 12 layers' eager steps (the smoke's time)
+# the forms differ by the order of their sums and by bf16 roundings; 4x the
+# 2.50e-5 / 2.54e-5 read on an H100 (PERF.md section 6, PR 25)
+RETNET_MAX_ONE_MINUS_COS = 1e-4
+BEIT3_BATCH, BEIT3_TEXT, BEIT3_VOCAB = 8, 64, 64010
+BEIT3_CPU_ROWS = 2
+
+
+def _launch_delta(want: dict) -> dict:
+    """Every kernel's launch count since the last reset: those of ``want``
+    by name, the rest summed as ``other``."""
+    counts = all_launch_counts()
+    return {**{k: counts.get(k, 0) for k in want}, "other": sum(v for k, v in counts.items() if k not in want)}
+
+
+def _rows_one_minus_cos(a, b) -> dict:
+    """1 - cosine of the whole tensors (flattened) and of the worst row."""
+    import torch
+
+    rows = 1.0 - torch.nn.functional.cosine_similarity(a.float().flatten(0, -2), b.float().flatten(0, -2), dim=-1)
+    return {"one_minus_cos": _one_minus_cos(a, b), "worst_row_one_minus_cos": float(rows.max()),
+            "max_abs_err": max_err(a, b)}
+
+
+@contextlib.contextmanager
+def _flash_fwd_held_to_plain(held_errs: list):
+    """Within: the segment-flash kernels run their plain versions, and each
+    ``flash_fwd`` call also launches the kernel on the same inputs, its out
+    held to KERNEL_TOL and its lse to LSE_TOL on the covered rows, the
+    uncovered at the sentinel. Each call appends to ``held_errs``, on the
+    card (no sync a call), [out max |err|, covered lse max |err|, 1 if out
+    of tolerance, Mq, 1 if with key counts]; :func:`_held_summary` reads
+    them."""
+    import torch
+
+    from gigapath_tpu_torch.ops import flash_kernels as fk
+
+    kernel = fk.flash_fwd
+    tol, lse_tol = KERNEL_TOL["bfloat16"], LSE_TOL["bfloat16"]
+
+    def held(q, k, v, kvlen=None, is_causal=False):
+        ref, r_lse = fk.flash_fwd_reference(q, k, v, kvlen, is_causal)
+        out, lse = kernel(q, k, v, kvlen, is_causal)
+        err = (out.float() - ref.float()).abs()
+        covered = r_lse > -1e19
+        lse_err = torch.where(covered, (lse - r_lse).abs(), 0.0)
+        bad = ((err > tol["atol"] + tol["rtol"] * ref.float().abs()).any()
+               | (lse_err > lse_tol["atol"] + lse_tol["rtol"] * r_lse.abs()).any()
+               | (~covered & (lse > -1e19)).any() | (q.dtype != torch.bfloat16))
+        held_errs.append(torch.stack([err.max(), lse_err.max(), bad.float(),
+                                      torch.tensor(float(q.shape[3]), device=q.device),
+                                      torch.tensor(float(kvlen is not None), device=q.device)]))
+        return ref, r_lse
+
+    with plain_flash_kernels():
+        fk.flash_fwd = held
+        yield
+
+
+def _held_summary(held_errs: list) -> dict:
+    """The launches :func:`_flash_fwd_held_to_plain` held; fails if one
+    was out of tolerance."""
+    import torch
+
+    t = torch.stack(held_errs).cpu()
+    check(not bool(t[:, 2].any()), f"decode replay: {int(t[:, 2].sum())} flash_fwd launches disagree with the plain "
+                                   f"version (KERNEL_TOL / LSE_TOL)")
+    return {"launches": len(held_errs), "max_abs_err": float(t[:, 0].max()),
+            "lse_covered_max_abs_err": float(t[:, 1].max()), "q_rows_min_max": [int(t[:, 3].min()), int(t[:, 3].max())],
+            "with_key_counts": int(t[:, 4].sum()), "causal": True,
+            "tolerance": {"out": KERNEL_TOL["bfloat16"], "lse": LSE_TOL["bfloat16"]}}
+
+
+def _decoder_model():
+    import torch
+
+    from gigapath_tpu_torch.architecture.config import DecoderConfig
+    from gigapath_tpu_torch.models.longnet import LongNetDecoder
+
+    torch.manual_seed(25)
+    with torch.device("cuda"):
+        model = LongNetDecoder(DecoderConfig(**DEC_CFG))
+    return model.to(torch.bfloat16).eval()
+
+
+def phase_longnet_decoder():
+    """29: the causal flagship-width LongNet decoder on the kernels against
+    their plain versions; returns the model, its input and its output."""
+    import torch
+
+    smi = _smi()
+    model = _decoder_model()
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    x = torch.randn(1, DEC_L, E, device="cuda", generator=gen).to(torch.bfloat16)
+
+    def forward():
+        with torch.no_grad():
+            return model(token_embeddings=x)["decoder_out"]
+
+    forward()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_all_launch_counts()
+    out = forward()
+    torch.cuda.synchronize()
+    launches = _launch_delta(DEC_FWD_LAUNCHES)
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    check(launches == {**DEC_FWD_LAUNCHES, "other": 0}, f"decoder forward launches {launches}")
+    check(out.shape == (1, DEC_L, E) and bool(torch.isfinite(out).all()), f"decoder forward: bad output {out.shape}")
+    ms = time_ms(forward, reps=3, warmup=0)
+    with plain_kernels():
+        ref = forward()
+        plain = time_ms(forward, reps=1, warmup=0)
+    agree = _rows_one_minus_cos(out, ref)
+    check(agree["one_minus_cos"] <= BF16_MAX_ONE_MINUS_COS,
+          f"decoder forward vs plain: 1 - cosine {agree['one_minus_cos']} > {BF16_MAX_ONE_MINUS_COS}")
+    emit("longnet_decoder", L=DEC_L, dtype="bfloat16", config=DEC_CFG, launches=launches, vs_plain=agree,
+         tolerance=f"1 - cosine <= {BF16_MAX_ONE_MINUS_COS}", ms_per_forward=ms, plain_path_ms=plain,
+         peak_memory_above_model_gb=peak, profile=_profile(forward, top=4), nvidia_smi=smi)
+    return model, x, out, launches
+
+
+def phase_longnet_decode(model, x, full):
+    """30: prefill, then DEC_STEPS eager decode steps, against the whole
+    forward's rows; then the first DEC_REPLAY_STEPS steps again from the
+    same prefill with the segment-flash kernels' plain versions, each
+    row-11 launch of that replay held against the kernel on its inputs."""
+    import torch
+
+    smi = _smi()
+    state = {}
+    with torch.no_grad():
+        reset_all_launch_counts()
+        pre = model(token_embeddings=x[:, :DEC_PREFILL], incremental_state=state)["decoder_out"]
+        torch.cuda.synchronize()
+        prefill_launches = _launch_delta(DEC_FWD_LAUNCHES)
+        check(prefill_launches == {**DEC_FWD_LAUNCHES, "other": 0}, f"prefill launches {prefill_launches}")
+        # the prefill cache for the replay, in host memory: a copy on the
+        # card would stay beside the steps' caches and raise their peak
+        saved = {i: {k: v.cpu() if torch.is_tensor(v) else v for k, v in s.items()} for i, s in state.items()}
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        rows, step_ms, per_step, peaks = [], [], [], []
+
+        def step(t, cache, out_rows):
+            out_rows.append(model(token_embeddings=x[:, t:t + 1], incremental_state=cache)["decoder_out"])
+
+        reset_all_launch_counts()
+        for t in range(DEC_PREFILL, DEC_L):
+            before = all_launch_counts().get("flash_fwd", 0)
+            if t == DEC_L - 1:  # the last step under the profiler
+                profile = _profile(lambda: step(t, state, rows), top=4, watch=("flash_fwd",))
+            else:
+                step_ms.append(time_ms(lambda: step(t, state, rows), reps=1, warmup=0))
+            per_step.append(all_launch_counts().get("flash_fwd", 0) - before)
+            peaks.append((torch.cuda.max_memory_allocated() - base) / 1e9)
+        launches = _launch_delta(DEC_STEP_LAUNCHES)
+        cache_gb = sum(v.numel() * v.element_size() for s in state.values() for k, v in s.items()
+                       if k in ("prev_key", "prev_value")) / 1e9
+        check(state[0]["index"] == DEC_L and tuple(state[0]["prev_key"].shape) == (1, DEC_L, H, E // H),
+              f"decode cache {state[0]['index']}")
+        state.clear()
+        replay = {i: {k: v.to(x.device) if torch.is_tensor(v) else v for k, v in s.items()} for i, s in saved.items()}
+        plain_rows, held_errs = [], []
+        t0 = time.perf_counter()
+        with _flash_fwd_held_to_plain(held_errs):
+            for t in range(DEC_PREFILL, DEC_PREFILL + DEC_REPLAY_STEPS):
+                step(t, replay, plain_rows)
+        held = _held_summary(held_errs)
+        replay_s = time.perf_counter() - t0
+    stepped, stepped_plain = torch.cat(rows, dim=1), torch.cat(plain_rows, dim=1)
+    want = {k: v * DEC_STEPS for k, v in DEC_STEP_LAUNCHES.items()}
+    check(launches == {**want, "other": 0}, f"decode launches {launches} != {want}")
+    check(all(n == DEC_STEP_LAUNCHES["flash_fwd"] for n in per_step), f"decode launches a step {per_step}")
+    replay_want = DEC_STEP_LAUNCHES["flash_fwd"] * DEC_REPLAY_STEPS
+    check(held["launches"] == replay_want, f"decode replay held {held['launches']} launches, not {replay_want}")
+    agree = _rows_one_minus_cos(stepped, full[:, DEC_PREFILL:])
+    plain_agree = _rows_one_minus_cos(stepped[:, :DEC_REPLAY_STEPS], stepped_plain)
+    prefill_agree = _rows_one_minus_cos(pre, full[:, :DEC_PREFILL])
+    check(bool(torch.isfinite(stepped).all()), "decode: non-finite rows")
+    check(agree["one_minus_cos"] <= DEC_STEP_MAX_ONE_MINUS_COS,
+          f"decode vs forward: 1 - cosine {agree['one_minus_cos']} > {DEC_STEP_MAX_ONE_MINUS_COS}")
+    check(plain_agree["one_minus_cos"] <= BF16_MAX_ONE_MINUS_COS,
+          f"decode vs its plain replay: 1 - cosine {plain_agree['one_minus_cos']} > {BF16_MAX_ONE_MINUS_COS}")
+    emit("longnet_decode", prefill=DEC_PREFILL, steps=DEC_STEPS, dtype="bfloat16", prefill_launches=prefill_launches,
+         launches=launches, launches_per_step=sorted(set(per_step)), vs_forward=agree, prefill_vs_forward=prefill_agree,
+         tolerance=f"1 - cosine <= {DEC_STEP_MAX_ONE_MINUS_COS}", replay_steps=DEC_REPLAY_STEPS,
+         vs_plain_replay=plain_agree, plain_replay_tolerance=f"1 - cosine <= {BF16_MAX_ONE_MINUS_COS}",
+         replay_flash_fwd_vs_plain=held, plain_replay_s=replay_s, ms_per_step=statistics.median(step_ms),
+         step_ms_first_last=[step_ms[0], step_ms[-1]], step_peak_memory_gb_first_last=[peaks[0], peaks[-1]],
+         last_step_profile=profile, cache_gb=cache_gb, nvidia_smi=smi)
+    return launches
+
+
+def phase_retnet():
+    """31: RetNet's three forms against each other at L = 2048, bf16."""
+    import torch
+
+    from gigapath_tpu_torch.architecture.config import RetNetConfig
+    from gigapath_tpu_torch.architecture.retnet import RetNetDecoder
+
+    smi = _smi()
+    torch.manual_seed(27)
+    with torch.device("cuda"):
+        parallel = RetNetDecoder(RetNetConfig(**RETNET_CFG))
+        chunkwise = RetNetDecoder(RetNetConfig(**RETNET_CFG, chunkwise_recurrent=True))
+    parallel = parallel.to(torch.bfloat16).eval()
+    chunkwise = chunkwise.to(torch.bfloat16).eval()
+    chunkwise.load_state_dict(parallel.state_dict())
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    x = torch.randn(1, RETNET_L, E, device="cuda", generator=gen).to(torch.bfloat16)
+    reset_all_launch_counts()
+    with torch.no_grad():
+        out_p = parallel(token_embeddings=x)["decoder_out"]
+        out_c = chunkwise(token_embeddings=x)["decoder_out"]
+        ms_p = time_ms(lambda: parallel(token_embeddings=x), reps=3, warmup=0)
+        ms_c = time_ms(lambda: chunkwise(token_embeddings=x), reps=3, warmup=0)
+        state, rows = {}, []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(RETNET_RECURRENT_STEPS):
+            rows.append(parallel(token_embeddings=x[:, t:t + 1], incremental_state=state)["decoder_out"])
+        torch.cuda.synchronize()
+        ms_step = (time.perf_counter() - t0) * 1e3 / RETNET_RECURRENT_STEPS
+    recurrent = torch.cat(rows, dim=1)
+    launches = _launch_delta({})
+    check(launches == {"other": 0}, f"retnet launched kernels {launches}")
+    chunk_agree = _rows_one_minus_cos(out_c, out_p)
+    rec_agree = _rows_one_minus_cos(recurrent, out_p[:, :RETNET_RECURRENT_STEPS])
+    for what, agree in (("chunkwise", chunk_agree), ("recurrent", rec_agree)):
+        check(agree["one_minus_cos"] <= RETNET_MAX_ONE_MINUS_COS,
+              f"retnet {what} vs parallel: 1 - cosine {agree['one_minus_cos']} > {RETNET_MAX_ONE_MINUS_COS}")
+    for out in (out_p, out_c, recurrent):
+        check(bool(torch.isfinite(out).all()), "retnet: non-finite output")
+    emit("retnet", L=RETNET_L, dtype="bfloat16", config=RETNET_CFG, chunk=512,
+         recurrent_steps=RETNET_RECURRENT_STEPS, chunkwise_vs_parallel=chunk_agree, recurrent_vs_parallel=rec_agree,
+         tolerance=f"1 - cosine <= {RETNET_MAX_ONE_MINUS_COS}", parallel_ms=ms_p, chunkwise_ms=ms_c,
+         recurrent_ms_per_step=ms_step, nvidia_smi=smi)
+
+
+def phase_beit3():
+    """32: BEiT-3 base's fused vision-language forward, bf16 at batch 8,
+    and fp32 against the CPU."""
+    import torch
+
+    from gigapath_tpu_torch.architecture.config import EncoderConfig
+    from gigapath_tpu_torch.models.beit3 import BEiT3
+
+    smi = _smi()
+    torch.manual_seed(29)
+    cfg = EncoderConfig(multiway=True, vocab_size=BEIT3_VOCAB)
+    cpu = BEiT3(cfg).eval()
+    gen = torch.Generator().manual_seed(30)
+    image = torch.randn(BEIT3_BATCH, 3, cfg.img_size, cfg.img_size, generator=gen)
+    text = torch.randint(0, BEIT3_VOCAB, (BEIT3_BATCH, BEIT3_TEXT), generator=gen)
+    pad = torch.zeros(BEIT3_BATCH, BEIT3_TEXT, dtype=torch.bool)
+    pad[::2, -16:] = True
+    n_vis = (cfg.img_size // cfg.patch_size) ** 2 + 1
+    with torch.no_grad():
+        want = cpu(text[:BEIT3_CPU_ROWS], image[:BEIT3_CPU_ROWS], pad[:BEIT3_CPU_ROWS])["encoder_out"]
+        card = cpu.to("cuda")
+        args = [t.to("cuda") for t in (text, image, pad)]
+        got = card(*(a[:BEIT3_CPU_ROWS] for a in args))["encoder_out"].cpu()
+        rel = float((got - want).abs().max() / want.abs().max())
+        check(rel <= F32_REL_TOL, f"beit3 fp32 card vs CPU rel {rel} > {F32_REL_TOL}")
+        card = card.to(torch.bfloat16)
+        args[1] = args[1].to(torch.bfloat16)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_all_launch_counts()
+        out = card(*args)
+        enc = out["encoder_out"]
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        ms = time_ms(lambda: card(*args), reps=3, warmup=0)
+    check(tuple(enc.shape) == (BEIT3_BATCH, n_vis + BEIT3_TEXT, E) and out["multiway_split_position"] == n_vis,
+          f"beit3 output {tuple(enc.shape)}, split {out['multiway_split_position']}")
+    check(bool(torch.isfinite(enc).all()), "beit3: non-finite output")
+    bf16_agree = _rows_one_minus_cos(enc[:BEIT3_CPU_ROWS].cpu(), want)
+    emit("beit3", batch=BEIT3_BATCH, vision_tokens=n_vis, text_tokens=BEIT3_TEXT, vocab_size=BEIT3_VOCAB,
+         dtype="bfloat16", fp32_card_vs_cpu_rel=rel, tolerance=f"rel <= {F32_REL_TOL}",
+         bf16_vs_cpu_fp32=bf16_agree, launches=_launch_delta({}), ms_per_forward=ms,
+         peak_memory_above_model_gb=peak, nvidia_smi=smi)
+
+
+def phase_torchscale() -> dict:
+    """Phases 29-32; returns the decoder path's launches (the forward's and
+    the decode steps')."""
+    import torch
+
+    model, x, full, fwd_launches = phase_longnet_decoder()
+    decode_launches = phase_longnet_decode(model, x, full)
+    del model, x, full
+    torch.cuda.empty_cache()
+    phase_retnet()
+    phase_beit3()
+    torch.cuda.empty_cache()
+    return {"decoder_forward_launches": fwd_launches, "decoder_decode_launches": decode_launches}
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print("chip_smoke: takes no arguments", file=sys.stderr)
@@ -7007,11 +7368,13 @@ def main() -> int:
     launches.update({name: pipe_launches[name] for name in PIPE_KERNELS})
     phase_seq_parallel()
     phase_moe(phase_tensor_parallel())
+    decoder = phase_torchscale()
     print(json.dumps({"kernels": [
         {"name": name, **meta, "launches": launches[name],
          "max_abs_err": summary[name]["err"], "ms": summary[name]["ms"],
          "plain_ms": summary[name]["plain_ms"], "bound_ms": summary[name]["bound_ms"],
-         "bound_by": summary[name]["bound_by"], "library_ms": summary[name]["library_ms"]}
+         "bound_by": summary[name]["bound_by"], "library_ms": summary[name]["library_ms"],
+         **{key: counts.get(name, 0) for key, counts in decoder.items()}}
         for name, meta in KERNELS.items()
     ]}), flush=True)
     print(smi, flush=True)

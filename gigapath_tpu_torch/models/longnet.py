@@ -1,6 +1,13 @@
-"""LongNet encoder with dilated self-attention + the named factory
-(counterpart of ``gigapath_tpu/models/longnet.py``; the decoder is not
-ported)."""
+"""LongNet: the encoder and the causal decoder with dilated
+self-attention, and the named factory (counterpart of
+``gigapath_tpu/models/longnet.py``).
+
+:class:`LongNetDecoder` runs a whole sequence causally (on one device the
+phase-major kernels, rows 1-3, as the encoder does) or decodes
+incrementally with ``incremental_state``: each step's dilated attention
+takes the cache by position (``offset``) on the generic route, each
+branch on the segment-flash kernel (row 11).
+"""
 
 from __future__ import annotations
 
@@ -9,28 +16,51 @@ from typing import Tuple, Union
 from torch import nn
 
 from gigapath_tpu_torch.architecture.config import EncoderConfig
+from gigapath_tpu_torch.architecture.decoder import Decoder, DecoderLayer
 from gigapath_tpu_torch.architecture.encoder import Encoder, EncoderLayer
 from gigapath_tpu_torch.models import longnet_config
 from gigapath_tpu_torch.ops.dilated_attention import DilatedAttention
 
 
+def _dilated_self_attention(args, embed_dim: int, heads: int, model_group=None, multiway: bool = False):
+    if not (args.segment_length and args.dilated_ratio):
+        raise ValueError("LongNet requires a segment_length/dilated_ratio schedule")
+    return DilatedAttention(
+        embed_dim,
+        heads,
+        segment_length=args.segment_length,
+        dilated_ratio=args.dilated_ratio,
+        subln=args.subln,
+        layernorm_eps=args.layernorm_eps,
+        dropout=args.attention_dropout,
+        seq_parallel=args.seq_parallel,
+        seq_group=args.extras.get("seq_group"),
+        model_group=model_group,
+        xpos_rel_pos=args.xpos_rel_pos,
+        xpos_scale_base=args.xpos_scale_base,
+        multiway=multiway,
+    )
+
+
+class LongNetDecoderLayer(DecoderLayer):
+    """Decoder block with dilated causal self-attention."""
+
+    def build_self_attention(self) -> nn.Module:
+        return _dilated_self_attention(self.args, self.args.decoder_embed_dim, self.args.decoder_attention_heads)
+
+
+class LongNetDecoder(Decoder):
+    """Causal LongNet: the whole sequence at once, or eager incremental
+    decoding with ``incremental_state``."""
+
+    layer_cls = LongNetDecoderLayer
+
+
 class LongNetEncoderLayer(EncoderLayer):
     def build_self_attention(self) -> nn.Module:
         args = self.args
-        if not (args.segment_length and args.dilated_ratio):
-            raise ValueError("LongNet requires a segment_length/dilated_ratio schedule")
-        return DilatedAttention(
-            args.encoder_embed_dim,
-            args.encoder_attention_heads,
-            segment_length=args.segment_length,
-            dilated_ratio=args.dilated_ratio,
-            subln=args.subln,
-            layernorm_eps=args.layernorm_eps,
-            dropout=args.attention_dropout,
-            seq_parallel=args.seq_parallel,
-            seq_group=args.extras.get("seq_group"),
-            model_group=self.model_group,
-        )
+        return _dilated_self_attention(args, args.encoder_embed_dim, args.encoder_attention_heads,
+                                       model_group=self.model_group, multiway=args.multiway)
 
 
 class LongNetEncoder(Encoder):

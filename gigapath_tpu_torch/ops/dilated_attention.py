@@ -90,14 +90,39 @@ its single-device op: a sharded branch whose ratio does not divide ``L``
 local branch whose segment does not divide ``L`` (the segment edges move
 to the rank edges). The branches' fusion is the
 stacked softmax of their lse; ``stream_fusion`` and ``streaming_fusion``
-act on one device only, as in the JAX package. Attention-probability
-dropout and decoding are not ported yet (``ROADMAP.md``).
+act on one device only, as in the JAX package.
+
+The kernel routes above take self-attention with equal q/k/v shapes, no
+decoding offset, no attention dropout and the default ``attn_fn``: the JAX
+package's ``kernels_eligible``. Any other call runs the **generic route**
+on one device, :func:`_dilated_branch` per branch (the JAX package's
+``_dilated_branch``): dilated segments gathered by static phase slices,
+each branch's ``attn_fn`` on the sparse segments (``flash_attention``,
+row 11, by default), the branches fused by the stacked softmax.
+
+- Decoding (``offset > 0``): q holds the rows at positions ``[offset,
+  offset + Lq)`` and k / v the whole cache, ``Lk == offset + Lq``. A
+  branch drops the keys before its query segment's start and front-pads q
+  by ``offset % sl``, so that queries and keys share the segment's
+  coordinates with ``Lq == Lk`` (the causal flag's alignment is then the
+  same on the kernel and on the plain path).
+- Attention dropout (``dropout_rate > 0``): each branch runs the plain
+  :func:`~gigapath_tpu_torch.ops.attention.attention_with_lse` with
+  dropout, drawn from a generator of its own (seeded from ``generator``),
+  as the JAX package splits its key per branch; a custom ``attn_fn`` with
+  dropout raises ``NotImplementedError``, as there. This is the JAX
+  package's dispatch rule, not a fallback: with dropout 0 a CUDA tensor
+  always reaches the kernels. Under sequence parallelism such a call takes
+  the generic local and gathered branches (no phase-major kernel, no ring),
+  as in the JAX package.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import numbers
+import operator
 import threading
 import warnings
 from typing import Optional, Sequence, Tuple
@@ -107,7 +132,7 @@ import torch
 import torch.distributed as dist
 
 from gigapath_tpu_torch.ops import flash_kernels as fk
-from gigapath_tpu_torch.ops.attention import NEG_INF, MultiheadAttention, combine_partials
+from gigapath_tpu_torch.ops.attention import NEG_INF, MultiheadAttention, attention_with_lse, combine_partials
 from gigapath_tpu_torch.ops.common import round_up
 from gigapath_tpu_torch.ops.dilated_kernels import (
     MAX_FUSED_BRANCHES,
@@ -173,6 +198,9 @@ def dilated_attention(
     offset: int = 0,
     head_offset: int = 0,
     num_heads: Optional[int] = None,
+    attn_fn=None,
+    dropout_rate: float = 0.0,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Multi-branch dilated self-attention on [B, L, H, D] -> [B, L, H, D].
 
@@ -187,8 +215,17 @@ def dilated_attention(
     ``seq_group``: a process group of more than one rank makes this call
     sequence-parallel (the module docstring): L is the local shard, and
     ``valid_len`` each rank's own suffix count of a suffix-padded batch, a
-    [B] tensor wherever a branch spans ranks. ``offset`` (decoding) is not
-    ported: above 0 it raises.
+    [B] tensor wherever a branch spans ranks.
+
+    ``offset`` (decoding): q holds the rows at positions ``[offset, offset +
+    Lq)``, k and v the whole cache (``Lk == offset + Lq``, else
+    ``ValueError``); not with ``seq_group`` (``ValueError``). ``attn_fn(q,
+    k, v, is_causal=, kv_valid_len=) -> (out, lse)`` replaces
+    ``flash_attention`` on the generic route. ``dropout_rate`` above 0 drops
+    attention probabilities in every branch, each branch drawing from a
+    generator seeded from ``generator``. An offset, dropout, a custom
+    ``attn_fn`` or unequal q/k/v shapes take the generic route (the module
+    docstring).
 
     ``head_offset`` and ``num_heads``: the H heads of q/k/v are the global
     heads ``[head_offset, head_offset + H)`` of ``num_heads`` (a
@@ -206,9 +243,17 @@ def dilated_attention(
     if offset:
         if seq_world > 1:
             raise ValueError("offset decoding and sequence parallelism are not supported together")
-        raise NotImplementedError("offset decoding is not ported yet (ROADMAP.md)")
-    if not (q.shape == k.shape == v.shape):
-        raise ValueError(f"self-attention needs equal q/k/v shapes; got {q.shape}, {k.shape}, {v.shape}")
+        if k.shape[1] != offset + q.shape[1]:
+            # q holds the rows at [offset, offset + Lq), k/v the whole cache
+            raise ValueError(
+                f"offset={offset} decoding requires Lk == offset + Lq (the whole KV cache); "
+                f"got Lq={q.shape[1]}, Lk={k.shape[1]}"
+            )
+    if dropout_rate > 0.0 and attn_fn is not None:
+        raise NotImplementedError("attention dropout is not supported with a custom attn_fn")
+    kernels_eligible = attn_fn is None and dropout_rate <= 0.0 and not offset and q.shape == k.shape == v.shape
+    if seq_world > 1 and not (q.shape == k.shape == v.shape):
+        raise ValueError(f"sequence-parallel self-attention needs equal q/k/v shapes; got {q.shape}, {k.shape}")
     B, L, H, Dh = q.shape
     E = H * Dh
     total = H if num_heads is None else int(num_heads)
@@ -218,14 +263,27 @@ def dilated_attention(
                 "a tensor-parallel rank's heads (head_offset/num_heads) and sequence parallelism "
                 "(seq_group) are not supported together"
             )
+        if not kernels_eligible:
+            raise ValueError(
+                "a tensor-parallel rank's heads (head_offset/num_heads) take no decoding offset, attention "
+                "dropout, custom attn_fn or unequal q/k/v shapes"
+            )
         if head_offset < 0 or head_offset + H > total:
             raise ValueError(f"heads [{head_offset}, {head_offset + H}) are not inside the {total} global heads")
         return dilated_attention_bhld(
             q, k, v, segment_lengths, dilated_ratios, is_causal=is_causal, valid_len=valid_len,
             heads=(int(head_offset), total),
         )
+    attn_fns = None
+    if not kernels_eligible:
+        attn_fns = _branch_attn_fns(len(segment_lengths), attn_fn, dropout_rate, generator, q.device)
     if seq_world > 1:
         routes = _seq_routes(segment_lengths, dilated_ratios, L, H, E, seq_world)
+    elif not kernels_eligible:
+        return _dilated_attention_generic(
+            q, k, v, segment_lengths, dilated_ratios, is_causal=is_causal, offset=int(offset),
+            attn_fns=attn_fns, valid_len=valid_len,
+        )
     if flags is None:
         from gigapath_tpu_torch.plan import resolve_plan
 
@@ -233,6 +291,7 @@ def dilated_attention(
     if seq_world > 1:
         return _dilated_attention_seq_parallel(
             q, k, v, routes, is_causal=is_causal, valid_len=valid_len, flags=flags, seq_group=seq_group,
+            attn_fns=attn_fns,
         )
     if streaming_fusion is None:
         streaming_fusion = flags.streaming_fusion
@@ -313,6 +372,83 @@ def _stacked_fusion(outs, lses, dtype: torch.dtype) -> torch.Tensor:
         acc = term if acc is None else acc + term
     return acc.to(dtype)
 
+
+
+# ---------------------------------------------------------------------------
+# the generic route (the JAX package's _dilated_branch on one device)
+# ---------------------------------------------------------------------------
+
+
+def _branch_attn_fns(n: int, attn_fn, dropout_rate: float, generator: Optional[torch.Generator], device):
+    """The attention function of each of ``n`` branches on the generic
+    route: with dropout, the plain ``attention_with_lse`` drawing from a
+    generator of its own on ``device`` (seeded by draws from ``generator``,
+    torch's default CPU generator when None), as the JAX package splits its
+    key per branch; else ``attn_fn``, ``flash_attention`` by default."""
+    if dropout_rate <= 0.0:
+        return [attn_fn or flash_attention] * n
+    seeds = torch.randint(0, 2**62, (n,), generator=generator,
+                          device=generator.device if generator is not None else "cpu").tolist()
+    gens = [torch.Generator(device=device).manual_seed(int(s)) for s in seeds]
+    return [functools.partial(attention_with_lse, dropout_rate=dropout_rate, generator=g) for g in gens]
+
+
+def _dilated_branch(q, k, v, sl: int, r: int, *, is_causal: bool, offset: int, attn_fn,
+                    valid_len=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One branch on the generic route -> ``(out [B, L, H, D], lse [B, H,
+    L])``: q and k/v cut into segments of ``min(sl, len)``, dilated by
+    static phase slices, ``attn_fn`` on the sparse segments, the result
+    undilated. With ``offset`` (decoding) the keys before the query
+    segment's start are dropped and q is front-padded by ``offset % sl``:
+    a query at position t attends only keys of its own segment ``t // sl``,
+    so queries and keys then share the segment's coordinates with ``Lq ==
+    Lk``, and the causal mask and the tail counts of the cut cache are the
+    decode step's."""
+    B, L, H, Dh = q.shape
+    if offset > 0:
+        s0 = (offset // sl) * sl
+        if s0 > 0:
+            k, v = k[:, s0:], v[:, s0:]
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, offset % sl, 0))
+    Lq = q.shape[1]
+    g_q = min(sl, Lq)
+    qp = _pad_to_multiple(q, g_q, axis=1)
+    n_seg = qp.shape[1] // g_q
+    qs = dense_to_sparse(qp.reshape(B * n_seg, g_q, H, Dh), r)
+    g_k = min(sl, k.shape[1])
+    kp = _pad_to_multiple(k, g_k, axis=1).reshape(-1, g_k, H, Dh)
+    vp = _pad_to_multiple(v, g_k, axis=1).reshape(-1, g_k, H, Dh)
+    ks, vs = dense_to_sparse(kp, r), dense_to_sparse(vp, r)
+    n_seg_k, m = kp.shape[0] // B, ks.shape[1]
+    # the JAX package's _kv_valid_lengths, each row's valid length in place
+    # of the real length where that is smaller: slot j of segment s and
+    # head phase p is position s*g + p + r*j, a key while below that
+    # length, the pad that makes a segment a multiple of r included
+    real_len, valid_dyn = _normalize_valid_len(valid_len, B, k.shape[1])
+    kv_valid_len = _bhld_kvlen(B, H, n_seg_k, g_k, r, m, real_len, valid_dyn, q.device, span=m * r)
+    if kv_valid_len is not None:
+        kv_valid_len = kv_valid_len.transpose(1, 2).reshape(B * n_seg_k, H)
+    out_s, lse_s = attn_fn(qs, ks, vs, is_causal=is_causal, kv_valid_len=kv_valid_len)
+    out_d, lse_d = sparse_to_dense(out_s, lse_s, r, g_q)
+    out = out_d.reshape(B, n_seg * g_q, H, Dh)
+    lse = lse_d.reshape(B, n_seg, H, g_q).transpose(1, 2).reshape(B, H, -1)
+    start = offset % sl if offset > 0 else 0
+    return out[:, start:start + L], lse[..., start:start + L]
+
+
+def _dilated_attention_generic(q, k, v, segment_lengths, dilated_ratios, *, is_causal: bool, offset: int,
+                               attn_fns, valid_len) -> torch.Tensor:
+    """Every branch on :func:`_dilated_branch` with its ``attn_fns`` entry,
+    fused by the stacked softmax of their lse."""
+    outs, lses = [], []
+    for sl, r, fn in zip(segment_lengths, dilated_ratios, attn_fns):
+        o, lse = _dilated_branch(q, k, v, int(sl), int(r), is_causal=is_causal, offset=offset, attn_fn=fn,
+                                 valid_len=valid_len)
+        outs.append(o)
+        lses.append(lse)
+    if len(outs) == 1:
+        return outs[0]
+    return _stacked_fusion(outs, lses, q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -447,7 +583,8 @@ def _undilate_to_dense(out_s, lse_s, r: int, g: int, Lp: int, L: int, heads=None
 
 
 def _bhld_kvlen(B: int, H: int, n: int, g: int, r: int, m: int, real_len: int,
-                valid_len_dyn: Optional[torch.Tensor], device, heads=None) -> Optional[torch.Tensor]:
+                valid_len_dyn: Optional[torch.Tensor], device, heads=None,
+                span: Optional[int] = None) -> Optional[torch.Tensor]:
     """[B, H, n] int32 valid sparse-key counts on ``device``, or None when
     every slot is valid: :func:`_branch_kvlen_bhld`'s table (decided on the
     host) combined by minimum with the per-row valid lengths. The table is
@@ -456,14 +593,15 @@ def _bhld_kvlen(B: int, H: int, n: int, g: int, r: int, m: int, real_len: int,
     head-major phases ``arange(H) // ceil(H/r)`` with each row bounded by
     ``min(real_len, valid_len_dyn)`` (the counts grow with the bound, so
     that is the minimum of the two tables): a table copied from host memory
-    would make the stream wait for the device once per branch."""
+    would make the stream wait for the device once per branch. ``span`` as
+    ``dyn_sparse_counts``'s (a table it makes all ``m`` is no table here)."""
     if valid_len_dyn is None and _branch_kvlen_bhld(H, n, g, r, m, real_len, heads) is None:
         return None
     bound = torch.full((B,), real_len, dtype=torch.int64, device=device)
     if valid_len_dyn is not None:
         bound = torch.minimum(bound, valid_len_dyn.to(device=device, dtype=torch.int64))
     phases = _head_phases(H, r, heads, device)
-    return dyn_sparse_counts(bound, g, r, m, phases, n).contiguous()
+    return dyn_sparse_counts(bound, g, r, m, phases, n, span).contiguous()
 
 
 def _flat_eligible(g: int, r: int) -> bool:
@@ -842,31 +980,15 @@ class _RingAttention(torch.autograd.Function):
         return dq.to(qs.dtype), acc[0].to(ks.dtype), acc[1].to(vs.dtype), None, None, None
 
 
-def _local_branch(q, k, v, sl: int, r: int, *, is_causal: bool, real_len: int,
-                  valid_dyn: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
-    """A branch inside the shard whose ratio does not divide the heads:
-    the JAX package's generic ``_dilated_branch`` on ``flash_attention``
-    (row 11), keys past the valid length or past their segment masked,
-    as on the port's single-device routes. ``sl`` divides L."""
-    B, L, H, Dh = q.shape
-    n = L // sl
-    qs, ks, vs = (dense_to_sparse(x.reshape(B * n, sl, H, Dh), r) for x in (q, k, v))
-    m = ks.shape[1]
-    kvlen = _bhld_kvlen(B, H, n, sl, r, m, real_len, valid_dyn, q.device)  # [B, H, n]
-    if kvlen is not None:
-        kvlen = kvlen.permute(0, 2, 1).reshape(B * n, H)
-    out_s, lse_s = flash_attention(qs, ks, vs, is_causal=is_causal, kv_valid_len=kvlen)
-    out_d, lse_d = sparse_to_dense(out_s, lse_s, r, sl)
-    return out_d.reshape(B, L, H, Dh), lse_d.reshape(B, n, H, sl).transpose(1, 2).reshape(B, H, L)
-
-
 def _sharded_branch(q, k, v, sl: int, r: int, rps: int, *, is_causal: bool,
-                    counts: Optional[torch.Tensor], ring: bool, group) -> Tuple[torch.Tensor, torch.Tensor]:
+                    counts: Optional[torch.Tensor], ring: bool, group,
+                    attn_fn=flash_attention) -> Tuple[torch.Tensor, torch.Tensor]:
     """A branch whose segment spans ``rps`` ranks (the JAX package's
     gathered ``_dilated_branch``): local sparse queries against the
-    segment's sparse keys, gathered or ringed. ``counts`` is the call's
-    [W, B] all-gather of the ranks' valid counts (None: every key valid).
-    Returns the dense ``(out [B, L, H, D], lse [B, H, L])``."""
+    segment's sparse keys, gathered (then ``attn_fn``, ``flash_attention``
+    by default) or ringed. ``counts`` is the call's [W, B] all-gather of the
+    ranks' valid counts (None: every key valid). Returns the dense ``(out
+    [B, L, H, D], lse [B, H, L])``."""
     B, L, H, Dh = q.shape
     qs, ks, vs = (dense_to_sparse(x, r) for x in (q, k, v))
     m = ks.shape[1]
@@ -902,16 +1024,20 @@ def _sharded_branch(q, k, v, sl: int, r: int, rps: int, *, is_causal: bool,
             qi = torch.arange(m, device=q.device)[:, None]
             kj = torch.arange(rps * m, device=q.device)[None, :]
             bias = torch.where(kj <= qi + (rank % rps) * m, 0.0, NEG_INF)[None, None]
-            out_s, lse_s = flash_attention(qs, ks, vs, bias=bias)
+            out_s, lse_s = attn_fn(qs, ks, vs, is_causal=False, kv_valid_len=None, bias=bias)
         else:
-            out_s, lse_s = flash_attention(qs, ks, vs, kv_valid_len=kv_valid_len)
+            out_s, lse_s = attn_fn(qs, ks, vs, is_causal=False, kv_valid_len=kv_valid_len)
     return sparse_to_dense(out_s, lse_s, r, L)
 
 
 def _dilated_attention_seq_parallel(q, k, v, routes, *, is_causal: bool, valid_len, flags: PipelineFlags,
-                                    seq_group) -> torch.Tensor:
+                                    seq_group, attn_fns=None) -> torch.Tensor:
     """The sequence-parallel dispatch over the branches' ``routes``
-    (:func:`_seq_routes`), fused by the stacked softmax of their lse."""
+    (:func:`_seq_routes`), fused by the stacked softmax of their lse.
+    ``attn_fns`` (the generic route's, one a branch: dropout or a custom
+    ``attn_fn``) sends every local branch to :func:`_dilated_branch` and every
+    sharded one to the gather, each on its function, as the JAX package
+    does outside ``kernels_eligible``."""
     B, L, H, Dh = q.shape
     E = H * Dh
     real_len, valid_dyn = _normalize_valid_len(valid_len, B, L)
@@ -930,15 +1056,23 @@ def _dilated_attention_seq_parallel(q, k, v, routes, *, is_causal: bool, valid_l
         counts = _gather_counts(valid_dyn, seq_group)  # once per call, shared by every sharded branch
     qE, kE, vE = (x.reshape(B, L, E) for x in (q, k, v))
     outs, lses = [], []
-    for sl, r, route, rps in routes:
-        if route == "fused":
+    for i, (sl, r, route, rps) in enumerate(routes):
+        if attn_fns is not None:
+            if route == "sharded":
+                o, lse = _sharded_branch(q, k, v, sl, r, rps, is_causal=is_causal, counts=counts, ring=False,
+                                         group=seq_group, attn_fn=attn_fns[i])
+            else:
+                o, lse = _dilated_branch(q, k, v, sl, r, is_causal=is_causal, offset=0, attn_fn=attn_fns[i],
+                                         valid_len=valid_len)
+        elif route == "fused":
             o, lse = dilated_branch_attention(
                 qE, kE, vE, sl, r, H, real_len=real_len, valid_len_dyn=valid_dyn, is_causal=is_causal,
                 flags=flags,
             )
             o = o.reshape(B, L, H, Dh)
         elif route == "local":
-            o, lse = _local_branch(q, k, v, sl, r, is_causal=is_causal, real_len=real_len, valid_dyn=valid_dyn)
+            o, lse = _dilated_branch(q, k, v, sl, r, is_causal=is_causal, offset=0, attn_fn=flash_attention,
+                                     valid_len=valid_len)
         else:
             o, lse = _sharded_branch(q, k, v, sl, r, rps, is_causal=is_causal, counts=counts,
                                      ring=flags.ring_attn, group=seq_group)
@@ -952,9 +1086,17 @@ def _dilated_attention_seq_parallel(q, k, v, routes, *, is_causal: bool, valid_l
 class DilatedAttention(MultiheadAttention):
     """LongNet attention module: the MultiheadAttention projections and
     sub-LN around :func:`dilated_attention`. ``dropout`` (on the attention
-    probabilities) must be 0: every registry configuration trains with
-    ``attention_dropout = 0``, and the kernels never form the probabilities
-    a dropout would act on.
+    probabilities, in training mode) sends the call to the generic route,
+    each branch on the plain attention with dropout; every registry
+    configuration trains with ``attention_dropout = 0``, which keeps the
+    kernels. ``attn_fn`` replaces ``flash_attention`` on the generic route.
+
+    The decode cache (``incremental_state``) is taken by position: the
+    segment structure depends on absolute positions, so the cache enters
+    :func:`dilated_attention` as ``offset = index`` and the live prefix of
+    the keys, not as a mask over the buffer. The index must be a concrete
+    integer (an eager generation loop), else ``NotImplementedError``, as in
+    the JAX package.
 
     ``seq_parallel`` with a ``seq_group`` makes the attention
     sequence-parallel: each rank passes its own slice of the tokens (and of
@@ -975,23 +1117,40 @@ class DilatedAttention(MultiheadAttention):
         seq_parallel: bool = False,
         seq_group=None,
         model_group=None,
+        *,
+        xpos_rel_pos: bool = False,
+        xpos_scale_base: int = 512,
+        multiway: bool = False,
+        attn_fn=None,
     ):
-        if dropout > 0.0:
-            raise NotImplementedError(
-                f"attention-probability dropout ({dropout}) is not ported yet (ROADMAP.md)"
-            )
         if seq_parallel and seq_group is not None and model_group is not None:
             raise ValueError(
                 "DilatedAttention: a model_group (tensor parallelism) and a seq_group (sequence "
                 "parallelism) are not supported together; make_train_step gathers a seq dim's tokens "
                 "at its entry instead"
             )
-        super().__init__(embed_dim, num_heads, subln=subln, layernorm_eps=layernorm_eps, model_group=model_group)
+        super().__init__(embed_dim, num_heads, subln=subln, layernorm_eps=layernorm_eps, model_group=model_group,
+                         dropout=dropout, xpos_rel_pos=xpos_rel_pos, xpos_scale_base=xpos_scale_base,
+                         multiway=multiway)
         self.segment_length = tuple(int(x) for x in segment_length)
         self.dilated_ratio = tuple(int(x) for x in dilated_ratio)
         self.seq_group = seq_group if seq_parallel else None
+        self.attn_fn = attn_fn
 
-    def _attend(self, q, k, v, *, key_padding_mask=None, is_causal=False):
+    def _cached_attend_inputs(self, k, v, cur, Lq: int, attn_mask, is_causal):
+        try:
+            off = operator.index(cur)
+        except TypeError as e:
+            raise NotImplementedError(
+                "DilatedAttention incremental decode requires a concrete cache index (run the generation "
+                "loop eagerly): segment boundaries are position-dependent shapes"
+            ) from e
+        return k[:, :off + Lq], v[:, :off + Lq], attn_mask, is_causal, off
+
+    def _attend(self, q, k, v, *, key_padding_mask=None, attn_mask=None, rel_pos=None, is_causal=False,
+                offset: int = 0, generator=None):
+        if rel_pos is not None or attn_mask is not None:
+            raise ValueError("dilated attention takes neither a rel_pos bias nor an attn_mask")
         # key_padding_mask (True = pad) is a suffix pad (data collate
         # convention): one count shared by every row becomes a static int,
         # per-row counts a [B] tensor (always under per_row_valid_len: the
@@ -1013,6 +1172,7 @@ class DilatedAttention(MultiheadAttention):
             heads = dict(head_offset=self.head_offset, num_heads=self.num_heads)
         out = dilated_attention(
             q, k, v, self.segment_length, self.dilated_ratio,
-            is_causal=is_causal, valid_len=valid_len, seq_group=self.seq_group, **heads,
+            is_causal=is_causal, valid_len=valid_len, seq_group=self.seq_group, offset=offset,
+            attn_fn=self.attn_fn, dropout_rate=self.dropout if self.training else 0.0, generator=generator, **heads,
         )
         return out.reshape(out.shape[0], out.shape[1], -1)

@@ -238,13 +238,17 @@ def _phase_kvlen(S: int, g: int, r: int, m: int, real_len: int) -> np.ndarray:
 
 
 def dyn_sparse_counts(
-    valid_dyn: torch.Tensor, g: int, r: int, m: int, phases: torch.Tensor, n_seg: int
+    valid_dyn: torch.Tensor, g: int, r: int, m: int, phases: torch.Tensor, n_seg: int,
+    span: Optional[int] = None,
 ) -> torch.Tensor:
     """[B, len(phases), n_seg] valid sparse-key counts from per-batch valid
     lengths ``valid_dyn`` [B]: slot j of phase p is valid iff dense position
-    ``seg*g + p + r*j`` lies inside both the segment and the valid prefix."""
+    ``seg*g + p + r*j`` lies inside both the segment's first ``span``
+    positions (default g; ``m*r`` also counts the pad that makes a segment
+    a multiple of r, as the JAX package's generic branch does) and the
+    valid prefix."""
     seg = torch.arange(n_seg, device=valid_dyn.device)
-    in_seg = (valid_dyn.reshape(-1, 1).to(torch.int64) - seg[None] * g).clamp(0, g)
+    in_seg = (valid_dyn.reshape(-1, 1).to(torch.int64) - seg[None] * g).clamp(0, g if span is None else span)
     num = in_seg[:, None, :] - phases.to(torch.int64)[None, :, None]
     counts = -torch.div(-num, r, rounding_mode="floor")  # exact integer ceil
     return counts.clamp(0, m).to(torch.int32)

@@ -1,5 +1,5 @@
-"""Feed-forward block (counterpart of ``gigapath_tpu/ops/feedforward.py``):
-fc1 -> activation -> [sub-LN] -> fc2.
+"""Feed-forward blocks (counterpart of ``gigapath_tpu/ops/feedforward.py``):
+fc1 -> activation -> [sub-LN] -> fc2, and RetNet's bias-free :class:`GLU`.
 
 The JAX package's ``gelu`` is flax's default, the tanh approximation, so
 the port uses ``approximate="tanh"`` (torchscale itself uses exact GELU).
@@ -79,3 +79,23 @@ class FeedForwardNetwork(nn.Module):
         if self.ffn_layernorm is not None:
             h = self.ffn_layernorm(h)
         return self.dropout(row_parallel_linear(h, self.fc2, self.model_group))
+
+
+class GLU(nn.Module):
+    """Gated linear unit (torchscale's ``GLU``, the JAX package's ``GLU``):
+    ``fc2(act(fc1(x)) * gate(x))``, all three bias-free, with activation and
+    output dropout."""
+
+    def __init__(self, embed_dim: int, ffn_dim: int, activation_fn: str = "gelu", dropout: float = 0.0,
+                 activation_dropout: float = 0.0):
+        super().__init__()
+        self.act = _activation(activation_fn)
+        self.fc1 = nn.Linear(embed_dim, ffn_dim, bias=False)
+        self.gate = nn.Linear(embed_dim, ffn_dim, bias=False)
+        self.fc2 = nn.Linear(ffn_dim, embed_dim, bias=False)
+        self.activation_dropout = nn.Dropout(activation_dropout)
+        self.dropout = nn.Dropout(dropout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.activation_dropout(self.act(self.fc1(x)) * self.gate(x))
+        return self.dropout(self.fc2(h))

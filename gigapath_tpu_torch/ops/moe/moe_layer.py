@@ -147,11 +147,13 @@ class MOELayer(nn.Module):
         self.metadata = {}
 
     @classmethod
-    def from_config(cls, args, *, expert_group=None, expert_parallel: str = "gather") -> "MOELayer":
-        """From an encoder config (the encoder layer's MoE hook)."""
+    def from_config(cls, args, *, prefix: str = "encoder", expert_group=None,
+                    expert_parallel: str = "gather") -> "MOELayer":
+        """From a config (a layer's MoE hook): the widths of its ``prefix``
+        side, ``"encoder"`` or ``"decoder"``."""
         return cls(
-            embed_dim=args.encoder_embed_dim,
-            ffn_dim=args.encoder_ffn_embed_dim,
+            embed_dim=getattr(args, f"{prefix}_embed_dim"),
+            ffn_dim=getattr(args, f"{prefix}_ffn_embed_dim"),
             num_experts=args.moe_expert_count,
             top1=args.moe_top1_expert,
             activation_fn=args.activation_fn,

@@ -8,7 +8,17 @@
   OIHW, a norm ``scale`` becomes ``weight``, and flax's ``layers_N`` and
   ``blocks_N`` become ``layers.N`` and ``blocks.N``. The MoE layers' vmapped
   ``experts`` keep their leading E axis (a kernel ``[E, in, out]`` becomes
-  ``[E, out, in]``), and ``gate/wg`` becomes ``gate.wg.weight``.
+  ``[E, out, in]``), and ``gate/wg`` becomes ``gate.wg.weight``. An
+  ``nn.Embed`` table (``embedding``) becomes ``weight``, and one wrapped in
+  a module that names it ``weight`` (``TextEmbedding``,
+  ``PositionalEmbedding``) that module's ``weight``: so the decoder's
+  ``embed_tokens``, the relative-position tables
+  (``relative_attention_bias``) and BEiT-3's ``text_embed`` and
+  ``embed_positions`` take torchscale's keys. Multiway ``A`` / ``B``
+  branches, the retention projections (``g_proj`` among them) and the
+  decoder's ``encoder_attn`` keep their names. A BEiT-3 tree's
+  ``embed_positions`` (beside the encoder in the JAX package) moves under
+  ``encoder.``, where torchscale keeps it.
 - :func:`flax_params_from_state_dict` is its inverse, for the tile
   encoder's and the slide encoder's names: it gives the flax-path tree the
   quantized artifact (:mod:`gigapath_tpu_torch.quant.convert`) stores.
@@ -51,11 +61,15 @@ def state_dict_from_flax_params(params: Mapping[str, Any]) -> Dict[str, torch.Te
 
     Takes a tile encoder's tree, a slide encoder's or a
     ``ClassificationHead``'s, whose ``slide_encoder`` and ``classifier``
-    subtrees become the key prefixes of the same names."""
+    subtrees become the key prefixes of the same names, and the torchscale
+    family's: encoder, decoder, encoder-decoder, RetNet and BEiT-3."""
+    beit3 = {"text_embed", "vision_embed", "embed_positions", "encoder"} <= set(params)
     out = {}
     for path, value in _flatten(params):
         arr = np.array(value, dtype=np.float32)  # a writable copy
         parts = list(path)
+        if beit3 and parts[0] == "embed_positions":
+            parts.insert(0, "encoder")
         leaf = parts[-1]
         if leaf == "kernel":
             parts[-1] = "weight"
@@ -63,6 +77,8 @@ def state_dict_from_flax_params(params: Mapping[str, Any]) -> Dict[str, torch.Te
                 arr.ndim, lambda a: a.transpose(3, 2, 0, 1))(arr)
         elif leaf == "scale":
             parts[-1] = "weight"
+        elif leaf == "embedding":
+            parts = parts[:-1] if parts[-2:-1] == ["weight"] else parts[:-1] + ["weight"]
         key = re.sub(r"\b(layers|blocks)_(\d+)\b", r"\1.\2", ".".join(parts))
         out[key] = torch.from_numpy(np.ascontiguousarray(arr))
     return out

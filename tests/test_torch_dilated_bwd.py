@@ -151,8 +151,15 @@ def test_dilated_attention_grads_match_jax_with_detached_fusion_weights():
 
 
 def test_attention_dropout_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        DilatedAttention(E, H, [32], [1], dropout=0.1)
+    """Attention dropout routes as in the JAX package: with the default
+    attention function each branch runs the plain attention with dropout
+    in training mode; a custom ``attn_fn`` with dropout is refused."""
+    x = torch.randn(1, 32, E)
+    layer = DilatedAttention(E, H, [32], [1], dropout=0.1).train()
+    assert layer(x, x, x).shape == x.shape
+    custom = DilatedAttention(E, H, [32], [1], dropout=0.1, attn_fn=lambda *a, **kw: None).train()
+    with pytest.raises(NotImplementedError, match="custom attn_fn"):
+        custom(x, x, x)
 
 
 def _lanes(x: torch.Tensor):

@@ -168,7 +168,8 @@ def test_create_model_without_device_raises_without_cuda(monkeypatch):
 def test_port_imports_nothing_of_jax():
     """Importing every port module (the fine-tuning, tile, streaming,
     head-major, serving, obs, tiling, whole-slide training, linear-probe,
-    parity, pretraining, tensor-parallel, MoE and dry-run paths' included) leaves
+    parity, pretraining, tensor-parallel, MoE and dry-run paths' included, and
+    the torchscale family's decoder, encoder-decoder, RetNet and BEiT-3) leaves
     jax, flax, optax, sklearn and gigapath_tpu (the exact name, or the
     gigapath_tpu. prefix) out of sys.modules, and pandas, yaml and h5py too:
     the port imports those only inside the functions that read files."""
@@ -210,6 +211,10 @@ def test_port_imports_nothing_of_jax():
         "need |= {'gigapath_tpu_torch.parallel.tensor', 'gigapath_tpu_torch.ops.moe', 'gigapath_tpu_torch.dryrun',"
         " 'gigapath_tpu_torch.utils.profiling'} | {'gigapath_tpu_torch.ops.moe.' + m for m in ('routing',"
         " 'moe_layer', 'expert_parallel')}\n"
+        "need |= {'gigapath_tpu_torch.ops.' + m for m in ('xpos', 'relative_position_bias', 'multiway', 'embedding',"
+        " 'multiscale_retention')} | {'gigapath_tpu_torch.models.beit3', 'gigapath_tpu_torch.models.longnet'}\n"
+        "need |= {'gigapath_tpu_torch.architecture.' + m for m in ('config', 'encoder', 'decoder', 'encoder_decoder',"
+        " 'init', 'retnet')}\n"
         "assert need <= set(names), sorted(need - set(names))\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n"
