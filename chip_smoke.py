@@ -432,6 +432,24 @@ stdout:
     tokens, the last 16 of half the rows padded) in bf16 (finite, the
     shape, ms, peak memory), and in fp32 against the same weights' fp32
     forward on the CPU for 2 of the rows (rel <= 1e-4).
+33. obs_compile: the ledger's compile-side profiles on the card
+    (``obs/ledger.py``). (a) The bf16 flagship forward's full profile
+    through ``PerfLedger.capture_full``: its ``kernels`` column exactly
+    180 / 60 / 60 (rows 2 / 1 / 3) and equal to LAUNCHES, flops at least
+    the dense products' closed form, bytes accessed, and the peak above
+    the arguments within 5 % of the forward's peak above the model
+    measured as ``slide_forward`` measures it. (b) A 2-layer fp32 encoder
+    at L = 2049 profiled on the CPU and on the card: the same fingerprint
+    and flops, the last embedding within 1e-4. (c) Three bf16 fine-tune
+    steps through ``train_one_epoch``'s watchdog with the ledger on and
+    under ``GIGAPATH_OBS=0``: parameters bit-equal, rows 7a / 7b 55 / 55
+    launches a step (nothing run twice), one full entry. (d)
+    ``utils/profiling.py:op_totals`` of a trace of the forward: 180 / 60 /
+    60 kernel records. (e) ``utils/timing.py:chained_seconds_per_iter`` of
+    the forward within a factor of 2 of ``time_ms``. (f) One streamed
+    flagship layer at 2048-tile chunks: ``full_length_avals`` lists no
+    tensor of the slide's length in the folds and some in the dense
+    forward; every fold's allocator peak under ``_fold_bound_bytes``.
 
 ``default_route_times`` (not part of the run) times the default route's
 bf16 forward per slide and bf16 step alone (or, with ``dilated_ratio``,
@@ -956,6 +974,23 @@ def plain_kernels():
             setattr(dk, name, fn)
 
 
+def _reset_peak() -> None:
+    """Open a peak window on the card (``obs/ledger.py:reset_peaks``): a
+    full profile taken inside the window resets the allocator's counters
+    but does not lower the window's peak."""
+    from gigapath_tpu_torch.obs.ledger import reset_peaks
+
+    reset_peaks()
+
+
+def _peak(kind: str = "allocated") -> int:
+    """The card's peak bytes (``allocated`` or ``reserved``) in the window
+    :func:`_reset_peak` opened."""
+    from gigapath_tpu_torch.obs.ledger import peak_bytes
+
+    return peak_bytes()[kind]
+
+
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -1003,28 +1038,31 @@ def phase_build():
          libraries=[_build._label(name, defines) for name, defines in specs])
 
 
-def _branch_bounds(dk, B, L, sl, r, real_len, kvlen, itemsize, dtype_name):
-    """Least card time (ms) of each kernel's work at this branch, and what
-    bounds it: bytes each kernel must move over the HBM rate, operations over
-    the peak rate of the dtype; and the (query, key) pairs the masks admit."""
-    g, S, m, Mp = dk._branch_geometry(L, sl, r)
-    Dh = E // H
-    hb = H // r
-    band = B * L * E // r  # band elements the sequence's tokens hold
-    packed = B * S * Mp * E  # elements of one packed tensor
-    q_rows = dk._phase_kvlen(S, g, r, m, L).astype("int64")  # [S, r] real query rows
-    kv = kvlen.cpu().numpy().astype("int64")  # [B, S, r] valid keys
-    flops = 4 * Dh * hb * float((q_rows[None] * kv).sum())
-    rows = float(q_rows.sum()) * B
-    fwd_bytes = (rows * 2 + float(kv.sum()) * 2) * hb * Dh * itemsize + rows * hb * 4
+def _declared_bound(wrapper, dtype_name, *args, **kwargs):
+    """Least card time (ms) of one kernel call's work, what bounds it, and
+    its operations: the wrapper's declared (operations, bytes)
+    (``ops/common.py:kernel_wrapper``, the count the compile-side profile
+    adds up), operations over the dtype's peak or bytes over the HBM rate,
+    whichever is larger. A query row counts where its cell has the key of
+    that row: rows past a cell's valid keys (the padding of a ragged call)
+    are computed by the kernels but are work the data does not need."""
+    flops, nbytes = wrapper.declared_work(*args, **kwargs)
+    return max((flops / PEAK_FLOPS[dtype_name] * 1e3, "operations"),
+               (nbytes / HBM_BYTES_PER_S * 1e3, "bytes")), flops
+
+
+def _branch_bounds(x, q6, out6, kvlen, L, g, S, r, Mp, dtype_name):
+    """Least card time (ms) of each forward kernel's work at this branch,
+    and what bounds it (:func:`_declared_bound`); and the (query, key)
+    pairs the masks admit."""
+    from gigapath_tpu_torch.ops import dilated_kernels as dk
+
+    fwd, flops = _declared_bound(dk.dilated_branch_fwd, dtype_name, q6, q6, q6, kvlen)
     return {
-        "pack_phases": ((band + packed) * itemsize / HBM_BYTES_PER_S * 1e3, "bytes"),
-        "unpack_phases": ((band + B * L * E) * itemsize / HBM_BYTES_PER_S * 1e3, "bytes"),
-        "dilated_branch_fwd": max(
-            (flops / PEAK_FLOPS[dtype_name] * 1e3, "operations"),
-            (fwd_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-        ),
-    }, flops / (4 * Dh)
+        "pack_phases": _declared_bound(dk.pack_phases, dtype_name, x, g, S, r, Mp, H)[0],
+        "dilated_branch_fwd": fwd,
+        "unpack_phases": _declared_bound(dk.unpack_phases, dtype_name, out6, L, E, g, S, r)[0],
+    }, flops / (4 * (E // H))
 
 
 def phase_kernels():
@@ -1106,7 +1144,7 @@ def phase_kernels():
             key_ok = (torch.arange(Mp, device="cuda")[None] < kvlen.reshape(-1, 1))[:, None, None, :]
             lib = time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=key_ok), reps=5)
             lib_pack, lib_unpack = copies["take_ms"], copies["index_copy_ms"]
-            bounds, pairs = _branch_bounds(dk, B, L, sl, r, real_len, kvlen, q.element_size(), dname)
+            bounds, pairs = _branch_bounds(q, q6, out6, kvlen, L, g, S, r, Mp, dname)
             exp2_floor = _exp2_floor_ms(pairs)
             totals["dilated_branch_fwd"]["wrapper_ms"] += wrapper
             totals["dilated_branch_fwd"]["exp2_floor_ms"] += exp2_floor
@@ -1412,7 +1450,7 @@ def phase_slide_forward():
         ms = statistics.median(secs) * 1e3
         emit("slide_forward", dtype=dname, tiles=N_TILES, launches=counts,
              ms_per_slide=ms, runs_ms=[s * 1e3 for s in secs], tokens_per_s=N_TILES / (ms / 1e3),
-             plain_path_ms=plain_s * 1e3, peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+             plain_path_ms=plain_s * 1e3, peak_mem_gb=_peak() / 2**30,
              vs_plain=per_layer,
              tolerance={"float32": f"rel <= {F32_REL_TOL}",
                         "bfloat16": f"1 - cosine <= {BF16_MAX_ONE_MINUS_COS}"}[dname])
@@ -1450,30 +1488,17 @@ def phase_ragged_batch():
 # ---------------------------------------------------------------------------
 
 
-def _bwd_bounds(dk, B, L, sl, r, kvlen, itemsize, dtype_name):
+def _bwd_bounds(args, dtype_name):
     """Least card time (ms) of the dq and the dkv kernel's work at this
-    branch: operations over the dtype's peak (6*Dh per valid (query, key)
-    pair for dq: q.k, dout.v, ds*k; 8*Dh for dkv: q.k, dout.v, p*dout,
-    ds*q) or bytes over the HBM rate, whichever is larger; and the (query,
-    key) pairs the masks admit. Query rows are the sequence's tokens in the
-    cell, keys its valid keys."""
-    g, S, m, Mp = dk._branch_geometry(L, sl, r)
-    Dh, hb = E // H, H // r
-    q_rows = dk._phase_kvlen(S, g, r, m, L).astype("int64")  # [S, r]
-    kv = kvlen.cpu().numpy().astype("int64")  # [B, S, r]
-    pairs = hb * float((q_rows[None] * kv).sum())
-    rows = float(q_rows.sum()) * B * hb
-    keys = float(kv.sum()) * hb
-    # dq reads q, dout (rows), k, v (keys), lse, delta; writes dq (rows)
-    dq_bytes = (3 * rows + 2 * keys) * Dh * itemsize + 2 * rows * 4
-    # dkv reads q, dout (rows), k, v (keys), lse, delta; writes dk, dv (keys)
-    dkv_bytes = (2 * rows + 4 * keys) * Dh * itemsize + 2 * rows * 4
-    out = {}
-    for name, per_pair, nbytes in (("dilated_branch_bwd_dq", 6, dq_bytes),
-                                   ("dilated_branch_bwd_dkv", 8, dkv_bytes)):
-        out[name] = max((per_pair * Dh * pairs / PEAK_FLOPS[dtype_name] * 1e3, "operations"),
-                        (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
-    return out, pairs
+    branch (:func:`_declared_bound`: 6 Dh operations per admitted pair for
+    dq, 8 Dh for dkv, or each input read once and each output written
+    once); and the (query, key) pairs the masks admit."""
+    from gigapath_tpu_torch.ops import dilated_kernels as dk
+
+    dq, flops = _declared_bound(dk.dilated_branch_bwd_dq, dtype_name, *args)
+    return {"dilated_branch_bwd_dq": dq,
+            "dilated_branch_bwd_dkv": _declared_bound(dk.dilated_branch_bwd_dkv, dtype_name, *args)[0]
+            }, flops / (6 * (E // H))
 
 
 def _grad_rel_err(a, b) -> float:
@@ -1540,7 +1565,7 @@ def phase_bwd_kernels():
             lib_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=key_ok)
             lib_do = do6.reshape(lib_out.shape)
             lib = time_ms(lambda: torch.autograd.grad(lib_out, (qs, ks, vs), lib_do, retain_graph=True), reps=5)
-            bounds, pairs = _bwd_bounds(dk, B, L, sl, r, kvlen, q.element_size(), dname)
+            bounds, pairs = _bwd_bounds(args, dname)
             exp2_floor = _exp2_floor_ms(pairs)
             for name in BWD_KERNELS:
                 tot = totals[name]
@@ -1877,7 +1902,7 @@ def phase_finetune_step():
     # ms per training step, bf16 and fp32
     timing = {}
     for dname, bf16 in (("bfloat16", True), ("float32", False)):
-        torch.cuda.reset_peak_memory_stats()
+        _reset_peak()
         train_step(model, loss_fn, steps, *batch, multi_label=False, bf16=bf16)
         secs = []
         for _ in range(3):
@@ -1889,7 +1914,7 @@ def phase_finetune_step():
         ms = statistics.median(secs) * 1e3
         timing[dname] = {"ms_per_step": ms, "runs_ms": [s_ * 1e3 for s_ in secs],
                          "tiles_per_s": N_TILES / (ms / 1e3),
-                         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+                         "peak_mem_gb": _peak() / 2**30}
     emit("finetune_step", tiles=N_TILES, gc=1, launches=launches, **timing)
 
     # the synced step (the loop's 20-iteration echo): grad_norm, param_norm
@@ -2329,13 +2354,13 @@ def phase_tile_forward(tile_dir: str):
         # runs above compiled nothing new and quantized every weight)
         gen = torch.Generator(device="cuda").manual_seed(11)
         x = torch.randn(TILE_BATCH, 224, 224, 3, device="cuda", generator=gen).bfloat16()
-        torch.cuda.reset_peak_memory_stats()
+        _reset_peak()
         with torch.inference_mode():
             fwd_ms = time_ms(lambda: model(x), reps=3, warmup=0)
             with plain_tile_kernels():
                 plain_fwd_ms = time_ms(lambda: model(x), reps=1, warmup=0)
             trace = _profile(lambda: model(x))
-        peak = torch.cuda.max_memory_allocated() / 2**30
+        peak = _peak() / 2**30
         ms = statistics.median(secs) * 1e3
         timing[name] = {"ms_per_batch": ms, "tiles_per_s": TILE_BATCH / (ms / 1e3),
                         "forward_ms_per_batch": fwd_ms, "forward_tiles_per_s": TILE_BATCH / (fwd_ms / 1e3),
@@ -2422,24 +2447,11 @@ def _ptxas(label: str) -> dict:
     return {"registers": max(regs, default=None), "spill_store_bytes": _spill_bytes(label)}
 
 
-def _stream_bounds(pairs: int, cq: int, ck: int, itemsize: int, dtype_name: str) -> dict:
-    """Least card time (ms) of each stream kernel's work on one pair: the
-    (query, key) pairs the masks admit times 4, 6 or 8 Dh operations over
-    the dtype's peak, or each input read once and each output written once
-    over the HBM rate, whichever is larger."""
-    D = E // H
-    vec = cq * H * 4  # one fp32 [B, H, cq] vector
-    rows, keys = cq * H * D * itemsize, ck * H * D * itemsize
-    work = {
-        "stream_pair_fwd": (4, 2 * rows + 2 * keys + vec),  # q, k, v in; out, lse out
-        "stream_pair_bwd_dq": (6, 3 * rows + 2 * keys + 2 * vec),  # q, dout, k, v, lse, delta in; dq out
-        "stream_pair_bwd_dkv": (8, 2 * rows + 4 * keys + 2 * vec),  # q, dout, k, v, lse, delta in; dk, dv out
-    }
-    out = {}
-    for name, (per_pair, nbytes) in work.items():
-        out[name] = max((per_pair * D * pairs / PEAK_FLOPS[dtype_name] * 1e3, "operations"),
-                        (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
-    return out
+def _stream_bounds(calls, dtype_name: str) -> dict:
+    """Least card time (ms) of each stream kernel's work on one pair
+    (:func:`_declared_bound`); ``calls`` maps each kernel to its wrapper
+    and arguments."""
+    return {name: _declared_bound(fn, dtype_name, *args)[0] for name, (fn, args) in calls.items()}
 
 
 def phase_stream_kernels():
@@ -2516,7 +2528,9 @@ def phase_stream_kernels():
                 t = {name: graph_ms(fn) for name, fn in calls.items()}
                 record["ms"] = t
                 record["wrapper_ms"] = {name: time_ms(fn) for name, fn in calls.items()}
-                bounds = _stream_bounds(pairs, cq, ck, q.element_size(), dname)
+                bounds = _stream_bounds({"stream_pair_fwd": (sk.stream_pair_fwd, (q, k, v, *geo)),
+                                         "stream_pair_bwd_dq": (sk.stream_pair_bwd_dq, args),
+                                         "stream_pair_bwd_dkv": (sk.stream_pair_bwd_dkv, args)}, dname)
                 record["bound_ms"] = {n: b[0] for n, b in bounds.items()}
                 record["bound_by"] = {n: b[1] for n, b in bounds.items()}
                 record["exp2_floor_ms"] = _exp2_floor_ms(pairs)  # one exp2 per visible pair, each kernel
@@ -2790,7 +2804,7 @@ def phase_stream_forward():
                 in_order, N_TILES, model, chunk_tiles=STREAM_CHUNK)),
                          ("dense", lambda: run_inference_with_slide_encoder(x, coords, model))):
             torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
+            _reset_peak()
             base = torch.cuda.memory_allocated()
             secs = []
             for _ in range(3):
@@ -2801,7 +2815,7 @@ def phase_stream_forward():
             ms = statistics.median(secs) * 1e3
             timing[name] = {"ms_per_slide": ms, "runs_ms": [t_ * 1e3 for t_ in secs],
                             "tiles_per_s": N_TILES / (ms / 1e3),
-                            "peak_mem_gb_above_model": (torch.cuda.max_memory_allocated() - base) / 2**30}
+                            "peak_mem_gb_above_model": (_peak() - base) / 2**30}
         record = dict(dtype=dname, tiles=N_TILES, chunk_tiles=STREAM_CHUNK, launches=counts,
                       session_folds=session.folds, vs=("dense kernel path" if dname == "float32"
                                                        else "streaming plain path"),
@@ -3072,11 +3086,11 @@ def _serve_large_buckets(head, tmp: str) -> dict:
     del slides
     torch.cuda.empty_cache()
     reserved0 = torch.cuda.memory_reserved()
-    torch.cuda.reset_peak_memory_stats()
+    _reset_peak()
     t0 = time.perf_counter()
     bucketed = inference.run_inference(head, feat_dir, os.path.join(tmp, "large_bucketed.csv"))
     seconds = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_reserved()
+    peak = _peak("reserved")
     after = torch.cuda.memory_reserved()
     exact = inference.run_inference(head, feat_dir, os.path.join(tmp, "large_exact.csv"), use_buckets=False)
     check(list(bucketed["predicted_label"]) == list(exact["predicted_label"]),
@@ -3682,7 +3696,7 @@ def phase_train_wsi():
         # -- the entry: rename -> tile -> extract -> labels -> train -------
         tile_s, encode_s = [], []
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        _reset_peak()
         with _timed_calls(pipeline, "tile_one_slide", tile_s), \
                 _timed_calls(pipeline, "run_inference_with_tile_encoder", encode_s):
             reset_all_launch_counts()
@@ -3691,7 +3705,7 @@ def phase_train_wsi():
                                          num_epochs=WSI_EPOCHS, **WSI_TRAIN)
             main_s = time.perf_counter() - t0
             counts = all_launch_counts()
-        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        peak_gb = _peak() / 2**30
         check(sorted(os.listdir(data_dir)) == [f"wsi_{i}.png" for i in range(WSI_SLIDES)],
               f"train_wsi: rename left {sorted(os.listdir(data_dir))}")
 
@@ -3878,13 +3892,13 @@ def _harness_probe(tmp: str, smi: str) -> None:
 
     encoder = _tile_encoder("int8+attn")
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    _reset_peak()
     reset_all_launch_counts()
     t0 = time.perf_counter()
     embeds = run_inference_with_tile_encoder(paths, encoder)["tile_embeds"]
     encode_s = time.perf_counter() - t0
     counts = all_launch_counts()
-    encode_peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    encode_peak_gb = _peak() / 2**30
     batches = math.ceil(HARNESS_PROBE_TILES / TILE_BATCH)
     want = dict.fromkeys(counts, 0)
     want["q_matmul"], want["q_flash_attention"] = (batches * k for k in TILE_LAUNCHES["int8+attn"])
@@ -4048,7 +4062,7 @@ def _harness_pretrain(tmp: str, smi: str) -> None:
 
     tile_s = []
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    _reset_peak()
     reset_all_launch_counts()
     ppt.save_checkpoint = save
     try:
@@ -4061,7 +4075,7 @@ def _harness_pretrain(tmp: str, smi: str) -> None:
     finally:
         ppt.save_checkpoint = real_save
     counts = all_launch_counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    peak_gb = _peak() / 2**30
 
     tiles = {os.path.basename(d): len(glob.glob(os.path.join(d, "*.png"))) for d in tile_dirs}
     stage1 = [e for e in _wsi_events(os.path.join(out, "tile_pretrain")) if e["kind"] == "step"]
@@ -4269,28 +4283,34 @@ def _device_busy_ms(fn) -> float:
     return busy
 
 
-def _fusion_bounds(B, L, plan, itemsize):
+def _fusion_bounds(B, L, plan, dtype):
     """Least card time (ms) of each new kernel's work in one flagship layer
-    (bytes over the HBM rate; they do a few operations per element): the
-    direct pack's three tensors and one unpack in each clamped branch, the
-    epilogue forward over the five branches (covered packed elements, one
-    lse per covered (token, head), out and fused_lse written), and its
-    backward over the five branches (dY and fused_lse read once for the
-    layer, each branch's lse per covered (token, head), every branch's
-    whole packed cotangent written)."""
-    pack = unpack = 0.0
-    fwd = B * L * E * itemsize + B * L * H * 4  # out, fused_lse
-    bwd = B * L * E * itemsize + B * L * H * 4  # dY, fused_lse
-    for g, S, r, m, Mp in plan.branches:
-        band = B * L * E // r
-        fwd += band * itemsize + B * L * H // r * 4
-        bwd += B * L * H // r * 4 + B * S * Mp * E * itemsize
+    (:func:`_declared_bound` on tensors of the layer's shapes; they do a
+    few operations per element, so bytes bound them): the direct pack's
+    three tensors and one unpack in each clamped branch, the epilogue
+    forward and its backward over the five branches. The wrappers are this
+    tree's, whatever tree's kernels are timed."""
+    import torch
+
+    from gigapath_tpu_torch.ops import dilated_kernels as dk
+
+    def meta(*shape, dtype=dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    outs = [meta(B, S, r, H // r, Mp, E // H) for g, S, r, m, Mp in plan.branches]
+    lses = [meta(B, S, r, H // r, Mp, dtype=torch.float32) for g, S, r, m, Mp in plan.branches]
+    dy = meta(B, L, E)
+    ms = {"pack_phases_direct": 0.0, "unpack_phases_direct": 0.0,
+          "fusion_epilogue_fwd": _declared_bound(dk.fusion_epilogue_fwd, name, outs, lses, plan)[0][0],
+          "fusion_epilogue_bwd": _declared_bound(dk.fusion_epilogue_bwd, name, dy, meta(B, L, H, dtype=torch.float32),
+                                                 lses, plan)[0][0]}
+    for (g, S, r, m, Mp), out6 in zip(plan.branches, outs):
         if S == 1 and r > 1:
-            pack += 3 * (band + B * Mp * E) * itemsize
-            unpack += (band + B * L * E) * itemsize
-    return {name: b / HBM_BYTES_PER_S * 1e3 for name, b in (
-        ("pack_phases_direct", pack), ("unpack_phases_direct", unpack),
-        ("fusion_epilogue_fwd", fwd), ("fusion_epilogue_bwd", bwd))}
+            ms["pack_phases_direct"] += _declared_bound(dk.pack_phases_direct, name, (dy, dy, dy),
+                                                        g, S, r, Mp, H)[0][0]
+            ms["unpack_phases_direct"] += _declared_bound(dk.unpack_phases_direct, name, out6, L, E, g, S, r)[0][0]
+    return ms
 
 
 def _check_epilogue_bwd(dk, d6s, refs, plan, label) -> float:
@@ -4461,7 +4481,7 @@ def _fusion_case(dk, B, dtype, gen, real_len, valid, timed: bool, schedule=SCHED
         t["event_ms"] = time_ms(bwd)
         t["plain_ms"] = time_ms(lambda: dk.fusion_epilogue_bwd_reference(dy, fused, lses, plan), reps=3, warmup=1)
         t["dense_route_ms"] = _device_busy_ms(lambda: _dense_fusion_bwd(dk, dy, weights, plan))
-        bounds = _fusion_bounds(B, L, plan, q.element_size())
+        bounds = _fusion_bounds(B, L, plan, q.dtype)
         for name in FUSION_KERNELS:
             tot[name].update(bound_ms=bounds[name], bound_by="bytes")
         record["per_layer"] = tot
@@ -4510,7 +4530,7 @@ def _fusion_layer_ms(dk, L: int, dtype, gen) -> dict:
                     "qkv_ms": graph_ms(layer), "qkv_launches": 1 if merged else 3,
                     "qkv_bound_ms": 3 * one_bytes / HBM_BYTES_PER_S * 1e3}
         pack_ms += per_r[r]["qkv_ms"]
-    bounds = _fusion_bounds(1, L, plan, es)
+    bounds = _fusion_bounds(1, L, plan, dtype)
     _, fused = dk.fusion_epilogue_fwd(outs, lses, plan)
     dy = torch.randn(1, L, E, device="cuda", generator=gen).to(dtype)
     bwd_merged = "plan" in inspect.signature(dk.fusion_epilogue_bwd).parameters
@@ -4623,7 +4643,7 @@ def _timed_env_routes(model, x, coords, routes: dict, reps: int = 3) -> dict:
         with env_flags(env):
             run_inference_with_slide_encoder(x, coords, model)  # warm-up
             torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
+            _reset_peak()
             base = torch.cuda.memory_allocated()
             secs = []
             for _ in range(reps):
@@ -4634,7 +4654,7 @@ def _timed_env_routes(model, x, coords, routes: dict, reps: int = 3) -> dict:
         ms = statistics.median(secs) * 1e3
         out[route] = {"ms_per_slide": ms, "runs_ms": [s_ * 1e3 for s_ in secs],
                       "tiles_per_s": x.shape[1] / (ms / 1e3),
-                      "peak_mem_gb_above_model": (torch.cuda.max_memory_allocated() - base) / 2**30}
+                      "peak_mem_gb_above_model": (_peak() - base) / 2**30}
     return out
 
 
@@ -4718,10 +4738,10 @@ def phase_fusion_forward():
         with env_flags(FUSION_ENV) if on else contextlib.nullcontext(), torch.inference_mode():
             dilated_attention(q, k, v, *SCHEDULE)
             torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
+            _reset_peak()
             base = torch.cuda.memory_allocated()
             dilated_attention(q, k, v, *SCHEDULE)
-            timing[route]["attention_peak_gb_above_qkv"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+            timing[route]["attention_peak_gb_above_qkv"] = (_peak() - base) / 2**30
     # rows 4 and 9 of one layer at this length, by device time
     timing["rows_4_9"] = _fusion_layer_ms(dk, LONG_TILES + 1, torch.bfloat16, gen)
     emit("fusion_forward_long", dtype="bfloat16", tiles=LONG_TILES, last_layer_one_minus_cos=one_minus_cos, **timing)
@@ -4780,7 +4800,7 @@ def _route_step(seed: int, label: int, env: dict, want: dict, timing_routes: dic
     timing = {}
     for route, route_env in timing_routes.items():
         with env_flags(route_env):
-            torch.cuda.reset_peak_memory_stats()
+            _reset_peak()
             train_step(model, loss_fn, steps, *batch, multi_label=False, bf16=True)
             secs = []
             for _ in range(3):
@@ -4791,7 +4811,7 @@ def _route_step(seed: int, label: int, env: dict, want: dict, timing_routes: dic
                 secs.append(time.perf_counter() - t0)
         ms = statistics.median(secs) * 1e3
         timing[route] = {"ms_per_step": ms, "runs_ms": [s_ * 1e3 for s_ in secs],
-                         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+                         "peak_mem_gb": _peak() / 2**30}
     del model, steps
     torch.cuda.empty_cache()
     grads = {"param": worst_name, "err": worst, "tolerance": GRAD_F32_REL_TOL,
@@ -4832,33 +4852,6 @@ def plain_flash_kernels():
     finally:
         for name, fn in saved.items():
             setattr(fk, name, fn)
-
-
-def _flash_bounds(rows_per_cell, kv_per_cell, B, itemsize, dtype_name, flat: bool):
-    """Least card time (ms) of each segment-flash kernel's work on one
-    branch: the (query, key) pairs the masks admit (each cell's real query
-    rows times its valid keys) times 4, 6 or 8 D operations over the
-    dtype's peak, or each input read once and each output written once
-    over the HBM rate, whichever is larger; and the admitted pairs.
-    ``rows_per_cell`` / ``kv_per_cell``: [H, S] (or [B, H, S]) counts."""
-    import numpy as np
-
-    D = E // H
-    rows_c = np.broadcast_to(np.asarray(rows_per_cell, np.int64), np.shape(kv_per_cell))
-    kv_c = np.asarray(kv_per_cell, np.int64)
-    if kv_c.ndim == 2:
-        rows_c, kv_c = rows_c[None].repeat(B, 0), kv_c[None].repeat(B, 0)
-    pairs = float((rows_c * kv_c).sum())
-    rows, keys = float(rows_c.sum()), float(kv_c.sum())
-    prefix = "flat" if flat else "flash"
-    work = {
-        f"{prefix}_fwd": (4, (2 * rows + 2 * keys) * D * itemsize + rows * 4),
-        f"{prefix}_bwd_dq": (6, (3 * rows + 2 * keys) * D * itemsize + 2 * rows * 4),
-        f"{prefix}_bwd_dkv": (8, (2 * rows + 4 * keys) * D * itemsize + 2 * rows * 4),
-    }
-    return {name: max((per_pair * D * pairs / PEAK_FLOPS[dtype_name] * 1e3, "operations"),
-                      (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
-            for name, (per_pair, nbytes) in work.items()}, pairs
 
 
 _MUFU = {}
@@ -5030,8 +5023,8 @@ def _flash_layer(fk, pda, B, dtype, gen, real_len, valid, timed: bool):
                 p_fwd = lambda: fk.flat_fwd_reference(q, k, v, *extra)  # noqa: E731
                 p_dq = lambda: fk.flat_bwd_reference(*bargs, dkv=False)  # noqa: E731
                 p_dkv = lambda: fk.flat_bwd_reference(*bargs, dq=False)  # noqa: E731
-                rows = fk.flat_kvlen(n, g, L)
-                kv_cells = [fk.flat_kvlen(n, g, real_len)] * H
+                wrappers = (fk.flat_fwd, fk.flat_bwd_dq, fk.flat_bwd_dkv)
+                fwd_args = (q, k, v, *extra)
             else:
                 fwd = lambda: fk.flash_fwd(q, k, v, extra)  # noqa: E731
                 bargs = (q, k, v, dout, lse, delta, extra)
@@ -5039,10 +5032,15 @@ def _flash_layer(fk, pda, B, dtype, gen, real_len, valid, timed: bool):
                 p_fwd = lambda: fk.flash_fwd_reference(q, k, v, extra)  # noqa: E731
                 p_dq = lambda: fk.flash_bwd_reference(*bargs, dkv=False)  # noqa: E731
                 p_dkv = lambda: fk.flash_bwd_reference(*bargs, dq=False)  # noqa: E731
-                full = pda._branch_kvlen_bhld(H, n, g, r, m, L)
-                rows = full if full is not None else [[m] * n] * H
-                kv_cells = extra.cpu().numpy() if extra is not None else rows
-            bounds, pairs = _flash_bounds(rows, kv_cells, B, q.element_size(), dname, flat)
+                wrappers = (fk.flash_fwd, fk.flash_bwd_dq, fk.flash_bwd_dkv)
+                fwd_args = (q, k, v, extra)
+            # each kernel's declared work (:func:`_declared_bound`)
+            bounds = {}
+            for name, fn, a in zip((f"{prefix}_fwd", f"{prefix}_bwd_dq", f"{prefix}_bwd_dkv"), wrappers,
+                                   (fwd_args, bargs, bargs)):
+                bounds[name], flops = _declared_bound(fn, dname, *a)
+                if name.endswith("_fwd"):
+                    pairs = flops / (4 * (E // H))
             exp2_floor = _exp2_floor_ms(pairs)
             lib_fwd, lib_bwd = _sdpa_yardstick(flat, args, pda, geom)
             fns = {f"{prefix}_fwd": fwd, f"{prefix}_bwd_dq": dq_fn, f"{prefix}_bwd_dkv": dkv_fn}
@@ -5282,7 +5280,7 @@ def phase_bhld_forward():
         want = {**dict.fromkeys(counts, 0), **BHLD_FWD_LAUNCHES}
         check(counts == want, f"{dname} head-major forward launches {counts} != {want}")
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        _reset_peak()
         base = torch.cuda.memory_allocated()
         secs = []
         for _ in range(3):
@@ -5290,7 +5288,7 @@ def phase_bhld_forward():
             t0 = time.perf_counter()
             run_inference_with_slide_encoder(x, coords, model)  # ends in a device->host copy
             secs.append(time.perf_counter() - t0)
-        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        peak = (_peak() - base) / 2**30
         with plain_flash_kernels():
             ref = run_inference_with_slide_encoder(x, coords, model)
         per_layer = []
@@ -5429,7 +5427,7 @@ def phase_bhld_step():
 
     timing = {}
     for dname, bf16 in (("bfloat16", True), ("float32", False)):
-        torch.cuda.reset_peak_memory_stats()
+        _reset_peak()
         train_step(model, loss_fn, steps, *batch, multi_label=False, bf16=bf16)
         secs = []
         for _ in range(3):
@@ -5440,7 +5438,7 @@ def phase_bhld_step():
             secs.append(time.perf_counter() - t0)
         ms = statistics.median(secs) * 1e3
         timing[dname] = {"ms_per_step": ms, "runs_ms": [s_ * 1e3 for s_ in secs],
-                         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+                         "peak_mem_gb": _peak() / 2**30}
     # where a bf16 step's time goes: device busy against the window, the
     # kernels with the most device time
     timing["bfloat16"]["profile"] = _profile(
@@ -5543,11 +5541,11 @@ def _pipe_branch(dk, q, k, v, do, sl, r, real_len, valid, timed: bool):
     lib_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=key_ok)
     lib_do = do6.reshape(lib_out.shape)
     lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, (qs, ks, vs), lib_do, retain_graph=True), reps=5)
-    fwd_bounds, pairs = _branch_bounds(dk, B, L, sl, r, real_len, kvlen, q.element_size(), dname)
-    bounds = {"dilated_branch_fwd_pipe": fwd_bounds["dilated_branch_fwd"]}
-    bwd, _ = _bwd_bounds(dk, B, L, sl, r, kvlen, q.element_size(), dname)
-    bounds["dilated_branch_bwd_dq_pipe"] = bwd["dilated_branch_bwd_dq"]
-    bounds["dilated_branch_bwd_dkv_pipe"] = bwd["dilated_branch_bwd_dkv"]
+    fwd_bound, flops = _declared_bound(dk.dilated_branch_fwd_pipe, dname, q6, k6, v6, kvlen)
+    pairs = flops / (4 * (E // H))
+    bounds = {"dilated_branch_fwd_pipe": fwd_bound,
+              "dilated_branch_bwd_dq_pipe": _declared_bound(dk.dilated_branch_bwd_dq_pipe, dname, *args)[0],
+              "dilated_branch_bwd_dkv_pipe": _declared_bound(dk.dilated_branch_bwd_dkv_pipe, dname, *args)[0]}
     numbers = {}
     for name in PIPE_KERNELS:  # device times from CUDA graphs, the wrapper's CUDA-event time beside
         numbers[name] = {
@@ -6405,7 +6403,7 @@ def _seq_encoder(rank: int, group) -> dict:
         del ref, single
     dist.barrier(group=group)
     out["timing"] = timing
-    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["peak_memory_gb"] = _peak() / 1e9
     return out
 
 
@@ -6596,9 +6594,9 @@ def _tp_slide(rank: int, T: int, group, state, single) -> dict:
         with torch.no_grad():
             single(x, coords)
 
-    torch.cuda.reset_peak_memory_stats()
+    _reset_peak()
     timing = {"host_ms": _seq_forward_ms(forward, group)}
-    timing["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    timing["peak_memory_gb"] = _peak() / 1e9
     if rank == 0:  # one rank's profile (the others run the same forward with it)
         timing.update(_profile(forward, top=4))
         timing["single_device"] = {"host_ms": _seq_forward_ms(single_forward, None)}
@@ -6694,7 +6692,7 @@ def _tp_rank(rank: int, workdir: str) -> None:
             dist.barrier()
         del single
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
+        _reset_peak()
         out["ep"] = _ep_rank_work(rank, dist.group.WORLD)
         steps["ep"] = time.perf_counter() - t_start
         with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
@@ -6834,7 +6832,7 @@ def _moe_flagship(top1: bool) -> dict:
         with torch.no_grad():
             return model(x)["encoder_out"]
 
-    torch.cuda.reset_peak_memory_stats()
+    _reset_peak()
     reset_all_launch_counts()
     out = forward()
     aux = collect_moe_l_aux(model)
@@ -6854,7 +6852,7 @@ def _moe_flagship(top1: bool) -> dict:
     res = {"l_aux": float(aux), "launches": {n: launches[n] for n in SEQ_COUNTED[:3]},
            "telemetry_keys": len(telemetry), "entropy_gating": {k: float(v) for k, v in telemetry.items()
                                                                 if k.endswith("entropy_gating")},
-           "host_ms": host, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+           "host_ms": host, "peak_memory_gb": _peak() / 1e9}
     res.update(_profile(forward, top=4))
     del model
     torch.cuda.empty_cache()
@@ -6946,7 +6944,7 @@ def _ep_rank_work(rank: int, group) -> dict:
                      ("all_to_all", lambda: _ep_run(a2a, x[:, mine], ct[:, mine]))):
         timing[name] = {"host_ms": _seq_forward_ms(fn, group)}
     out["timing"] = timing
-    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["peak_memory_gb"] = _peak() / 1e9
     return out
 
 
@@ -7117,13 +7115,13 @@ def phase_longnet_decoder():
 
     forward()  # warm-up
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    _reset_peak()
     base = torch.cuda.memory_allocated()
     reset_all_launch_counts()
     out = forward()
     torch.cuda.synchronize()
     launches = _launch_delta(DEC_FWD_LAUNCHES)
-    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    peak = (_peak() - base) / 1e9
     check(launches == {**DEC_FWD_LAUNCHES, "other": 0}, f"decoder forward launches {launches}")
     check(out.shape == (1, DEC_L, E) and bool(torch.isfinite(out).all()), f"decoder forward: bad output {out.shape}")
     ms = time_ms(forward, reps=3, warmup=0)
@@ -7157,7 +7155,7 @@ def phase_longnet_decode(model, x, full):
         # the prefill cache for the replay, in host memory: a copy on the
         # card would stay beside the steps' caches and raise their peak
         saved = {i: {k: v.cpu() if torch.is_tensor(v) else v for k, v in s.items()} for i, s in state.items()}
-        torch.cuda.reset_peak_memory_stats()
+        _reset_peak()
         base = torch.cuda.memory_allocated()
         rows, step_ms, per_step, peaks = [], [], [], []
 
@@ -7172,7 +7170,7 @@ def phase_longnet_decode(model, x, full):
             else:
                 step_ms.append(time_ms(lambda: step(t, state, rows), reps=1, warmup=0))
             per_step.append(all_launch_counts().get("flash_fwd", 0) - before)
-            peaks.append((torch.cuda.max_memory_allocated() - base) / 1e9)
+            peaks.append((_peak() - base) / 1e9)
         launches = _launch_delta(DEC_STEP_LAUNCHES)
         cache_gb = sum(v.numel() * v.element_size() for s in state.values() for k, v in s.items()
                        if k in ("prev_key", "prev_value")) / 1e9
@@ -7285,12 +7283,12 @@ def phase_beit3():
         card = card.to(torch.bfloat16)
         args[1] = args[1].to(torch.bfloat16)
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        _reset_peak()
         base = torch.cuda.memory_allocated()
         reset_all_launch_counts()
         out = card(*args)
         enc = out["encoder_out"]
-        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        peak = (_peak() - base) / 1e9
         ms = time_ms(lambda: card(*args), reps=3, warmup=0)
     check(tuple(enc.shape) == (BEIT3_BATCH, n_vis + BEIT3_TEXT, E) and out["multiway_split_position"] == n_vis,
           f"beit3 output {tuple(enc.shape)}, split {out['multiway_split_position']}")
@@ -7315,6 +7313,351 @@ def phase_torchscale() -> dict:
     phase_beit3()
     torch.cuda.empty_cache()
     return {"decoder_forward_launches": fwd_launches, "decoder_decode_launches": decode_launches}
+
+
+# ---------------------------------------------------------------------------
+# 33. compile-side obs: the ledger's profiles, op_totals, the chained
+# timing and the streaming guard on the card
+# ---------------------------------------------------------------------------
+
+OBS_FWD_KERNELS = {"pack_phases": 180, "dilated_branch_fwd": 60, "unpack_phases": 60}  # rows 2, 1, 3
+# the three kernels' names in a profiler trace (the bf16 forward's kernel)
+OBS_TRACE_NAMES = {"pack_phases": "::pack_phases_kernel<", "dilated_branch_fwd": "dilated_branch_fwd_mma_kernel",
+                   "unpack_phases": "::unpack_phases_kernel<"}
+OBS_PEAK_REL_TOL = 0.05  # the profile's peak above the arguments against the smoke's peak above the model
+OBS_DEVICE_TILES = 2048  # the 2-layer fp32 encoder profiled on the CPU and the card: L = 2049
+OBS_DEVICE_DEPTH = 2
+OBS_TRAIN_STEPS = 3
+OBS_STEP_LAUNCHES = {"dilated_branch_bwd_dq": 55, "dilated_branch_bwd_dkv": 55}  # rows 7a, 7b a step
+OBS_CHAIN = dict(iters_low=2, iters_high=6, repeats=2)
+OBS_CHAIN_FACTOR = 2.0  # chained ms per forward within this factor of time_ms's
+OBS_EXACT_SLIDES = (N_TILES, 9000, 8000, 7000, 6000)  # the --no-buckets path: a new key a slide
+
+
+def _dense_flops(n_tiles: int, depth: int) -> float:
+    """The slide encoder's dense products in closed form: the tile
+    embedding (1536 -> E on each tile) and, per layer and token (the tiles
+    and cls), q, k, v and out (4 E^2) and the FFN (8 E^2) multiply-adds."""
+    return 2.0 * n_tiles * 1536 * E + depth * 2.0 * (n_tiles + 1) * 12 * E * E
+
+
+def _fold_bound_bytes(cq: int, es: int) -> int:
+    """The written bound on one streaming fold's allocations above the state
+    it starts from, from one query chunk's block bytes: the pair kernel's
+    partial (a block in the inputs' dtype and an fp32 lse vector), the
+    stored-lse combine's three fp32 blocks (the two weighted terms and
+    their sum) and three lse vectors, and one fp32 block more for the
+    caching allocator, which may hand a large request a cached block up to
+    1 MB longer."""
+    block = cq * H * (E // H)
+    return block * es + 4 * block * 4 + 4 * cq * H * 4
+
+
+def _obs_forward(smi: str):
+    """(a) the bf16 flagship forward through PerfLedger.capture_full."""
+    import torch
+
+    from gigapath_tpu_torch.models.slide_encoder import create_model
+    from gigapath_tpu_torch.obs.ledger import PerfLedger
+    from gigapath_tpu_torch.ops import dilated_kernels as dk
+    from gigapath_tpu_torch.pipeline import run_inference_with_slide_encoder
+
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    x, coords = _flagship_inputs(1, gen)
+    model = create_model("", "gigapath_slide_enc12l768d", dtype=torch.bfloat16, seed=0)
+    run_inference_with_slide_encoder(x, coords, model)  # warm-up
+    torch.cuda.synchronize()
+    ledger = PerfLedger()
+    dk.reset_launch_counts()
+    t0 = time.perf_counter()
+    entry = ledger.capture_full("slide_forward", run_inference_with_slide_encoder, x, coords, model)
+    profile_s = time.perf_counter() - t0
+    launches = {k: v for k, v in dk.LAUNCHES.items() if v}
+    fp, cost, mem = entry["jaxpr"], entry["cost"], entry["memory"]
+    check(fp["kernels"] == launches == OBS_FWD_KERNELS,
+          f"obs (a): kernels column {fp['kernels']}, LAUNCHES {launches}, expected {OBS_FWD_KERNELS}")
+    dense = _dense_flops(N_TILES, 12)
+    check(cost["flops"] is not None and cost["flops"] >= dense, f"obs (a): flops {cost['flops']} < dense {dense}")
+    # the forward's peak above the model, measured as the smoke measures it
+    torch.cuda.synchronize()
+    _reset_peak()
+    base = torch.cuda.memory_allocated()
+    run_inference_with_slide_encoder(x, coords, model)
+    smoke_peak = _peak() - base
+    above = mem["peak_bytes"] - mem["argument_bytes"]
+    check(abs(above - smoke_peak) <= OBS_PEAK_REL_TOL * smoke_peak,
+          f"obs (a): profile peak above the arguments {above} B vs the smoke's {smoke_peak} B")
+    emit("obs_compile_forward", dtype="bfloat16", tiles=N_TILES, kernels=fp["kernels"], launches=launches,
+         eqns_total=fp["eqns_total"], flops=cost["flops"], dense_flops=dense, bytes_accessed=cost["bytes_accessed"],
+         argument_bytes=mem["argument_bytes"], temp_bytes=mem["temp_bytes"], peak_bytes=mem["peak_bytes"],
+         peak_above_arguments=above, smoke_peak_above_model=smoke_peak,
+         peak_rel_diff=abs(above - smoke_peak) / smoke_peak, profiled_call_s=profile_s,
+         top_ops=sorted(fp["primitives"].items(), key=lambda kv: -kv[1])[:8], card=smi)
+    return model, x, coords
+
+
+def _obs_devices(smi: str) -> None:
+    """(b) the 2-layer fp32 encoder's profile on the CPU and on the card."""
+    import numpy as np
+    import torch
+
+    from gigapath_tpu_torch.models.slide_encoder import create_model
+    from gigapath_tpu_torch.obs.ledger import profile_call
+
+    gen = torch.Generator().manual_seed(34)
+    x = torch.randn(1, OBS_DEVICE_TILES, 1536, generator=gen)
+    idx = torch.arange(OBS_DEVICE_TILES)
+    coords = (torch.stack([idx // 64, idx % 64], dim=-1).float() * 256.0)[None]
+    profiles, outs, seconds = {}, {}, {}
+    for dev in ("cpu", "cuda"):
+        model = create_model("", "gigapath_slide_enc12l768d", device=dev, seed=0, depth=OBS_DEVICE_DEPTH)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            out, profiles[dev] = profile_call(model.forward, x.to(dev), coords.to(dev), all_layer_embed=True)
+        seconds[dev] = time.perf_counter() - t0
+        outs[dev] = out[-1].float().cpu().numpy()
+        del model
+    cpu, card = profiles["cpu"], profiles["cuda"]
+    diff = {k: (cpu["jaxpr"]["primitives"].get(k), card["jaxpr"]["primitives"].get(k))
+            for k in set(cpu["jaxpr"]["primitives"]) | set(card["jaxpr"]["primitives"])
+            if cpu["jaxpr"]["primitives"].get(k) != card["jaxpr"]["primitives"].get(k)}
+    rel = float(np.abs(outs["cuda"] - outs["cpu"]).max() / max(np.abs(outs["cpu"]).max(), 1e-12))
+    emit("obs_compile_devices", dtype="float32", tiles=OBS_DEVICE_TILES, depth=OBS_DEVICE_DEPTH,
+         fingerprint_equal=cpu["jaxpr"] == card["jaxpr"], primitives_diff=diff,
+         kernels={"cpu": cpu["jaxpr"]["kernels"], "cuda": card["jaxpr"]["kernels"]},
+         eqns_total={"cpu": cpu["jaxpr"]["eqns_total"], "cuda": card["jaxpr"]["eqns_total"]},
+         flops={"cpu": cpu["cost"]["flops"], "cuda": card["cost"]["flops"]},
+         bytes_accessed={"cpu": cpu["cost"]["bytes_accessed"], "cuda": card["cost"]["bytes_accessed"]},
+         memory={"cpu": cpu["memory"], "cuda": card["memory"]}, last_embed_rel_err=rel,
+         profiled_call_s=seconds, card=smi)
+    check(cpu["jaxpr"] == card["jaxpr"], f"obs (b): the fingerprint differs between the CPU and the card: {diff}")
+    check(cpu["cost"]["flops"] == card["cost"]["flops"],
+          f"obs (b): flops {cpu['cost']['flops']} on the CPU, {card['cost']['flops']} on the card")
+    check(rel <= F32_REL_TOL, f"obs (b): the card's last embedding vs the CPU's rel err {rel} > {F32_REL_TOL}")
+
+
+def _obs_no_double_run(smi: str) -> None:
+    """(c) three bf16 fine-tune steps through the loop's watchdog, the
+    ledger on and under GIGAPATH_OBS=0: the same parameters, bit for bit,
+    and rows 7a/7b launched 55 / 55 a step."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from gigapath_tpu_torch.finetune.training import train_one_epoch
+    from gigapath_tpu_torch.obs import CompileWatchdog, get_ledger, get_run_log
+    from gigapath_tpu_torch.ops import dilated_kernels as dk
+
+    rng = np.random.default_rng(35)
+    idx = np.arange(N_TILES)
+    grid = (np.stack([idx // 128, idx % 128], axis=-1) * 256.0).astype(np.float32)[None]
+    batches = [{"imgs": rng.normal(size=(1, N_TILES, 1536)).astype(np.float32), "coords": grid,
+                "labels": np.array([[i % 6]], np.int64), "slide_id": [f"s{i}"]} for i in range(OBS_TRAIN_STEPS)]
+    args = types.SimpleNamespace(n_classes=6, bf16=True, task_config=PANDA)
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, obs in (("ledger", "1"), ("obs_off", "0")):
+            with env_flags({"GIGAPATH_OBS": obs}):
+                runlog = get_run_log("finetune", out_dir=os.path.join(tmp, label), echo=False, probe_devices=False)
+            ledger = get_ledger(runlog)
+            watchdog = CompileWatchdog("train_step", runlog, ledger=ledger)
+            model, steps, loss_fn = _head_and_steps(torch)
+            torch.cuda.synchronize()
+            dk.reset_launch_counts()
+            train_one_epoch(batches, model, loss_fn, steps, 0, args, compile_log=watchdog, runlog=runlog)
+            torch.cuda.synchronize()
+            runlog.close()
+            entries = list(ledger.entries.values())
+            runs[label] = {"params": {n: p.detach().clone() for n, p in model.named_parameters()},
+                           "launches": {k: dk.LAUNCHES[k] for k in OBS_STEP_LAUNCHES},
+                           "first_step_s": list(watchdog.first_call_sec.values()),
+                           "entries": [{"sig": e["sig"], "full": "cost" in e, "kernels": e["jaxpr"]["kernels"],
+                                        "flops": (e.get("cost") or {}).get("flops"),
+                                        "peak_bytes": (e.get("memory") or {}).get("peak_bytes")}
+                                       for e in entries]}
+            del model, steps
+            torch.cuda.empty_cache()
+    on, off = runs["ledger"], runs["obs_off"]
+    equal = set(on["params"]) == set(off["params"]) and all(
+        torch.equal(on["params"][n], off["params"][n]) for n in off["params"])
+    want = {k: v * OBS_TRAIN_STEPS for k, v in OBS_STEP_LAUNCHES.items()}
+    emit("obs_compile_no_double_run", dtype="bfloat16", tiles=N_TILES, steps=OBS_TRAIN_STEPS,
+         params_bit_equal=equal, launches={k: r["launches"] for k, r in runs.items()},
+         first_step_s={k: r["first_step_s"] for k, r in runs.items()}, ledger_entries=on["entries"],
+         obs_off_entries=len(off["entries"]), card=smi)
+    check(equal, "obs (c): the parameters differ between the ledger run and the GIGAPATH_OBS=0 run")
+    check(on["launches"] == off["launches"] == want,
+          f"obs (c): rows 7a/7b launches {on['launches']} / {off['launches']}, expected {want}")
+    check(len(on["entries"]) == 1 and on["entries"][0]["full"] and not off["entries"],
+          f"obs (c): ledger entries {on['entries']} and {off['entries']}")
+
+
+def _obs_op_totals(model, x, coords, smi: str) -> None:
+    """(d) op_totals of a profiler trace of the forward."""
+    import torch
+
+    from gigapath_tpu_torch.obs.spans import trace
+    from gigapath_tpu_torch.pipeline import run_inference_with_slide_encoder
+    from gigapath_tpu_torch.utils.profiling import op_totals
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        with trace(tmp):
+            for _ in range(PROFILE_LEAD_IN):  # CUPTI may drop a session's first records
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            run_inference_with_slide_encoder(x, coords, model)
+            torch.cuda.synchronize()
+        totals = op_totals(tmp)
+    seen = {name: sum(n for k, n in totals["counts"].items() if pat in k) for name, pat in OBS_TRACE_NAMES.items()}
+    device_us = {name: sum(us for k, us in totals["ops"].items() if pat in k)
+                 for name, pat in OBS_TRACE_NAMES.items()}
+    emit("obs_compile_op_totals", counts=seen, device_us=device_us, kernels_in_trace=len(totals["ops"]),
+         device_us_total=sum(totals["ops"].values()), async_us_total=sum(totals["async"].values()), card=smi)
+    check(seen == OBS_FWD_KERNELS, f"obs (d): op_totals counts {seen}, expected {OBS_FWD_KERNELS}")
+
+
+def _obs_chained(model, x, coords, smi: str) -> None:
+    """(e) chained_seconds_per_iter of the bf16 forward against time_ms."""
+    import torch
+
+    from gigapath_tpu_torch.utils.timing import chained_seconds_per_iter
+
+    xb = x.to(torch.bfloat16)
+
+    def step(carry, coords):  # the next forward reads this one's output
+        return carry + (model(carry, coords)[-1].sum() * 0).to(carry.dtype)
+
+    with torch.inference_mode():
+        ms = time_ms(lambda: model(xb, coords))
+        per_iter, overhead = chained_seconds_per_iter(step, xb, args=(coords,), **OBS_CHAIN)
+    ratio = per_iter * 1e3 / ms
+    emit("obs_compile_chained", dtype="bfloat16", tiles=N_TILES, chained_ms=per_iter * 1e3, time_ms=ms,
+         ratio=ratio, overhead_ms=overhead * 1e3, **OBS_CHAIN, card=smi)
+    check(1.0 / OBS_CHAIN_FACTOR <= ratio <= OBS_CHAIN_FACTOR,
+          f"obs (e): chained {per_iter * 1e3} ms per forward vs time_ms {ms} ms")
+
+
+def _obs_streaming(smi: str) -> None:
+    """(f) one streamed flagship layer at 2048-tile chunks: the guard lists
+    no full-length tensor of the fold and many of the dense forward; each
+    fold's allocator peak stays under the written bound."""
+    import torch
+
+    from gigapath_tpu_torch.ops import streaming_prefill as psp
+    from gigapath_tpu_torch.ops.dilated_attention import dilated_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(36)
+    Dh = E // H
+    q, k, v = (torch.randn(1, STREAM_L, H, Dh, device="cuda", generator=gen).to(torch.bfloat16) for _ in range(3))
+    blocks = [[t[:, a:b].contiguous() for a, b in STREAM_BLOCKS] for t in (q, k, v)]
+    with torch.inference_mode():
+        fold_lines = psp.full_length_avals(psp.streaming_dilated_attention, *blocks, STREAM_BLOCKS, *SCHEDULE,
+                                           full_len=STREAM_L)
+        dense_lines = psp.full_length_avals(lambda q, k, v: dilated_attention(q, k, v, *SCHEDULE), q, k, v,
+                                            full_len=STREAM_L)
+        folds = []
+
+        def measured_fold(*a, **kw):
+            torch.cuda.synchronize()
+            _reset_peak()
+            base = torch.cuda.memory_allocated()
+            out = psp.fold_pair(*a, **kw)
+            torch.cuda.synchronize()
+            folds.append((_peak() - base, a[2].shape[1]))
+            return out
+
+        state = psp.StreamingPrefillState(STREAM_BLOCKS, *SCHEDULE, fold_fn=measured_fold)
+        for i, (qb, kb, vb) in enumerate(zip(*blocks)):
+            state.ingest(i, qb, kb, vb)
+        state.finalize()
+    bound = _fold_bound_bytes(STREAM_CHUNK, q.element_size())
+    over = [f for f in folds if f[0] > bound]
+    emit("obs_compile_streaming", dtype="bfloat16", tokens=STREAM_L, chunk=STREAM_CHUNK, folds=len(folds),
+         fold_full_length=fold_lines, dense_full_length=len(dense_lines), dense_examples=dense_lines[:3],
+         fold_peak_max_bytes=max(f[0] for f in folds), bound_bytes=bound,
+         fold_peak_by_query_rows={c: max(f[0] for f in folds if f[1] == c) for c in sorted({f[1] for f in folds})},
+         folds_over_bound=len(over), card=smi)
+    check(fold_lines == [], f"obs (f): the fold holds full-length tensors: {fold_lines[:5]}")
+    check(len(dense_lines) > 0, "obs (f): the guard found no full-length tensor in the dense forward")
+    check(len(folds) == STREAM_FOLDS // 12 and not over,
+          f"obs (f): {len(folds)} folds, {len(over)} over the bound: {over[:3]}")
+
+
+def _obs_exact_path(smi: str) -> None:
+    """(g) the ``--no-buckets`` path (a new key nearly every slide) with
+    the ledger on and under GIGAPATH_OBS=0, in turns off, on, off: the
+    seconds a slide, and the ledger's entries (the first slide's forward
+    fully profiled, the later ones by signature alone); beside them one
+    slide's forward with and without the op counter, the cost each later
+    key would pay if it were fingerprinted."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from gigapath_tpu_torch import inference
+    from gigapath_tpu_torch.obs.ledger import op_fingerprint
+
+    with tempfile.TemporaryDirectory() as tmp, env_flags({"GIGAPATH_OBS_DIR": tmp}):
+        feat_dir = os.path.join(tmp, "feats")
+        os.makedirs(feat_dir)
+        slides = _serve_files(feat_dir, OBS_EXACT_SLIDES, seed=37)  # and a repeat of the first slide
+        head = inference.load_model("", n_classes=2, feat_layer="11", seed=0)
+        seconds, labels = {"obs_off": [], "ledger": []}, []
+        for i, obs in enumerate(("0", "1", "0")):
+            with env_flags({"GIGAPATH_OBS": obs}):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = inference.run_inference(head, feat_dir, os.path.join(tmp, f"exact{i}.csv"), use_buckets=False)
+                seconds["ledger" if obs == "1" else "obs_off"].append(time.perf_counter() - t0)
+            labels.append(list(out["predicted_label"]))
+        (log_path,) = [p for p in glob.glob(os.path.join(tmp, "obs", "*.jsonl")) if "exact1.csv" in open(p).readline()]
+        events = [json.loads(line) for line in open(log_path)]
+        (end,) = [ev for ev in events if ev["kind"] == "run_end"]
+        walls = [ev["wall_s"] for ev in events if ev["kind"] == "step"]
+        with open(end["ledger_path"]) as fh:
+            entries = list(json.load(fh)["entries"].values())
+        _, feats, coords = slides[0]
+        plain = [time.perf_counter()]
+        for _ in range(3):
+            inference._exact_logits(head, feats, coords)
+            plain.append(time.perf_counter())
+        t0 = time.perf_counter()
+        fp = op_fingerprint(inference._exact_logits, head, feats, coords)
+        fingerprint_s = time.perf_counter() - t0
+    full = [e for e in entries if "cost" in e]
+    signed = [e for e in entries if set(e) == {"name", "key", "sig"}]
+    n = len(slides)
+    emit("obs_compile_exact_path", slides=[len(f) for _, f, _ in slides], seconds=seconds,
+         seconds_per_slide={k: [t / n for t in v] for k, v in seconds.items()}, ledger_step_wall_s=walls,
+         entries={"full": len(full), "signature_only": len(signed), "total": len(entries)},
+         forward_s=float(np.mean(np.diff(plain))), fingerprinted_forward_s=fingerprint_s,
+         fingerprint_ops=fp["eqns_total"], card=smi)
+    check(labels[0] == labels[1] == labels[2], f"obs (g): labels {labels}")
+    check(len(full) == 1 and len(signed) == len(OBS_EXACT_SLIDES) - 1 == len(entries) - 1,
+          f"obs (g): {len(full)} full and {len(signed)} signature-only entries of {len(entries)}")
+
+
+def phase_obs_compile() -> None:
+    """Phase 33: compile-side obs on the card, (a)-(g)."""
+    import torch
+
+    t0 = time.perf_counter()
+    smi = _smi()
+    model, x, coords = _obs_forward(smi)
+    _obs_op_totals(model, x, coords, smi)
+    _obs_chained(model, x, coords, smi)
+    del model, x, coords
+    torch.cuda.empty_cache()
+    _obs_devices(smi)
+    _obs_no_double_run(smi)
+    _obs_streaming(smi)
+    torch.cuda.empty_cache()
+    _obs_exact_path(smi)
+    torch.cuda.empty_cache()
+    emit("obs_compile", seconds=time.perf_counter() - t0, card=smi)
 
 
 def main() -> int:
@@ -7369,6 +7712,7 @@ def main() -> int:
     phase_seq_parallel()
     phase_moe(phase_tensor_parallel())
     decoder = phase_torchscale()
+    phase_obs_compile()
     print(json.dumps({"kernels": [
         {"name": name, **meta, "launches": launches[name],
          "max_abs_err": summary[name]["err"], "ms": summary[name]["ms"],

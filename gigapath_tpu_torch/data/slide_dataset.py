@@ -6,8 +6,11 @@ setting (multi_class / binary / multi_label through the task config's
 ``label_dict``), reads ``features``/``coords`` from h5 (or a bare tensor
 from ``.pt``), optionally shuffles the tiles, truncates to ``max_tiles``,
 and retries a failing read of the same sample with exponential backoff
-before skipping it (the collate drops the ``None``). h5py is imported only
-by the h5 reader.
+before skipping it (the collate drops the ``None``). ``GIGAPATH_CHAOS``
+is read once, at construction: a ``fail_loader@I`` / ``slow_loader@I:S``
+spec acts on every attempt at sample ``I``, and a skip lands as a
+``recovery`` event (``action="data_retry"``) on the run log attached by
+:meth:`SlideDataset.set_runlog`. h5py is imported only by the h5 reader.
 """
 
 from __future__ import annotations
@@ -122,7 +125,8 @@ class SlideDatasetForTasks:
 
 class SlideDataset(SlideDatasetForTasks):
     """Sample access with shuffle/truncate/retry; ``retry`` and
-    ``retry_backoff_s`` bound the per-sample retry loop."""
+    ``retry_backoff_s`` bound the per-sample retry loop, ``set_runlog``
+    attaches the run log that a skip is reported on."""
 
     def __init__(self, *args, seed: int = 0, retry: int = 3,
                  retry_backoff_s: float = 0.05, **kwargs):
@@ -130,6 +134,15 @@ class SlideDataset(SlideDatasetForTasks):
         self._rng = np.random.default_rng(seed)
         self.retry = max(int(retry), 1)
         self.retry_backoff_s = float(retry_backoff_s)
+        self._runlog = None
+        from gigapath_tpu_torch.resilience.chaos import get_chaos
+
+        self._chaos = get_chaos()  # GIGAPATH_CHAOS, read once, at construction
+
+    def set_runlog(self, runlog) -> None:
+        """Attach the training run's log, so a skipped sample lands on it as a
+        ``recovery`` event."""
+        self._runlog = runlog
 
     def shuffle_data(self, images: np.ndarray, coords: np.ndarray):
         indices = self._rng.permutation(len(images))
@@ -157,14 +170,24 @@ class SlideDataset(SlideDatasetForTasks):
         """Bounded same-sample retry with exponential backoff; after the
         last failure the sample is skipped (None), never raised."""
         n_try = self.retry if n_try is None else max(int(n_try), 1)
+        last_err: Optional[BaseException] = None
         for attempt in range(n_try):
             try:
+                if self._chaos:
+                    self._chaos.loader_fault(idx)
                 return self.get_one_sample(idx)
             except Exception as e:  # noqa: BLE001 (a bad slide costs one sample, not the epoch)
+                last_err = e
                 logger.warning("Error reading sample %d (attempt %d/%d): %s: %s",
                                idx, attempt + 1, n_try, type(e).__name__, e)
                 if attempt + 1 < n_try and self.retry_backoff_s > 0:
                     time.sleep(self.retry_backoff_s * (2 ** attempt))
+        if self._runlog is not None:
+            self._runlog.event(
+                "recovery", action="data_retry", index=int(idx),
+                slide_id=self.images[idx] if 0 <= idx < len(self.images) else None,
+                attempts=n_try, error=f"{type(last_err).__name__}: {last_err}",
+            )
         logger.warning("Sample %d failed %d attempt(s); skipping it", idx, n_try)
         return None
 

@@ -27,17 +27,23 @@ The column- and row-parallel name lists and the flax-to-torch spec
 permutation come from :mod:`gigapath_tpu_torch.parallel.sharding`, as the
 JAX module takes its lists from ``gigapath_tpu/parallel/sharding.py``.
 
-Placement: one device is ``module.to(device)``. Placing a stage over more
-than one device runs a model on sharded weights, which the port does not
-do yet (``ROADMAP.md`` Queue A item 1, "place_stage above one device");
-it raises rather than replicate silently.
+:func:`stage_mesh` builds a stage's ``DeviceMesh`` over its axes (over a
+subset of the ranks, so two fleets can hold disjoint ranks), and
+:func:`stage_param_shardings` resolves the rules into DTensor placements
+on it, each spec first degraded to the mesh's live axes (:func:`_degrade`:
+an axis the mesh lacks or holds at size 1 is dropped).
+
+Placement: one device is ``module.to(device)``. A stage over more than one
+device raises rather than replicate silently: the JAX package runs no
+stage above one device either (its workers and pipeline place each stage
+on one), so the sharded placement would be a feature of the port alone.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Dict, List, Mapping, Sequence, Tuple, Union
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -152,20 +158,76 @@ def stage_param_specs(name: str, params) -> Dict[str, Spec]:
     return match_partition_rules(get_stage(name).rules, params)
 
 
+def stage_mesh(name: str, n_devices: Optional[int] = None, *,
+               ranks: Optional[Sequence[int]] = None,
+               axis_sizes: Optional[Dict[str, int]] = None,
+               device_type: str = "cuda"):
+    """One stage's ``DeviceMesh`` over its axes, on every rank of the
+    default group or on ``ranks`` (the JAX package's ``devices=`` slice:
+    two stages on disjoint ranks), through
+    :func:`gigapath_tpu_torch.parallel.mesh.make_mesh`. ``axis_sizes`` may
+    name only the stage's axes (``ValueError`` otherwise). Every rank of
+    the default group makes the call."""
+    from gigapath_tpu_torch.parallel.mesh import make_mesh
+
+    spec = get_stage(name)
+    if axis_sizes is not None:
+        unknown = set(axis_sizes) - set(spec.axes)
+        if unknown:
+            raise ValueError(f"stage '{name}' has axes {spec.axes}; axis_sizes names {sorted(unknown)}")
+    return make_mesh(n_devices, axes=spec.axes, axis_sizes=axis_sizes, device_type=device_type,
+                     ranks=ranks)
+
+
+def _degrade(spec: Spec, mesh) -> Spec:
+    """Drop from a spec the axis names the mesh lacks or holds at size 1:
+    the rules stay declarative, the mesh decides what is real."""
+    names = mesh.mesh_dim_names or ()
+    live = {a for i, a in enumerate(names) if mesh.size(i) > 1}
+
+    def keep(entry):
+        if entry is None:
+            return None
+        if isinstance(entry, (tuple, list)):
+            kept = tuple(e for e in entry if e in live)
+            return kept if kept else None
+        return entry if entry in live else None
+
+    return tuple(keep(e) for e in spec)
+
+
+def stage_param_shardings(name: str, module, mesh) -> Dict[str, list]:
+    """``{state_dict name: DTensor placements}`` for one stage's module (or
+    state dict) on ``mesh``: per mesh dim, ``Shard(i)`` where the degraded
+    spec names that dim's axis at tensor dim ``i``, else ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = mesh.mesh_dim_names or ()
+    out: Dict[str, list] = {}
+    for param, spec in stage_param_specs(name, module).items():
+        degraded = _degrade(spec, mesh)
+        placements = []
+        for axis in names:
+            dims = [i for i, e in enumerate(degraded)
+                    if e == axis or (isinstance(e, tuple) and axis in e)]
+            placements.append(Shard(dims[0]) if dims else Replicate())
+        out[param] = placements
+    return out
+
+
 def place_stage(name: str, module: torch.nn.Module, devices) -> torch.nn.Module:
     """Place one stage's module: its rules must cover every parameter (an
     uncovered one raises), then one device is ``module.to(device)``. More
-    than one device raises ``NotImplementedError``: running a stage on
-    sharded weights is not ported yet (``ROADMAP.md`` Queue A item 1), and
-    silent replication is not a placement."""
+    than one device raises ``NotImplementedError``: the JAX package runs no
+    stage above one device, and silent replication is not a placement."""
     stage_param_specs(name, module)
     if isinstance(devices, (str, torch.device)):
         devices = [devices]
     devices = list(devices)
     if len(devices) != 1:
         raise NotImplementedError(
-            f"stage '{name}' over {len(devices)} devices: running a stage on "
-            "sharded weights is not ported yet (ROADMAP.md Queue A item 1, "
-            "'place_stage above one device'); place it on one device"
+            f"stage '{name}' over {len(devices)} devices: a stage runs on one "
+            "device, as in the JAX package (its workers and pipeline place "
+            "each stage on one); place it on one device"
         )
     return module.to(torch.device(devices[0]))

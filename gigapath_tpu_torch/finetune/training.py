@@ -16,8 +16,8 @@ events under ``<save_dir>/fold_k/obs/`` (``GIGAPATH_OBS=0`` disables the
 stream but keeps the echo): ``step`` events (synced at the 20-iteration
 echoes, with the loss), a ``CompileWatchdog`` over the step's
 ``(batch, tiles)`` buckets (a bucket's first step, synchronised and timed,
-and the kernel builds it triggers; its shape signature in the run's perf
-ledger), ``eval`` events, ``epoch`` / ``eval`` / ``test`` spans, the
+and the kernel builds it triggers; that step profiled, as it runs, into
+the run's perf ledger), ``eval`` events, ``epoch`` / ``eval`` / ``test`` spans, the
 ``finetune.step_wall_s`` histogram, and heartbeat/stall liveness
 (``GIGAPATH_OBS_HEARTBEAT_S`` / ``GIGAPATH_OBS_STALL_S``, 60/600 s by
 default). A failure runs ``fail_run`` with an emergency checkpoint. Console
@@ -165,6 +165,12 @@ def train(dataloader, fold: int, args):
     # GIGAPATH_OBS is read here, once, at driver start: the event stream
     # lands under fold_dir/obs/
     runlog = get_run_log("finetune", out_dir=fold_dir, config=_obs_config(args))
+    # a sample the loader skips after its retries lands as a `recovery`
+    # event (action="data_retry") on this run's log
+    for loader in (train_loader, val_loader, test_loader):
+        dataset = getattr(loader, "dataset", None)
+        if hasattr(dataset, "set_runlog"):
+            dataset.set_runlog(runlog)
 
     model = get_model(
         input_dim=args.input_dim,
@@ -335,6 +341,13 @@ def train_one_epoch(train_loader, model, loss_fn, steps: MultiSteps, epoch: int,
     n_batches = 0
     steps_per_epoch = len(train_loader)
     t_prev = start_time
+    tel: Optional[Dict[str, torch.Tensor]] = None
+
+    def step(images, coords, labels, pad_mask):  # this micro-step, with the batch's scalars dict
+        return train_step(
+            model, loss_fn, steps, images, coords, labels, pad_mask,
+            multi_label=multi_label, bf16=bf16, scalars=tel, numerics=numerics,
+        )
 
     for batch_idx, batch in enumerate(_prefetched(train_loader, device, bf16)):
         images, coords, labels, pad_mask = _unpack(batch)
@@ -347,18 +360,17 @@ def train_one_epoch(train_loader, model, loss_fn, steps: MultiSteps, epoch: int,
             # billed to this bucket's first call
             fence_devices([loss_sum])
         synced = (batch_idx + 1) % 20 == 0
-        tel: Optional[Dict[str, torch.Tensor]] = {} if synced else None
+        tel = {} if synced else None
         t0 = time.time()
-        loss = train_step(
-            model, loss_fn, steps, images, coords, labels, pad_mask,
-            multi_label=multi_label, bf16=bf16, scalars=tel, numerics=numerics,
-        )
         if new_bucket:
+            # the bucket's first step runs once, profiled into the ledger
+            loss = compile_log.profile(bucket, step, images, coords, labels, pad_mask)
             fence_devices([loss])  # isolate the first call's cost
             compile_log.record(bucket, time.time() - t0)
-            compile_log.profile(bucket, train_step, images, coords, labels, pad_mask)
-        elif compile_log is not None:
-            compile_log.record(bucket, None)
+        else:
+            loss = step(images, coords, labels, pad_mask)
+            if compile_log is not None:
+                compile_log.record(bucket, None)
         loss_sum = loss if loss_sum is None else loss_sum + loss
         n_batches += 1
         if heartbeat is not None:

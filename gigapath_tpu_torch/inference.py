@@ -336,7 +336,10 @@ def _run_inference_exact(model, feature_files, output_file: str, runlog):
     """The ``--no-buckets`` path: one forward per slide at its own length
     (the oracle the bucketed path is held against)."""
     ledger = get_ledger(runlog)
-    watchdog = CompileWatchdog("inference.forward", runlog, ledger=ledger)
+    # nearly every slide is a new key here: the first gets the full profile,
+    # the later ones their signature alone (counting each forward's ops
+    # would cost every slide)
+    watchdog = CompileWatchdog("inference.forward", runlog, ledger=ledger, fingerprint_later=False)
     metrics = get_metrics(runlog)
     slide_walls = metrics.histogram("inference.slide_wall_s")
     results, warned = [], []
@@ -349,7 +352,11 @@ def _run_inference_exact(model, feature_files, output_file: str, runlog):
                     key = (1, int(feats.shape[0]))
                     new = watchdog.is_new(key)
                     t0 = time.time()
-                    row = _result_row(_slide_id(path), _exact_logits(model, feats, coords))
+                    if new:  # the key's first forward, profiled into the ledger
+                        logits = watchdog.profile(key, _exact_logits, model, feats, coords)
+                    else:
+                        logits = _exact_logits(model, feats, coords)
+                    row = _result_row(_slide_id(path), logits)
                     watchdog.record(key, time.time() - t0 if new else None)
                 results.append(row)
                 runlog.step(idx, wall_s=sp.dur_s, synced=True, n_tiles=int(feats.shape[0]),

@@ -8,8 +8,8 @@ the inference CLI reach.
   captures and kernel builds as compile events);
 - :mod:`~gigapath_tpu_torch.obs.heartbeat` — ``Heartbeat`` liveness/stall
   monitor, device-memory watermarks from ``torch.cuda.memory_stats``;
-- :mod:`~gigapath_tpu_torch.obs.ledger` — the per-run perf ledger's
-  run-time half;
+- :mod:`~gigapath_tpu_torch.obs.ledger` — the per-run perf ledger: each
+  profile (op fingerprint, cost, memory) taken on one real call;
 - :mod:`~gigapath_tpu_torch.obs.spans` — nestable ``span`` (a fence waits
   for the fenced tensors' device) and the ``torch.profiler`` passthroughs;
 - :mod:`~gigapath_tpu_torch.obs.anomaly` / :mod:`~gigapath_tpu_torch.obs.flight`

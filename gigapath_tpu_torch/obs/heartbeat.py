@@ -62,24 +62,29 @@ def memory_watermarks() -> Dict[str, float]:
     try:
         import torch
 
+        from gigapath_tpu_torch.obs.ledger import peak_bytes
+
         if not torch.cuda.is_initialized():
             return {}
-        stats = [torch.cuda.memory_stats(i) for i in range(torch.cuda.device_count())]
+        stats = {i: torch.cuda.memory_stats(i) for i in range(torch.cuda.device_count())}
+        stats = {i: s for i, s in stats.items() if s}
+        # the peaks through obs/ledger.py: a full profile's reset of the
+        # allocator's counters does not lower them
+        peaks = [peak_bytes(i) for i in stats]
     except Exception:
         return {}
-    out: Dict[str, float] = {}
-    stats = [s for s in stats if s]
     if not stats:
-        return out
+        return {}
 
     def total(key):
-        return float(sum(s.get(key, 0) for s in stats))
+        return float(sum(s.get(key, 0) for s in stats.values()))
 
-    out["mem_peak_bytes"] = float(max(s.get("allocated_bytes.all.peak", 0) for s in stats))
-    out["mem_bytes_in_use"] = total("allocated_bytes.all.current")
-    out["mem_reserved_bytes"] = total("reserved_bytes.all.current")
-    out["mem_reserved_peak_bytes"] = float(max(s.get("reserved_bytes.all.peak", 0) for s in stats))
-    return out
+    return {
+        "mem_peak_bytes": float(max(p["allocated"] for p in peaks)),
+        "mem_bytes_in_use": total("allocated_bytes.all.current"),
+        "mem_reserved_bytes": total("reserved_bytes.all.current"),
+        "mem_reserved_peak_bytes": float(max(p["reserved"] for p in peaks)),
+    }
 
 
 class Heartbeat:

@@ -20,7 +20,9 @@ flagging. What counts as a compile in the port:
 Two usage shapes, as in the JAX package: ``is_new(key)`` /
 ``record(key, seconds)`` from loops that manage their own sync points,
 or ``step = watchdog.wrap(fn)`` for uniform-shape callers (the first call
-per key waits for the device to time it; steady calls pass through).
+per key waits for the device to time it; steady calls pass through). With
+a ledger, a key's first call is profiled as it runs (:meth:`profile`), so
+its first-call seconds include the profile's counting.
 All bookkeeping is host-side Python around the call boundary.
 """
 
@@ -63,7 +65,7 @@ class CompileWatchdog:
     """
 
     def __init__(self, name: str, runlog=None, *, fn: Optional[Callable] = None,
-                 ledger=None):
+                 ledger=None, fingerprint_later: bool = True):
         self.name = name
         self.runlog = runlog if runlog is not None else NullRunLog()
         # perf-ledger hook (gigapath_tpu_torch.obs.ledger): when set, every new
@@ -71,6 +73,10 @@ class CompileWatchdog:
         # driving the is_new/record surface — lands a compile_profile
         # event + ledger entry. None / NullLedger = no capture work.
         self.ledger = ledger
+        # False: once the name has its full profile, later keys are
+        # ledgered by their signature alone and run uncounted (a caller
+        # whose every call is a new key)
+        self.fingerprint_later = fingerprint_later
         self._fn = fn
         self.first_call_sec: Dict[Any, float] = {}
         self.step_sec: Dict[Any, list] = {}
@@ -187,10 +193,9 @@ class CompileWatchdog:
             key = key_fn(*args, **kwargs) if key_fn else _default_key(args, kwargs)
             if self.is_new(key):
                 t0 = time.time()
-                out = fn(*args, **kwargs)
+                out = self.profile(key, fn, *args, **kwargs)
                 fence_devices([out])
                 self.record(key, time.time() - t0)
-                self.profile(key, fn, *args, **kwargs)
             else:
                 out = fn(*args, **kwargs)
                 self.record(key, None)
@@ -199,12 +204,23 @@ class CompileWatchdog:
         return wrapped
 
     # -- perf-ledger capture ----------------------------------------------
-    def profile(self, key, fn, *args, **kwargs) -> None:
-        """Ledger this key's input signature under the watchdog's name,
-        tagged with the key so compile and compile_profile events join.
-        Called by :meth:`wrap` on every new key. No-ops without a ledger."""
-        if self.ledger is not None:
-            self.ledger.capture_for_key(self.name, key, fn, *args, **kwargs)
+    def profile(self, key, fn, *args, **kwargs):
+        """Run ``fn(*args, **kwargs)`` once and return its output; with a
+        ledger, that call is profiled and ledgered under the watchdog's
+        name, tagged with the key so compile and compile_profile events
+        join (:meth:`PerfLedger.call_for_key
+        <gigapath_tpu_torch.obs.ledger.PerfLedger.call_for_key>`). Loops
+        that drive the ``is_new``/``record`` surface make a new key's first
+        call through it; :meth:`wrap` does so on every new key. Nothing is
+        run twice: the profile is taken on the call itself. Without
+        ``fingerprint_later``, a key after the name's full profile is
+        ledgered by its signature and runs uncounted."""
+        if self.ledger is None:
+            return fn(*args, **kwargs)
+        if not self.fingerprint_later and self.ledger.has_full(self.name):
+            self.ledger.sign(self.name, key, *args, **kwargs)
+            return fn(*args, **kwargs)
+        return self.ledger.call_for_key(self.name, key, fn, *args, **kwargs)
 
     # -- summaries --------------------------------------------------------
     def compile_seconds_total(self) -> float:

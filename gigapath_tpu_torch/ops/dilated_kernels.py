@@ -72,7 +72,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from gigapath_tpu_torch.ops.common import check_cuda, cuda_stream, env_flag, raise_on, round_up
+from gigapath_tpu_torch.ops.common import check_cuda, cuda_stream, env_flag, kernel_wrapper, raise_on, round_up
 
 NEG_INF = -1e30  # lse of a (token, head) pair the branch does not cover
 M_FLOOR = -1e20  # running-max floor: masked keys underflow to exactly 0
@@ -538,10 +538,78 @@ def fusion_epilogue_bwd_reference(
 
 
 # ---------------------------------------------------------------------------
+# the kernels' declared work (the compile-side profile's counts)
+# ---------------------------------------------------------------------------
+
+
+def _branch_work(q6: torch.Tensor, kvlen: torch.Tensor, is_causal: bool):
+    """(pairs, rows, keys) of one branch call, summed over its heads: each
+    (segment, phase) cell's valid keys are its real tokens, so its real
+    query rows too (self-attention), and the masks admit every (query, key)
+    pair of them, or the lower triangle when causal."""
+    hb = q6.shape[3]
+    kv = kvlen.detach().to("cpu", torch.float64)
+    pairs = kv * (kv + 1) / 2 if is_causal else kv * kv
+    return hb * float(pairs.sum()), hb * float(kv.sum()), hb * float(kv.sum())
+
+
+def _attention_cost(per_pair: int, row_tensors: int, key_tensors: int, row_vectors: int):
+    """``cost`` of a branch attention kernel: ``per_pair * Dh`` operations
+    per admitted pair (4: q.k and p.v; 6 for dq; 8 for dkv); the bytes of
+    ``row_tensors`` query-row and ``key_tensors`` key-row tensors of width
+    Dh plus ``row_vectors`` fp32 values per row (lse, delta)."""
+
+    def cost(q6, kvlen, is_causal, **_):
+        pairs, rows, keys = _branch_work(q6, kvlen, bool(is_causal))
+        Dh, es = q6.shape[-1], q6.element_size()
+        return (per_pair * Dh * pairs,
+                (row_tensors * rows + key_tensors * keys) * Dh * es + row_vectors * rows * 4)
+
+    return cost
+
+
+def _pack_cost(x, S, r, Mp, **_):
+    B, L, E = x.shape
+    return 0.0, float(B * L * E // r + B * S * Mp * E) * x.element_size()
+
+
+def _pack_direct_cost(xs, S, r, Mp, **_):
+    return 0.0, float(sum(_pack_cost(x, S, r, Mp)[1] for x in xs))
+
+
+def _unpack_cost(p6, L, E, r, **_):
+    B = p6.shape[0]
+    return 0.0, float(B * L * E // r + B * L * E) * p6.element_size()
+
+
+def _epilogue_fwd_cost(outs, plan, **_):
+    """Every covered packed element and its lse read once, out and
+    fused_lse written once."""
+    B, es = outs[0].shape[0], outs[0].element_size()
+    L, E, H = plan.L, plan.E, plan.H
+    nbytes = B * L * E * es + B * L * H * 4
+    for g, S, r, m, Mp in plan.branches:
+        nbytes += B * L * E // r * es + B * L * H // r * 4
+    return 0.0, float(nbytes)
+
+
+def _epilogue_bwd_cost(dy, plan, **_):
+    """dY and fused_lse read once, each branch's covered lse read, every
+    branch's whole packed cotangent written."""
+    B, L, E = dy.shape
+    H, es = plan.H, dy.element_size()
+    nbytes = B * L * E * es + B * L * H * 4
+    for g, S, r, m, Mp in plan.branches:
+        nbytes += B * L * H // r * 4 + B * S * Mp * E * es
+    return 0.0, float(nbytes)
+
+
+# ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
 
+@kernel_wrapper("pack_phases", _pack_cost)
 def pack_phases(
     x: torch.Tensor, g: int, S: int, r: int, Mp: int, num_heads: int
 ) -> torch.Tensor:
@@ -567,6 +635,7 @@ def pack_phases(
     return out
 
 
+@kernel_wrapper("unpack_phases", _unpack_cost)
 def unpack_phases(p6: torch.Tensor, L: int, E: int, g: int, S: int, r: int) -> torch.Tensor:
     """Packed [B, S, r, hb, Mp, Dh] -> dense [B, L, E], off-band lanes exact
     0 (``csrc/unpack_phases.cu``: the pack's blocks in reverse, the real
@@ -601,6 +670,7 @@ def _check_tensor_core_inputs(name: str, Dh: int, *tensors: torch.Tensor) -> Non
                          f"aligned tensors (the tensor-core kernel's copies); got Dh={Dh}")
 
 
+@kernel_wrapper("dilated_branch_fwd", _attention_cost(4, 2, 2, 1))
 def dilated_branch_fwd(
     q6: torch.Tensor, k6: torch.Tensor, v6: torch.Tensor, kvlen: torch.Tensor,
     is_causal: bool = False,
@@ -662,6 +732,7 @@ def _check_bwd_inputs(name: str, q6, k6, v6, do6, lse5, delta, kvlen) -> None:
         )
 
 
+@kernel_wrapper("dilated_branch_bwd_dq", _attention_cost(6, 3, 2, 2))
 def dilated_branch_bwd_dq(
     q6: torch.Tensor, k6: torch.Tensor, v6: torch.Tensor, do6: torch.Tensor,
     lse5: torch.Tensor, delta: torch.Tensor, kvlen: torch.Tensor, is_causal: bool = False,
@@ -689,6 +760,7 @@ def dilated_branch_bwd_dq(
     return dq6
 
 
+@kernel_wrapper("dilated_branch_bwd_dkv", _attention_cost(8, 2, 4, 2))
 def dilated_branch_bwd_dkv(
     q6: torch.Tensor, k6: torch.Tensor, v6: torch.Tensor, do6: torch.Tensor,
     lse5: torch.Tensor, delta: torch.Tensor, kvlen: torch.Tensor, is_causal: bool = False,
@@ -726,6 +798,7 @@ def _check_pipe(name: str, is_causal: bool, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: tensors must be 16-byte aligned for the cp.async ring")
 
 
+@kernel_wrapper("dilated_branch_fwd_pipe", _attention_cost(4, 2, 2, 1))
 def dilated_branch_fwd_pipe(
     q6: torch.Tensor, k6: torch.Tensor, v6: torch.Tensor, kvlen: torch.Tensor,
     is_causal: bool = False,
@@ -767,6 +840,7 @@ def dilated_branch_fwd_pipe(
     return out, lse
 
 
+@kernel_wrapper("dilated_branch_bwd_dq_pipe", _attention_cost(6, 3, 2, 2))
 def dilated_branch_bwd_dq_pipe(
     q6: torch.Tensor, k6: torch.Tensor, v6: torch.Tensor, do6: torch.Tensor,
     lse5: torch.Tensor, delta: torch.Tensor, kvlen: torch.Tensor, is_causal: bool = False,
@@ -795,6 +869,7 @@ def dilated_branch_bwd_dq_pipe(
     return dq6
 
 
+@kernel_wrapper("dilated_branch_bwd_dkv_pipe", _attention_cost(8, 2, 4, 2))
 def dilated_branch_bwd_dkv_pipe(
     q6: torch.Tensor, k6: torch.Tensor, v6: torch.Tensor, do6: torch.Tensor,
     lse5: torch.Tensor, delta: torch.Tensor, kvlen: torch.Tensor, is_causal: bool = False,
@@ -824,6 +899,7 @@ def dilated_branch_bwd_dkv_pipe(
     return dk6, dv6
 
 
+@kernel_wrapper("pack_phases_direct", _pack_direct_cost)
 def pack_phases_direct(
     xs: Sequence[torch.Tensor], g: int, S: int, r: int, Mp: int, num_heads: int
 ) -> Tuple[torch.Tensor, ...]:
@@ -861,6 +937,7 @@ def pack_phases_direct(
     return outs
 
 
+@kernel_wrapper("unpack_phases_direct", _unpack_cost)
 def unpack_phases_direct(p6: torch.Tensor, L: int, E: int, g: int, S: int, r: int) -> torch.Tensor:
     """Packed [B, 1, r, hb, Mp, Dh] -> dense [B, L, E], off-band lanes exact
     0, through shared-memory row-blocks (``csrc/unpack_phases_direct.cu``)."""
@@ -883,6 +960,7 @@ def unpack_phases_direct(p6: torch.Tensor, L: int, E: int, g: int, S: int, r: in
     return out
 
 
+@kernel_wrapper("fusion_epilogue_fwd", _epilogue_fwd_cost)
 def fusion_epilogue_fwd(
     outs: Sequence[torch.Tensor], lses: Sequence[torch.Tensor], plan: "EpiloguePlan"
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -921,6 +999,7 @@ def fusion_epilogue_fwd(
     return out, fused
 
 
+@kernel_wrapper("fusion_epilogue_bwd", _epilogue_bwd_cost)
 def fusion_epilogue_bwd(
     dy: torch.Tensor, fused_lse: torch.Tensor, lses: Sequence[torch.Tensor], plan: "EpiloguePlan"
 ) -> list:

@@ -50,7 +50,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from gigapath_tpu_torch.ops.common import check_cuda, cuda_stream, raise_on
+from gigapath_tpu_torch.ops.common import check_cuda, cuda_stream, kernel_wrapper, raise_on
 
 NEG_INF = -1e30  # masked logit
 M_FLOOR = -1e20  # running-max floor: exp2(NEG_INF - m) is exactly 0 in fp32
@@ -278,6 +278,49 @@ def _flat_layout(name: str, q: torch.Tensor, g: int, real_len: int):
     return B * H, -(-L // g), g, g, L, L, real_len
 
 
+def _pairs(Mq: int, Mk: int, kv: torch.Tensor, is_causal: bool):
+    """(pairs, rows, keys) the masks admit over cells of ``kv`` valid keys
+    each (fp64 on the CPU): a self-attention cell (Mq == Mk) has as many
+    real query rows as valid keys, another cell all Mq rows; causal rows
+    see the keys up to their own position, the last query row aligned with
+    the last key."""
+    kv = kv.to(torch.float64)
+    rows = kv if Mq == Mk else torch.full_like(kv, Mq)
+    if not is_causal:
+        pairs = rows * kv
+    else:
+        i = torch.arange(Mq, dtype=torch.float64)
+        seen = torch.minimum(kv[..., None], i + (Mk - Mq) + 1).clamp_min(0)
+        pairs = torch.where(i < rows[..., None], seen, 0.0).sum(-1)
+    return float(pairs.sum()), float(rows.sum()), float(kv.sum())
+
+
+def _flash_cost(per_pair: int, row_tensors: int, key_tensors: int, row_vectors: int):
+    """``cost`` of a segment-flash kernel: ``per_pair * D`` operations per
+    admitted pair (4 forward, 6 dq, 8 dkv), the bytes of its query-row and
+    key-row tensors of width D and ``row_vectors`` fp32 values a row. A
+    flat call (``g``, ``real_len``) has segments of ``g`` rows, the last
+    ``real_len`` ones valid; a segmented one ``kvlen`` valid keys a cell."""
+
+    def cost(q, k, is_causal, kvlen=None, g=None, real_len=None, **_):
+        if g is not None:
+            B, H, L, D = q.shape
+            seg = torch.arange(-(-L // g), dtype=torch.float64)
+            kv = (real_len - seg * g).clamp(0, g).expand(B * H, -1)
+            pairs, rows, keys = _pairs(g, g, kv, bool(is_causal))
+        else:
+            B, H, S, Mq, D = q.shape
+            Mk = k.shape[3]
+            kv = torch.full((B, H, S), float(Mk)) if kvlen is None else kvlen.detach().to("cpu")
+            pairs, rows, keys = _pairs(Mq, Mk, kv, bool(is_causal))
+        es = q.element_size()
+        return (per_pair * D * pairs,
+                (row_tensors * rows + key_tensors * keys) * D * es + row_vectors * rows * 4)
+
+    return cost
+
+
+@kernel_wrapper("flash_fwd", _flash_cost(4, 2, 2, 1))
 def flash_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kvlen: Optional[torch.Tensor] = None,
     is_causal: bool = False,
@@ -297,6 +340,7 @@ def flash_fwd(
     return out, lse
 
 
+@kernel_wrapper("flat_fwd", _flash_cost(4, 2, 2, 1))
 def flat_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: int, real_len: int, is_causal: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -364,6 +408,7 @@ def _check_bwd(name, q, k, v, do, lse, delta, rows_shape):
     _check_rows(f"{name} delta", delta, rows_shape, q)
 
 
+@kernel_wrapper("flash_bwd_dq", _flash_cost(6, 3, 2, 2))
 def flash_bwd_dq(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
     delta: torch.Tensor, kvlen: Optional[torch.Tensor] = None, is_causal: bool = False,
@@ -382,6 +427,7 @@ def flash_bwd_dq(
     return dq
 
 
+@kernel_wrapper("flash_bwd_dkv", _flash_cost(8, 2, 4, 2))
 def flash_bwd_dkv(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
     delta: torch.Tensor, kvlen: Optional[torch.Tensor] = None, is_causal: bool = False,
@@ -401,6 +447,7 @@ def flash_bwd_dkv(
     return dk, dv
 
 
+@kernel_wrapper("flat_bwd_dq", _flash_cost(6, 3, 2, 2))
 def flat_bwd_dq(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
     delta: torch.Tensor, g: int, real_len: int, is_causal: bool = False,
@@ -419,6 +466,7 @@ def flat_bwd_dq(
     return dq
 
 
+@kernel_wrapper("flat_bwd_dkv", _flash_cost(8, 2, 4, 2))
 def flat_bwd_dkv(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
     delta: torch.Tensor, g: int, real_len: int, is_causal: bool = False,

@@ -48,7 +48,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from gigapath_tpu_torch.ops.common import check_cuda, cuda_stream, raise_on
+from gigapath_tpu_torch.ops.common import check_cuda, cuda_stream, kernel_wrapper, raise_on
 
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
@@ -271,6 +271,46 @@ def _check_tensor_cores(name: str, **tensors: torch.Tensor) -> None:
                              f"head) strides of whole 16 bytes, got strides {tuple(t.stride())}")
 
 
+def _phase_run(lo: int, hi: int, p: int, r: int) -> int:
+    """Offsets j in [lo, hi) of a segment with j % r == p."""
+    return max(0, -(-(hi - p) // r)) - max(0, -(-(lo - p) // r))
+
+
+def pair_count(H: int, q0: int, cq: int, k0: int, ck: int, segment_len: int, ratio: int,
+               valid_len: Optional[int]) -> int:
+    """The (head, query, key) triples :func:`pair_mask` admits, counted per
+    segment and head without building the mask."""
+    k_end = k0 + ck if valid_len is None else min(k0 + ck, int(valid_len))
+    per = -(-H // ratio)
+    total = 0
+    for s in range(q0 // segment_len, (q0 + cq - 1) // segment_len + 1):
+        base = s * segment_len
+        qa, qb = max(q0, base) - base, min(q0 + cq, base + segment_len) - base
+        ka, kb = max(k0, base) - base, min(k_end, base + segment_len) - base
+        if qb <= qa or kb <= ka:
+            continue
+        for h in range(H):
+            total += _phase_run(qa, qb, h // per, ratio) * _phase_run(ka, kb, h // per, ratio)
+    return total
+
+
+def _pair_cost(per_pair: int, row_tensors: int, key_tensors: int, row_vectors: int):
+    """``cost`` of a chunk-pair kernel: ``per_pair * D`` operations per
+    admitted (head, query, key) triple (4 forward, 6 dq, 8 dkv), each block
+    of width D and ``row_vectors`` fp32 [B, H, cq] vectors moved once."""
+
+    def cost(q, k, q0, k0, segment_len, ratio, valid_len, **_):
+        B, cq, H, D = q.shape
+        ck = k.shape[1]
+        pairs = B * pair_count(H, q0, cq, k0, ck, segment_len, ratio, valid_len)
+        es = q.element_size()
+        return (float(per_pair * D * pairs),
+                float(B * ((row_tensors * cq + key_tensors * ck) * H * D * es + row_vectors * cq * H * 4)))
+
+    return cost
+
+
+@kernel_wrapper("stream_pair_fwd", _pair_cost(4, 2, 2, 1))
 def stream_pair_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q0: int, k0: int,
     segment_len: int, ratio: int, valid_len: Optional[int] = None,
@@ -313,6 +353,7 @@ def _check_vectors(name: str, q: torch.Tensor, lse: torch.Tensor, delta: torch.T
             raise ValueError(f"{name}: {arg} must be [B, H, cq] = {(B, H, cq)} on {q.device}")
 
 
+@kernel_wrapper("stream_pair_bwd_dq", _pair_cost(6, 3, 2, 2))
 def stream_pair_bwd_dq(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
     lse: torch.Tensor, delta: torch.Tensor, q0: int, k0: int, segment_len: int,
@@ -346,6 +387,7 @@ def stream_pair_bwd_dq(
     return dq
 
 
+@kernel_wrapper("stream_pair_bwd_dkv", _pair_cost(8, 2, 4, 2))
 def stream_pair_bwd_dkv(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
     lse: torch.Tensor, delta: torch.Tensor, q0: int, k0: int, segment_len: int,

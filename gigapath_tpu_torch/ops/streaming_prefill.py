@@ -33,9 +33,10 @@ from one thread with no atomics, so callers that receive chunks out of
 order and hold them until their turn (the session's frontier buffer)
 execute the identical op sequence and get bit-identical results.
 
-Left out: ``full_length_avals`` (a jaxpr guard with no torch counterpart),
-and the JAX ``jit_pairs`` switch (PyTorch runs eagerly); ``fold_fn`` stays as
-an injectable callable.
+:func:`full_length_avals` is the guard that a fold never materializes the
+sequence: it lists every tensor of one call that carries the slide's
+length. Left out: the JAX ``jit_pairs`` switch (PyTorch runs eagerly);
+``fold_fn`` stays as an injectable callable.
 """
 
 from __future__ import annotations
@@ -369,6 +370,22 @@ def streaming_dilated_attention(
     for i, (q, k, v) in enumerate(zip(q_blocks, k_blocks, v_blocks)):
         state.ingest(i, q, k, v)
     return state.finalize()
+
+
+def full_length_avals(fn, *args, full_len: int) -> List[str]:
+    """Run ``fn(*args)`` once under the ledger's op counter
+    (``obs/ledger.py``) and list every op input or output, every
+    hand-written kernel's argument or result, and every input or output of
+    the call itself whose shape carries a ``full_len`` axis: empty for a
+    program that never holds the whole sequence. A fold must give ``[]``
+    while the dense forward (the negative control) gives many; choose
+    ``full_len`` distinct from every chunk, head and feature width."""
+    from gigapath_tpu_torch.obs.ledger import op_counter, tensor_leaves
+
+    with op_counter(full=False, full_len=int(full_len)) as counter:
+        out = fn(*args)
+    io = [f"io: {tuple(t.shape)}" for t in tensor_leaves((args, out)) if full_len in tuple(t.shape)]
+    return counter.full_length + io
 
 
 def assemble_dense_fallback(blocks: Sequence[torch.Tensor], axis: int = 1) -> torch.Tensor:

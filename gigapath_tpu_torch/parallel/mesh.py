@@ -54,21 +54,32 @@ def make_mesh(
     axis_sizes: Optional[Dict[str, int]] = None,
     axes: Sequence[str] = ("data", "seq"),
     device_type: str = "cuda",
+    ranks: Optional[Sequence[int]] = None,
 ):
     """A ``DeviceMesh`` over every rank of the initialised default group,
-    its dims named by ``axes`` (sizes from :func:`factorize`) or by the keys
-    of ``axis_sizes``. ``n_devices``, where given, must be the world size,
-    and so must the product of the axis sizes; otherwise ``ValueError``."""
+    or over ``ranks`` (the first ``n_devices`` of them where given: the
+    counterpart of the JAX ``devices=`` subset), its dims named by ``axes``
+    (sizes from :func:`factorize`) or by the keys of ``axis_sizes``.
+    Without ``ranks``, ``n_devices`` must be the world size; the product of
+    the axis sizes must be the mesh's rank count; otherwise ``ValueError``.
+    Every rank of the default group builds the mesh, members or not (its
+    process groups are made collectively)."""
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
 
     if not dist.is_initialized():
         raise RuntimeError("make_mesh: initialise the default process group first")
-    world = dist.get_world_size()
-    n = world if n_devices is None else int(n_devices)
-    if n != world:
-        raise ValueError(f"make_mesh: n_devices={n} but the default group has {world} ranks")
+    if ranks is not None:
+        members = [int(r) for r in ranks][:n_devices]
+        if not members or len(set(members)) != len(members) or not all(0 <= r < dist.get_world_size()
+                                                                      for r in members):
+            raise ValueError(f"make_mesh: ranks {list(ranks)} are not distinct ranks of the default group")
+    else:
+        members = list(range(dist.get_world_size()))
+        if n_devices is not None and int(n_devices) != len(members):
+            raise ValueError(f"make_mesh: n_devices={n_devices} but the default group has {len(members)} ranks")
+    world = n = len(members)
     if axis_sizes is None:
         axis_sizes = factorize(n, axes)
     else:
@@ -79,7 +90,7 @@ def make_mesh(
         size *= s
     if size != world:
         raise ValueError(f"make_mesh: mesh {dict(axis_sizes)} holds {size} ranks, the group {world}")
-    return DeviceMesh(device_type, torch.arange(world).reshape(shape), mesh_dim_names=tuple(axes))
+    return DeviceMesh(device_type, torch.tensor(members).reshape(shape), mesh_dim_names=tuple(axes))
 
 
 def axis_size(mesh, axis: str) -> int:

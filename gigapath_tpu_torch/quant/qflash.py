@@ -32,7 +32,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from gigapath_tpu_torch.ops.common import check_cuda, cuda_stream, raise_on
+from gigapath_tpu_torch.ops.common import check_cuda, cuda_stream, kernel_wrapper, raise_on
 from gigapath_tpu_torch.quant.qtensor import quantize_dynamic
 
 LOG2E = 1.4426950408889634
@@ -72,6 +72,22 @@ def _strides(t: torch.Tensor):
     return t.stride(0), t.stride(1), t.stride(2)
 
 
+def _q_flash_work(B: int, H: int, L: int, D: int, es: int):
+    """4 B H L^2 D operations; int8 Q and K, v and out of v's width, and
+    the fp32 lse moved once."""
+    return 4.0 * B * H * L * L * D, float(2 * B * H * L * D + 2 * B * H * L * D * es + 4 * B * H * L)
+
+
+def _q_flash_cost(q, v, **_):
+    B, L, H, D = q.shape
+    return _q_flash_work(B, H, L, D, v.element_size())
+
+
+def _q_flash_kernel_cost(qq, vh, **_):
+    return _q_flash_work(*qq.shape, vh.element_size())
+
+
+@kernel_wrapper("q_flash_attention", _q_flash_cost)
 def q_flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -112,6 +128,7 @@ def _aligned16(t: torch.Tensor) -> bool:
     return t.data_ptr() % 16 == 0 and all(s * size % 16 == 0 for s in t.stride()[:3])
 
 
+@kernel_wrapper("q_flash_attention", _q_flash_kernel_cost)
 def q_flash_kernel(
     qq: torch.Tensor, kq: torch.Tensor, vh: torch.Tensor, combined: torch.Tensor,
     out_h: torch.Tensor, lse: torch.Tensor,

@@ -35,7 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gigapath_tpu_torch.ops.common import check_cuda, cuda_stream, raise_on, round_up
+from gigapath_tpu_torch.ops.common import check_cuda, cuda_stream, kernel_wrapper, raise_on, round_up
 from gigapath_tpu_torch.quant.qtensor import QTensor, base_mode, normalize_mode, quantize_per_channel
 
 K_QUANTUM = 16  # the kernel's k step: K is zero-padded to a multiple of it
@@ -90,6 +90,17 @@ def q_matmul_reference(
     return y.to(out_dtype).reshape(*x.shape[:-1], data.shape[0])
 
 
+def _q_matmul_cost(x, qt, bias, out_dtype, **_):
+    """2 M N K operations; x, the weight, the scale and bias read once, y
+    written once."""
+    K, N = x.shape[-1], qt.data.shape[0]
+    M = x.numel() // max(K, 1)
+    nbytes = M * K * x.element_size() + N * K * qt.data.element_size() + N * 4
+    nbytes += (0 if bias is None else N * 4) + M * N * torch.empty((), dtype=out_dtype).element_size()
+    return 2.0 * M * N * K, float(nbytes)
+
+
+@kernel_wrapper("q_matmul", _q_matmul_cost)
 def q_matmul(
     x: torch.Tensor, qt: QTensor, bias: Optional[torch.Tensor] = None, out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:

@@ -48,7 +48,8 @@ Observability: the :class:`~gigapath_tpu_torch.obs.watchdog.CompileWatchdog`
 probes :meth:`_cache_size` (one per built key), so a capture on a key that
 was already seen is an unexpected retrace; the perf ledger adopts each
 capture (input signature, capture seconds, the bytes the shared pool grew
-by for it, the launches recorded per kernel).
+by for it, the launches recorded per kernel) with the profile of its
+warm-up forward (op mix, cost, memory).
 """
 
 from __future__ import annotations
@@ -162,9 +163,10 @@ class AotExecutableCache:
         views[2].fill_(True)
         return views
 
-    def _capture(self, capacity: int, bucket_n: int) -> Tuple[Callable, Tuple]:
+    def _capture(self, capacity: int, bucket_n: int) -> Tuple[Callable, Tuple, Optional[dict]]:
         """Warm up and capture the forward for one key in the shared pool;
-        returns the replay callable and the static inputs."""
+        returns the replay callable, the static inputs and the ledger's
+        profile of the warm-up (None without a ledger)."""
         import torch
 
         from gigapath_tpu_torch.ops import all_launch_counts
@@ -186,7 +188,13 @@ class AotExecutableCache:
             reserved = torch.cuda.memory_reserved(dev)
             with torch.inference_mode(), per_row_valid_len():
                 with torch.cuda.use_mem_pool(pool), torch.cuda.stream(stream):
-                    self._forward(self.params, *inputs)  # warm-up: builds and resolves
+                    # warm-up: builds and resolves; the ledger profiles it
+                    # (op mix, cost, memory) for the key's entry
+                    profile = None
+                    if self.ledger is not None:
+                        _, profile = self.ledger.run_profiled(self.name, self._forward, self.params, *inputs)
+                    else:
+                        self._forward(self.params, *inputs)
                 stream.synchronize()
                 before = all_launch_counts()
                 graph = torch.cuda.CUDAGraph()
@@ -209,7 +217,7 @@ class AotExecutableCache:
             caller.wait_stream(stream)
             return outputs
 
-        return replay, inputs
+        return replay, inputs, profile
 
     def executable(self, capacity: int, bucket_n: int) -> Callable:
         """The executable for ``[capacity, bucket_n, feature_dim]`` batches:
@@ -220,9 +228,9 @@ class AotExecutableCache:
             return exe
         t0 = time.time()
         if self.device.type == "cpu":
-            exe, inputs, source = self._eager(), None, "eager"
+            exe, inputs, profile, source = self._eager(), None, None, "eager"
         else:
-            exe, inputs = self._capture(*key)
+            exe, inputs, profile = self._capture(*key)
             source = "captured"
         seconds = time.time() - t0
         self._executables[key] = exe
@@ -237,7 +245,7 @@ class AotExecutableCache:
                 self.name, key,
                 {"capture_s": round(seconds, 6), "pool_bytes": self.pool_bytes[key],
                  "launches": self.capture_launches[key]},
-                *inputs,
+                *inputs, profile=profile,
             )
         return exe
 

@@ -297,7 +297,7 @@ def test_partition_rules_match_jax_with_the_torch_transpose(stage, arch, jax_hea
     with pytest.raises(ValueError, match="no partition rule"):
         match_partition_rules([(r"\.bias$", ())], module)
     assert place_stage(stage, module, ["cpu"]) is module
-    with pytest.raises(NotImplementedError, match="Queue A item 1"):
+    with pytest.raises(NotImplementedError, match="a stage runs on one device"):
         place_stage(stage, module, ["cpu", "cpu"])
 
 
@@ -494,3 +494,101 @@ def test_killed_consumer_resumes_bit_exact(tmp_path):
     resumes = _of(events, "recovery", action="consumer_resume")
     assert resumes and resumes[0]["chunks"] >= 1
     assert len(glob.glob(str(tmp_path / "kill" / "consumer-ckpt" / "ckpt-*"))) <= 2  # keep=2
+
+
+# ---------------------------------------------------------------------------
+# the stage meshes (one gloo group of four CPU ranks)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def stage_ranks(tmp_path_factory):
+    """Every rank's results of ``torch_rank_bodies.stagemesh_rank``."""
+    import torch_rank_bodies as rb
+
+    work = str(tmp_path_factory.mktemp("stagemesh"))
+    return rb.join_ranks(rb.start_ranks(rb.stagemesh_rank, rb.STAGE_WORLD, work), work)
+
+
+def test_stage_mesh_axes_and_disjoint_ranks(stage_ranks):
+    """Each stage's mesh carries its registry axes on the ranks it was
+    given (the JAX ``devices=`` slice), the two stages' ranks disjoint; an
+    axis the stage lacks is refused."""
+    for res in stage_ranks:
+        tile, slide = json.loads(str(res["tile_mesh"])), json.loads(str(res["slide_mesh"]))
+        assert tile["axes"] == ["data", "model"] and slide["axes"] == ["data", "seq", "model"]
+        tile_ranks, slide_ranks = set(np.ravel(tile["ranks"])), set(np.ravel(slide["ranks"]))
+        assert tile_ranks == {0, 1} and slide_ranks == {2, 3} and tile_ranks.isdisjoint(slide_ranks)
+        assert json.loads(str(res["full_mesh"])) == {"axes": ["seq", "model"], "ranks": [[0, 1], [2, 3]]}
+        assert str(res["refusal_unknown_axis"]) == "ValueError"
+
+
+def test_stage_param_shardings_cover_the_slide_encoder(stage_ranks):
+    """Every parameter of the tiny slide encoder gets one placement per mesh
+    dim, at least one weight ``Shard``ed over ``model`` and none over
+    ``seq`` (the rules name no seq axis)."""
+    head = __import__("torch_rank_bodies").STAGE_HEAD
+    from gigapath_tpu_torch.models.classification_head import get_model
+
+    names = set(get_model(**head, device="cpu").state_dict())
+    for res in stage_ranks:
+        placements = json.loads(str(res["full_placements"]))
+        assert set(placements) == names
+        assert all(len(p) == 2 and p[0] == "Replicate()" for p in placements.values())
+        sharded = [n for n, p in placements.items() if p[1].startswith("Shard")]
+        assert sharded and all(n.endswith(".weight") for n in sharded)
+
+
+def test_stage_param_shardings_degrade_on_one_rank(stage_ranks):
+    """A one-rank mesh has no live axis: every placement degrades to
+    ``Replicate``."""
+    for res in stage_ranks:
+        assert json.loads(str(res["one_mesh"]))["axes"] == ["data", "seq", "model"]
+        placements = json.loads(str(res["one_placements"]))
+        assert placements and all(p == ["Replicate()"] * 3 for p in placements.values())
+
+
+def _jax_placements(mesh, params):
+    """The JAX package's ``stage_param_shardings`` on the flax tree, each
+    spec moved to the torch weight's axis order and read as one placement
+    per mesh axis: ``{state_dict name: [placement repr]}``."""
+    import jax
+
+    from gigapath_tpu.dist.stagemesh import stage_param_shardings as jax_shardings
+
+    shardings = jax_shardings("slide_encoder", params, mesh)
+    flat = jax.tree_util.tree_flatten_with_path(params)[0]
+    sh_flat = jax.tree_util.tree_flatten_with_path(
+        shardings, is_leaf=lambda x: isinstance(x, jax.sharding.NamedSharding))[0]
+    out = {}
+    for (path, leaf), (_, sharding) in zip(flat, sh_flat):
+        name = "/".join(str(getattr(p, "key", p)) for p in path)
+        spec = (tuple(sharding.spec) + (None,) * leaf.ndim)[:leaf.ndim]
+        if name.endswith("/kernel"):  # the torch weight's axis order
+            spec = tuple(spec[j] for j in ((1, 0) if leaf.ndim == 2 else (3, 2, 0, 1)))
+        placements = []
+        for axis in mesh.axis_names:
+            dims = [i for i, e in enumerate(spec) if e == axis or (isinstance(e, tuple) and axis in e)]
+            placements.append(f"Shard(dim={dims[0]})" if dims else "Replicate()")
+        out[_flax_to_torch_name(name)] = placements
+    return out
+
+
+@pytest.mark.parametrize("label", ["full", "one"])
+def test_stage_param_shardings_match_jax(label, stage_ranks, jax_head):
+    """The port's placements on each rank are the JAX package's shardings
+    of the same head, moved to the torch layout: at {seq: 2, model: 2} on
+    four devices, and degraded on one."""
+    import jax
+
+    from gigapath_tpu.dist.stagemesh import stage_mesh as jax_stage_mesh
+
+    if label == "full":
+        mesh = jax_stage_mesh("slide_encoder", devices=jax.devices()[:4], axis_sizes={"seq": 2, "model": 2})
+    else:
+        mesh = jax_stage_mesh("slide_encoder", devices=jax.devices()[:1])
+    expected = _jax_placements(mesh, jax_head[1])
+    assert any(p != ["Replicate()"] * len(p) for p in expected.values()) == (label == "full")
+    for res in stage_ranks:
+        assert json.loads(str(res[f"{label}_mesh"]))["axes"] == list(mesh.axis_names)
+        assert json.loads(str(res[f"{label}_placements"])) == expected

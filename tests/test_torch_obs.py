@@ -389,7 +389,7 @@ def test_ledger_adopts_captures_and_writes_a_canonical_file(tmp_path):
     graph = {"capture_s": 1.25, "pool_bytes": 4096, "launches": {"dilated_branch_fwd": 60}}
     entry = ledger.adopt_compiled("serve.forward", (4, 16), graph, *inputs)
     assert entry["sig"] == "float32[4,16,8];float32[4,16,2];bool[4,16]" and entry["graph"] == graph
-    ledger.capture_for_key("inference.forward", (1, 5), None, torch.zeros(1, 5, 8))
+    ledger.capture_for_key("inference.forward", (1, 5), torch.neg, torch.zeros(1, 5, 8))
     with open(ledger.path) as fh:
         doc = json.load(fh)
     assert doc["run"] == "r" and sorted(doc["entries"]) == [

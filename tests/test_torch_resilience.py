@@ -124,3 +124,80 @@ def test_manifest_covers_the_state_file(tmp_path):
         fh.seek(-1, os.SEEK_END)
         fh.write(bytes([last[0] ^ 0xFF]))
     assert not ck.verify(path)
+
+
+# ---------------------------------------------------------------------------
+# the slide dataset's loader faults and recovery events
+# ---------------------------------------------------------------------------
+
+DATASETS = {"jax": ("gigapath_tpu.data.slide_dataset", jax_runlog),
+            "port": ("gigapath_tpu_torch.data.slide_dataset", port_runlog)}
+
+
+@pytest.fixture
+def slide_dataset(tmp_path):
+    """A factory of either package's ``SlideDataset`` over three 8-tile h5
+    slides (the JAX package's loader-hardening fixture)."""
+    import importlib
+
+    import h5py
+    import pandas as pd
+
+    rng = np.random.default_rng(0)
+    root = tmp_path / "h5_files"
+    root.mkdir()
+    rows = []
+    for i in range(3):
+        with h5py.File(root / f"slide_{i}.h5", "w") as f:
+            f.create_dataset("features", data=rng.normal(size=(8, 16)).astype(np.float32))
+            f.create_dataset("coords", data=rng.integers(0, 5000, (8, 2)).astype(np.float32))
+        rows.append({"slide_id": f"slide_{i}.svs", "pat_id": f"pat_{i}", "label": ["neg", "pos"][i % 2]})
+    cfg = {"setting": "multi_class", "label_dict": {"neg": 0, "pos": 1}, "max_tiles": 10}
+
+    def make(flavor, retry=3):
+        df = pd.DataFrame(rows)
+        cls = importlib.import_module(DATASETS[flavor][0]).SlideDataset
+        return cls(df, str(root), splits=df["pat_id"].tolist(), task_config=cfg, retry=retry,
+                   retry_backoff_s=0.0)
+
+    return make
+
+
+def test_port_dataset_heals_a_transient_loader_fault(slide_dataset, monkeypatch):
+    monkeypatch.setenv("GIGAPATH_CHAOS", "fail_loader@1x1")
+    sample = slide_dataset("port", retry=3).get_sample_with_try(1)
+    assert sample is not None and sample["imgs"].shape == (8, 16)
+
+
+def test_port_dataset_skips_with_one_recovery_event(slide_dataset, tmp_path, monkeypatch):
+    monkeypatch.setenv("GIGAPATH_CHAOS", "fail_loader@1x9")
+    ds = slide_dataset("port", retry=2)
+    log = port_runlog.RunLog(str(tmp_path / "run.jsonl"), driver="t", echo=False)
+    ds.set_runlog(log)
+    assert ds.get_sample_with_try(1) is None  # skipped, not raised
+    assert ds.get_sample_with_try(0) is not None  # the other samples are untouched
+    log.close()
+    with open(log.path, encoding="utf-8") as fh:
+        events = [json.loads(line) for line in fh if line.strip()]
+    (ev,) = [e for e in events if e["kind"] == "recovery" and e.get("action") == "data_retry"]
+    assert ev["index"] == 1 and ev["attempts"] == 2 and "ChaosError" in ev["error"]
+    assert ev["slide_id"] == "slide_1.svs"
+
+
+@pytest.mark.parametrize("spec", ["fail_loader@1x9", "fail_loader@0x2,fail_loader@2x1", ""])
+def test_port_dataset_skips_what_jax_skips(spec, slide_dataset, tmp_path, monkeypatch):
+    """Under the same ``GIGAPATH_CHAOS`` spec both packages' datasets skip
+    the same indices and log the same recovery events."""
+    monkeypatch.setenv("GIGAPATH_CHAOS", spec)
+    results = {}
+    for flavor, (_, runlog_mod) in DATASETS.items():
+        ds = slide_dataset(flavor, retry=2)
+        log = runlog_mod.RunLog(str(tmp_path / f"{flavor}.jsonl"), driver="t", echo=False)
+        ds.set_runlog(log)
+        skipped = [i for i in range(3) if ds.get_sample_with_try(i) is None]
+        log.close()
+        with open(log.path, encoding="utf-8") as fh:
+            events = [{k: e[k] for k in ("action", "index", "slide_id", "attempts", "error")}
+                      for e in map(json.loads, fh) if e["kind"] == "recovery"]
+        results[flavor] = (skipped, events)
+    assert results["port"] == results["jax"]

@@ -209,7 +209,7 @@ def test_port_imports_nothing_of_jax():
         " 'gigapath_tpu_torch.quant.parity', 'gigapath_tpu_torch.pretrain', 'gigapath_tpu_torch.pretrain.pretrain_gigapath'}\n"
         "need |= {'gigapath_tpu_torch.parallel'} | {'gigapath_tpu_torch.parallel.' + m for m in ('mesh', 'sharding', 'spmd')}\n"
         "need |= {'gigapath_tpu_torch.parallel.tensor', 'gigapath_tpu_torch.ops.moe', 'gigapath_tpu_torch.dryrun',"
-        " 'gigapath_tpu_torch.utils.profiling'} | {'gigapath_tpu_torch.ops.moe.' + m for m in ('routing',"
+        " 'gigapath_tpu_torch.utils.profiling', 'gigapath_tpu_torch.utils.timing'} | {'gigapath_tpu_torch.ops.moe.' + m for m in ('routing',"
         " 'moe_layer', 'expert_parallel')}\n"
         "need |= {'gigapath_tpu_torch.ops.' + m for m in ('xpos', 'relative_position_bias', 'multiway', 'embedding',"
         " 'multiscale_retention')} | {'gigapath_tpu_torch.models.beit3', 'gigapath_tpu_torch.models.longnet'}\n"

@@ -578,3 +578,24 @@ def test_predict_loads_port_and_reference_checkpoints_and_writes_csv(tmp_path):
     assert list(written["slide_id"]) == list(df["slide_id"]) == ["s0.svs", "s1.svs", "s2.svs"]
     probs = np.stack(df["probabilities"].to_list())
     np.testing.assert_allclose(probs.sum(axis=1), 1.0, atol=1e-6)
+
+
+def test_guard_no_full_length_tensors():
+    """``full_length_avals``, as the JAX guard test: a fold holds no tensor
+    carrying the slide length (ops, kernel calls and its own inputs and
+    outputs), while the dense forward (the positive control) holds many;
+    the JAX guard agrees on the JAX fold."""
+    L, cq, H, D = 1027, 128, 4, 8  # L collides with no block, head or feature width
+    acc_out, acc_lse = torch.zeros(1, cq, H, D), torch.full((1, H, cq), -1e30)
+    q = torch.randn(1, cq, H, D)
+    fold = functools.partial(psp.fold_pair, segment_len=L, ratio=2)
+    assert psp.full_length_avals(fold, acc_out, acc_lse, q, q, q, 0, 0, L, full_len=L) == []
+    jfold = functools.partial(jsp.fold_pair, segment_len=L, ratio=2)
+    jq = jnp.zeros((1, cq, H, D), jnp.float32)
+    assert jsp.full_length_avals(jfold, jnp.zeros((1, cq, H, D)), jnp.zeros((1, H, cq)), jq, jq, jq,
+                                 jnp.int32(0), jnp.int32(0), jnp.int32(L), full_len=L) == []
+    qf = torch.randn(1, L, H, D)
+    dense = psp.full_length_avals(lambda q, k, v: dilated_attention(q, k, v, [64, L], [1, 2]), qf, qf, qf,
+                                  full_len=L)
+    assert dense and any(line.startswith("io: ") for line in dense)
+    assert any(line.startswith(("pack_phases", "dilated_branch_fwd")) for line in dense)  # kernel calls too

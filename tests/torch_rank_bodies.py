@@ -458,6 +458,46 @@ def moe_rank(rank: int, workdir: str) -> None:
         raise
 
 
+# tests/test_torch_dist.py: the stage meshes
+STAGE_WORLD = 4
+STAGE_HEAD = dict(input_dim=16, latent_dim=32, feat_layer="1", n_classes=2, model_arch="gigapath_slide_enc_tiny")
+
+
+def stagemesh_rank(rank: int, workdir: str) -> None:
+    """One rank of tests/test_torch_dist.py's stage meshes: two stages on
+    disjoint rank halves, the slide stage's placements at {seq: 2, model:
+    2}, a one-rank mesh's, and the refused axis, into ``rank{rank}.npz``
+    (meshes as JSON, placements as their reprs)."""
+    try:
+        torch, dist = _init(rank, STAGE_WORLD, workdir)
+        from gigapath_tpu_torch.dist.stagemesh import stage_mesh, stage_param_shardings
+        from gigapath_tpu_torch.models.classification_head import get_model
+
+        def desc(mesh):
+            return json.dumps({"axes": list(mesh.mesh_dim_names), "ranks": mesh.mesh.tolist()})
+
+        out = {}
+        tile = stage_mesh("tile_encoder", ranks=[0, 1], device_type="cpu")
+        slide = stage_mesh("slide_encoder", ranks=[2, 3], device_type="cpu")
+        out["tile_mesh"], out["slide_mesh"] = np.array(desc(tile)), np.array(desc(slide))
+        out["refusal_unknown_axis"] = np.array(_refusal(
+            lambda: stage_mesh("tile_encoder", ranks=[0, 1], axis_sizes={"seq": 2}, device_type="cpu")))
+        head = get_model(**STAGE_HEAD, device="cpu")
+        full = stage_mesh("slide_encoder", axis_sizes={"seq": 2, "model": 2}, device_type="cpu")
+        one = stage_mesh("slide_encoder", ranks=[0], device_type="cpu")
+        out["full_mesh"], out["one_mesh"] = np.array(desc(full)), np.array(desc(one))
+        for label, mesh in (("full", full), ("one", one)):
+            placements = stage_param_shardings("slide_encoder", head, mesh)
+            out[f"{label}_placements"] = np.array(json.dumps({k: [repr(p) for p in v]
+                                                              for k, v in placements.items()}))
+        np.savez(os.path.join(workdir, f"rank{rank}.npz"), **out)
+        dist.destroy_process_group()
+    except Exception:
+        with open(os.path.join(workdir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
 # what the forkserver imports for the ranks besides the port's own
 # preload (``dryrun.RANK_PRELOAD``)
 PRELOAD = ["torch_rank_bodies", "gigapath_tpu_torch.ops.dilated_attention", "torch.distributed.tensor"]
